@@ -1,0 +1,432 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+
+Run from the root of the repository, on a machine with a CUDA card:
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each printing its lines:
+
+1. build    — compile the CUDA kernels from ``csrc/`` with nvcc (sm_90a).
+2. kernels  — each kernel against its plain PyTorch version on the card, in
+              float32 and float64, with its warm time, the plain version's
+              time and its bound (bytes over 3.35 TB/s, operations over the
+              peak rate of their type).
+3. serving  — a ``sim_mnts`` subject at N=1000, M=2 (float64) written to an
+              artifact store, served over HTTP by the port's ``serve``; its
+              /predict answers are checked and held against ``predict_map``
+              on the CPU, and the kernels' launch counts must have risen
+              during the requests.  A profile of a warm 201-point
+              ``engine.predict`` follows: host wall time, device time and
+              the kernels that take it.
+4. drift    — where the card's 201-point answer departs from the CPU's: each
+              stage (kriging, Gram factor, moments) on both, and the card's
+              moments fed the CPU's kriged latents, which must match the
+              CPU's at rtol 1e-6 with no absolute floor.
+5. summary  — one JSON line listing every kernel, the card's name and power
+              limit, and the final JSON line.
+
+Any failed check raises and exits non-zero.  With no CUDA device, or without
+the rest of the repository beside it, the script exits non-zero and prints
+no result.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.request
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor-core
+#: FLOP/s by dtype (float32 67 TFLOP/s, float64 34 TFLOP/s).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+#: Same formula in the same order on both sides, so only ulp differences of
+#: exp/sqrt remain: (rtol, atol) by dtype.
+KERNEL_TOL = {"float64": (1e-12, 0.0), "float32": (2e-6, 1e-7)}
+
+SERVED_N, SERVED_M = 1000, 2
+REQUEST_SIZES = (7, 201, 1000)
+TIMED_REQUESTS = 5
+
+#: The served answer against the CPU plain path: rtol, and an absolute floor
+#: as a fraction of the largest |value| for entries near 0.
+SERVED_RTOL, SERVED_ATOL_OF_SCALE = 1e-6, 1e-6
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def time_ms(torch, fn, batches: int = 5, reps: int = 20) -> float:
+    """Median over ``batches`` of the mean device time of ``reps`` back-to-back
+    calls, by CUDA events.  A sleep kernel queued first keeps the device busy
+    while the host enqueues, so host overhead does not count as device time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out)
+
+
+def check_close(torch, name, got, want, dtype_name) -> float:
+    """Elementwise |got - want| <= atol + rtol |want|; returns the max abs error."""
+    rtol, atol = KERNEL_TOL[dtype_name]
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    diff = (got - want).abs()
+    bad = diff > atol + rtol * want.abs()
+    if bad.any():
+        rel = (diff / want.abs()).max().item()
+        raise AssertionError(f"{name}: {int(bad.sum())} entries off (max rel err {rel:.3e})")
+    return diff.max().item()
+
+
+def kernel_inputs(torch, gen, n, dtype, device):
+    """Inputs shaped like the served path's: sorted x on (0, 1), lengthscales
+    exp(3(x−1)³ − 3 + noise), scales around 1."""
+    x = torch.sort(torch.rand(n, generator=gen, dtype=torch.float64)).values
+    ell = torch.exp(3.0 * (x - 1.0) ** 3 - 3.0 + 0.2 * torch.randn(n, generator=gen, dtype=torch.float64))
+    sigma = 0.5 + 1.5 * torch.rand(n, generator=gen, dtype=torch.float64)
+    return [t.to(device=device, dtype=dtype) for t in (x, sigma, ell)]
+
+
+def phase_kernels(torch, gk, settings, cross_columns, seed):
+    """Each kernel against its plain version; returns the main-path timings.
+
+    K1's cross form runs at 1000 x ``cross_columns``: every grid bucket the
+    served path pads a request to."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = torch.device("cuda")
+    main = {}
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).replace("torch.", "")
+        size = torch.tensor([], dtype=dtype).element_size()
+        cases = []
+        # K1 self form at N=1000 and a ragged N=257; cross form at each bucket
+        for n in (1000, 257):
+            x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
+            cases.append((
+                f"gibbs_gram self N={n}", "gibbs_gram",
+                lambda x=x, s=s, l=l: gk.gibbs_gram(x, s, l, jitter=settings.jitter),
+                lambda x=x, s=s, l=l: gk.gibbs_gram_plain(x, s, l, x, s, l, settings.jitter),
+                3 * n * size + n * n * size, 15 * n * n,
+            ))
+        x1, s1, l1 = kernel_inputs(torch, gen, SERVED_N, dtype, dev)
+        s1 = torch.ones_like(s1)  # the served path's σ≡1
+        for g in cross_columns:
+            x2, s2, l2 = kernel_inputs(torch, gen, g, dtype, dev)
+            s2 = torch.ones_like(s2)
+            cases.append((
+                f"gibbs_gram cross {SERVED_N}x{g}", "gibbs_gram",
+                lambda x2=x2, s2=s2, l2=l2: gk.gibbs_gram(x1, s1, l1, x2, s2, l2),
+                lambda x2=x2, s2=s2, l2=l2: gk.gibbs_gram_plain(x1, s1, l1, x2, s2, l2),
+                3 * (SERVED_N + g) * size + SERVED_N * g * size, 15 * SERVED_N * g,
+            ))
+        # K2 in both layouts at the served shape and a ragged small M=3
+        for n, m in ((1000, 2), (37, 3)):
+            x, _, l = kernel_inputs(torch, gen, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
+            ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
+            for layout in ("task", "input"):
+                cases.append((
+                    f"svc_gram {layout} N={n} M={m}", "svc_gram",
+                    lambda x=x, l=l, ls=ls, lay=layout: gk.svc_gram(x, l, ls, settings.jitter, lay),
+                    lambda x=x, l=l, ls=ls, lay=layout: gk.svc_gram_plain(x, l, ls, settings.jitter, lay),
+                    (2 * n + n * m * m) * size + (n * m) ** 2 * size, n * n * (12 + 2 * m**3),
+                ))
+        for label, kname, kern, plain, nbytes, ops in cases:
+            err = check_close(torch, f"{label} {dn}", kern(), plain(), dn)
+            torch.cuda.synchronize()
+            ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / PEAK_FLOPS[dn] * 1e3
+            row = {
+                "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            }
+            log("kernels", f"{label} {dn}: ok, max_abs_err={err:.3e} ms={ms:.5f} "
+                f"plain_ms={plain_ms:.5f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+            if dn == "float64" and label in (f"gibbs_gram cross {SERVED_N}x256", "svc_gram task N=1000 M=2"):
+                main[kname] = row
+    return main
+
+
+def write_subject(torch, sim, transforms, store_cls, root, seed):
+    """A sim_mnts subject at the served size, its true latents packed as the MAP."""
+    gen = torch.Generator().manual_seed(seed)
+    d = sim.sim_mnts(gen, n=SERVED_N, m=SERVED_M, device="cuda", dtype=torch.float64)
+    t = transforms.tri_size(SERVED_M)
+    ul = transforms.lvec_to_ulvec(d.l_vecs.reshape(SERVED_N, t), SERVED_M).reshape(-1)
+    log_s2 = torch.log(torch.tensor([d.sigma2_err], dtype=torch.float64, device="cuda"))
+    vec = torch.cat([torch.log(d.l), ul, log_s2])
+    if not torch.isfinite(vec).all() or not torch.isfinite(d.y).all():
+        raise AssertionError("sim subject has non-finite values")
+    store = store_cls(root)
+    store.save(store_cls.key("gnmgp", "sim", 0, "data"), x=d.x.cpu().numpy(), y=d.y.cpu().numpy())
+    store.save(store_cls.key("gnmgp", "sim", 0, "map"), vec=vec.cpu().numpy())
+    return d, vec
+
+
+def check_answer(np, out, g):
+    arr = {k: np.asarray(out[k], dtype=float) for k in ("mean", "std", "lower", "upper")}
+    for k, v in arr.items():
+        if v.shape != (g, SERVED_M) or not np.isfinite(v).all():
+            raise AssertionError(f"/predict {g} points: {k} has shape {v.shape} or non-finite values")
+    if not (arr["std"] > 0).all():
+        raise AssertionError(f"/predict {g} points: std not positive")
+    if not ((arr["lower"] <= arr["mean"]) & (arr["mean"] <= arr["upper"])).all():
+        raise AssertionError(f"/predict {g} points: lower <= mean <= upper fails")
+    return arr
+
+
+def profile_request(torch, engine, xs, http_ms: float, reps: int = 3) -> None:
+    """Where a warm request's time goes: engine.predict (no HTTP) timed on
+    the host clock, then under torch.profiler for device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.predict("0", xs)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine.predict("0", xs)
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            engine.predict("0", xs)
+    self_dev = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+    # device-side rows only: an aten op row repeats the time of the kernels it launched
+    rows = sorted(
+        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev(e) > 0),
+        key=self_dev, reverse=True,
+    )
+    device_ms = sum(self_dev(e) for e in rows) / 1e3 / reps
+    log("profile", f"engine.predict {len(xs)} points: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms "
+        f"per request (busy share {device_ms / wall_ms:.3f}), {len(rows)} kernel kinds; "
+        f"HTTP request {http_ms:.3f} ms, so HTTP and JSON take {http_ms - wall_ms:.3f} ms")
+    for e in rows[:10]:
+        log("profile", f"  {self_dev(e) / 1e3 / reps:9.4f} ms x{e.count // reps:<3d} {e.key[:90]}")
+
+
+def phase_serving(torch, np, gk, seed):
+    from nonstationary_multivariate_gaussian_process_tpu_torch.data import sim
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import transforms
+    from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp as pred
+    from nonstationary_multivariate_gaussian_process_tpu_torch.serving import serve
+    from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
+
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="smoke_store_") as root:
+        d, vec = write_subject(torch, sim, transforms, ArtifactStore, root, seed)
+        t0 = time.perf_counter()
+        httpd = serve(root, port=0)  # warms the 64- and 256-point buckets
+        log("serving", f"server up on port {httpd.server_port}, warm in {time.perf_counter() - t0:.3f} s")
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_port}"
+
+        def get(path):
+            return json.load(urllib.request.urlopen(base + path, timeout=300))
+
+        def post(xs):
+            body = json.dumps({"subject": "0", "x": list(map(float, xs))}).encode()
+            req = urllib.request.Request(base + "/predict", data=body, method="POST")
+            return json.load(urllib.request.urlopen(req, timeout=300))
+
+        lo, hi = float(d.x.min()), float(d.x.max())
+        grids = {g: np.linspace(lo, hi, g) for g in REQUEST_SIZES}
+        latency, answers = {}, {}
+        try:
+            gk.reset_launches()  # the main path starts here
+            health = get("/health")
+            if health.get("status") != "ok" or health.get("subjects") != 1:
+                raise AssertionError(f"/health: {health}")
+            info = get("/subjects/0")
+            if info.get("n") != SERVED_N or info.get("m") != SERVED_M:
+                raise AssertionError(f"/subjects/0: {info}")
+            n_requests = 0
+            for g, xs in grids.items():
+                answers[g] = check_answer(np, post(xs), g)  # first request at this bucket
+                times = []
+                for _ in range(TIMED_REQUESTS):
+                    t0 = time.perf_counter()
+                    check_answer(np, post(xs), g)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                n_requests += 1 + TIMED_REQUESTS
+                latency[g] = statistics.median(times)
+                log("serving", f"POST /predict {g} points: ok, warm latency median {latency[g]:.3f} ms "
+                    f"(min {min(times):.3f}, max {max(times):.3f}, {TIMED_REQUESTS} requests)")
+            launches = gk.launches()  # the main path ends here
+            profile_request(torch, httpd.engine, grids[201], latency[201])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError("server thread did not stop")
+
+    log("serving", f"{n_requests} requests launched {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the served path")
+
+    # every answer against predict_map on the CPU (the plain path)
+    for g, xs in grids.items():
+        ref = pred.predict_map(vec.cpu(), FullData(d.x.cpu(), d.y.cpu()), xs, device="cpu", dtype=torch.float64)
+        ref = {
+            "mean": ref.mean.numpy(), "std": ref.std.numpy(),
+            "lower": ref.percentiles[:, 0].numpy(), "upper": ref.percentiles[:, 2].numpy(),
+        }
+        for k, want in ref.items():
+            # the floor covers entries near 0: the kriging solve's condition
+            # (~1e10) moves the kriged L-processes by ~1e-7 of their scale
+            # between two f64 solvers, and the drift phase checks that the
+            # rest of the path meets rtol alone
+            got = answers[g][k]
+            err = np.abs(got - want)
+            if not (err <= SERVED_RTOL * np.abs(want) + SERVED_ATOL_OF_SCALE * np.abs(want).max()).all():
+                raise AssertionError(f"{g}-point {k} differs from the CPU plain path: max abs err {err.max():.3e}")
+            log("serving", f"{g}-point {k} vs CPU plain path: ok, max abs err {err.max():.3e}, "
+                f"max rel err {(err / np.abs(want)).max():.3e}, max |CPU| {np.abs(want).max():.3e}")
+    return launches, n_requests, latency, (vec, d, grids[201])
+
+
+def stage_values(torch, vec, d, grid, device, latents=None) -> dict:
+    """The served path's stages in float64 on ``device``: the kriged latents,
+    the Gram's Cholesky factor, the predictive mean and variance.  Given
+    ``latents`` (kriged log-lengthscale and L-processes), they replace the
+    kriging."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp as model
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import transforms
+    from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp as pred
+
+    to = lambda t: torch.as_tensor(t, dtype=torch.float64, device=device)
+    data = FullData(to(d.x), to(d.y))
+    n, m = data.y.shape
+    p = model.unpack(to(vec), n, m)
+    g = to(grid)
+    if latents is None:
+        cond_l, cond_ul = pred._latent_conds(p, data, g, model.DEFAULT_HYPERS, n, m)
+        latents = (cond_l.mean, cond_ul.mean)
+    l_mean, ul_mean = (to(t) for t in latents)
+    ls_star = transforms.vec_to_tril(transforms.ulvec_to_lvec(ul_mean.T, m), m)
+    factors = pred._factorize(p, data)
+    mu, s2 = pred._moments(data, g, torch.exp(l_mean), ls_star, factors)
+    return {
+        "kriged log-lengthscale": l_mean, "kriged L-processes": ul_mean,
+        "Gram factor": factors[3], "mean": mu, "variance": s2,
+    }
+
+
+def phase_drift(torch, vec, d, grid) -> None:
+    """Each stage's card-vs-CPU difference, as a fraction of the stage's
+    largest |value| on the CPU, for the card's own path and for the card's
+    factorization and moments fed the CPU's kriged latents."""
+    cpu = stage_values(torch, vec, d, grid, "cpu")
+    card = stage_values(torch, vec, d, grid, "cuda")
+    fed = stage_values(
+        torch, vec, d, grid, "cuda", (cpu["kriged log-lengthscale"], cpu["kriged L-processes"])
+    )
+    for name, want in cpu.items():
+        scale = want.abs().max().item()
+        rel = lambda got: (got.cpu() - want).abs().max().item() / scale
+        log("drift", f"{len(grid)}-point {name}: card vs CPU {rel(card[name]):.3e} of max |CPU| "
+            f"{scale:.3e}; fed the CPU's kriged latents {rel(fed[name]):.3e}")
+    # past the kriging, the card's path meets rtol alone, with no floor
+    for name in ("mean", "variance"):
+        want = cpu[name]
+        rel = ((fed[name].cpu() - want).abs() / want.abs()).max().item()
+        if not rel <= SERVED_RTOL:
+            raise AssertionError(f"fed the CPU's kriged latents, the card's {name} is off by {rel:.3e} relative")
+        log("drift", f"{len(grid)}-point {name}, fed the CPU's kriged latents: ok, max rel err {rel:.3e}")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from nonstationary_multivariate_gaussian_process_tpu_torch import settings
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import cuda_build
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels as gk
+    from nonstationary_multivariate_gaussian_process_tpu_torch.serving import engine
+
+    kind = torch.cuda.get_device_name(0)
+    log("env", f"{kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    gk.build()
+    for name in gk.KERNEL_SOURCES:
+        cuda_build.load(name)
+    log("build", f"{', '.join(gk.KERNEL_SOURCES)} built and loaded in {time.perf_counter() - t0:.3f} s")
+
+    buckets = {engine._bucket(g) for g in REQUEST_SIZES + engine.WARM_GRID_SIZES}
+    main_rows = phase_kernels(torch, gk, settings, sorted(buckets), args.seed)
+    launches, n_requests, latency, drift_inputs = phase_serving(torch, np, gk, args.seed)
+    phase_drift(torch, *drift_inputs)
+
+    replaces = {
+        "gibbs_gram": "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py:55",
+        "svc_gram": "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py:228",
+    }
+    kernels = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"nonstationary_multivariate_gaussian_process_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            **main_rows[name],  # max_abs_err, ms, plain_ms, bound_ms, bound_by
+            "library_ms": None,  # no single PyTorch call computes these Grams
+            "launches_per_request": launches[name] / n_requests,
+        }
+        for name in gk.KERNEL_SOURCES
+    ]
+    log("summary", "warm /predict latency ms by size: "
+        + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

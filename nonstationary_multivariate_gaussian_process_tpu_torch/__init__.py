@@ -1,0 +1,17 @@
+"""nonstationary_multivariate_gaussian_process_tpu_torch: the PyTorch/CUDA port.
+
+A second package beside the JAX one (``nonstationary_multivariate_gaussian_process_tpu``),
+which stays the reference.  Module names follow the JAX package so that each
+counterpart is easy to find.  The port imports torch, numpy and the standard
+library only.
+
+Ported so far (slice 1, the serving path of the GNMGP model in ``mode="map"``):
+``settings``, ``ops`` (transforms, kernels, gram_kernels with the CUDA Gibbs
+and SVC Gram kernels, chol), ``models`` (base, gnmgp), ``predict`` (latent,
+gnmgp), ``utils.artifacts``, ``serving`` (engine, server), ``data.sim``
+(``sim_mnts``) and ``convert``.
+"""
+
+from . import settings  # noqa: F401
+
+__version__ = "0.1.0"

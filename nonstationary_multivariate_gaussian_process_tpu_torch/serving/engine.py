@@ -1,0 +1,177 @@
+"""Serving layer: predict endpoints over the artifact store.
+
+Counterpart of the JAX package's ``serving/engine.py`` for the GNMGP model in
+``mode="map"``.  ``PredictEngine(root)`` stands up from an artifact root
+alone: the conditioning data (``data`` stage) next to the MAP vector
+(``map``), as ``workflows.run_subject`` of the JAX package writes them.
+
+Requests are padded to a small set of grid buckets (repeating the last point)
+and cropped, as in the JAX engine, so that a request sees the same shapes
+there and here.  The port runs eagerly: there is nothing to compile.  Other
+models and ``mode="sample"`` are not ported yet and raise ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+
+from .. import settings
+from ..convert import subject_from_store
+from ..predict import gnmgp as pred_gnmgp
+from ..utils.artifacts import ArtifactStore
+
+MODELS = ("gnmgp",)
+MODES = ("map",)
+
+GRID_BUCKETS = (32, 64, 128, 256, 512, 1024)
+#: Request sizes that :meth:`PredictEngine.warm` runs for each subject shape.
+WARM_GRID_SIZES = (64, 256)
+
+
+def _bucket(g: int, buckets=GRID_BUCKETS) -> int:
+    for b in buckets:
+        if g <= b:
+            return b
+    return -(-g // buckets[-1]) * buckets[-1]
+
+
+class PredictEngine:
+    """Loads fitted subjects from an artifact store and serves predictions.
+
+    ``device`` defaults to ``cuda`` and raises when there is none; pass
+    ``device="cpu"`` to serve on the CPU.
+    """
+
+    def __init__(
+        self,
+        root: str,
+        model: str = "gnmgp",
+        dataset: str = "sim",
+        device=None,
+        dtype=None,
+    ):
+        if model not in MODELS:
+            raise ValueError(
+                f"model {model!r} is not yet ported to the torch package "
+                f"(it serves {MODELS})"
+            )
+        self.device = settings.resolve_device(device)
+        self.dtype = dtype or settings.dtype
+        self.store = ArtifactStore(root)
+        self.model = model
+        self.dataset = dataset
+        self._subjects: dict[str, dict] = {}
+        # serialize device work (loading a subject onto the device, predicting,
+        # the kernels' launch counts) and the subject cache across the HTTP
+        # server's threads
+        self._lock = threading.Lock()
+
+    # -- catalog -----------------------------------------------------------
+
+    def subject_ids(self) -> list[str]:
+        """Subjects with both conditioning data and a fitted MAP in the store."""
+        manifest = self.store._load_manifest()
+        prefix = f"{self.model}__{self.dataset}__"
+        sids = []
+        for key in manifest:
+            if key.startswith(prefix) and key.endswith("__map"):
+                sid = key[len(prefix) : -len("__map")]
+                if self.store.exists(ArtifactStore.key(self.model, self.dataset, sid, "data")):
+                    sids.append(sid)
+        return sorted(sids)
+
+    def _load(self, sid: str) -> dict:
+        """The subject's record, loaded onto the device at first use.  Call
+        with ``self._lock`` held."""
+        if sid not in self._subjects:
+            subj = subject_from_store(
+                self.store.root, sid, self.model, self.dataset, self.device, self.dtype
+            )
+            rec = {"data": subj.data, "vec": subj.vec}
+            hmc = ArtifactStore.key(self.model, self.dataset, sid, "hmc")
+            if self.store.exists(hmc):
+                rec["n_draws"] = int(self.store.load(hmc)["samples"].shape[0])
+            self._subjects[sid] = rec
+        return self._subjects[sid]
+
+    # -- endpoints ----------------------------------------------------------
+
+    def predict(self, sid: str, x_star, mode: str = "map") -> dict:
+        """Predict at arbitrary inputs ``x_star`` for a fitted subject.
+
+        Pads the request to the next grid bucket (repeating the last point),
+        then crops.  Returns plain-numpy ``{"mean", "std", "lower", "upper"}``
+        (G, M).
+        """
+        if mode not in MODES:
+            raise ValueError(
+                f"mode {mode!r} is not yet ported to the torch package (it serves {MODES})"
+            )
+        xs = np.atleast_1d(np.asarray(x_star, float))
+        if xs.ndim != 1:
+            raise ValueError(f"x_star must be 1-D, got shape {xs.shape}")
+        g = xs.shape[0]
+        grid = np.concatenate([xs, np.full((_bucket(g) - g,), xs[-1])])
+        with self._lock:
+            rec = self._load(sid)
+            gp = pred_gnmgp.predict_map(
+                rec["vec"], rec["data"], grid, device=self.device, dtype=self.dtype
+            )
+            pct = gp.percentiles[:g].cpu().numpy()
+            return {
+                "mean": gp.mean[:g].cpu().numpy(),
+                "std": gp.std[:g].cpu().numpy(),
+                "lower": pct[:, 0],
+                "upper": pct[:, 2],
+            }
+
+    def info(self, sid: str) -> dict:
+        """Fit metadata for one subject: shapes, stored stages, and the
+        persisted sampling record and held-out scores when stored."""
+        with self._lock:
+            rec = self._load(sid)
+        k = lambda stage: ArtifactStore.key(self.model, self.dataset, sid, stage)
+
+        def scalarize(d):
+            out = {}
+            for kk, v in d.items():
+                a = np.asarray(v)
+                out[kk] = a.item() if a.ndim == 0 else a.tolist()
+            return out
+
+        out = {
+            "subject": sid,
+            "model": self.model,
+            "n": int(rec["data"].x.shape[0]),
+            "m": int(rec["data"].y.shape[1]),
+            "has_chain": "n_draws" in rec,
+        }
+        if "n_draws" in rec:
+            out["n_draws"] = rec["n_draws"]
+        if self.store.exists(k("sampling")):
+            out["sampling"] = scalarize(self.store.load(k("sampling")))
+        if self.store.exists(k("scores")):
+            out["scores"] = scalarize(self.store.load(k("scores")))
+        return out
+
+    def warm(self) -> int:
+        """Run one request per (subject shape, bucket of
+        :data:`WARM_GRID_SIZES`), so that the device's libraries and
+        allocator are set up before traffic arrives.
+
+        Returns the number of (subject-shape, bucket) pairs touched.
+        """
+        n = 0
+        seen = set()
+        for sid in self.subject_ids():
+            with self._lock:
+                shape = tuple(self._load(sid)["data"].y.shape)
+            for gs in WARM_GRID_SIZES:
+                if (shape, _bucket(gs)) in seen:
+                    continue
+                seen.add((shape, _bucket(gs)))
+                self.predict(sid, np.linspace(0.0, 1.0, gs))
+                n += 1
+        return n
