@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
@@ -7,24 +7,38 @@ Run from the root of the repository, on a machine with a CUDA card:
 
 Phases, each printing its lines:
 
-1. build    — compile the CUDA kernels from ``csrc/`` with nvcc (sm_90a).
-2. kernels  — each kernel against its plain PyTorch version on the card, in
-              float32 and float64, with its warm time, the plain version's
-              time and its bound (bytes over 3.35 TB/s, operations over the
-              peak rate of their type).
-3. serving  — a ``sim_mnts`` subject at N=1000, M=2 (float64) written to an
-              artifact store, served over HTTP by the port's ``serve``; its
-              /predict answers are checked and held against ``predict_map``
-              on the CPU, and the kernels' launch counts must have risen
-              during the requests.  A profile of a warm 201-point
-              ``engine.predict`` follows: host wall time, device time and
-              the kernels that take it.
-4. drift    — where the card's 201-point answer departs from the CPU's: each
-              stage (kriging, Gram factor, moments) on both, and the card's
-              moments fed the CPU's kriged latents, which must match the
-              CPU's at rtol 1e-6 with no absolute floor.
-5. summary  — one JSON line listing every kernel, the card's name and power
-              limit, and the final JSON line.
+1. build     — compile the CUDA kernels from ``csrc/`` with nvcc (sm_90a),
+               one nvcc per source, all started together.
+2. kernels   — each kernel against its plain PyTorch version on the card, in
+               float32 and float64, with its warm time, the plain version's
+               time and its bound (bytes over 3.35 TB/s, operations over the
+               peak rate of their type).  A backward kernel's plain version
+               is autograd through its forward's; the tiled SVC Gram (K3) is
+               also compared with K2's input-major layout bit for bit.
+3. serving   — (slice 1's path) a ``sim_mnts`` subject at N=1000, M=2
+               (float64) written to an artifact store, served over HTTP by
+               the port's ``serve``; its /predict answers are checked and
+               held against ``predict_map`` on the CPU, and the served
+               kernels' launch counts must have risen during the requests.
+               A profile of a warm 201-point ``engine.predict`` follows.
+4. drift     — where the card's 201-point answer departs from the CPU's: each
+               stage (kriging, Gram factor, moments) on both, and the card's
+               moments fed the CPU's kriged latents, which must match the
+               CPU's at rtol 1e-6 with no absolute floor.
+5. objective — the GNMGP and SNMGP MAP objectives at N=1000, M=2: value and
+               gradient on the card against the CPU at rtol 1e-6, gradient
+               evaluations per second (GNMGP f64 and f32, SNMGP f64), the
+               kernels launched per gradient, and a profile of one GNMGP
+               gradient.
+6. training  — (slice 2's path) ``workflows.run_subject`` on the card for a
+               ``sim_mnts`` subject at N=1000, M=2, f64 into an artifact
+               store, with every kernel's launch count read around it; the
+               port's server then answers a 201-point request from that
+               store, held against ``predict_map`` on the CPU.  A smaller
+               ``run_subject`` (N=200) on the card and on the CPU must agree
+               on the final objective and the MAP vector at rtol 1e-6.
+7. summary   — one JSON line listing every kernel, the card's name and power
+               limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -55,9 +69,29 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: exp/sqrt remain: (rtol, atol) by dtype.
 KERNEL_TOL = {"float64": (1e-12, 0.0), "float32": (2e-6, 1e-7)}
 
+#: The device every phase runs on.
+DEVICE = "cuda"
+
 SERVED_N, SERVED_M = 1000, 2
 REQUEST_SIZES = (7, 201, 1000)
 TIMED_REQUESTS = 5
+
+#: The kernels of each path (slice 1: serving; slice 2: training).
+SERVED_KERNELS = ("gibbs_gram", "svc_gram")
+TRAINING_KERNELS = ("gibbs_gram", "gibbs_gram_backward", "svc_gram", "svc_gram_tiled",
+                    "svc_gram_tiled_backward")
+
+#: Backward kernels against autograd through the plain versions: the sums
+#: run in another order, so the tolerance is relative to the gradient's
+#: largest |entry|, by dtype.
+GRAD_TOL = {"float64": 1e-10, "float32": 1e-4}
+
+#: The training path: the objective phase's shape, the run_subject subject
+#: and budget, and the card-vs-CPU run.
+TRAIN_N, TRAIN_N_OPT = 1000, 30
+CHECK_N, CHECK_N_OPT = 200, 20
+OBJECTIVE_RTOL = 1e-6
+RATE_BATCHES, RATE_EVALS = 5, 5
 
 #: The served answer against the CPU plain path: rtol, and an absolute floor
 #: as a fraction of the largest |value| for entries near 0.
@@ -104,6 +138,23 @@ def check_close(torch, name, got, want, dtype_name) -> float:
     return diff.max().item()
 
 
+def check_grad(torch, name, got, want, dtype_name) -> float:
+    """Backward outputs against autograd of the plain version: every entry
+    within GRAD_TOL of the output's largest |entry|; returns the max abs error."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        diff = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        if not diff <= GRAD_TOL[dtype_name] * scale:
+            raise AssertionError(f"{name}: off by {diff:.3e} against a scale of {scale:.3e}")
+        err = max(err, diff)
+    return err
+
+
 def kernel_inputs(torch, gen, n, dtype, device):
     """Inputs shaped like the served path's: sorted x on (0, 1), lengthscales
     exp(3(x−1)³ − 3 + noise), scales around 1."""
@@ -119,7 +170,7 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
     K1's cross form runs at 1000 x ``cross_columns``: every grid bucket the
     served path pads a request to."""
     gen = torch.Generator().manual_seed(seed)
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     main = {}
     for dtype in (torch.float32, torch.float64):
         dn = str(dtype).replace("torch.", "")
@@ -157,8 +208,47 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                     lambda x=x, l=l, ls=ls, lay=layout: gk.svc_gram_plain(x, l, ls, settings.jitter, lay),
                     (2 * n + n * m * m) * size + (n * m) ** 2 * size, n * n * (12 + 2 * m**3),
                 ))
-        for label, kname, kern, plain, nbytes, ops in cases:
-            err = check_close(torch, f"{label} {dn}", kern(), plain(), dn)
+        # K3 and the two backward kernels (the training path) at the served
+        # shape and a ragged N=257, M=3
+        grads = []
+        for n, m in ((1000, 2), (257, 3)):
+            x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
+            ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
+            kbar = torch.randn(n * m, n * m, generator=gen, dtype=torch.float64).to(dev, dtype)
+            kbar1 = torch.randn(n, n, generator=gen, dtype=torch.float64).to(dev, dtype)
+            k3 = gk.svc_gram_tiled(x, l, ls, settings.jitter)
+            same = torch.equal(k3, gk.svc_gram(x, l, ls, settings.jitter, "input"))
+            log("kernels", f"svc_gram_tiled N={n} M={m} {dn} vs svc_gram input-major: "
+                f"{'equal bit for bit' if same else 'NOT bit-equal'}")
+            out_bytes = (n * m) ** 2 * size
+            cases.append((
+                f"svc_gram_tiled N={n} M={m}", "svc_gram_tiled",
+                lambda x=x, l=l, ls=ls: gk.svc_gram_tiled(x, l, ls, settings.jitter),
+                lambda x=x, l=l, ls=ls: gk.svc_gram_tiled_plain(x, l, ls, settings.jitter),
+                (2 * n + n * m * m) * size + out_bytes, n * n * 12 + (n * m) ** 2 * 2 * m,
+            ))
+            grads.append((
+                f"svc_gram_tiled_backward N={n} M={m}", "svc_gram_tiled_backward",
+                lambda x=x, l=l, ls=ls, kb=kbar: gk.svc_gram_tiled_backward(x, l, ls, kb, settings.jitter),
+                lambda x=x, l=l, ls=ls, kb=kbar: gk.svc_gram_tiled_backward_plain(x, l, ls, settings.jitter, kb),
+                out_bytes + (2 * n + n * m * m) * size + (n + n * m * m) * size,
+                n * n * 25 + (n * m) ** 2 * (4 * m + 3),
+            ))
+            grads.append((
+                f"gibbs_gram_backward N={n}", "gibbs_gram_backward",
+                lambda x=x, s=s, l=l, kb=kbar1: gk.gibbs_gram_backward(x, s, l, kb, settings.jitter),
+                lambda x=x, s=s, l=l, kb=kbar1: gk.gibbs_gram_backward_plain(x, s, l, settings.jitter, kb),
+                n * n * size + 5 * n * size, n * n * 30,
+            ))
+        main_labels = (f"gibbs_gram cross {SERVED_N}x256", "svc_gram task N=1000 M=2",
+                       "svc_gram_tiled N=1000 M=2", "svc_gram_tiled_backward N=1000 M=2",
+                       "gibbs_gram_backward N=1000")
+        for label, kname, kern, plain, nbytes, ops in cases + grads:
+            if kname.endswith("_backward"):
+                err = check_grad(torch, f"{label} {dn}", kern(), plain(), dn)
+            else:
+                err = check_close(torch, f"{label} {dn}", kern(), plain(), dn)
             torch.cuda.synchronize()
             ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -170,7 +260,7 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             }
             log("kernels", f"{label} {dn}: ok, max_abs_err={err:.3e} ms={ms:.5f} "
                 f"plain_ms={plain_ms:.5f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
-            if dn == "float64" and label in (f"gibbs_gram cross {SERVED_N}x256", "svc_gram task N=1000 M=2"):
+            if dn == "float64" and label in main_labels:
                 main[kname] = row
     return main
 
@@ -178,10 +268,10 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
 def write_subject(torch, sim, transforms, store_cls, root, seed):
     """A sim_mnts subject at the served size, its true latents packed as the MAP."""
     gen = torch.Generator().manual_seed(seed)
-    d = sim.sim_mnts(gen, n=SERVED_N, m=SERVED_M, device="cuda", dtype=torch.float64)
+    d = sim.sim_mnts(gen, n=SERVED_N, m=SERVED_M, device=DEVICE, dtype=torch.float64)
     t = transforms.tri_size(SERVED_M)
     ul = transforms.lvec_to_ulvec(d.l_vecs.reshape(SERVED_N, t), SERVED_M).reshape(-1)
-    log_s2 = torch.log(torch.tensor([d.sigma2_err], dtype=torch.float64, device="cuda"))
+    log_s2 = torch.log(torch.tensor([d.sigma2_err], dtype=torch.float64, device=DEVICE))
     vec = torch.cat([torch.log(d.l), ul, log_s2])
     if not torch.isfinite(vec).all() or not torch.isfinite(d.y).all():
         raise AssertionError("sim subject has non-finite values")
@@ -203,20 +293,23 @@ def check_answer(np, out, g):
     return arr
 
 
-def profile_request(torch, engine, xs, http_ms: float, reps: int = 3) -> None:
-    """Where a warm request's time goes: engine.predict (no HTTP) timed on
-    the host clock, then under torch.profiler for device time by kernel."""
+def device_profile(torch, fn, reps: int = 3):
+    """``fn`` warm, timed on the host clock (ending in a synchronize), then
+    under torch.profiler: ``(wall ms, device ms, kernel rows)`` per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.predict("0", xs)
+    fn()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        engine.predict("0", xs)
+        fn()
+    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            engine.predict("0", xs)
+            fn()
+        torch.cuda.synchronize()
     self_dev = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
     # device-side rows only: an aten op row repeats the time of the kernels it launched
     rows = sorted(
@@ -224,11 +317,19 @@ def profile_request(torch, engine, xs, http_ms: float, reps: int = 3) -> None:
         key=self_dev, reverse=True,
     )
     device_ms = sum(self_dev(e) for e in rows) / 1e3 / reps
+    top = [(self_dev(e) / 1e3 / reps, e.count // reps, e.key[:90]) for e in rows[:12]]
+    return wall_ms, device_ms, len(rows), top
+
+
+def profile_request(torch, engine, xs, http_ms: float, reps: int = 3) -> None:
+    """Where a warm request's time goes: engine.predict (no HTTP) on the host
+    clock and under torch.profiler for device time by kernel."""
+    wall_ms, device_ms, kinds, top = device_profile(torch, lambda: engine.predict("0", xs), reps)
     log("profile", f"engine.predict {len(xs)} points: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms "
-        f"per request (busy share {device_ms / wall_ms:.3f}), {len(rows)} kernel kinds; "
+        f"per request (busy share {device_ms / wall_ms:.3f}), {kinds} kernel kinds; "
         f"HTTP request {http_ms:.3f} ms, so HTTP and JSON take {http_ms - wall_ms:.3f} ms")
-    for e in rows[:10]:
-        log("profile", f"  {self_dev(e) / 1e3 / reps:9.4f} ms x{e.count // reps:<3d} {e.key[:90]}")
+    for ms, count, key in top:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
 
 
 def phase_serving(torch, np, gk, seed):
@@ -291,8 +392,8 @@ def phase_serving(torch, np, gk, seed):
             raise AssertionError("server thread did not stop")
 
     log("serving", f"{n_requests} requests launched {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in SERVED_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the served path")
 
     # every answer against predict_map on the CPU (the plain path)
@@ -349,9 +450,9 @@ def phase_drift(torch, vec, d, grid) -> None:
     largest |value| on the CPU, for the card's own path and for the card's
     factorization and moments fed the CPU's kriged latents."""
     cpu = stage_values(torch, vec, d, grid, "cpu")
-    card = stage_values(torch, vec, d, grid, "cuda")
+    card = stage_values(torch, vec, d, grid, DEVICE)
     fed = stage_values(
-        torch, vec, d, grid, "cuda", (cpu["kriged log-lengthscale"], cpu["kriged L-processes"])
+        torch, vec, d, grid, DEVICE, (cpu["kriged log-lengthscale"], cpu["kriged L-processes"])
     )
     for name, want in cpu.items():
         scale = want.abs().max().item()
@@ -365,6 +466,183 @@ def phase_drift(torch, vec, d, grid) -> None:
         if not rel <= SERVED_RTOL:
             raise AssertionError(f"fed the CPU's kriged latents, the card's {name} is off by {rel:.3e} relative")
         log("drift", f"{len(grid)}-point {name}, fed the CPU's kriged latents: ok, max rel err {rel:.3e}")
+
+
+def training_subject(torch, seed: int, n: int):
+    """A ``sim_mnts`` subject (x, y as numpy) and its truth packed as a GNMGP
+    and an SNMGP parameter vector, on the CPU in float64."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.data import sim
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import transforms
+
+    d = sim.sim_mnts(torch.Generator().manual_seed(seed), n=n, m=2, device="cpu", dtype=torch.float64)
+    t = transforms.tri_size(2)
+    ul = transforms.lvec_to_ulvec(d.l_vecs.reshape(n, t), 2)
+    log_s2 = torch.log(torch.tensor([d.sigma2_err], dtype=torch.float64))
+    gvec = torch.cat([torch.log(d.l), ul.reshape(-1), log_s2])
+    svec = torch.cat([torch.log(d.l), torch.zeros(n, dtype=torch.float64), ul.mean(dim=0), log_s2])
+    return d.x.numpy(), d.y.numpy(), gvec, svec
+
+
+def held(np, got, want, rtol) -> tuple[float, float]:
+    """Max relative error and max error as a fraction of the largest |want|;
+    raises unless every entry is within rtol·|want| + rtol·max|want|."""
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    err = np.abs(got - want)
+    scale = np.abs(want).max()
+    if not (err <= rtol * np.abs(want) + rtol * scale).all():
+        raise AssertionError(f"off by {err.max():.3e} against a scale of {scale:.3e}")
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = np.nanmax(err / np.abs(want))
+    return float(rel), float(err.max() / scale)
+
+
+def phase_objective(torch, np, gk, seed) -> dict:
+    """The MAP objectives at N=TRAIN_N, M=2: card against CPU, gradient
+    evaluations per second, launches per gradient, and a profile of one
+    GNMGP gradient."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp, snmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    x, y, gvec, svec = training_subject(torch, seed + 1, TRAIN_N)
+    models = {"gnmgp": (gnmgp, gvec), "snmgp": (snmgp, svec)}
+
+    def objective(mod, device, dtype):
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        return mod.make_objective(FullData(as_t(x), as_t(y)))
+
+    expected = {"gnmgp": {"svc_gram_tiled": 1, "svc_gram_tiled_backward": 1},
+                "snmgp": {"gibbs_gram": 1, "gibbs_gram_backward": 1}}
+    for name, (mod, vec) in models.items():
+        f_card = objective(mod, DEVICE, torch.float64)
+        gk.reset_launches()
+        v_card, g_card = value_and_grad(f_card, vec.to(DEVICE))
+        torch.cuda.synchronize()
+        counts = gk.launches()
+        want = {k: expected[name].get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"{name} gradient launched {counts}, expected {want}")
+        v_cpu, g_cpu = value_and_grad(objective(mod, "cpu", torch.float64), vec)
+        rel_v, _ = held(np, [v_card.item()], [v_cpu.item()], OBJECTIVE_RTOL)
+        rel_g, frac_g = held(np, g_card.cpu().numpy(), g_cpu.numpy(), OBJECTIVE_RTOL)
+        log("objective", f"{name} N={TRAIN_N} M=2 f64, card vs CPU: value {v_card.item():.10e} vs "
+            f"{v_cpu.item():.10e} (rel {rel_v:.3e}); gradient max rel err {rel_g:.3e}, max err "
+            f"{frac_g:.3e} of max |grad| {g_cpu.abs().max().item():.3e}: ok at rtol {OBJECTIVE_RTOL}")
+        log("objective", f"{name} one gradient launched {counts}")
+
+    rates = {}
+    for label, mod, vec, dtype in (("gnmgp f64", gnmgp, gvec, torch.float64),
+                                   ("gnmgp f32", gnmgp, gvec, torch.float32),
+                                   ("snmgp f64", snmgp, svec, torch.float64)):
+        f = objective(mod, DEVICE, dtype)
+        v = vec.to(DEVICE, dtype)
+        for _ in range(2):
+            val, _ = value_and_grad(f, v)
+        torch.cuda.synchronize()
+        per_s = []
+        for _ in range(RATE_BATCHES):
+            t0 = time.perf_counter()
+            for _ in range(RATE_EVALS):
+                val, grad = value_and_grad(f, v)
+            torch.cuda.synchronize()
+            per_s.append(RATE_EVALS / (time.perf_counter() - t0))
+        rates[label] = statistics.median(per_s)
+        finite = bool(torch.isfinite(val)) and bool(torch.isfinite(grad).all())
+        log("objective", f"{label} N={TRAIN_N} M=2: {rates[label]:.3f} gradient evaluations/s (median of "
+            f"{RATE_BATCHES} batches of {RATE_EVALS}; min {min(per_s):.3f}, max {max(per_s):.3f}); "
+            f"value {val.item():.6e}, finite value and gradient: {finite}")
+
+    f = objective(gnmgp, DEVICE, torch.float64)
+    v = gvec.to(DEVICE)
+    wall_ms, device_ms, kinds, top = device_profile(torch, lambda: value_and_grad(f, v))
+    log("profile", f"one gnmgp gradient N={TRAIN_N} M=2 f64: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms "
+        f"(busy share {device_ms / wall_ms:.3f}), {kinds} kernel kinds")
+    for ms, count, key in top:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+    return rates
+
+
+def phase_training(torch, np, gk, seed):
+    """Slice 2's path: run_subject on the card into a store, then the port's
+    server answers from that store; every kernel's launches are read around
+    the two.  Then run_subject at N=CHECK_N on the card and on the CPU."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp as pred
+    from nonstationary_multivariate_gaussian_process_tpu_torch.serving import serve
+    from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
+
+    x, y, _, _ = training_subject(torch, seed + 1, TRAIN_N)
+    cfg = workflows.PipelineConfig(n_opt=TRAIN_N_OPT)
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="smoke_train_") as root:
+        gk.reset_launches()  # the main path starts here
+        t0 = time.perf_counter()
+        res = workflows.run_subject(x, y, cfg, store=ArtifactStore(root), dataset="sim",
+                                    device=DEVICE, dtype=torch.float64)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist = res["target_hist"]
+        log("training", f"run_subject gnmgp N={TRAIN_N} M=2 f64 n_opt={TRAIN_N_OPT} on the card: "
+            f"{wall:.3f} s; stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items()))
+        log("training", f"best start {res['map_init']!r}; log-posterior by iteration: "
+            + ", ".join(f"{i}: {hist[i]:.6e}" for i in sorted({0, 1, 2, 5, 10, 20, len(hist) - 1})
+                        if i < len(hist)))
+        log("training", f"deviance {res['deviance']:.6e}, AIC {res['aic']:.6e}, BIC {res['bic']:.6e}")
+        vec = res["map_vec"]
+        pct = res["pred_grid"].percentiles
+        if not (torch.isfinite(vec).all() and torch.isfinite(pct).all() and np.isfinite(hist[-1])):
+            raise AssertionError("run_subject gave non-finite MAP, history or grid prediction")
+        if tuple(pct.shape) != (cfg.n_grid, 3, 2):
+            raise AssertionError(f"pred_grid percentiles have shape {tuple(pct.shape)}")
+
+        httpd = serve(root, port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        xs = np.linspace(float(x.min()), float(x.max()), 201)
+        try:
+            body = json.dumps({"subject": "0", "x": list(map(float, xs))}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_port}/predict", data=body,
+                                         method="POST")
+            answer = check_answer(np, json.load(urllib.request.urlopen(req, timeout=300)), 201)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError("server thread did not stop")
+        launches = gk.launches()  # the main path ends here
+    log("training", f"run_subject and one served request launched {launches}")
+    for name in TRAINING_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the training path")
+    ref = pred.predict_map(vec.cpu(), FullData(torch.as_tensor(x), torch.as_tensor(y)), xs,
+                           device="cpu", dtype=torch.float64)
+    for k, want in (("mean", ref.mean), ("std", ref.std)):
+        rel, frac = held(np, answer[k], want.numpy(), SERVED_RTOL)
+        log("training", f"served 201-point {k} from the trained store vs CPU predict_map: ok, "
+            f"max rel err {rel:.3e}, max err {frac:.3e} of max |CPU|")
+
+    x2, y2, _, _ = training_subject(torch, seed + 2, CHECK_N)
+    cfg2 = workflows.PipelineConfig(n_opt=CHECK_N_OPT)
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        runs[device] = workflows.run_subject(x2, y2, cfg2, device=device, dtype=torch.float64)
+        log("training", f"run_subject N={CHECK_N} n_opt={CHECK_N_OPT} on {device}: "
+            f"{time.perf_counter() - t0:.3f} s, best start {runs[device]['map_init']!r}")
+    f = gnmgp.make_objective(FullData(torch.as_tensor(x2), torch.as_tensor(y2)))
+    with torch.no_grad():
+        final = {d: f(r["map_vec"].cpu()).item() for d, r in runs.items()}
+    rel_f, _ = held(np, [final[DEVICE]], [final["cpu"]], OBJECTIVE_RTOL)
+    rel_v, frac_v = held(np, runs[DEVICE]["map_vec"].cpu().numpy(), runs["cpu"]["map_vec"].numpy(),
+                         OBJECTIVE_RTOL)
+    log("training", f"N={CHECK_N} card vs CPU: final objective {final[DEVICE]:.10e} vs {final['cpu']:.10e} "
+        f"(rel {rel_f:.3e}); map_vec max rel err {rel_v:.3e}, max err {frac_v:.3e} of its scale: "
+        f"ok at rtol {OBJECTIVE_RTOL}")
+    return launches
 
 
 def main() -> int:
@@ -397,26 +675,35 @@ def main() -> int:
     main_rows = phase_kernels(torch, gk, settings, sorted(buckets), args.seed)
     launches, n_requests, latency, drift_inputs = phase_serving(torch, np, gk, args.seed)
     phase_drift(torch, *drift_inputs)
+    rates = phase_objective(torch, np, gk, args.seed)
+    train_launches = phase_training(torch, np, gk, args.seed)
 
-    replaces = {
-        "gibbs_gram": "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py:55",
-        "svc_gram": "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py:228",
-    }
-    kernels = [
-        {
+    pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
+    # a backward kernel names the TPU kernel whose gradient it computes (the
+    # TPU had no backward kernel: XLA differentiated the jnp Gram)
+    replaces = {"gibbs_gram": f"{pallas}:55", "gibbs_gram_backward": f"{pallas}:55",
+                "svc_gram": f"{pallas}:228", "svc_gram_tiled": f"{pallas}:122",
+                "svc_gram_tiled_backward": f"{pallas}:122"}
+    kernels = []
+    for name in TRAINING_KERNELS:
+        # the served kernels count on slice 1's path, the training kernels on slice 2's
+        served = name in SERVED_KERNELS
+        row = {
             "name": name,
             "route": "cuda",
-            "source": f"nonstationary_multivariate_gaussian_process_tpu_torch/csrc/{name}.cu",
+            "source": f"nonstationary_multivariate_gaussian_process_tpu_torch/csrc/{gk.SOURCES[name]}.cu",
             "replaces": replaces[name],
-            "launches": launches[name],
+            "launches": launches[name] if served else train_launches[name],
             **main_rows[name],  # max_abs_err, ms, plain_ms, bound_ms, bound_by
-            "library_ms": None,  # no single PyTorch call computes these Grams
-            "launches_per_request": launches[name] / n_requests,
+            "library_ms": None,  # no single PyTorch call computes these Grams or their gradients
         }
-        for name in gk.KERNEL_SOURCES
-    ]
+        if served:
+            row["launches_per_request"] = launches[name] / n_requests
+        kernels.append(row)
     log("summary", "warm /predict latency ms by size: "
         + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
+    log("summary", "gradient evaluations/s at N=1000, M=2: "
+        + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -5,11 +5,19 @@ which stays the reference.  Module names follow the JAX package so that each
 counterpart is easy to find.  The port imports torch, numpy and the standard
 library only.
 
-Ported so far (slice 1, the serving path of the GNMGP model in ``mode="map"``):
-``settings``, ``ops`` (transforms, kernels, gram_kernels with the CUDA Gibbs
-and SVC Gram kernels, chol), ``models`` (base, gnmgp), ``predict`` (latent,
-gnmgp), ``utils.artifacts``, ``serving`` (engine, server), ``data.sim``
-(``sim_mnts``) and ``convert``.
+Ported so far:
+
+* slice 1, the serving path of the GNMGP model in ``mode="map"``:
+  ``settings``, ``ops`` (transforms, kernels, gram_kernels with the CUDA
+  Gibbs and SVC Gram kernels, chol), ``models`` (base, gnmgp), ``predict``
+  (latent, gnmgp), ``utils.artifacts``, ``serving`` (engine, server),
+  ``data.sim`` (``sim_mnts``) and ``convert``;
+* slice 2, GNMGP MAP training (``workflows.run_subject``): ``dists``,
+  ``ops.kron``, the rest of ``ops.chol``, the tiled SVC Gram and the
+  backward kernels in ``ops.gram_kernels``, ``models`` (gnmgp objective,
+  snmgp), ``native`` (the variogram library), ``inference`` (empirical,
+  init, map), ``postprocess.analysis``, ``evaluate``, ``data.preprocess``
+  and ``workflows``.
 """
 
 from . import settings  # noqa: F401

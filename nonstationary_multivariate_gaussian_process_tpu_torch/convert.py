@@ -1,9 +1,13 @@
-"""Carry fitted GNMGP parameters and subjects from the JAX package to the port.
+"""Carry state between the JAX package and the port.
 
-The port keeps the JAX package's packed GNMGP vector (reference
-``vec2pars_SVC``: ``[tilde_l (N), uL_vecs (N·T), tilde_sigma2_err]``) and its
-artifact-store format, so carrying a fit across is a matter of moving arrays
-into tensors on a device.
+The port keeps the JAX package's packed parameter vectors (reference
+``vec2pars_SVC``: ``[tilde_l (N), uL_vecs (N·T), tilde_sigma2_err]``;
+``vec2pars``: ``[tilde_l (N), tilde_sigma (N), uL_vec (T),
+tilde_sigma2_err]``), its empirical estimate and its artifact-store format,
+so carrying a fit across is a matter of moving arrays into tensors on a
+device.  :func:`result_to_numpy` turns a ``run_subject`` result of either
+package into plain numpy so the two compare key by key; it reads JAX arrays
+through ``numpy.asarray`` and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ import numpy as np
 import torch
 
 from . import settings
-from .models import gnmgp
+from .inference.empirical import EmpiricalEstimate
+from .models import gnmgp, snmgp
 from .models.base import FullData
 from .utils.artifacts import ArtifactStore
 
@@ -30,6 +35,41 @@ def params_from_jax(vec: np.ndarray, n: int, m: int, device=None, dtype=None) ->
         np.asarray(vec), dtype=dtype or settings.dtype, device=settings.resolve_device(device)
     )
     return gnmgp.unpack(t, n, m)
+
+
+def snmgp_params_from_jax(vec: np.ndarray, n: int, m: int, device=None, dtype=None) -> snmgp.Params:
+    """The JAX package's packed SNMGP vector as the port's ``Params``."""
+    t = torch.as_tensor(
+        np.asarray(vec), dtype=dtype or settings.dtype, device=settings.resolve_device(device)
+    )
+    return snmgp.unpack(t, n, m)
+
+
+def empirical_from_jax(emp) -> EmpiricalEstimate:
+    """A JAX ``EmpiricalEstimate`` (host numpy in both packages) as the port's."""
+    return EmpiricalEstimate(*(
+        float(v) if name == "est_tilde_sigma2_err" else np.asarray(v, np.float64)
+        for name, v in zip(EmpiricalEstimate._fields, emp)
+    ))
+
+
+def _to_numpy(v):
+    if torch.is_tensor(v):
+        return v.detach().cpu().numpy()
+    if isinstance(v, dict):
+        return {k: _to_numpy(w) for k, w in v.items()}
+    if hasattr(v, "_fields"):  # NamedTuple results (estimates, predictions)
+        return {k: _to_numpy(w) for k, w in zip(v._fields, v)}
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    return np.asarray(v)
+
+
+def result_to_numpy(result: dict) -> dict:
+    """A ``run_subject`` result dict of either package as nested plain
+    numpy: tensors and JAX arrays become arrays, named tuples become dicts
+    keyed by field, timings are dropped (they never compare)."""
+    return {k: _to_numpy(v) for k, v in result.items() if k != "timings"}
 
 
 def subject_from_store(

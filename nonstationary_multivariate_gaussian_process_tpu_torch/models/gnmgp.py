@@ -1,13 +1,23 @@
 """GNMGP — generalized (nonseparable) nonstationary multivariate GP ("SVC").
 
-Counterpart of the parts of the JAX package's ``models/gnmgp.py`` that
-prediction uses.  At every input x_n the task covariance is
-``B_f(x_n) = L_n L_nᵀ``, giving the Gram
+Counterpart of the JAX package's ``models/gnmgp.py`` for fully observed data
+(reference ``vec2pars_SVC``, ``logpos_SVC``/``nlogpos_obj_SVC``,
+``Utility/logpos.py:32``, ``:299-380``).  At every input x_n the task
+covariance is ``B_f(x_n) = L_n L_nᵀ``, giving the Gram
 
     K[(a,n), (c,p)] = (K_x[n,p] + jitter·δ_np) · (L_n L_pᵀ)[a,c]     (task-major)
 
-with K_x the σ≡1 Gibbs kernel of (x, ℓ).  ``log_lik`` and ``log_posterior``
-are not ported yet.
+with K_x the σ≡1 Gibbs kernel of (x, ℓ).  Two layouts of it serve two paths:
+
+* :func:`gram` is task-major (row ``a·N + n``, observations
+  ``Y.T.reshape(-1)``) — kernel K2, for prediction;
+* :func:`log_lik` builds it input-major (row ``n·M + a``, observations
+  ``Y.reshape(-1)``) — kernel K3, whose backward kernel carries the
+  training gradient.  The two are one symmetric permutation of each other
+  and the Gaussian log-likelihood is invariant under it, so both layouts give
+  the same value.
+
+The Hadamard variant is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,9 +26,9 @@ from typing import NamedTuple
 
 import torch
 
-from .. import settings
-from ..ops import gram_kernels, transforms
-from .base import check_vec
+from .. import dists, settings
+from ..ops import chol, gram_kernels, kernels, transforms
+from .base import FullData, check_full_data, check_vec
 
 #: Reference default hyper-parameters (logpos.py:299 signature defaults).
 DEFAULT_HYPERS = {
@@ -74,3 +84,116 @@ def gram(x: torch.Tensor, ell: torch.Tensor, ls: torch.Tensor) -> torch.Tensor:
     return gram_kernels.svc_gram(
         x.contiguous(), ell.contiguous(), ls.contiguous(), settings.jitter, layout="task"
     )
+
+
+def log_lik(p: Params, data: FullData, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Marginal log-likelihood (unnormalized, reference convention).
+
+    The Gram is input-major (kernel K3) against row-major observations
+    ``Y.reshape(-1)``; the JAX package's task-major Gram against ``Y.T`` is a
+    permutation of the same problem, with the same log-likelihood.
+
+    ``mask``: (N,) boolean, True for real observations.  Masked entries are
+    projected out of the Gram (rows and columns zeroed, unit diagonal, zero
+    observation) so they contribute nothing to the logdet or the quadratic
+    form.
+    """
+    n, m = data.y.shape
+    ls = chol_process(p.ul_vecs, n, m)
+    ell = torch.exp(p.tilde_l)
+    sigma2_err = torch.exp(p.tilde_sigma2_err)
+    cov = gram_kernels.svc_gram_tiled(data.x.contiguous(), ell, ls.contiguous(), settings.jitter)
+    y = data.y.reshape(-1)  # row-major: entry (n, a) at n·M + a
+    if mask is None:
+        cov = torch.diagonal_scatter(cov, torch.diagonal(cov) + sigma2_err)
+    else:
+        mv = torch.as_tensor(mask, device=y.device).to(y.dtype).repeat_interleave(m)
+        cov = cov * (mv[:, None] * mv[None, :])
+        cov = cov + torch.diag(torch.where(mv > 0, sigma2_err, 1.0))
+        y = y * mv
+    return dists.mvn_logpdf_dense_unnorm(y, 0.0, cov)
+
+
+def _l_process_prior(ul_mat: torch.Tensor, mu_L, prior_chol) -> torch.Tensor:
+    """Sum of T independent GP log-priors over the columns of (N, T) ``ul_mat``
+    (logpos.py:362-365), batched against one prior factor."""
+    return torch.sum(dists.mvn_logpdf_chol(ul_mat.T, mu_L, prior_chol))
+
+
+def log_posterior(
+    p: Params,
+    data: FullData,
+    mu_tilde_l=0.0,
+    alpha_tilde_l=5.0,
+    beta_tilde_l=1.0,
+    mu_L=0.0,
+    alpha_L=5.0,
+    beta_L=1.0,
+    a=1.0,
+    b=1.0,
+    prior: bool = True,
+    prior_chol_l=None,
+    prior_chol_L=None,
+    mask=None,
+):
+    """Mirrors reference ``logpos_SVC`` (logpos.py:326-380).  Returns
+    ``(logpos, components)``.  With ``mask``, padded observations leave the
+    likelihood; the GP priors still cover the padded latent slots."""
+    x = data.x
+    n, m = data.y.shape
+    t = transforms.tri_size(m)
+    loglik = log_lik(p, data, mask=mask)
+    sigma2_err = torch.exp(p.tilde_sigma2_err)
+    if prior_chol_l is None:
+        prior_chol_l = chol.safe_cholesky(kernels.rbf_cov(x, alpha=alpha_tilde_l, beta=beta_tilde_l))
+    if prior_chol_L is None:
+        prior_chol_L = chol.safe_cholesky(kernels.rbf_cov(x, alpha=alpha_L, beta=beta_L))
+    lp_l = dists.mvn_logpdf_chol(p.tilde_l, mu_tilde_l, prior_chol_l)
+    lp_uL = _l_process_prior(p.ul_vecs.reshape(n, t), mu_L, prior_chol_L)
+    lp_s2 = dists.inverse_gamma_logpdf(sigma2_err, alpha=a, beta=b)
+    res = loglik
+    if prior:
+        res = res + lp_l + lp_uL + lp_s2 + p.tilde_sigma2_err
+    comps = {
+        "loglik": loglik,
+        "log_prior_tilde_l": lp_l,
+        "log_prior_uL_vecs": lp_uL,
+        "log_prior_sigma2_err": lp_s2,
+    }
+    return res, comps
+
+
+def nlogpos(vec, y, x, verbose=False, prior=True, **hyper):
+    """Parity API, mirrors ``nlogpos_obj_SVC`` (logpos.py:299-323)."""
+    hp = {**DEFAULT_HYPERS, **hyper}
+    n, m = y.shape
+    res, comps = log_posterior(unpack(vec, n, m), FullData(x, y), prior=prior, **hp)
+    if verbose:
+        return (-res,) + tuple(comps.values())
+    return -res
+
+
+def deviance(vec, y, x) -> torch.Tensor:
+    """Deviance ``-2 loglik``."""
+    n, m = y.shape
+    return -2.0 * log_lik(unpack(vec, n, m), FullData(x, y))
+
+
+def make_objective(data: FullData, hyper: dict | None = None, prior: bool = True, mask=None):
+    """Negative-log-posterior closure ``vec -> scalar`` with the prior factors
+    hoisted: built once on the host in float64 (``ops.chol.prior_rbf_inv``)
+    and kept on the data's device in its dtype."""
+    check_full_data(data, "gnmgp")
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    n, m = data.y.shape
+    pc_l = chol.prior_rbf_inv(data.x, hp["alpha_tilde_l"], hp["beta_tilde_l"])
+    pc_L = chol.prior_rbf_inv(data.x, hp["alpha_L"], hp["beta_L"])
+
+    def nlp(vec: torch.Tensor) -> torch.Tensor:
+        res, _ = log_posterior(
+            unpack(vec, n, m), data, prior=prior, prior_chol_l=pc_l, prior_chol_L=pc_L,
+            mask=mask, **hp,
+        )
+        return -res
+
+    return nlp

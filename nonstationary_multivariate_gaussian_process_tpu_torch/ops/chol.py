@@ -1,7 +1,11 @@
 """Robust dense Cholesky solves with a deterministic jitter ladder.
 
 Counterpart of the JAX package's ``ops/chol.py`` (``safe_cholesky``,
-``tri_solve``, ``chol_solve``, ``chol_logdet``).  The reference's stochastic
+``tri_solve``, ``chol_solve``, ``chol_logdet``, ``psd_logdet_quad``,
+``psd_solve`` and the host-side prior factors ``prior_cholesky``,
+``prior_rbf_cholesky``, ``prior_rbf_inv``).  Only the float64/float32 routes
+are ported; the blocked, unrolled and mixed routes (off by default in the
+JAX package) are not.  The reference's stochastic
 retry loop (``Utility/logpos.py:267-268``) becomes a two-rung ladder: the
 plain factor, then — only when it failed — one retry with jitter
 ``fallback · mean(diag)``.
@@ -14,6 +18,7 @@ back as NaNs, as in JAX, so the caller sees it rather than a partial matrix.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import settings
@@ -73,3 +78,74 @@ def chol_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def chol_logdet(chol: torch.Tensor) -> torch.Tensor:
     """``logdet(A)`` from its Cholesky factor."""
     return 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+
+
+def psd_logdet_quad(a: torch.Tensor, y: torch.Tensor):
+    """``(logdet A, yᵀ A⁻¹ y)`` via one robust Cholesky (the reference's dense
+    ``torch.inverse`` + ``torch.logdet`` pair, ``Utility/logpos.py:352-353``)."""
+    c = safe_cholesky(a)
+    sol = tri_solve(c, y)
+    return chol_logdet(c), torch.sum(sol * sol, dim=-1)
+
+
+def psd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``A x = b`` for symmetric PSD ``A`` with the robust Cholesky."""
+    return chol_solve(safe_cholesky(a), b)
+
+
+# ---------------------------------------------------------------------------
+# Host-side float64 factors of loop-invariant prior Grams
+# ---------------------------------------------------------------------------
+#
+# Smooth-RBF prior covariances are badly conditioned (spectra spanning ~1e18
+# without the nugget), so their Grams are built and factored once per
+# objective on the host in numpy float64 and moved to the tensors' device in
+# the working dtype — as the JAX package does outside ``jit``.
+
+
+def _host_chol_ladder(host: np.ndarray) -> np.ndarray:
+    """numpy-f64 Cholesky with escalating relative jitter."""
+    scale = float(np.mean(np.diag(host)))
+    for rel in (0.0, 1e-10, 1e-8, 1e-6, 1e-4, 1e-3, 1e-2):
+        try:
+            return np.linalg.cholesky(host + rel * scale * np.eye(host.shape[0]))
+        except np.linalg.LinAlgError:
+            continue
+    raise np.linalg.LinAlgError("prior covariance is not positive definite")
+
+
+def prior_cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Host float64 Cholesky of a prior Gram with the jitter ladder, returned
+    on ``a``'s device in ``a``'s dtype."""
+    c = _host_chol_ladder(a.detach().to("cpu", torch.float64).numpy())
+    return torch.as_tensor(c, dtype=a.dtype, device=a.device)
+
+
+def _host_rbf_gram(x: torch.Tensor, alpha, beta) -> np.ndarray:
+    """The RBF prior Gram with its self-nugget, built in float64 on the host
+    from the raw inputs (reference ``RBF_cov``, kernels.py:24-43)."""
+    x64 = x.detach().to("cpu", torch.float64).numpy()
+    d2 = (x64[:, None] - x64[None, :]) ** 2
+    return alpha**2 * np.exp(-0.5 * d2 / beta**2) + settings.jitter * np.eye(len(x64))
+
+
+def prior_rbf_cholesky(x: torch.Tensor, alpha, beta) -> torch.Tensor:
+    """Lower factor of the RBF prior Gram of ``x``, built and factored on the
+    host in float64, returned on ``x``'s device in ``x``'s dtype."""
+    c = _host_chol_ladder(_host_rbf_gram(x, alpha, beta))
+    return torch.as_tensor(c, dtype=x.dtype, device=x.device)
+
+
+def prior_rbf_inv(x: torch.Tensor, alpha, beta):
+    """The RBF prior Gram of ``x`` as a hoisted ``dists.TriInv``: the inverse
+    of its lower factor and its logdet, computed on the host in float64 and
+    returned on ``x``'s device in ``x``'s dtype."""
+    import scipy.linalg
+
+    from ..dists import TriInv
+
+    c = _host_chol_ladder(_host_rbf_gram(x, alpha, beta))
+    w = scipy.linalg.solve_triangular(c, np.eye(c.shape[0]), lower=True)
+    logdet = 2.0 * float(np.sum(np.log(np.diag(c))))
+    as_t = lambda v: torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    return TriInv(as_t(w), as_t(logdet))

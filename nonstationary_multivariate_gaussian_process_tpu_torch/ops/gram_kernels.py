@@ -9,14 +9,29 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
   ``svc_gram_fused2d``.  The fused GNMGP Gram
   ``K[(n,a),(p,c)] = (K_x[n,p] + jitter·δ_np)·(L_n L_pᵀ)[a,c]`` in the
   task-major (row ``a·N + n``) or input-major (row ``n·M + a``) layout.
+  Prediction only: nothing differentiates through it.
+* :func:`svc_gram_tiled` — kernel K3, ``csrc/svc_gram_tiled.cu``, replaces
+  ``svc_gram_fused``.  The same Gram, input-major, built tile by tile from
+  staged strips; the Gram of the GNMGP likelihood.
+* :func:`gibbs_gram_backward` and :func:`svc_gram_tiled_backward` — the
+  backward kernels of K1's self form and of K3 (new: the TPU had none).
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 launches its kernel for a CUDA tensor, on the current stream, or raises.  It
 counts its launches in a plain integer attribute (``gibbs_gram.launches``),
 which a run sets to 0 with :func:`reset_launches` to show afterwards that its
 path went through the kernels.  The plain versions (:func:`gibbs_gram_plain`,
-:func:`svc_gram_plain`) repeat the kernels' arithmetic operation by operation
-and serve the CPU, the tests, and the on-card comparison in ``chip_smoke.py``.
+:func:`svc_gram_plain`, ...) repeat the kernels' arithmetic operation by
+operation and serve the CPU, the tests, and the on-card comparison in
+``chip_smoke.py``; a backward's plain version is ``torch.autograd.grad``
+through its forward's plain version.
+
+Gradients.  When an input of K1's self form or of K3 requires a gradient,
+the wrapper goes through a ``torch.autograd.Function`` whose forward is the
+forward kernel and whose backward is the backward kernel (on the CPU: the
+plain versions).  ``x`` is data and gets no gradient; asking for one, or for
+a gradient of K1's cross form, raises.  A forward without gradients runs and
+counts exactly as before.
 """
 
 from __future__ import annotations
@@ -27,7 +42,7 @@ import torch
 
 from . import cuda_build
 
-KERNEL_SOURCES = ("gibbs_gram", "svc_gram")
+KERNEL_SOURCES = ("gibbs_gram", "svc_gram", "svc_gram_tiled")
 LAYOUTS = ("task", "input")
 
 #: Grid rows are blockIdx.y with blocks of 8 rows; CUDA caps gridDim.y.
@@ -36,21 +51,30 @@ _MAX_ROWS = 65535 * 8
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "gibbs_gram": [_P, _P, _P, _I, _P, _P, _P, _I, _D, _P, _P],
+    "gibbs_gram_backward": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P],
     "svc_gram": [_P, _P, _P, _I, _I, _D, _I, _P, _P],
+    "svc_gram_tiled": [_P, _P, _P, _I, _I, _D, _P, _P],
+    "svc_gram_tiled_backward": [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P, _P],
+}
+#: The source (``csrc/<name>.cu``) each entry point lives in.
+SOURCES = {
+    "gibbs_gram": "gibbs_gram", "gibbs_gram_backward": "gibbs_gram",
+    "svc_gram": "svc_gram",
+    "svc_gram_tiled": "svc_gram_tiled", "svc_gram_tiled_backward": "svc_gram_tiled",
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns: dict = {}  # (name, dtype) -> bound ctypes function
 
 
 def build() -> None:
-    """Compile both kernels now (in parallel) rather than at first launch."""
+    """Compile every kernel source now (in parallel) rather than at first launch."""
     cuda_build.build(KERNEL_SOURCES)
 
 
 def _kernel_fn(name: str, dtype: torch.dtype):
     key = (name, dtype)
     if key not in _fns:
-        fn = getattr(cuda_build.load(name), f"{name}_{_SUFFIX[dtype]}")
+        fn = getattr(cuda_build.load(SOURCES[name]), f"{name}_{_SUFFIX[dtype]}")
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
         _fns[key] = fn
@@ -98,17 +122,35 @@ def gibbs_gram_plain(x1, s1, l1, x2, s2, l2, jitter: float = 0.0) -> torch.Tenso
     return k
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def gibbs_gram(x1, s1, l1, x2=None, s2=None, l2=None, jitter: float = 0.0) -> torch.Tensor:
     """``K[i,j] = σ1_iσ2_j·sqrt(2ℓ1_iℓ2_j/(ℓ1_i²+ℓ2_j²))·exp(−(x1_i−x2_j)²/(ℓ1_i²+ℓ2_j²))``.
 
     Self form (``x2 is None``): the column strip is the row strip and
     ``jitter`` is added on the diagonal.  Cross form: ``jitter`` must be 0.
-    Returns (n1, n2).
+    Returns (n1, n2).  The self form is differentiable in σ and ℓ (through
+    :func:`gibbs_gram_backward`).
     """
+    cross = x2 is not None
+    if cross and jitter:
+        raise ValueError("gibbs_gram: jitter belongs to the self form (x2=None) only")
+    if _needs_grad(x1, s1, l1, *((x2, s2, l2) if cross else ())):
+        if cross:
+            raise NotImplementedError(
+                "gibbs_gram: the gradient of the cross form is not yet ported"
+            )
+        if x1.requires_grad:
+            raise NotImplementedError("gibbs_gram: no gradient with respect to x (x is data)")
+        return _GibbsGramSelf.apply(x1, s1, l1, float(jitter))
+    return _gibbs_gram_forward(x1, s1, l1, x2, s2, l2, jitter)
+
+
+def _gibbs_gram_forward(x1, s1, l1, x2, s2, l2, jitter) -> torch.Tensor:
     if x2 is None:
         x2, s2, l2 = x1, s1, l1
-    elif jitter:
-        raise ValueError("gibbs_gram: jitter belongs to the self form (x2=None) only")
     if x1.device.type == "cpu":
         return gibbs_gram_plain(x1, s1, l1, x2, s2, l2, jitter)
     tensors = {"x1": x1, "s1": s1, "l1": l1, "x2": x2, "s2": s2, "l2": l2}
@@ -134,6 +176,72 @@ def gibbs_gram(x1, s1, l1, x2=None, s2=None, l2=None, jitter: float = 0.0) -> to
 
 
 gibbs_gram.launches = 0
+
+
+def _n_chunks(n_tiles: int) -> int:
+    """Column shares per row tile in a backward kernel: enough blocks to
+    give each of the H100's 132 SMs about four, never more shares than
+    column tiles."""
+    return min(n_tiles, max(1, -(-528 // n_tiles)))
+
+
+def gibbs_gram_backward_plain(x, s, l, jitter: float, kbar):
+    """Plain version of K1's self-form backward: ``(σ̄, ℓ̄)`` by
+    ``torch.autograd.grad`` through :func:`gibbs_gram_plain`."""
+    with torch.enable_grad():
+        s_ = s.detach().requires_grad_(True)
+        l_ = l.detach().requires_grad_(True)
+        k = gibbs_gram_plain(x.detach(), s_, l_, x.detach(), s_, l_, jitter)
+        return torch.autograd.grad(k, (s_, l_), kbar)
+
+
+def gibbs_gram_backward(x, s, l, kbar, jitter: float = 0.0):
+    """``(σ̄, ℓ̄)`` of K1's self form for the cotangent ``kbar`` (n, n), which
+    need not be symmetric.  The jitter carries no gradient; it matters only
+    to the CPU's plain version, which rebuilds the forward."""
+    if x.device.type == "cpu":
+        return gibbs_gram_backward_plain(x, s, l, jitter, kbar)
+    tensors = {"x": x, "s": s, "l": l, "kbar": kbar}
+    device, dtype = _check_cuda("gibbs_gram_backward", tensors, {"x": 1, "s": 1, "l": 1, "kbar": 2})
+    n = x.shape[0]
+    if s.shape[0] != n or l.shape[0] != n or tuple(kbar.shape) != (n, n):
+        raise ValueError("gibbs_gram_backward: want x, s, l (N,) and kbar (N, N)")
+    if n > _MAX_ROWS:
+        raise ValueError(f"gibbs_gram_backward: N={n} exceeds the launch grid")
+    s_bar = torch.empty(n, dtype=dtype, device=device)
+    l_bar = torch.empty(n, dtype=dtype, device=device)
+    if n == 0:
+        return s_bar, l_bar
+    n_chunks = _n_chunks(-(-n // 16))
+    partial = torch.empty(n_chunks * n * 2, dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = _kernel_fn("gibbs_gram_backward", dtype)(
+            x.data_ptr(), s.data_ptr(), l.data_ptr(), n, kbar.data_ptr(), n_chunks,
+            partial.data_ptr(), s_bar.data_ptr(), l_bar.data_ptr(), stream,
+        )
+    gibbs_gram_backward.launches += 1
+    _raise_on("gibbs_gram_backward", status)
+    return s_bar, l_bar
+
+
+gibbs_gram_backward.launches = 0
+
+
+class _GibbsGramSelf(torch.autograd.Function):
+    """K1's self form with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, s, l, jitter):
+        ctx.save_for_backward(x, s, l)
+        ctx.jitter = jitter
+        return _gibbs_gram_forward(x, s, l, None, None, None, jitter)
+
+    @staticmethod
+    def backward(ctx, kbar):
+        x, s, l = ctx.saved_tensors
+        s_bar, l_bar = gibbs_gram_backward(x, s, l, kbar.contiguous(), ctx.jitter)
+        return None, s_bar, l_bar, None
 
 
 # ---------------------------------------------------------------------------
@@ -206,12 +314,147 @@ def svc_gram(x, ell, ls, jitter: float, layout: str = "task") -> torch.Tensor:
 svc_gram.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K3: tiled SVC Gram (input-major) and its backward
+# ---------------------------------------------------------------------------
+
+#: The backward kernel is specialised for M = 1..8 tasks per input.
+K3_MAX_M = 8
+
+
+def svc_gram_tiled_plain(x, ell, ls, jitter: float) -> torch.Tensor:
+    """Plain version of kernel K3: the kernel's order of operations is K2's,
+    so this is :func:`svc_gram_plain` in the input-major layout."""
+    return svc_gram_plain(x, ell, ls, jitter, layout="input")
+
+
+def _check_svc(name, x, ell, ls):
+    tensors = {"x": x, "ell": ell, "ls": ls}
+    device, dtype = _check_cuda(name, tensors, {"x": 1, "ell": 1, "ls": 3})
+    n, m = ls.shape[0], ls.shape[1]
+    if x.shape[0] != n or ell.shape[0] != n or ls.shape[2] != m:
+        raise ValueError(
+            f"{name}: want x (N,), ell (N,), ls (N, M, M); got {tuple(x.shape)}, "
+            f"{tuple(ell.shape)}, {tuple(ls.shape)}"
+        )
+    if n > _MAX_ROWS:
+        raise ValueError(f"{name}: N={n} exceeds the launch grid")
+    return device, dtype, n, m
+
+
+def _svc_gram_tiled_forward(x, ell, ls, jitter) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return svc_gram_tiled_plain(x, ell, ls, jitter)
+    device, dtype, n, m = _check_svc("svc_gram_tiled", x, ell, ls)
+    out = torch.empty((n * m, n * m), dtype=dtype, device=device)
+    if n == 0 or m == 0:
+        return out
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = _kernel_fn("svc_gram_tiled", dtype)(
+            x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m, float(jitter),
+            out.data_ptr(), stream,
+        )
+    svc_gram_tiled.launches += 1
+    _raise_on("svc_gram_tiled", status)
+    return out
+
+
+def svc_gram_tiled(x, ell, ls, jitter: float) -> torch.Tensor:
+    """The GNMGP Gram ``(K_x + jitter·I)[n,p]·(L_n L_pᵀ)[a,c]`` in the
+    input-major layout (row ``n·M + a``), (NM, NM).
+
+    ``x``, ``ell``: (N,); ``ls``: (N, M, M).  Differentiable in ``ell`` and
+    ``ls`` (through :func:`svc_gram_tiled_backward`).
+    """
+    if _needs_grad(x, ell, ls):
+        if x.requires_grad:
+            raise NotImplementedError("svc_gram_tiled: no gradient with respect to x (x is data)")
+        return _SvcGramTiled.apply(x, ell, ls, float(jitter))
+    return _svc_gram_tiled_forward(x, ell, ls, jitter)
+
+
+svc_gram_tiled.launches = 0
+
+
+def svc_gram_tiled_backward_plain(x, ell, ls, jitter: float, kbar):
+    """Plain version of K3's backward: ``(ℓ̄, L̄)`` by ``torch.autograd.grad``
+    through :func:`svc_gram_tiled_plain`."""
+    with torch.enable_grad():
+        ell_ = ell.detach().requires_grad_(True)
+        ls_ = ls.detach().requires_grad_(True)
+        k = svc_gram_tiled_plain(x.detach(), ell_, ls_, jitter)
+        return torch.autograd.grad(k, (ell_, ls_), kbar)
+
+
+def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float):
+    """``(ℓ̄, L̄)`` of K3 for the cotangent ``kbar`` (NM, NM), input-major,
+    which need not be symmetric.  ``L̄`` is (N, M, M), upper triangle
+    included.  The jitter rides ``K̄``'s weight on the diagonal blocks."""
+    if x.device.type == "cpu":
+        return svc_gram_tiled_backward_plain(x, ell, ls, jitter, kbar)
+    device, dtype, n, m = _check_svc("svc_gram_tiled_backward", x, ell, ls)
+    if kbar.device != device or kbar.dtype != dtype or tuple(kbar.shape) != (n * m, n * m):
+        raise ValueError(f"svc_gram_tiled_backward: kbar must be ({n * m}, {n * m}) {dtype} on {device}")
+    if not kbar.is_contiguous():
+        raise ValueError("svc_gram_tiled_backward: kbar must be contiguous")
+    if m > K3_MAX_M:
+        raise NotImplementedError(
+            f"svc_gram_tiled_backward: M={m} tasks is not yet ported (at most {K3_MAX_M})"
+        )
+    ell_bar = torch.empty(n, dtype=dtype, device=device)
+    ls_bar = torch.empty((n, m, m), dtype=dtype, device=device)
+    if n == 0:
+        return ell_bar, ls_bar
+    tile = 16 if m <= 4 else 8
+    n_chunks = _n_chunks(-(-n // tile))
+    partial = torch.empty(n_chunks * n * (m * m + 1), dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = _kernel_fn("svc_gram_tiled_backward", dtype)(
+            x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m, float(jitter),
+            kbar.data_ptr(), tile, n_chunks, partial.data_ptr(),
+            ls_bar.data_ptr(), ell_bar.data_ptr(), stream,
+        )
+    svc_gram_tiled_backward.launches += 1
+    _raise_on("svc_gram_tiled_backward", status)
+    return ell_bar, ls_bar
+
+
+svc_gram_tiled_backward.launches = 0
+
+
+class _SvcGramTiled(torch.autograd.Function):
+    """K3 with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, ell, ls, jitter):
+        ctx.save_for_backward(x, ell, ls)
+        ctx.jitter = jitter
+        return _svc_gram_tiled_forward(x, ell, ls, jitter)
+
+    @staticmethod
+    def backward(ctx, kbar):
+        x, ell, ls = ctx.saved_tensors
+        ell_bar, ls_bar = svc_gram_tiled_backward(x, ell, ls, kbar.contiguous(), ctx.jitter)
+        return None, ell_bar, ls_bar, None
+
+
+_WRAPPERS = {
+    "gibbs_gram": gibbs_gram,
+    "gibbs_gram_backward": gibbs_gram_backward,
+    "svc_gram": svc_gram,
+    "svc_gram_tiled": svc_gram_tiled,
+    "svc_gram_tiled_backward": svc_gram_tiled_backward,
+}
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    gibbs_gram.launches = 0
-    svc_gram.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
 
 
 def launches() -> dict[str, int]:
     """Each kernel's launches since the last :func:`reset_launches`."""
-    return {"gibbs_gram": gibbs_gram.launches, "svc_gram": svc_gram.launches}
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}

@@ -85,12 +85,13 @@ def _latent_conds(p: model.Params, data: FullData, grid, hp, n: int, m: int):
     return cond_l, cond_ul  # cond_ul.mean: (T, G)
 
 
-def predict_map(vec, data: FullData, grid, device=None, dtype=None) -> GridPredictionSVC:
+def predict_map(vec, data: FullData, grid, device=None, dtype=None, hyper=None) -> GridPredictionSVC:
     """Plug-in MAP prediction (reference point_predmap_inhomogeneous).
 
     ``vec`` (packed MAP vector), ``data`` and ``grid`` may be numpy arrays or
     tensors; they are moved to ``device`` (default: ``cuda``, raising when
-    there is none) in ``dtype`` (default: ``settings.dtype``).
+    there is none) in ``dtype`` (default: ``settings.dtype``).  ``hyper``
+    overrides the latent priors' defaults (``models.gnmgp.DEFAULT_HYPERS``).
     """
     device = settings.resolve_device(device)
     dtype = dtype or settings.dtype
@@ -100,7 +101,7 @@ def predict_map(vec, data: FullData, grid, device=None, dtype=None) -> GridPredi
     n, m = data.y.shape
     p = model.unpack(as_t(vec), n, m)
     grid = as_t(grid)
-    cond_l, cond_ul = _latent_conds(p, data, grid, model.DEFAULT_HYPERS, n, m)
+    cond_l, cond_ul = _latent_conds(p, data, grid, {**model.DEFAULT_HYPERS, **(hyper or {})}, n, m)
     l_vec_star = transforms.ulvec_to_lvec(cond_ul.mean.T, m)  # (G, T)
     ls_star = transforms.vec_to_tril(l_vec_star, m)  # (G, M, M)
     factors = _factorize(p, data)

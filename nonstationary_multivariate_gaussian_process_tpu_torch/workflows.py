@@ -1,0 +1,221 @@
+"""The single-subject pipeline: empirical init → multi-start MAP → analysis →
+grid/test prediction → scoring.
+
+Counterpart of ``PipelineConfig`` and ``run_subject`` of the JAX package's
+``workflows.py`` for ``model="gnmgp"`` on fully observed data.  The stages,
+their order, the result dict and the artifacts written (``data``, ``map``,
+``map_ckpt``, ``pred_grid``, ``scores``) are the JAX package's, so a store
+written here serves from either package's engine.
+
+Not ported yet, and refused with ``ValueError``: other models, ``do_hmc``,
+``do_loo`` and any sampler option.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import evaluate, settings
+from .data import preprocess
+from .inference import empirical
+from .inference import init as init_mod
+from .inference import map as map_mod
+from .models import gnmgp, snmgp
+from .models.base import FullData
+from .postprocess import analysis
+from .predict import gnmgp as pred_gnmgp
+from .utils.artifacts import ArtifactStore
+
+MODELS = ("gnmgp",)
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    """Stage gates and budgets (the reference's ``do_*`` flag blocks and
+    ``hyper_pars`` dicts, e.g. ``Nonseparable_model.py:253-275``); the fields
+    of the JAX package's config that this path reads."""
+
+    model: str = "gnmgp"
+    hyper: dict = dataclasses.field(default_factory=dict)
+    do_empirical: bool = True
+    do_map: bool = True
+    do_map_analysis: bool = True
+    do_hmc: bool = False
+    do_pred_grid: bool = True
+    do_pred_test: bool = True
+    do_evaluation: bool = True
+    do_loo: bool = False
+    n_opt: int = 1000
+    lr: float = 2e-1
+    map_method: str = "lbfgs"  # "lbfgs" (optax's, with the zoom linesearch) | "adam"
+    err_opt: float | None = None
+    sampler: str = "hmc"
+    n_grid: int = 201
+    window_size: int = 30
+    test_size: float = 0.0
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.model not in MODELS:
+            raise ValueError(
+                f"model {self.model!r} is not yet ported to the torch package (it runs {MODELS})"
+            )
+        if self.do_hmc or self.do_loo:
+            raise ValueError("do_hmc and do_loo are not yet ported to the torch package")
+        if self.sampler != "hmc":
+            raise ValueError(f"sampler {self.sampler!r} is not yet ported to the torch package")
+        if self.map_method not in map_mod.METHODS:
+            raise ValueError(f"map_method must be one of {map_mod.METHODS}, got {self.map_method!r}")
+
+
+def _validate_subject(x, y):
+    """Named validation errors for degenerate inputs."""
+    if x.ndim != 1:
+        raise ValueError(f"x must be 1-D (N,), got shape {x.shape}")
+    if y.ndim != 2:
+        raise ValueError(f"Y must be 2-D (N, M), got shape {y.shape}")
+    if x.shape[0] != y.shape[0]:
+        raise ValueError(f"x and Y disagree on N: {x.shape[0]} vs {y.shape[0]}")
+    if x.shape[0] < 4:
+        raise ValueError(f"need at least 4 observations, got {x.shape[0]}")
+    if y.shape[1] < 1:
+        raise ValueError("Y must have at least one task column")
+    if not np.all(np.isfinite(x)) or not np.all(np.isfinite(y)):
+        raise ValueError("x/Y contain non-finite values")
+
+
+def _build_inits(cfg: PipelineConfig, emp, data: FullData) -> dict:
+    """The GNMGP starts: a short SNMGP Adam fit as the separable warm start,
+    and the empirical init (JAX ``workflows._build_inits``)."""
+    n, m = data.y.shape
+    dev, dt = data.x.device, data.x.dtype
+    sn_nlp = snmgp.make_objective(data)
+    sn_res = map_mod.fit_map(
+        sn_nlp, init_mod.snmgp_from_empirical(emp, n, m, dev, dt), n_iters=min(cfg.n_opt, 500), lr=0.2
+    )
+    return {
+        "separable": init_mod.gnmgp_from_separable(sn_res.vec, n, m, dev, dt),
+        "empirical": init_mod.gnmgp_from_empirical(emp, n, m, device=dev, dtype=dt),
+    }
+
+
+def run_subject(
+    x,
+    y,
+    cfg: PipelineConfig | None = None,
+    store: ArtifactStore | None = None,
+    subject: Any = 0,
+    dataset: str = "data",
+    device=None,
+    dtype=None,
+) -> dict:
+    """Single-subject pipeline on ``device`` (default ``cuda``, raising when
+    there is none) in ``dtype`` (default ``settings.dtype``).
+
+    Returns the JAX package's result dict (tensors where it has arrays);
+    stages are also written to ``store`` when one is given, and a stored MAP
+    of the right length is resumed.
+    """
+    cfg = cfg or PipelineConfig()
+    device = settings.resolve_device(device)
+    dtype = dtype or settings.dtype
+    x = np.array(x, dtype=float)  # a writable copy: tensors are made from it
+    y = np.array(y, dtype=float)
+    _validate_subject(x, y)
+    if cfg.test_size > 0:
+        x, x_test, y, y_test = preprocess.data_split(x, y, test_size=cfg.test_size)
+    else:
+        x_test = y_test = None
+    n, m = y.shape
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    xd, yd = as_t(x), as_t(y)
+    data = FullData(xd, yd)
+    result: dict = {"model": cfg.model, "n": n, "m": m, "timings": {}}
+
+    def _key(stage):
+        return ArtifactStore.key(cfg.model, dataset, subject, stage)
+
+    if store is not None and not store.exists(_key("data")):
+        # conditioning data rides the store so a serving engine can stand up
+        # from the artifact root alone (serving/engine.py)
+        store.save(_key("data"), x=x, y=y)
+
+    t0 = time.time()
+    emp = empirical.local_estimation(x, y, window_size=min(cfg.window_size, max(2, n // 3)))
+    result["timings"]["empirical"] = time.time() - t0
+    result["empirical"] = emp
+
+    nlp = gnmgp.make_objective(data, hyper=cfg.hyper)
+    map_vec = None
+    if cfg.do_map:
+        stored = None
+        if store is not None and store.exists(_key("map")):
+            stored = store.load(_key("map"))["vec"]
+            expected = (gnmgp.n_params(n, m),)
+            if stored.shape != expected:
+                # a stale artifact from other data or another split: refit
+                warnings.warn(
+                    f"ignoring stored MAP for {_key('map')}: length {stored.shape} != "
+                    f"expected {expected} for N={n}, M={m} — refitting", stacklevel=2)
+                stored = None
+        if stored is not None:
+            result["map_vec"] = map_vec = as_t(stored)
+        else:
+            t0 = time.time()
+            inits = _build_inits(cfg, emp, data)
+            ckpt = None
+            if store is not None:
+                ckpt = lambda v, i: store.save(_key("map_ckpt"), vec=v.cpu().numpy(), iteration=i)
+            name, res, _ = map_mod.multi_start_map(
+                nlp, inits, n_iters=cfg.n_opt, lr=cfg.lr, err_opt=cfg.err_opt,
+                checkpoint_fn=ckpt, method=cfg.map_method,
+            )
+            result["timings"]["map"] = time.time() - t0
+            result["map_vec"] = map_vec = res.vec
+            result["map_init"] = name
+            result["target_hist"] = res.target_hist.cpu().numpy()
+            if store is not None:
+                store.save(_key("map"), vec=map_vec.cpu().numpy(), target_hist=result["target_hist"])
+
+    if cfg.do_map_analysis and map_vec is not None:
+        tilde_l, b_proc, cor_proc, std_proc = analysis.gnmgp_map_latents(map_vec.cpu().numpy(), n, m)
+        result["map_latents"] = {"tilde_l": tilde_l, "B": b_proc, "R": cor_proc,
+                                 "stds": std_proc, "inputs": x}
+
+    grid = torch.linspace(float(x.min()), float(x.max()), cfg.n_grid, dtype=dtype, device=device)
+    if cfg.do_pred_grid and map_vec is not None:
+        t0 = time.time()
+        gp = pred_gnmgp.predict_map(map_vec, data, grid, device=device, dtype=dtype, hyper=cfg.hyper)
+        result["timings"]["pred_grid"] = time.time() - t0
+        result["pred_grid"] = gp
+        result["grid"] = grid.cpu().numpy()
+        if store is not None:
+            store.save(_key("pred_grid"), percentiles=gp.percentiles.cpu().numpy(), grid=result["grid"])
+
+    if cfg.do_pred_test and map_vec is not None and x_test is not None:
+        tp = pred_gnmgp.predict_map(map_vec, data, as_t(x_test), device=device, dtype=dtype,
+                                    hyper=cfg.hyper)
+        result["pred_test"] = tp
+        if cfg.do_evaluation:
+            mean, std = tp.mean.cpu().numpy(), tp.std.cpu().numpy()
+            result["test_rmse"] = evaluate.rmse(mean, y_test)
+            result["test_lpd"] = evaluate.lpd(mean, std, y_test)
+            result["test_pmse"] = evaluate.pmse(mean, y_test)
+            if store is not None:
+                store.save(_key("scores"), rmse=result["test_rmse"], lpd=result["test_lpd"])
+
+    if cfg.do_evaluation and map_vec is not None:
+        def dev(v):
+            with torch.no_grad():
+                return gnmgp.deviance(v, yd, xd)
+
+        result["deviance"] = float(dev(map_vec))
+        result["aic"] = evaluate.get_aic(map_vec, dev)
+        result["bic"] = evaluate.get_bic(map_vec, dev, n_obs=n)
+    return result

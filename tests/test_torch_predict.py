@@ -79,7 +79,8 @@ def test_predict_map_launch_counts_stay_zero_on_cpu(rng):
     x, y, vec = make_subject(rng, 16, 2)
     gram_kernels.reset_launches()
     pred.predict_map(vec, FullData(x, y), np.linspace(0, 1, 5), device="cpu")
-    assert gram_kernels.launches() == {"gibbs_gram": 0, "svc_gram": 0}
+    counts = gram_kernels.launches()
+    assert {"gibbs_gram", "svc_gram"} <= set(counts) and set(counts.values()) == {0}
 
 
 def test_predict_map_f32_tier_tracks_f64(rng):
