@@ -14,7 +14,10 @@ Phases, each printing its lines:
                time and its bound (bytes over 3.35 TB/s, operations over the
                peak rate of their type).  A backward kernel's plain version
                is autograd through its forward's; the tiled SVC Gram (K3) is
-               also compared with K2's input-major layout bit for bit.
+               also compared with K2's input-major layout bit for bit.  K3's
+               backward must give bit-equal results on a repeat, and is also
+               timed with a cold L2; its scratch bytes are printed.  It is
+               also checked, untimed, at every other M it takes (1..8).
 3. serving   — (slice 1's path) a ``sim_mnts`` subject at N=1000, M=2
                (float64) written to an artifact store, served over HTTP by
                the port's ``serve``; its /predict answers are checked and
@@ -86,6 +89,10 @@ TRAINING_KERNELS = ("gibbs_gram", "gibbs_gram_backward", "svc_gram", "svc_gram_t
 #: largest |entry|, by dtype.
 GRAD_TOL = {"float64": 1e-10, "float32": 1e-4}
 
+#: K3's backward is timed at N=1000 M=2 and N=257 M=3; these (N, M) cover
+#: the other M it is compiled for, each checked once.
+K3_BWD_OTHER_SHAPES = ((100, 1), (100, 4), (100, 5), (64, 5), (77, 6), (61, 7), (50, 8))
+
 #: The training path: the objective phase's shape, the run_subject subject
 #: and budget, and the card-vs-CPU run.
 TRAIN_N, TRAIN_N_OPT = 1000, 30
@@ -121,6 +128,27 @@ def time_ms(torch, fn, batches: int = 5, reps: int = 20) -> float:
         end.synchronize()
         out.append(start.elapsed_time(end) / reps)
     return statistics.median(out)
+
+
+def time_cold_ms(torch, fn, reps: int = 20) -> float:
+    """Median device time of one call to ``fn`` with a cold L2: a 128 MB
+    buffer (over twice the H100's 50 MB L2) is written before each call,
+    and each call is timed alone by CUDA events.  A sleep kernel queued
+    first keeps the host's enqueueing out of the times."""
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    torch.cuda._sleep(50_000_000)
+    for _ in range(reps):
+        flush.fill_(1.0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def check_close(torch, name, got, want, dtype_name) -> float:
@@ -210,7 +238,7 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 ))
         # K3 and the two backward kernels (the training path) at the served
         # shape and a ragged N=257, M=3
-        grads = []
+        grads, k3_shapes = [], {}
         for n, m in ((1000, 2), (257, 3)):
             x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
             ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
@@ -228,6 +256,7 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 lambda x=x, l=l, ls=ls: gk.svc_gram_tiled_plain(x, l, ls, settings.jitter),
                 (2 * n + n * m * m) * size + out_bytes, n * n * 12 + (n * m) ** 2 * 2 * m,
             ))
+            k3_shapes[f"svc_gram_tiled_backward N={n} M={m}"] = (n, m)
             grads.append((
                 f"svc_gram_tiled_backward N={n} M={m}", "svc_gram_tiled_backward",
                 lambda x=x, l=l, ls=ls, kb=kbar: gk.svc_gram_tiled_backward(x, l, ls, kb, settings.jitter),
@@ -260,8 +289,35 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             }
             log("kernels", f"{label} {dn}: ok, max_abs_err={err:.3e} ms={ms:.5f} "
                 f"plain_ms={plain_ms:.5f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+            if label in k3_shapes:
+                # K3's backward: bit-equal on a repeat, a cold-L2 time (K̄'s
+                # 32 MB at N=1000, M=2, f64 fits in the 50 MB L2), its scratch
+                first, again = kern(), kern()
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"{label} {dn}: two launches on the same inputs differ")
+                sched = gk.k3_backward_schedule(*k3_shapes[label], gk.sm_count(dev))
+                row.update(cold_ms=time_cold_ms(torch, kern), scratch_bytes=sched.partial_numel * size,
+                           repeat_bit_equal=True)
+                log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
+                    f"(warm {ms:.5f}); scratch {row['scratch_bytes']} B for {sched.n_pairs} tile pairs "
+                    f"of {sched.tile} inputs on a grid of {sched.grid} blocks")
             if dn == "float64" and label in main_labels:
                 main[kname] = row
+        # K3's backward at the other M it takes, untimed: tile 16 at M=1 and
+        # M=4, tile 8 at M=5..8, with ragged and whole last tiles
+        for n, m in K3_BWD_OTHER_SHAPES:
+            x, _, l = kernel_inputs(torch, gen, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
+            ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
+            kbar = torch.randn(n * m, n * m, generator=gen, dtype=torch.float64).to(dev, dtype)
+            label = f"svc_gram_tiled_backward N={n} M={m} {dn}"
+            kern = lambda: gk.svc_gram_tiled_backward(x, l, ls, kbar, settings.jitter)
+            err = check_grad(torch, label, kern(),
+                             gk.svc_gram_tiled_backward_plain(x, l, ls, settings.jitter, kbar), dn)
+            if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
+                raise AssertionError(f"{label}: two launches on the same inputs differ")
+            log("kernels", f"{label} (tile {gk.k3_backward_schedule(n, m).tile}): ok, "
+                f"max_abs_err={err:.3e}, two launches bit-equal (untimed)")
     return main
 
 

@@ -17,32 +17,61 @@
 // dot_general per tile.  This kernel keeps that shape: one thread block per
 // T x T tile of input pairs stages the row and column strips in shared
 // memory, evaluates the Gibbs term of each pair once, and forms the
-// (T*M) x (T*M) output tile from the staged strips.  The TPU had no backward
-// kernel (XLA differentiated the jnp Gram); the backward here is new.
+// (T*M) x (T*M) output tile from the staged strips.
 //
-// What bounds them on the H100:
-// * forward: it writes (N M)^2 outputs and reads O(N M^2) inputs, with some
-//   2 M operations per output and ~12 per pair: bound by the bytes written,
-//   (N M)^2 * 8 B = 32 MB at N=1000, M=2, float64 (about 9.6 us at 3.35 TB/s).
-//   Consecutive threads store consecutive columns of a tile row.  The ragged
-//   edge is masked, not padded.
-// * backward: it reads Kbar (N M)^2 once as row tiles and once as transposed
-//   tiles (Kbar is not assumed symmetric), and writes O(N M^2): bound by the
-//   bytes read, at least (N M)^2 * 8 B.  Each block owns a tile of rows n and
-//   a strided share of the column tiles, accumulates the row sums of its
-//   pairs in registers, reduces them across the tile's columns with warp
-//   shuffles and writes one partial per (share, n); a second pass sums the
-//   shares in a fixed order, so the result does not depend on scheduling.
-//   No N x N or (N, M, N, M) intermediate is stored.
+// Forward.  It writes (N M)^2 outputs and reads O(N M^2) inputs, with some
+// 2 M operations per output and ~12 per pair: bound by the bytes written,
+// (N M)^2 * 8 B = 32 MB at N=1000, M=2, float64 (about 9.6 us at 3.35 TB/s).
+// Consecutive threads store consecutive columns of a tile row.  The ragged
+// edge is masked, not padded.
 //
-//   Lbar[n,a,b] = sum_{p,c} (Kbar[(n,a),(p,c)] + Kbar[(p,c),(n,a)]) kxj[n,p] L[p,c,b]
-//   lbar[n]     = sum_p (G[n,p] + G[p,n]) kx[n,p] (1/(2 l_n) - l_n/A + 2 l_n D/A^2),
-//   G[n,p]      = sum_{a,c} Kbar[(n,a),(p,c)] B[n,a,p,c];  the factor is 0 at p == n.
+// Backward: the gradient of the same TPU kernel's Gram (pallas_kernels.py:122;
+// the TPU had no backward kernel, XLA differentiated the jnp Gram).  For a
+// cotangent Kbar (N M, N M) that need not be symmetric:
+//
+//   S           = Kbar + Kbar^T
+//   Lbar[n,a,b] = sum_{p,c} S[(n,a),(p,c)] kxj[n,p] L[p,c,b]
+//   lbar[n]     = sum_p gsum[n,p] kx[n,p] f(l_n; l_p, D)
+//   gsum[n,p]   = sum_{a,c} S[(n,a),(p,c)] B[n,a,p,c]
+//   f(l_n; l_p, D) = 1/(2 l_n) - l_n/A + 2 l_n D/A^2,   and f = 0 at p == n.
+//
+// What bounds it: the bytes of Kbar, (N M)^2 * 8 B = 32 MB at N=1000, M=2,
+// float64 (9.6 us at 3.35 TB/s); everything else is O(N M^2).  The design
+// reads each element of Kbar exactly once:
+// * The blocks walk the unordered tile pairs (I <= J), row-major, in one
+//   fixed order (pair q = (I, J) with q counted along I = 0, 1, ...; block b
+//   takes q = b, b + gridDim.x, ...: a persistent grid).  A pair stages
+//   Kbar[I,J] and Kbar[J,I] (one tile when I == J), forms S once and
+//   evaluates kx, both f's, B and gsum once for each unordered input pair
+//   (n, p), then adds its contributions to both rows n and p.  On a diagonal
+//   tile each unordered pair counts once (thread row < thread column) and
+//   n == p once (the row side alone, f = 0).  So the Gibbs and task work is
+//   half of what an ordered walk does.
+// * Loads stay in flight: the next pair's Kbar tiles and strips are copied
+//   into a second shared-memory stage with cp.async while the current pair
+//   is computed.  Copies are element-wise (4 or 8 bytes), so any N and M
+//   work: Kbar's row stride N M need not be a multiple of 16 bytes.
+// * Staged Kbar tiles are task-pair major, [a][c][row][col] with rows
+//   padded to T+1, so a warp reads Kbar[I,J] along consecutive columns and
+//   Kbar[J,I] along an odd stride: no shared-memory bank conflicts in f64.
+// * The result does not depend on scheduling.  A pair sums its row shares
+//   over the tile's columns (through shared memory, in order) and its
+//   column shares over the tile's rows (shuffles, then the warps in order)
+//   and writes them to fixed
+//   slots, partial[partner tile][row]: rows of tile I to slot J, rows of
+//   tile J to slot I.  Every (slot, row) is written exactly once, and a
+//   second launch sums each row's slots in one fixed order (a warp per row,
+//   lanes over slots, then a shuffle tree).  The partials are
+//   ceil(N/T) N (M^2 + 1) values: 2.5 MB at N=1000, M=2, T=16, float64.
+// * T (16 for M <= 4, else 8) and M are template parameters.  No tensor
+//   cores: wgmma has no float64 form and the task contraction has length M.
 //
 // Built without fast math and with -fmad=false: the forward's task sum runs
 // b = 0..M-1 in the plain version's order, each operation rounded on its own,
-// so the forward matches the plain PyTorch version bit for bit.
+// so the forward matches the plain PyTorch version bit for bit.  The backward
+// is held to a tolerance and uses explicit fma() and one division per pair.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -146,182 +175,343 @@ int launch_forward(const void* x, const void* ell, const void* ls, int n, int m,
 // Backward
 // ---------------------------------------------------------------------------
 
-// One block: a tile of `tile` rows n (threadIdx.y) against the column tiles
-// chunk, chunk + n_chunks, ... (threadIdx.x is the column p within a tile).
-// Writes partial[chunk][n][0..M*M) = Lbar contributions and [M*M] = lbar's.
-template <typename T, int M>
-__global__ void svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
-                                          const T* __restrict__ ls, int n, T jitter,
-                                          const T* __restrict__ kbar, int n_chunks,
-                                          T* __restrict__ partial) {
-  constexpr int MM = M * M;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int tile = blockDim.x;  // == blockDim.y, a power of two <= 32
-  const int tm = tile * M;
-  const int ld = tm + 1;  // padded rows of the staged Kbar tiles
-  T* x_r = smem;
-  T* l_r = x_r + tile;
-  T* x_c = l_r + tile;
-  T* l_c = x_c + tile;
-  T* L_r = l_c + tile;          // tile * MM
-  T* L_c = L_r + tile * MM;     // tile * MM
-  T* kb = L_c + tile * MM;      // tm x ld: Kbar[(n,a),(p,c)]
-  T* kbt = kb + tm * ld;        // tm x ld: Kbar[(p,c),(n,a)], row (p,c)
+// Shared-memory layout of the backward for T inputs per tile side and M tasks.
+template <typename T, int TILE, int M>
+struct Bwd {
+  static constexpr int MM = M * M;
+  static constexpr int K = MM + 1;            // values of one row's partial: Lbar, then lbar
+  static constexpr int TM = TILE * M;         // rows (and columns) of a Kbar tile
+  static constexpr int KP = TILE + 1;         // padded row of a staged Kbar tile
+  static constexpr int KB = MM * TILE * KP;   // one staged Kbar tile, [a][c][row][col]
+  static constexpr int LP = MM | 1;           // padded (odd) pitch of one staged L
+  static constexpr int STRIP = 2 * TILE + TILE * LP;  // x, l, L of one input tile
+  static constexpr int STAGE = 2 * KB + 2 * STRIP;
+  static constexpr int THREADS = TILE * TILE;
+  static constexpr int WARPS = THREADS / 32;
+  // Row shares are summed through a [row][k][column] buffer with padded
+  // rows of RP.  It holds all TILE columns where two blocks still fit on an
+  // SM (228 KB of shared memory, 1 KB of it reserved per block); else a
+  // shuffle first halves them to 8.
+  static constexpr size_t FULL_SMEM = sizeof(T) * (2 * STAGE + TILE * K * (TILE + 1) + WARPS * TILE * K);
+  static constexpr int RC = FULL_SMEM + 1024 <= 228 * 1024 / 2 || TILE < 8 ? TILE : 8;
+  static constexpr int RP = RC + 1;
+  // the row-share buffer, then the column sums of each warp
+  static constexpr int RED = TILE * K * RP + WARPS * TILE * K;
+  static constexpr size_t SMEM = sizeof(T) * (2 * STAGE + RED);
+  static_assert(THREADS % 32 == 0 && 32 % TILE == 0, "a warp holds whole tile rows");
+};
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * tile + tx;
-  const int nthreads = tile * tile;
-  const int n0 = blockIdx.x * tile;
-  const int chunk = blockIdx.y;
-  const int n_tiles = (n + tile - 1) / tile;
-  const int rows_in = min(tile, n - n0);
-  const size_t nm = static_cast<size_t>(n) * M;
+// Tile pair q of the row-major walk over I <= J.  Row I starts at pair
+// I*nt - I*(I-1)/2; a float root gives I, and the two loops correct it.
+__device__ __forceinline__ int first_pair(int i, int n_tiles) { return i * n_tiles - i * (i - 1) / 2; }
 
-  for (int i = tid; i < tile; i += nthreads) {
-    x_r[i] = i < rows_in ? x[n0 + i] : T(0);
-    l_r[i] = i < rows_in ? ell[n0 + i] : T(1);
+__device__ __forceinline__ void tile_pair(int q, int n_tiles, int& I, int& J) {
+  const float b = 2.0f * n_tiles + 1.0f;
+  int i = static_cast<int>((b - sqrtf(fmaxf(b * b - 8.0f * q, 0.0f))) * 0.5f);
+  i = max(0, min(i, n_tiles - 1));
+  while (i > 0 && q < first_pair(i, n_tiles)) --i;
+  while (i + 1 < n_tiles && q >= first_pair(i + 1, n_tiles)) ++i;
+  I = i;
+  J = i + q - first_pair(i, n_tiles);
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  __pipeline_memcpy_async(dst, src, sizeof(T));
+}
+
+// x, l and L of the input tile starting at n0; the ragged edge gets x = 0,
+// l = 1, L = 0 (finite Gibbs terms, zero contributions).
+template <typename T, int TILE, int M>
+__device__ __forceinline__ void stage_strip(T* strip, int n0, int n, const T* x, const T* ell,
+                                            const T* ls, int tid) {
+  using S = Bwd<T, TILE, M>;
+  T* xs = strip;
+  T* es = xs + TILE;
+  T* Ls = es + TILE;
+  for (int i = tid; i < TILE; i += S::THREADS) {
+    if (n0 + i < n) {
+      copy_async(xs + i, x + n0 + i);
+      copy_async(es + i, ell + n0 + i);
+    } else {
+      xs[i] = T(0);
+      es[i] = T(1);
+    }
   }
-  for (int i = tid; i < tile * MM; i += nthreads)
-    L_r[i] = i < rows_in * MM ? ls[static_cast<size_t>(n0) * MM + i] : T(0);
+  for (int i = tid; i < TILE * S::MM; i += S::THREADS) {
+    const int r = i / S::MM, k = i % S::MM;
+    if (n0 + r < n) copy_async(Ls + r * S::LP + k, ls + static_cast<size_t>(n0 + r) * S::MM + k);
+    else Ls[r * S::LP + k] = T(0);
+  }
+}
 
-  T acc_l[MM];
+// Kbar's tile (row tile R, column tile C) into [a][c][row][col] order, read
+// along Kbar's rows (coalesced); the ragged edge is 0.
+template <typename T, int TILE, int M>
+__device__ __forceinline__ void stage_kbar(T* dst, int R, int C, int n, const T* kbar, int tid) {
+  using S = Bwd<T, TILE, M>;
+  constexpr int TM = S::TM;
+  const size_t nm = static_cast<size_t>(n) * M;
+  const int r0 = R * TILE, c0 = C * TILE;
+  const int rows_in = min(TILE, n - r0) * M, cols_in = min(TILE, n - c0) * M;
+  const T* src = kbar + static_cast<size_t>(r0) * M * nm + static_cast<size_t>(c0) * M;
+  if constexpr (S::THREADS % TM == 0) {
+    // each thread keeps one column q and steps down the rows
+    constexpr int RSTEP = S::THREADS / TM;
+    const int q = tid % TM, pl = q / M, c = q % M;
+    const int r1 = tid / TM;
+    const bool col_ok = q < cols_in;
+    const T* s1 = src + static_cast<size_t>(r1) * nm + q;
 #pragma unroll
-  for (int k = 0; k < MM; ++k) acc_l[k] = T(0);
-  T acc_e = T(0);
-  const int row_n = n0 + ty;
+    for (int k = 0; k < TM / RSTEP; ++k) {
+      const int r = r1 + k * RSTEP;
+      T* d = dst + (((r % M) * M + c) * TILE + r / M) * S::KP + pl;
+      if (col_ok && r < rows_in) copy_async(d, s1 + static_cast<size_t>(k) * RSTEP * nm);
+      else *d = T(0);
+    }
+  } else {
+    for (int i = tid; i < TM * TM; i += S::THREADS) {
+      const int r = i / TM, q = i % TM;
+      T* d = dst + (((r % M) * M + q % M) * TILE + r / M) * S::KP + q / M;
+      if (r < rows_in && q < cols_in) copy_async(d, src + static_cast<size_t>(r) * nm + q);
+      else *d = T(0);
+    }
+  }
+}
 
-  for (int jt = chunk; jt < n_tiles; jt += n_chunks) {
-    const int p0 = jt * tile;
-    const int cols_in = min(tile, n - p0);
-    __syncthreads();  // the previous column tile is done with the shared strips
-    for (int i = tid; i < tile; i += nthreads) {
-      x_c[i] = i < cols_in ? x[p0 + i] : T(0);
-      l_c[i] = i < cols_in ? ell[p0 + i] : T(1);
+template <typename T, int TILE, int M>
+__device__ __forceinline__ void stage_pair(T* st, int I, int J, int n, const T* x, const T* ell,
+                                           const T* ls, const T* kbar, int tid) {
+  using S = Bwd<T, TILE, M>;
+  stage_kbar<T, TILE, M>(st, I, J, n, kbar, tid);
+  if (I != J) stage_kbar<T, TILE, M>(st + S::KB, J, I, n, kbar, tid);
+  stage_strip<T, TILE, M>(st + 2 * S::KB, I * TILE, n, x, ell, ls, tid);
+  stage_strip<T, TILE, M>(st + 2 * S::KB + S::STRIP, J * TILE, n, x, ell, ls, tid);
+}
+
+// One block walks tile pairs q = blockIdx.x, + gridDim.x, ...; thread
+// (ty, tx) takes the input pair (n, p) = (I*T + ty, J*T + tx).  Writes
+// partial[slot][row][0..M*M) = Lbar's share and [M*M] = lbar's share.
+template <typename T, int TILE, int M>
+__global__ void __launch_bounds__(TILE * TILE)
+svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
+                          const T* __restrict__ ls, int n, T jitter,
+                          const T* __restrict__ kbar, T* __restrict__ partial) {
+  using S = Bwd<T, TILE, M>;
+  constexpr int MM = S::MM, K = S::K, KP = S::KP, LP = S::LP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stages = reinterpret_cast<T*>(smem_raw);
+  T* red_row = stages + 2 * S::STAGE;    // TILE x K x RP: the row shares
+  T* red_col = red_row + TILE * K * S::RP;  // WARPS x TILE x K
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TILE, ty = tid / TILE;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n_tiles = (n + TILE - 1) / TILE;
+  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
+
+  int q = blockIdx.x, I, J;
+  tile_pair(q, n_tiles, I, J);
+  stage_pair<T, TILE, M>(stages, I, J, n, x, ell, ls, kbar, tid);
+  __pipeline_commit();
+  for (int it = 0; q < n_pairs; ++it, q += gridDim.x) {
+    const T* st = stages + (it & 1) * S::STAGE;
+    int In = 0, Jn = 0;
+    if (q + gridDim.x < n_pairs) {
+      tile_pair(q + gridDim.x, n_tiles, In, Jn);
+      stage_pair<T, TILE, M>(stages + ((it + 1) & 1) * S::STAGE, In, Jn, n, x, ell, ls, kbar, tid);
     }
-    for (int i = tid; i < tile * MM; i += nthreads)
-      L_c[i] = i < cols_in * MM ? ls[static_cast<size_t>(p0) * MM + i] : T(0);
-    // both Kbar tiles, each read along its rows (coalesced)
-    for (int i = tid; i < tm * tm; i += nthreads) {
-      const int r = i / tm, q = i % tm;
-      const bool row_ok = r < rows_in * M, col_ok = q < cols_in * M;
-      kb[r * ld + q] = (row_ok && col_ok)
-          ? kbar[(static_cast<size_t>(n0) * M + r) * nm + static_cast<size_t>(p0) * M + q] : T(0);
-      const bool trow_ok = r < cols_in * M, tcol_ok = q < rows_in * M;
-      kbt[r * ld + q] = (trow_ok && tcol_ok)
-          ? kbar[(static_cast<size_t>(p0) * M + r) * nm + static_cast<size_t>(n0) * M + q] : T(0);
-    }
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // this pair's copies have landed
     __syncthreads();
 
-    if (ty < rows_in && tx < cols_in) {
-      const T ln = l_r[ty];
-      const T lp = l_c[tx];
-      const T a2 = ln * ln + lp * lp;
-      const T b2 = ln * lp;
-      const T dx = x_r[ty] - x_c[tx];
+    const bool diag = I == J;
+    const T* kb = st;                      // Kbar[(n,a),(p,c)] at [a][c][ty][tx]
+    const T* kbt = diag ? st : st + S::KB; // Kbar[(p,c),(n,a)] at [c][a][tx][ty]
+    const T* xr = st + 2 * S::KB;
+    const T* lr = xr + TILE;
+    const T* Lr = lr + TILE;
+    const T* xc = xr + S::STRIP;
+    const T* lc = xc + TILE;
+    const T* Lc = lc + TILE;
+
+    T row[K], col[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) row[k] = col[k] = T(0);
+    if (!diag || ty <= tx) {
+      const bool self = diag && ty == tx;  // n == p: the row side alone
+      const T ln = lr[ty], lp = lc[tx];
+      const T dx = xr[ty] - xc[tx];
       const T d = dx * dx;
-      const T kx = gsqrt(T(2) * b2 / a2) * gexp(-d / a2);
-      const bool diag = row_n == p0 + tx;
-      const T kxj = diag ? kx + jitter : kx;
-      const T f = diag ? T(0) : T(1) / (T(2) * ln) - ln / a2 + T(2) * ln * d / (a2 * a2);
-      const T* Ln = L_r + ty * MM;
-      const T* Lp = L_c + tx * MM;
+      const T a2 = fma(ln, ln, lp * lp);
+      const T b2 = ln * lp;
+      const T inv_ab = T(1) / (a2 * b2);  // the pair's one division
+      const T inv_a = b2 * inv_ab;
+      const T half_inv_b = T(0.5) * a2 * inv_ab;  // 1/(2 l_n) = l_p/(2 l_n l_p)
+      const T kx = gsqrt(T(2) * b2 * inv_a) * gexp(-d * inv_a);
+      const T kxj = self ? kx + jitter : kx;
+      const T g = fma(T(2) * d, inv_a * inv_a, -inv_a);  // -1/A + 2 D/A^2
+      const T* Ln = Lr + ty * LP;
+      const T* Lp = Lc + tx * LP;
       T gsum = T(0);
 #pragma unroll
       for (int a = 0; a < M; ++a) {
 #pragma unroll
         for (int c = 0; c < M; ++c) {
-          T bac = Ln[a * M] * Lp[c * M];
+          const T s = kb[((a * M + c) * TILE + ty) * KP + tx] + kbt[((c * M + a) * TILE + tx) * KP + ty];
+          T bac = T(0);
 #pragma unroll
-          for (int b = 1; b < M; ++b) bac = bac + Ln[a * M + b] * Lp[c * M + b];
-          const T s = kb[(ty * M + a) * ld + tx * M + c] + kbt[(tx * M + c) * ld + ty * M + a];
-          gsum = gsum + s * bac;
+          for (int b = 0; b < M; ++b) bac = fma(Ln[a * M + b], Lp[c * M + b], bac);
+          gsum = fma(s, bac, gsum);
           const T w = s * kxj;
 #pragma unroll
-          for (int b = 0; b < M; ++b) acc_l[a * M + b] = acc_l[a * M + b] + w * Lp[c * M + b];
+          for (int b = 0; b < M; ++b) {
+            row[a * M + b] = fma(w, Lp[c * M + b], row[a * M + b]);
+            col[c * M + b] = fma(w, Ln[a * M + b], col[c * M + b]);
+          }
         }
       }
-      acc_e = acc_e + gsum * kx * f;
+      const T gk = gsum * kx;
+      if (!self) {
+        row[MM] = gk * fma(ln, g, lp * half_inv_b);
+        col[MM] = gk * fma(lp, g, ln * half_inv_b);
+      } else {
+#pragma unroll
+        for (int k = 0; k < MM; ++k) col[k] = T(0);
+      }
     }
-  }
 
-  // sum over the tile's columns: the `tile` lanes of one row are adjacent in a warp
-  for (int off = tile / 2; off > 0; off >>= 1) {
+    // row shares: to RC columns by shuffles (none where RC == TILE), then to
+    // shared memory, summed over the columns below; column sums over the
+    // warp's rows by shuffles, then over the warps
 #pragma unroll
-    for (int k = 0; k < MM; ++k) acc_l[k] = acc_l[k] + __shfl_xor_sync(0xffffffffu, acc_l[k], off);
-    acc_e = acc_e + __shfl_xor_sync(0xffffffffu, acc_e, off);
-  }
-  if (tx == 0 && ty < rows_in) {
-    T* dst = partial + (static_cast<size_t>(chunk) * n + row_n) * (MM + 1);
+    for (int k = 0; k < K; ++k) {
+      T v = row[k];
 #pragma unroll
-    for (int k = 0; k < MM; ++k) dst[k] = acc_l[k];
-    dst[MM] = acc_e;
+      for (int off = TILE / 2; off >= S::RC; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (tx < S::RC) red_row[(ty * K + k) * S::RP + tx] = v;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T v = col[k];
+#pragma unroll
+      for (int off = TILE; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      col[k] = v;
+    }
+    if (lane < TILE) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) red_col[(warp * TILE + lane) * K + k] = col[k];
+    }
+    __syncthreads();  // also: every thread is done with this stage
+
+    const int n0 = I * TILE, p0 = J * TILE;
+    for (int i = tid; i < TILE * K; i += S::THREADS) {
+      const int l = i / K;
+      T rs = red_row[i * S::RP];
+#pragma unroll
+      for (int j = 1; j < S::RC; ++j) rs += red_row[i * S::RP + j];
+      T cs = red_col[i];
+#pragma unroll
+      for (int w = 1; w < S::WARPS; ++w) cs += red_col[w * TILE * K + i];
+      if (diag) {
+        if (n0 + l < n) partial[(static_cast<size_t>(I) * n + n0) * K + i] = rs + cs;
+      } else {
+        if (n0 + l < n) partial[(static_cast<size_t>(J) * n + n0) * K + i] = rs;
+        if (p0 + l < n) partial[(static_cast<size_t>(I) * n + p0) * K + i] = cs;
+      }
+    }
+    I = In;
+    J = Jn;
   }
 }
 
-// Sums the shares in chunk order: ls_bar (N, M, M) and ell_bar (N,).
-template <typename T>
-__global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_chunks, int n,
-                                          int mm, T* __restrict__ ls_bar, T* __restrict__ ell_bar) {
-  const int width = mm + 1;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * width) return;
-  const size_t stride = static_cast<size_t>(n) * width;
-  T s = partial[i];
-  for (int c = 1; c < n_chunks; ++c) s = s + partial[c * stride + i];
-  const int row = i / width, k = i % width;
-  if (k < mm) ls_bar[static_cast<size_t>(row) * mm + k] = s;
-  else ell_bar[row] = s;
-}
-
+// Sums each row's slots in one fixed order: one warp per row, lane j adds
+// slots j, j + 32, ... in turn, then a fixed shuffle tree adds the lanes.
+// Writes ls_bar (N, M, M) and ell_bar (N,).
 template <typename T, int M>
-int launch_backward_m(const T* x, const T* ell, const T* ls, int n, T jitter, const T* kbar,
-                      int tile, int n_chunks, T* partial, cudaStream_t stream) {
-  const int tm = tile * M;
-  const size_t smem = sizeof(T) * (4 * tile + 2 * tile * M * M + 2 * tm * (tm + 1));
-  if (smem > 48 * 1024) {
+__global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_slots, int n,
+                                          T* __restrict__ ls_bar, T* __restrict__ ell_bar) {
+  constexpr int MM = M * M, K = MM + 1;
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;  // whole warps leave together
+  T s[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) s[k] = T(0);
+  for (int slot = lane; slot < n_slots; slot += 32) {
+    const T* src = partial + (static_cast<size_t>(slot) * n + row) * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) s[k] += src[k];
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
+  }
+  if (lane == 0) {  // every lane holds the same sums
+#pragma unroll
+    for (int k = 0; k < MM; ++k) ls_bar[static_cast<size_t>(row) * MM + k] = s[k];
+    ell_bar[row] = s[MM];
+  }
+}
+
+template <typename T>
+struct BwdArgs {
+  const T* x;
+  const T* ell;
+  const T* ls;
+  int n;
+  T jitter;
+  const T* kbar;
+  int grid;
+  T* partial;
+  T* ls_bar;
+  T* ell_bar;
+  cudaStream_t stream;
+};
+
+template <typename T, int TILE, int M>
+int launch_backward_m(const BwdArgs<T>& a) {
+  using S = Bwd<T, TILE, M>;
+  if (S::SMEM > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        svc_gram_tiled_bwd_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        svc_gram_tiled_bwd_kernel<T, TILE, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(S::SMEM));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((n + tile - 1) / tile, n_chunks);
-  const dim3 block(tile, tile);
-  svc_gram_tiled_bwd_kernel<T, M><<<grid, block, smem, stream>>>(
-      x, ell, ls, n, jitter, kbar, n_chunks, partial);
+  svc_gram_tiled_bwd_kernel<T, TILE, M><<<a.grid, S::THREADS, S::SMEM, a.stream>>>(
+      a.x, a.ell, a.ls, a.n, a.jitter, a.kbar, a.partial);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows_per_block = kThreads / 32;
+  svc_gram_tiled_bwd_reduce<T, M><<<(a.n + rows_per_block - 1) / rows_per_block, kThreads, 0, a.stream>>>(
+      a.partial, (a.n + TILE - 1) / TILE, a.n, a.ls_bar, a.ell_bar);
   return static_cast<int>(cudaGetLastError());
 }
 
+// tile must be the backward's tile side for m (16 for m <= 4, else 8), and
+// 1 <= grid <= the number of tile pairs, which must fit an int.
 template <typename T>
 int launch_backward(const void* x, const void* ell, const void* ls, int n, int m,
-                    double jitter, const void* kbar, int tile, int n_chunks, void* partial,
+                    double jitter, const void* kbar, int tile, int grid, void* partial,
                     void* ls_bar, void* ell_bar, void* stream) {
   const int n_tiles = (n + tile - 1) / tile;
-  if (m < 1 || m > kMaxM || (tile != 8 && tile != 16) || n_chunks < 1 || n_chunks > n_tiles)
+  if (m < 1 || m > kMaxM || tile != (m <= 4 ? 16 : 8) || n_tiles > 46340 || grid < 1 ||
+      grid > n_tiles * (n_tiles + 1) / 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xs = static_cast<const T*>(x);
-  const T* es = static_cast<const T*>(ell);
-  const T* lss = static_cast<const T*>(ls);
-  const T* kb = static_cast<const T*>(kbar);
-  T* part = static_cast<T*>(partial);
-  const T jit = static_cast<T>(jitter);
-  int status = 0;
+  const BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n,
+                     static_cast<T>(jitter), static_cast<const T*>(kbar), grid, static_cast<T*>(partial),
+                     static_cast<T*>(ls_bar), static_cast<T*>(ell_bar), static_cast<cudaStream_t>(stream)};
   switch (m) {
-    case 1: status = launch_backward_m<T, 1>(xs, es, lss, n, jit, kb, tile, n_chunks, part, s); break;
-    case 2: status = launch_backward_m<T, 2>(xs, es, lss, n, jit, kb, tile, n_chunks, part, s); break;
-    case 3: status = launch_backward_m<T, 3>(xs, es, lss, n, jit, kb, tile, n_chunks, part, s); break;
-    case 4: status = launch_backward_m<T, 4>(xs, es, lss, n, jit, kb, tile, n_chunks, part, s); break;
-    case 5: status = launch_backward_m<T, 5>(xs, es, lss, n, jit, kb, tile, n_chunks, part, s); break;
-    case 6: status = launch_backward_m<T, 6>(xs, es, lss, n, jit, kb, tile, n_chunks, part, s); break;
-    case 7: status = launch_backward_m<T, 7>(xs, es, lss, n, jit, kb, tile, n_chunks, part, s); break;
-    default: status = launch_backward_m<T, 8>(xs, es, lss, n, jit, kb, tile, n_chunks, part, s); break;
+    case 1: return launch_backward_m<T, 16, 1>(a);
+    case 2: return launch_backward_m<T, 16, 2>(a);
+    case 3: return launch_backward_m<T, 16, 3>(a);
+    case 4: return launch_backward_m<T, 16, 4>(a);
+    case 5: return launch_backward_m<T, 8, 5>(a);
+    case 6: return launch_backward_m<T, 8, 6>(a);
+    case 7: return launch_backward_m<T, 8, 7>(a);
+    default: return launch_backward_m<T, 8, 8>(a);
   }
-  if (status != 0) return status;
-  const int total = n * (m * m + 1);
-  svc_gram_tiled_bwd_reduce<T><<<(total + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      part, n_chunks, n, m * m, static_cast<T*>(ls_bar), static_cast<T*>(ell_bar));
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -339,18 +529,19 @@ int svc_gram_tiled_f64(const void* x, const void* ell, const void* ls, int n, in
   return launch_forward<double>(x, ell, ls, n, m, jitter, out, stream);
 }
 
-// partial: n_chunks * n * (m*m + 1) scratch values; ls_bar (n, m, m); ell_bar (n,).
+// partial: ceil(n/tile) * n * (m*m + 1) scratch values; ls_bar (n, m, m); ell_bar (n,).
+// grid: blocks of the persistent walk over the tile pairs.
 int svc_gram_tiled_backward_f32(const void* x, const void* ell, const void* ls, int n, int m,
-                                double jitter, const void* kbar, int tile, int n_chunks,
+                                double jitter, const void* kbar, int tile, int grid,
                                 void* partial, void* ls_bar, void* ell_bar, void* stream) {
-  return launch_backward<float>(x, ell, ls, n, m, jitter, kbar, tile, n_chunks, partial,
+  return launch_backward<float>(x, ell, ls, n, m, jitter, kbar, tile, grid, partial,
                                 ls_bar, ell_bar, stream);
 }
 
 int svc_gram_tiled_backward_f64(const void* x, const void* ell, const void* ls, int n, int m,
-                                double jitter, const void* kbar, int tile, int n_chunks,
+                                double jitter, const void* kbar, int tile, int grid,
                                 void* partial, void* ls_bar, void* ell_bar, void* stream) {
-  return launch_backward<double>(x, ell, ls, n, m, jitter, kbar, tile, n_chunks, partial,
+  return launch_backward<double>(x, ell, ls, n, m, jitter, kbar, tile, grid, partial,
                                  ls_bar, ell_bar, stream);
 }
 

@@ -37,6 +37,8 @@ counts exactly as before.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -98,6 +100,11 @@ def _check_cuda(name: str, tensors: dict, ndims: dict) -> tuple[torch.device, to
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     return device, dtype
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _raise_on(name: str, status: int) -> None:
@@ -179,7 +186,7 @@ gibbs_gram.launches = 0
 
 
 def _n_chunks(n_tiles: int) -> int:
-    """Column shares per row tile in a backward kernel: enough blocks to
+    """Column shares per row tile in K1's backward kernel: enough blocks to
     give each of the H100's 132 SMs about four, never more shares than
     column tiles."""
     return min(n_tiles, max(1, -(-528 // n_tiles)))
@@ -387,6 +394,50 @@ def svc_gram_tiled_backward_plain(x, ell, ls, jitter: float, kbar):
         return torch.autograd.grad(k, (ell_, ls_), kbar)
 
 
+@dataclasses.dataclass(frozen=True)
+class K3BackwardSchedule:
+    """How K3's backward kernel cuts its work, from (N, M) alone.
+
+    The kernel walks the unordered tile pairs ``(I, J)``, ``I <= J``, in the
+    order of :meth:`pairs` (row-major), and computes the same mapping from a
+    pair's index itself; block ``b`` of ``grid`` takes pairs ``b, b + grid,
+    ...``.  Pair ``(I, J)`` writes the rows of tile ``I`` into slot ``J`` and
+    the rows of tile ``J`` into slot ``I`` of ``partial[slot][row][k]``
+    (``k < M²``: L̄'s share, ``k = M²``: ℓ̄'s); every (slot, row) is written
+    once.  A second launch sums each row's slots in one fixed order: lane
+    ``j`` of the row's warp adds slots ``j, j + 32, ...``, then a shuffle
+    tree adds the lanes.  So the result does not depend on ``grid``.
+    """
+
+    n: int
+    m: int
+    tile: int
+    grid: int
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.n // self.tile)
+
+    @property
+    def n_pairs(self) -> int:
+        return self.n_tiles * (self.n_tiles + 1) // 2
+
+    @property
+    def partial_numel(self) -> int:
+        return self.n_tiles * self.n * (self.m * self.m + 1)
+
+    def pairs(self) -> list[tuple[int, int]]:
+        return [(i, j) for i in range(self.n_tiles) for j in range(i, self.n_tiles)]
+
+
+def k3_backward_schedule(n: int, m: int, sms: int = 132) -> K3BackwardSchedule:
+    """The tile side (16 inputs for M ≤ 4, else 8), the persistent grid (4
+    blocks per SM, never more blocks than tile pairs) and, through the
+    result's properties, the pairs and the partials' size."""
+    sched = K3BackwardSchedule(n, m, 16 if m <= 4 else 8, 1)
+    return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs, 4 * sms)))
+
+
 def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float):
     """``(ℓ̄, L̄)`` of K3 for the cotangent ``kbar`` (NM, NM), input-major,
     which need not be symmetric.  ``L̄`` is (N, M, M), upper triangle
@@ -406,14 +457,13 @@ def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float):
     ls_bar = torch.empty((n, m, m), dtype=dtype, device=device)
     if n == 0:
         return ell_bar, ls_bar
-    tile = 16 if m <= 4 else 8
-    n_chunks = _n_chunks(-(-n // tile))
-    partial = torch.empty(n_chunks * n * (m * m + 1), dtype=dtype, device=device)
+    sched = k3_backward_schedule(n, m, sm_count(device))
+    partial = torch.empty(sched.partial_numel, dtype=dtype, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = _kernel_fn("svc_gram_tiled_backward", dtype)(
             x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m, float(jitter),
-            kbar.data_ptr(), tile, n_chunks, partial.data_ptr(),
+            kbar.data_ptr(), sched.tile, sched.grid, partial.data_ptr(),
             ls_bar.data_ptr(), ell_bar.data_ptr(), stream,
         )
     svc_gram_tiled_backward.launches += 1
