@@ -13,11 +13,13 @@ Phases, each printing its lines:
                float32 and float64, with its warm time, the plain version's
                time and its bound (bytes over 3.35 TB/s, operations over the
                peak rate of their type).  A backward kernel's plain version
-               is autograd through its forward's; the tiled SVC Gram (K3) is
-               also compared with K2's input-major layout bit for bit.  K3's
-               backward must give bit-equal results on a repeat, and is also
-               timed with a cold L2; its scratch bytes are printed.  It is
-               also checked, untimed, at every other M it takes (1..8).
+               is autograd through its forward's; the tiled SVC Gram (K3) must
+               equal K2's input-major layout bit for bit.  K3's forward and
+               backward must give bit-equal results on a repeat and are also
+               timed with a cold L2; the forward beside a write floor (fill_
+               of the same bytes) with its store route, the backward with its
+               scratch bytes.  Both are also checked, untimed, at every other
+               M they take (the forward: 1..9, an odd N·M and N = 1).
 3. serving   — (slice 1's path) a ``sim_mnts`` subject at N=1000, M=2
                (float64) written to an artifact store, served over HTTP by
                the port's ``serve``; its /predict answers are checked and
@@ -92,6 +94,12 @@ GRAD_TOL = {"float64": 1e-10, "float32": 1e-4}
 #: K3's backward is timed at N=1000 M=2 and N=257 M=3; these (N, M) cover
 #: the other M it is compiled for, each checked once.
 K3_BWD_OTHER_SHAPES = ((100, 1), (100, 4), (100, 5), (64, 5), (77, 6), (61, 7), (50, 8))
+
+#: K3's forward is timed at N=1000 M=2 and N=257 M=3; these (N, M) cover the
+#: other M of its vector and scalar routes, an odd N·M, the generic route
+#: (M > 8) and N = 1, each checked once.
+K3_FWD_OTHER_SHAPES = ((100, 1), (100, 4), (64, 5), (77, 6), (61, 7), (50, 8), (37, 3), (40, 9),
+                       (1, 1), (1, 2), (1, 5))
 
 #: The training path: the objective phase's shape, the run_subject subject
 #: and budget, and the card-vs-CPU run.
@@ -238,17 +246,15 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 ))
         # K3 and the two backward kernels (the training path) at the served
         # shape and a ragged N=257, M=3
-        grads, k3_shapes = [], {}
+        grads, k3_shapes, k3_fwd_shapes = [], {}, {}
         for n, m in ((1000, 2), (257, 3)):
             x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
             ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
             ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
             kbar = torch.randn(n * m, n * m, generator=gen, dtype=torch.float64).to(dev, dtype)
             kbar1 = torch.randn(n, n, generator=gen, dtype=torch.float64).to(dev, dtype)
-            k3 = gk.svc_gram_tiled(x, l, ls, settings.jitter)
-            same = torch.equal(k3, gk.svc_gram(x, l, ls, settings.jitter, "input"))
-            log("kernels", f"svc_gram_tiled N={n} M={m} {dn} vs svc_gram input-major: "
-                f"{'equal bit for bit' if same else 'NOT bit-equal'}")
+            k3_equals_k2(torch, gk, settings, f"svc_gram_tiled N={n} M={m} {dn}", x, l, ls)
+            k3_fwd_shapes[f"svc_gram_tiled N={n} M={m}"] = (n, m)
             out_bytes = (n * m) ** 2 * size
             cases.append((
                 f"svc_gram_tiled N={n} M={m}", "svc_gram_tiled",
@@ -301,6 +307,21 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
                     f"(warm {ms:.5f}); scratch {row['scratch_bytes']} B for {sched.n_pairs} tile pairs "
                     f"of {sched.tile} inputs on a grid of {sched.grid} blocks")
+            if label in k3_fwd_shapes:
+                # K3's forward: bit-equal on a repeat, a cold-L2 time, the
+                # write floor (fill_ of the same bytes) warm and cold, its route
+                n, m = k3_fwd_shapes[label]
+                if not torch.equal(kern(), kern()):
+                    raise AssertionError(f"{label} {dn}: two launches on the same inputs differ")
+                sched = gk.k3_forward_schedule(n, m, dtype, gk.sm_count(dev))
+                fill = lambda n=n, m=m: torch.empty((n * m) ** 2, dtype=dtype, device=dev).fill_(1.0)
+                row.update(cold_ms=time_cold_ms(torch, kern), write_floor_ms=time_ms(torch, fill),
+                           write_floor_cold_ms=time_cold_ms(torch, fill), store_route=sched.route,
+                           vec=sched.vec, repeat_bit_equal=True)
+                log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
+                    f"(warm {ms:.5f}); write floor (fill_ of the same bytes) warm {row['write_floor_ms']:.5f} "
+                    f"cold {row['write_floor_cold_ms']:.5f}; {sched.route} route, {sched.vec} values a store, "
+                    f"items of {sched.rows} x 32 inputs, {sched.warps} warps a block, grid {sched.grid}")
             if dn == "float64" and label in main_labels:
                 main[kname] = row
         # K3's backward at the other M it takes, untimed: tile 16 at M=1 and
@@ -318,7 +339,28 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 raise AssertionError(f"{label}: two launches on the same inputs differ")
             log("kernels", f"{label} (tile {gk.k3_backward_schedule(n, m).tile}): ok, "
                 f"max_abs_err={err:.3e}, two launches bit-equal (untimed)")
+        # K3's forward at the other M and edge shapes, untimed: each route
+        for n, m in K3_FWD_OTHER_SHAPES:
+            x, _, l = kernel_inputs(torch, gen, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
+            ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
+            label = f"svc_gram_tiled N={n} M={m} {dn}"
+            got = gk.svc_gram_tiled(x, l, ls, settings.jitter)
+            err = check_close(torch, label, got, gk.svc_gram_tiled_plain(x, l, ls, settings.jitter), dn)
+            k3_equals_k2(torch, gk, settings, label, x, l, ls)
+            if not torch.equal(got, gk.svc_gram_tiled(x, l, ls, settings.jitter)):
+                raise AssertionError(f"{label}: two launches on the same inputs differ")
+            sched = gk.k3_forward_schedule(n, m, dtype, gk.sm_count(dev))
+            log("kernels", f"{label} ({sched.route} route, {sched.vec} values a store): ok, "
+                f"max_abs_err={err:.3e}, two launches bit-equal (untimed)")
     return main
+
+
+def k3_equals_k2(torch, gk, settings, label, x, l, ls) -> None:
+    """K3's forward must equal K2's input-major layout bit for bit."""
+    if not torch.equal(gk.svc_gram_tiled(x, l, ls, settings.jitter), gk.svc_gram(x, l, ls, settings.jitter, "input")):
+        raise AssertionError(f"{label}: not bit-equal to svc_gram input-major")
+    log("kernels", f"{label} vs svc_gram input-major: equal bit for bit")
 
 
 def write_subject(torch, sim, transforms, store_cls, root, seed):

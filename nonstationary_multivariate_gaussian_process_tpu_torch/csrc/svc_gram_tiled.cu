@@ -14,16 +14,42 @@
 // nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py.  The
 // TPU kernel built each (T, M, T, M) block of the output from (T, 1) strips of
 // x and l and (T, M, M) strips of L, with the task product as one
-// dot_general per tile.  This kernel keeps that shape: one thread block per
-// T x T tile of input pairs stages the row and column strips in shared
-// memory, evaluates the Gibbs term of each pair once, and forms the
-// (T*M) x (T*M) output tile from the staged strips.
+// dot_general per tile.
 //
 // Forward.  It writes (N M)^2 outputs and reads O(N M^2) inputs, with some
 // 2 M operations per output and ~12 per pair: bound by the bytes written,
 // (N M)^2 * 8 B = 32 MB at N=1000, M=2, float64 (about 9.6 us at 3.35 TB/s).
-// Consecutive threads store consecutive columns of a tile row.  The ragged
-// edge is masked, not padded.
+// So the design keeps a warp's stores wide and back to back, with no barrier
+// and no per-output index arithmetic:
+// * Work items are 32-input column strips of `rows` consecutive row inputs:
+//   item i takes row inputs (i / strips) * rows .. and columns (i % strips)
+//   * 32 ..  Each warp walks items w, w + (warps in the grid), ...  (a
+//   persistent grid; `rows`, the warps per block and the grid come from
+//   gram_kernels.k3_forward_schedule).
+// * Lane l owns column input p = p0 + l: it evaluates the Gibbs term of
+//   (n, p) once per row input n, in registers.  A row (n, a) of the strip is
+//   32 M contiguous outputs; lane l stores its chunks (l + 32 k) V .. + V - 1
+//   for k < M / V, V values at once (double2 for even M in float64, float4
+//   or float2 for M divisible by 4 or 2 in float32, else scalars).  A chunk
+//   lies within one column input, whose Gibbs term comes from its owner lane
+//   by a shuffle where V < M.  So every store instruction of a warp covers
+//   32 V contiguous values, and a row of the strip 32 M (512 B at M=2,
+//   float64).  The route (V) follows from M and the type alone: an even M
+//   keeps every row offset n M (N M) + a (N M) + p M even.
+// * M (1..8) is a template parameter, so the chunk decoding (element e = (l
+//   + 32 k) V: input e / M, task e % M) is done once per thread.  For M <= 4
+//   a lane keeps the L rows of its chunks in registers for the whole item;
+//   for M = 5..8 the warp stages its strip of L in shared memory, transposed
+//   to [b][e], and a lane holds one row of L_n at a time, so nothing spills.
+// * M > 8 keeps the first generic kernel: one block per 16 x 16 tile of
+//   input pairs, staged strips, a runtime task loop, scalar stores.
+// The ragged edge is masked.  Values never depend on the schedule: each
+// output is kx * bsum of its own (n, a, p, c).  What holds it back on the
+// card (PERF.md): in float64 the Gibbs term's exp, sqrt and two divisions
+// take about as long as the stores alone, and each warp reaches its first
+// store only after its loads and first Gibbs term.  Evaluating the term once
+// per unordered pair (tile pairs I <= J, the transposed block through shared
+// memory) was tried and was no faster at N=1000 and slower at N=257.
 //
 // Backward: the gradient of the same TPU kernel's Gram (pallas_kernels.py:122;
 // the TPU had no backward kernel, XLA differentiated the jnp Gram).  For a
@@ -76,9 +102,10 @@
 
 namespace {
 
-constexpr int kTile = 16;  // forward: input pairs per tile side
+constexpr int kTile = 16;  // forward, M > 8: input pairs per tile side
 constexpr int kThreads = 256;
-constexpr int kMaxM = 8;  // backward: tasks per input, a template parameter
+constexpr int kMaxM = 8;  // tasks per input, a template parameter
+constexpr int kFwdMaxThreads = 256;  // forward, M <= 8: at most 8 warps a block
 
 __device__ __forceinline__ float gexp(float v) { return expf(v); }
 __device__ __forceinline__ double gexp(double v) { return exp(v); }
@@ -90,9 +117,155 @@ __device__ __forceinline__ double gsqrt(double v) { return sqrt(v); }
 // ---------------------------------------------------------------------------
 
 template <typename T>
-__global__ void svc_gram_tiled_kernel(const T* __restrict__ x, const T* __restrict__ ell,
-                                      const T* __restrict__ ls, int n, int m, T jitter,
-                                      T* __restrict__ out) {
+__device__ __forceinline__ T gibbs(T xn, T ln, T xp, T lp) {
+  const T a2 = ln * ln + lp * lp;
+  const T b2 = ln * lp;
+  const T dx = xn - xp;
+  const T d = dx * dx;
+  return gsqrt(T(2) * b2 / a2) * gexp(-d / a2);
+}
+
+// V consecutive values stored at once; `p` is aligned to V values.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[V]) {
+  if constexpr (V == 1) {
+    *p = v[0];
+  } else if constexpr (sizeof(T) == 8) {
+    static_assert(V == 2, "float64 stores at most two values at once");
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    static_assert(V == 4, "float32 stores at most four values at once");
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+template <typename T, int M>
+struct Fwd {
+  static constexpr int MM = M * M;
+  // values per store: the alignment rule of gram_kernels.k3_forward_schedule
+  static constexpr int V = sizeof(T) == 8 ? (M % 2 == 0 ? 2 : 1) : (M % 4 == 0 ? 4 : M % 2 == 0 ? 2 : 1);
+  static constexpr int K = M / V;          // chunks of a row a lane stores
+  static constexpr bool REGS = M <= 4;     // the strip's L in registers, else in shared memory
+  static constexpr int STRIP = 32 * MM;    // a warp's staged strip of L (shared-memory route)
+};
+
+// Lane `lane`'s chunks of the strip of 32 column inputs from s0, and the L
+// rows they need: chunk k is elements (lane + 32 k) V .. + V - 1 of an output
+// row of the strip, all of column input s0 + pl[k], tasks c0[k] .. + V - 1.
+template <typename T, int M>
+struct Strip {
+  using F = Fwd<T, M>;
+  int pl[F::K], c0[F::K];
+  T L[F::REGS ? F::K : 1][F::V][M];  // register route: L[s0 + pl[k], c0[k] + v, b]
+  const T* Ls;                       // shared-memory route: [b][e] = L[s0 + e / M, e % M, b]
+
+  __device__ __forceinline__ Strip(int lane, int s0, int n, const T* ls, const T* staged) : Ls(staged) {
+#pragma unroll
+    for (int k = 0; k < F::K; ++k) {
+      const int e = (lane + 32 * k) * F::V;
+      pl[k] = e / M;
+      c0[k] = e % M;
+      if constexpr (F::REGS) {
+        const bool in = s0 + pl[k] < n;
+        const T* src = ls + (static_cast<size_t>(s0 + pl[k]) * M + c0[k]) * M;
+#pragma unroll
+        for (int v = 0; v < F::V; ++v)
+#pragma unroll
+          for (int b = 0; b < M; ++b) L[k][v][b] = in ? src[v * M + b] : T(0);
+      }
+    }
+  }
+
+  __device__ __forceinline__ T at(int lane, int k, int v, int b) const {
+    if constexpr (F::REGS) return L[k][v][b];
+    else return Ls[b * (32 * M) + (lane + 32 * k) * F::V + v];
+  }
+};
+
+// The M output rows (r, a) over the strip from s0; kx is the Gibbs term of
+// (r, s0 + lane), r is the same in every lane.
+template <typename T, int M>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, size_t nm, int n, int r, int s0, T kx,
+                                           const T* __restrict__ ls, const Strip<T, M>& st, int lane) {
+  using F = Fwd<T, M>;
+  constexpr int V = F::V, K = F::K;
+  T kxk[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) kxk[k] = V == M ? kx : __shfl_sync(0xffffffffu, kx, st.pl[k]);
+  const T* ls_r = ls + static_cast<size_t>(r) * F::MM;
+  T* row = out + static_cast<size_t>(r) * M * nm + static_cast<size_t>(s0) * M;
+#pragma unroll
+  for (int a = 0; a < M; ++a, row += nm) {
+    T Lr[M];
+#pragma unroll
+    for (int b = 0; b < M; ++b) Lr[b] = ls_r[a * M + b];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (s0 + st.pl[k] >= n) continue;
+      T val[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        T bsum = Lr[0] * st.at(lane, k, v, 0);
+#pragma unroll
+        for (int b = 1; b < M; ++b) bsum = bsum + Lr[b] * st.at(lane, k, v, b);
+        val[v] = kxk[k] * bsum;
+      }
+      store_vec<T, V>(row + (lane + 32 * k) * V, val);
+    }
+  }
+}
+
+// The warp's strip of L from s0, [b][e], for the shared-memory route; past
+// N, L = 0.
+template <typename T, int M>
+__device__ __forceinline__ void stage_L(T* dst, int s0, int n, const T* __restrict__ ls, int lane) {
+  using F = Fwd<T, M>;
+  const int valid = min(32, n - s0) * F::MM;
+  const T* src = ls + static_cast<size_t>(s0) * F::MM;
+  for (int i = lane; i < F::STRIP; i += 32) dst[(i % M) * (32 * M) + i / M] = i < valid ? src[i] : T(0);
+}
+
+// One warp per item (rows x 32 input pairs); see the header.
+template <typename T, int M>
+__global__ void __launch_bounds__(kFwdMaxThreads)
+svc_gram_tiled_fwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
+                          const T* __restrict__ ls, int n, int rows, int n_items, T jitter,
+                          T* __restrict__ out) {
+  using F = Fwd<T, M>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int n_strips = (n + 31) / 32;
+  const size_t nm = static_cast<size_t>(n) * M;
+  T* Ls = reinterpret_cast<T*>(smem_raw) + warp * F::STRIP;  // shared-memory route: the warp's strip
+  for (int item = blockIdx.x * warps + warp; item < n_items; item += gridDim.x * warps) {
+    const int n0 = item / n_strips * rows;
+    const int p0 = item % n_strips * 32;
+    if constexpr (!F::REGS) {
+      __syncwarp();  // every lane is done with the previous item's strip
+      stage_L<T, M>(Ls, p0, n, ls, lane);
+      __syncwarp();
+    }
+    const Strip<T, M> st(lane, p0, n, ls, Ls);
+    const int p = p0 + lane;
+    const T xp = p < n ? x[p] : T(0);
+    const T lp = p < n ? ell[p] : T(1);
+    const int n1 = min(n, n0 + rows);
+    for (int r = n0; r < n1; ++r) {  // r is the same in every lane
+      T kx = gibbs(x[r], ell[r], xp, lp);
+      if (r == p) kx = kx + jitter;
+      store_rows<T, M>(out, nm, n, r, p0, kx, ls, st, lane);
+    }
+  }
+}
+
+// M > 8: the first kernel, one block per 16 x 16 tile of input pairs.
+template <typename T>
+__global__ void svc_gram_tiled_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell,
+                                              const T* __restrict__ ls, int n, int m, T jitter,
+                                              T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int mm = m * m;
@@ -125,13 +298,7 @@ __global__ void svc_gram_tiled_kernel(const T* __restrict__ x, const T* __restri
   // the Gibbs term of each pair, once
   for (int i = tid; i < kTile * kTile; i += blockDim.x) {
     const int r = i / kTile, c = i % kTile;
-    const T li = l_r[r];
-    const T lj = l_c[c];
-    const T a2 = li * li + lj * lj;
-    const T b2 = li * lj;
-    const T dx = x_r[r] - x_c[c];
-    const T d = dx * dx;
-    T kx = gsqrt(T(2) * b2 / a2) * gexp(-d / a2);
+    T kx = gibbs(x_r[r], l_r[r], x_c[c], l_c[c]);
     if (n0 + r == p0 + c) kx = kx + jitter;
     kx_s[i] = kx;
   }
@@ -154,21 +321,66 @@ __global__ void svc_gram_tiled_kernel(const T* __restrict__ x, const T* __restri
   }
 }
 
-template <typename T>
-int launch_forward(const void* x, const void* ell, const void* ls, int n, int m,
-                   double jitter, void* out, void* stream) {
-  const dim3 grid((n + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  const size_t smem = sizeof(T) * (4 * kTile + kTile * kTile + 2 * kTile * m * m);
+template <typename T, int M>
+int launch_forward_m(const T* x, const T* ell, const T* ls, int n, int rows, int n_items, T jitter,
+                     int warps, int grid, T* out, cudaStream_t stream) {
+  using F = Fwd<T, M>;
+  const size_t smem = F::REGS ? 0 : sizeof(T) * F::STRIP * warps;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        svc_gram_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        svc_gram_tiled_fwd_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  svc_gram_tiled_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n, m,
-      static_cast<T>(jitter), static_cast<T*>(out));
+  svc_gram_tiled_fwd_kernel<T, M><<<grid, warps * 32, smem, stream>>>(x, ell, ls, n, rows, n_items,
+                                                                       jitter, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// vec must be the store width of (T, m) and rows the tile's row inputs
+// (16 for m > 8); for m <= 8, 1 <= warps <= kFwdMaxThreads / 32 and
+// 1 <= grid.
+template <typename T>
+int launch_forward(const void* x_, const void* ell_, const void* ls_, int n, int m,
+                   double jitter_, int vec, int rows, int warps, int grid, void* out_,
+                   void* stream_) {
+  const T* x = static_cast<const T*>(x_);
+  const T* ell = static_cast<const T*>(ell_);
+  const T* ls = static_cast<const T*>(ls_);
+  const T jitter = static_cast<T>(jitter_);
+  T* out = static_cast<T*>(out_);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (m > kMaxM) {
+    const int tiles = (n + kTile - 1) / kTile;
+    if (vec != 1 || rows != kTile || tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = sizeof(T) * (4 * kTile + kTile * kTile + 2 * kTile * m * m);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          svc_gram_tiled_generic_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    svc_gram_tiled_generic_kernel<T><<<dim3(tiles, tiles), kThreads, smem, stream>>>(
+        x, ell, ls, n, m, jitter, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int want_vec = sizeof(T) == 8 ? (m % 2 == 0 ? 2 : 1) : (m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1);
+  if (vec != want_vec || rows < 1 || warps < 1 || warps * 32 > kFwdMaxThreads || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>((n + rows - 1) / rows) * ((n + 31) / 32);
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_items = static_cast<int>(items);
+  switch (m) {
+    case 1: return launch_forward_m<T, 1>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
+    case 2: return launch_forward_m<T, 2>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
+    case 3: return launch_forward_m<T, 3>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
+    case 4: return launch_forward_m<T, 4>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
+    case 5: return launch_forward_m<T, 5>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
+    case 6: return launch_forward_m<T, 6>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
+    case 7: return launch_forward_m<T, 7>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
+    default: return launch_forward_m<T, 8>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -519,14 +731,17 @@ int launch_backward(const void* x, const void* ell, const void* ls, int n, int m
 extern "C" {
 
 // Each returns cudaGetLastError() after its launches (0 on success).
+// vec, rows, warps, grid: gram_kernels.k3_forward_schedule(n, m, dtype).
 int svc_gram_tiled_f32(const void* x, const void* ell, const void* ls, int n, int m,
-                       double jitter, void* out, void* stream) {
-  return launch_forward<float>(x, ell, ls, n, m, jitter, out, stream);
+                       double jitter, int vec, int rows, int warps, int grid, void* out,
+                       void* stream) {
+  return launch_forward<float>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, out, stream);
 }
 
 int svc_gram_tiled_f64(const void* x, const void* ell, const void* ls, int n, int m,
-                       double jitter, void* out, void* stream) {
-  return launch_forward<double>(x, ell, ls, n, m, jitter, out, stream);
+                       double jitter, int vec, int rows, int warps, int grid, void* out,
+                       void* stream) {
+  return launch_forward<double>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, out, stream);
 }
 
 // partial: ceil(n/tile) * n * (m*m + 1) scratch values; ls_bar (n, m, m); ell_bar (n,).

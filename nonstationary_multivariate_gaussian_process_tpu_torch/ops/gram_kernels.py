@@ -11,8 +11,9 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
   task-major (row ``a·N + n``) or input-major (row ``n·M + a``) layout.
   Prediction only: nothing differentiates through it.
 * :func:`svc_gram_tiled` — kernel K3, ``csrc/svc_gram_tiled.cu``, replaces
-  ``svc_gram_fused``.  The same Gram, input-major, built tile by tile from
-  staged strips; the Gram of the GNMGP likelihood.
+  ``svc_gram_fused``.  The same Gram, input-major, written strip by strip
+  with wide stores (:func:`k3_forward_schedule`); the Gram of the GNMGP
+  likelihood.
 * :func:`gibbs_gram_backward` and :func:`svc_gram_tiled_backward` — the
   backward kernels of K1's self form and of K3 (new: the TPU had none).
 
@@ -55,7 +56,7 @@ _SIGNATURES = {
     "gibbs_gram": [_P, _P, _P, _I, _P, _P, _P, _I, _D, _P, _P],
     "gibbs_gram_backward": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P],
     "svc_gram": [_P, _P, _P, _I, _I, _D, _I, _P, _P],
-    "svc_gram_tiled": [_P, _P, _P, _I, _I, _D, _P, _P],
+    "svc_gram_tiled": [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P, _P],
     "svc_gram_tiled_backward": [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P, _P],
 }
 #: The source (``csrc/<name>.cu``) each entry point lives in.
@@ -325,7 +326,8 @@ svc_gram.launches = 0
 # K3: tiled SVC Gram (input-major) and its backward
 # ---------------------------------------------------------------------------
 
-#: The backward kernel is specialised for M = 1..8 tasks per input.
+#: The forward and backward kernels are specialised for M = 1..8 tasks per
+#: input; above that the forward takes its generic route and the backward raises.
 K3_MAX_M = 8
 
 
@@ -349,6 +351,67 @@ def _check_svc(name, x, ell, ls):
     return device, dtype, n, m
 
 
+@dataclasses.dataclass(frozen=True)
+class K3ForwardSchedule:
+    """How K3's forward kernel cuts its work, from (N, M, dtype) alone.
+
+    ``route`` is ``"vector"`` or ``"scalar"`` (M ≤ 8) or ``"generic"`` (M >
+    8).  For M ≤ 8 an item is ``rows`` row inputs by a strip of 32 column
+    inputs; item ``i`` is row chunk ``i // n_strips`` and strip ``i %
+    n_strips``.  Warp ``w`` of block ``b`` (``warps`` a block, ``grid``
+    blocks) takes items ``b·warps + w``, then every ``grid·warps``-th.  Lane
+    ``l`` evaluates the Gibbs term of column input ``p0 + l`` and stores
+    chunks ``(l + 32k)·vec ..`` of each output row of the strip, ``vec``
+    values at once, for ``k < M / vec``.  ``vec`` is 2 for an even M in
+    float64, 4 or 2 for M divisible by 4 or 2 in float32, else 1: then every
+    row offset ``(n·M + a)·N·M`` and strip offset ``p0·M`` is a multiple of
+    ``vec``, and the output's base is 256-B aligned.  The generic route
+    (M > 8) is the first kernel: one block per 16 × 16 tile of input pairs
+    (``rows`` = 16, ``grid`` = tiles²), scalar stores.
+    """
+
+    n: int
+    m: int
+    route: str
+    vec: int
+    rows: int
+    warps: int
+    grid: int
+
+    @property
+    def n_strips(self) -> int:
+        return -(-self.n // 32)
+
+    @property
+    def n_items(self) -> int:
+        return -(-self.n // self.rows) * self.n_strips
+
+    def items(self, block: int, warp: int) -> range:
+        """The items warp ``warp`` of block ``block`` takes, in its order."""
+        return range(block * self.warps + warp, self.n_items, self.grid * self.warps)
+
+
+#: K3's forward: every SM should get at least this many warps' items.
+_K3_FWD_WARPS_PER_SM = 16
+
+
+def k3_forward_schedule(n: int, m: int, dtype: torch.dtype, sms: int = 132) -> K3ForwardSchedule:
+    """The store route and width, the rows of an item (the most of 8, 4, 2,
+    1 that still gives every SM 16 warps' items), 4 warps a block and a grid
+    of at most 16 blocks per SM, never more blocks than the items fill."""
+    if m > K3_MAX_M:
+        tiles = -(-n // 16)
+        return K3ForwardSchedule(n, m, "generic", 1, 16, 8, tiles * tiles)
+    if dtype == torch.float64:
+        vec = 2 if m % 2 == 0 else 1
+    else:
+        vec = 4 if m % 4 == 0 else 2 if m % 2 == 0 else 1
+    strips = -(-n // 32)
+    rows = next((r for r in (8, 4, 2) if -(-n // r) * strips >= _K3_FWD_WARPS_PER_SM * sms), 1)
+    sched = K3ForwardSchedule(n, m, "vector" if vec > 1 else "scalar", vec, rows, 4, 1)
+    return dataclasses.replace(sched, grid=max(1, min(-(-sched.n_items // sched.warps), 16 * sms)))
+
+
 def _svc_gram_tiled_forward(x, ell, ls, jitter) -> torch.Tensor:
     if x.device.type == "cpu":
         return svc_gram_tiled_plain(x, ell, ls, jitter)
@@ -356,11 +419,12 @@ def _svc_gram_tiled_forward(x, ell, ls, jitter) -> torch.Tensor:
     out = torch.empty((n * m, n * m), dtype=dtype, device=device)
     if n == 0 or m == 0:
         return out
+    sched = k3_forward_schedule(n, m, dtype, sm_count(device))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = _kernel_fn("svc_gram_tiled", dtype)(
             x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m, float(jitter),
-            out.data_ptr(), stream,
+            sched.vec, sched.rows, sched.warps, sched.grid, out.data_ptr(), stream,
         )
     svc_gram_tiled.launches += 1
     _raise_on("svc_gram_tiled", status)
