@@ -19,7 +19,12 @@ Phases, each printing its lines:
                timed with a cold L2; the forward beside a write floor (fill_
                of the same bytes) with its store route, the backward with its
                scratch bytes.  Both are also checked, untimed, at every other
-               M they take (the forward: 1..9, an odd N·M and N = 1).
+               M they take (the forward: 1..8, an odd N·M and N = 1), and
+               their generic routes (M > 8) at large M (the forward up to
+               M = 130, bit for bit) and timed at N=200, M=9.  K1's backward
+               likewise: bit-equal repeats, cold-L2 time and scratch bytes,
+               and untimed checks at N = 1..1100 (single input, whole and
+               ragged last tiles of both tile sizes, more slots than lanes).
 3. serving   — (slice 1's path) a ``sim_mnts`` subject at N=1000, M=2
                (float64) written to an artifact store, served over HTTP by
                the port's ``serve``; its /predict answers are checked and
@@ -30,7 +35,8 @@ Phases, each printing its lines:
                stage (kriging, Gram factor, moments) on both, and the card's
                moments fed the CPU's kriged latents, which must match the
                CPU's at rtol 1e-6 with no absolute floor.
-5. objective — the GNMGP and SNMGP MAP objectives at N=1000, M=2: value and
+5. objective — the GNMGP and SNMGP MAP objectives at N=1000, M=2, and the
+               GNMGP objective at N=200, M=9 (K3's generic routes): value and
                gradient on the card against the CPU at rtol 1e-6, gradient
                evaluations per second (GNMGP f64 and f32, SNMGP f64), the
                kernels launched per gradient, and a profile of one GNMGP
@@ -96,10 +102,24 @@ GRAD_TOL = {"float64": 1e-10, "float32": 1e-4}
 K3_BWD_OTHER_SHAPES = ((100, 1), (100, 4), (100, 5), (64, 5), (77, 6), (61, 7), (50, 8))
 
 #: K3's forward is timed at N=1000 M=2 and N=257 M=3; these (N, M) cover the
-#: other M of its vector and scalar routes, an odd N·M, the generic route
-#: (M > 8) and N = 1, each checked once.
-K3_FWD_OTHER_SHAPES = ((100, 1), (100, 4), (64, 5), (77, 6), (61, 7), (50, 8), (37, 3), (40, 9),
+#: other M of its vector and scalar routes, an odd N·M and N = 1, each
+#: checked once.
+K3_FWD_OTHER_SHAPES = ((100, 1), (100, 4), (64, 5), (77, 6), (61, 7), (50, 8), (37, 3),
                        (1, 1), (1, 2), (1, 5))
+
+#: K3's generic routes (M > 8), checked once each: the forward where its
+#: first design staged L and overflowed a block's shared memory (f64 from
+#: M = 30, f32 from M = 43), the backward beyond the templated M = 8; and the
+#: (N, M) of their timed rows and of the objective phase's M > 8 check.
+K3_FWD_GENERIC_SHAPES = {"float64": ((40, 9), (24, 29), (24, 30), (8, 64), (4, 130)),
+                         "float32": ((40, 9), (24, 42), (24, 43), (4, 130))}
+K3_BWD_GENERIC_SHAPES = ((40, 9), (33, 12), (20, 16), (12, 30), (4, 130))
+GENERIC_N, GENERIC_M = 200, 9
+
+#: K1's backward is timed at N=1000 and N=257; these N cover a single input,
+#: whole and ragged last tiles of 16 and 32 inputs, and more partial slots
+#: than a warp has lanes (N = 1100: 35), each checked once.
+K1_BWD_OTHER_SIZES = (1, 16, 17, 31, 32, 33, 600, 1024, 1100)
 
 #: The training path: the objective phase's shape, the run_subject subject
 #: and budget, and the card-vs-CPU run.
@@ -245,9 +265,10 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                     (2 * n + n * m * m) * size + (n * m) ** 2 * size, n * n * (12 + 2 * m**3),
                 ))
         # K3 and the two backward kernels (the training path) at the served
-        # shape and a ragged N=257, M=3
-        grads, k3_shapes, k3_fwd_shapes = [], {}, {}
-        for n, m in ((1000, 2), (257, 3)):
+        # shape and a ragged N=257, M=3; in f64 also K3's generic routes
+        grads, k3_shapes, k3_fwd_shapes, k1_sizes = [], {}, {}, {}
+        k3_timed = ((1000, 2), (257, 3)) + (((GENERIC_N, GENERIC_M),) if dn == "float64" else ())
+        for n, m in k3_timed:
             x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
             ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
             ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
@@ -270,6 +291,9 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 out_bytes + (2 * n + n * m * m) * size + (n + n * m * m) * size,
                 n * n * 25 + (n * m) ** 2 * (4 * m + 3),
             ))
+            if m > gk.K3_MAX_M:
+                continue  # K1's backward is timed at the training path's shapes alone
+            k1_sizes[f"gibbs_gram_backward N={n}"] = n
             grads.append((
                 f"gibbs_gram_backward N={n}", "gibbs_gram_backward",
                 lambda x=x, s=s, l=l, kb=kbar1: gk.gibbs_gram_backward(x, s, l, kb, settings.jitter),
@@ -295,18 +319,23 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             }
             log("kernels", f"{label} {dn}: ok, max_abs_err={err:.3e} ms={ms:.5f} "
                 f"plain_ms={plain_ms:.5f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
-            if label in k3_shapes:
-                # K3's backward: bit-equal on a repeat, a cold-L2 time (K̄'s
-                # 32 MB at N=1000, M=2, f64 fits in the 50 MB L2), its scratch
+            if label in k3_shapes or label in k1_sizes:
+                # a backward: bit-equal on a repeat, a cold-L2 time (K̄'s 32
+                # MB at N=1000, M=2, f64 fits in the 50 MB L2), its scratch
                 first, again = kern(), kern()
                 if not all(torch.equal(a, b) for a, b in zip(first, again)):
                     raise AssertionError(f"{label} {dn}: two launches on the same inputs differ")
-                sched = gk.k3_backward_schedule(*k3_shapes[label], gk.sm_count(dev))
+                if label in k3_shapes:
+                    sched = gk.k3_backward_schedule(*k3_shapes[label], gk.sm_count(dev))
+                    walk = (f"{sched.route} route, " + ("one block per row input" if sched.route == "generic"
+                            else f"{sched.n_pairs} tile pairs of {sched.tile} inputs") + f", grid {sched.grid}")
+                else:
+                    sched = gk.k1_backward_schedule(k1_sizes[label], gk.sm_count(dev))
+                    walk = f"{sched.n_pairs} tile pairs of {sched.tile} inputs, grid {sched.grid}"
                 row.update(cold_ms=time_cold_ms(torch, kern), scratch_bytes=sched.partial_numel * size,
                            repeat_bit_equal=True)
                 log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
-                    f"(warm {ms:.5f}); scratch {row['scratch_bytes']} B for {sched.n_pairs} tile pairs "
-                    f"of {sched.tile} inputs on a grid of {sched.grid} blocks")
+                    f"(warm {ms:.5f}); scratch {row['scratch_bytes']} B; {walk}")
             if label in k3_fwd_shapes:
                 # K3's forward: bit-equal on a repeat, a cold-L2 time, the
                 # write floor (fill_ of the same bytes) warm and cold, its route
@@ -318,15 +347,18 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 row.update(cold_ms=time_cold_ms(torch, kern), write_floor_ms=time_ms(torch, fill),
                            write_floor_cold_ms=time_cold_ms(torch, fill), store_route=sched.route,
                            vec=sched.vec, repeat_bit_equal=True)
+                walk = (f"tiles of {sched.rows} x {sched.rows} inputs" if sched.route == "generic"
+                        else f"items of {sched.rows} x 32 inputs")
                 log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
                     f"(warm {ms:.5f}); write floor (fill_ of the same bytes) warm {row['write_floor_ms']:.5f} "
                     f"cold {row['write_floor_cold_ms']:.5f}; {sched.route} route, {sched.vec} values a store, "
-                    f"items of {sched.rows} x 32 inputs, {sched.warps} warps a block, grid {sched.grid}")
+                    f"{walk}, {sched.warps} warps a block, grid {sched.grid}")
             if dn == "float64" and label in main_labels:
                 main[kname] = row
         # K3's backward at the other M it takes, untimed: tile 16 at M=1 and
-        # M=4, tile 8 at M=5..8, with ragged and whole last tiles
-        for n, m in K3_BWD_OTHER_SHAPES:
+        # M=4, tile 8 at M=5..8, with ragged and whole last tiles; the
+        # generic route above M = 8
+        for n, m in K3_BWD_OTHER_SHAPES + K3_BWD_GENERIC_SHAPES:
             x, _, l = kernel_inputs(torch, gen, n, dtype, dev)
             ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
             ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
@@ -337,22 +369,49 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                              gk.svc_gram_tiled_backward_plain(x, l, ls, settings.jitter, kbar), dn)
             if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
                 raise AssertionError(f"{label}: two launches on the same inputs differ")
-            log("kernels", f"{label} (tile {gk.k3_backward_schedule(n, m).tile}): ok, "
+            sched = gk.k3_backward_schedule(n, m)
+            log("kernels", f"{label} ({sched.route} route, tile {sched.tile}): ok, "
                 f"max_abs_err={err:.3e}, two launches bit-equal (untimed)")
-        # K3's forward at the other M and edge shapes, untimed: each route
-        for n, m in K3_FWD_OTHER_SHAPES:
+        # K3's forward at the other M and edge shapes, untimed: each route;
+        # the generic route bit for bit against the plain version too
+        for n, m in K3_FWD_OTHER_SHAPES + K3_FWD_GENERIC_SHAPES[dn]:
             x, _, l = kernel_inputs(torch, gen, n, dtype, dev)
             ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
             ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
             label = f"svc_gram_tiled N={n} M={m} {dn}"
             got = gk.svc_gram_tiled(x, l, ls, settings.jitter)
-            err = check_close(torch, label, got, gk.svc_gram_tiled_plain(x, l, ls, settings.jitter), dn)
+            want = gk.svc_gram_tiled_plain(x, l, ls, settings.jitter)
+            err = check_close(torch, label, got, want, dn)
+            if m > gk.K3_MAX_M and not torch.equal(got, want):
+                raise AssertionError(f"{label}: not bit-equal to the plain version")
             k3_equals_k2(torch, gk, settings, label, x, l, ls)
             if not torch.equal(got, gk.svc_gram_tiled(x, l, ls, settings.jitter)):
                 raise AssertionError(f"{label}: two launches on the same inputs differ")
             sched = gk.k3_forward_schedule(n, m, dtype, gk.sm_count(dev))
-            log("kernels", f"{label} ({sched.route} route, {sched.vec} values a store): ok, "
-                f"max_abs_err={err:.3e}, two launches bit-equal (untimed)")
+            log("kernels", f"{label} ({sched.route} route, {sched.vec} values a store, "
+                f"{sched.smem_bytes} B of shared memory a block): ok, max_abs_err={err:.3e}, "
+                "two launches bit-equal (untimed)")
+        # K1's backward at other N, untimed: each tile size, whole and ragged
+        for n in K1_BWD_OTHER_SIZES:
+            x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
+            kbar = torch.randn(n, n, generator=gen, dtype=torch.float64).to(dev, dtype)
+            label = f"gibbs_gram_backward N={n} {dn}"
+            kern = lambda: gk.gibbs_gram_backward(x, s, l, kbar, settings.jitter)
+            got, want = kern(), gk.gibbs_gram_backward_plain(x, s, l, settings.jitter, kbar)
+            if n == 1:
+                # one input: ℓ̄ is 0 in exact arithmetic (f = 0 on the
+                # diagonal) and autograd of the plain version returns its
+                # rounding there, so the kernel's must be exactly 0
+                err = check_grad(torch, label, got[:1], want[:1], dn)
+                if got[1].item() != 0.0:
+                    raise AssertionError(f"{label}: ℓ̄ of one input is {got[1].item():.3e}, not 0")
+            else:
+                err = check_grad(torch, label, got, want, dn)
+            if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
+                raise AssertionError(f"{label}: two launches on the same inputs differ")
+            sched = gk.k1_backward_schedule(n, gk.sm_count(dev))
+            log("kernels", f"{label} (tile {sched.tile}, {sched.n_tiles} slots): ok, max_abs_err={err:.3e}, "
+                "two launches bit-equal (untimed)")
     return main
 
 
@@ -581,6 +640,32 @@ def training_subject(torch, seed: int, n: int):
     return d.x.numpy(), d.y.numpy(), gvec, svec
 
 
+def gnmgp_subject(torch, seed: int, n: int, m: int):
+    """A GNMGP subject at any M (``sim_mnts`` draws M = 2 only), on the CPU in
+    float64: the sim's lengthscale process, smooth random L-process vectors,
+    y drawn from the GNMGP likelihood they define.  Returns x, y (numpy) and
+    the packed parameter vector."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import settings
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels as gk
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import transforms
+
+    gen = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    x = torch.sort(torch.rand(n, generator=gen, dtype=f64)).values
+    tilde_l = 3.0 * (x - 1.0) ** 3 - 3.0
+    t = transforms.tri_size(m)
+    a, b = (0.3 * torch.randn(t, generator=gen, dtype=f64) for _ in range(2))
+    ul = a[None, :] + b[None, :] * x[:, None]  # (N, T), smooth in x
+    sigma2 = 1e-2
+    ls = gnmgp.chol_process(ul.reshape(-1), n, m)
+    cov = gk.svc_gram_tiled_plain(x, torch.exp(tilde_l), ls, settings.jitter)
+    cov = cov + sigma2 * torch.eye(n * m, dtype=f64)
+    y = torch.linalg.cholesky(cov) @ torch.randn(n * m, generator=gen, dtype=f64)
+    vec = torch.cat([tilde_l, ul.reshape(-1), torch.log(torch.tensor([sigma2], dtype=f64))])
+    return x.numpy(), y.reshape(n, m).numpy(), vec
+
+
 def held(np, got, want, rtol) -> tuple[float, float]:
     """Max relative error and max error as a fraction of the largest |want|;
     raises unless every entry is within rtol·|want| + rtol·max|want|."""
@@ -595,35 +680,39 @@ def held(np, got, want, rtol) -> tuple[float, float]:
 
 
 def phase_objective(torch, np, gk, seed) -> dict:
-    """The MAP objectives at N=TRAIN_N, M=2: card against CPU, gradient
-    evaluations per second, launches per gradient, and a profile of one
-    GNMGP gradient."""
+    """The MAP objectives at N=TRAIN_N, M=2, and the GNMGP objective at
+    N=GENERIC_N, M=GENERIC_M: card against CPU, gradient evaluations per
+    second, launches per gradient, and a profile of one GNMGP gradient."""
     from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
     from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp, snmgp
     from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
 
     x, y, gvec, svec = training_subject(torch, seed + 1, TRAIN_N)
-    models = {"gnmgp": (gnmgp, gvec), "snmgp": (snmgp, svec)}
+    xg, yg, gvec_g = gnmgp_subject(torch, seed + 3, GENERIC_N, GENERIC_M)
+    checks = {f"gnmgp N={TRAIN_N} M=2": (gnmgp, gvec, x, y), f"snmgp N={TRAIN_N} M=2": (snmgp, svec, x, y),
+              f"gnmgp N={GENERIC_N} M={GENERIC_M}": (gnmgp, gvec_g, xg, yg)}
 
-    def objective(mod, device, dtype):
+    def objective(mod, device, dtype, x=x, y=y):
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         return mod.make_objective(FullData(as_t(x), as_t(y)))
 
-    expected = {"gnmgp": {"svc_gram_tiled": 1, "svc_gram_tiled_backward": 1},
-                "snmgp": {"gibbs_gram": 1, "gibbs_gram_backward": 1}}
-    for name, (mod, vec) in models.items():
-        f_card = objective(mod, DEVICE, torch.float64)
+    expected = {gnmgp: {"svc_gram_tiled": 1, "svc_gram_tiled_backward": 1},
+                snmgp: {"gibbs_gram": 1, "gibbs_gram_backward": 1}}
+    for name, (mod, vec, xs, ys) in checks.items():
+        f_card = objective(mod, DEVICE, torch.float64, xs, ys)
         gk.reset_launches()
         v_card, g_card = value_and_grad(f_card, vec.to(DEVICE))
         torch.cuda.synchronize()
         counts = gk.launches()
-        want = {k: expected[name].get(k, 0) for k in counts}
+        want = {k: expected[mod].get(k, 0) for k in counts}
         if counts != want:
             raise AssertionError(f"{name} gradient launched {counts}, expected {want}")
-        v_cpu, g_cpu = value_and_grad(objective(mod, "cpu", torch.float64), vec)
+        v_cpu, g_cpu = value_and_grad(objective(mod, "cpu", torch.float64, xs, ys), vec)
+        if not (torch.isfinite(v_cpu) and torch.isfinite(g_cpu).all()):
+            raise AssertionError(f"{name}: non-finite objective or gradient on the CPU")
         rel_v, _ = held(np, [v_card.item()], [v_cpu.item()], OBJECTIVE_RTOL)
         rel_g, frac_g = held(np, g_card.cpu().numpy(), g_cpu.numpy(), OBJECTIVE_RTOL)
-        log("objective", f"{name} N={TRAIN_N} M=2 f64, card vs CPU: value {v_card.item():.10e} vs "
+        log("objective", f"{name} f64, card vs CPU: value {v_card.item():.10e} vs "
             f"{v_cpu.item():.10e} (rel {rel_v:.3e}); gradient max rel err {rel_g:.3e}, max err "
             f"{frac_g:.3e} of max |grad| {g_cpu.abs().max().item():.3e}: ok at rtol {OBJECTIVE_RTOL}")
         log("objective", f"{name} one gradient launched {counts}")

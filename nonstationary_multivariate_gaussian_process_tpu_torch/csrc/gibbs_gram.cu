@@ -24,30 +24,69 @@
 //
 // Backward of the self form (a second entry point; the TPU had none, XLA
 // differentiated the jnp Gram).  With g_ij the Gibbs term (s = 1) and Kbar
-// not assumed symmetric:
+// not assumed symmetric, S = Kbar + Kbar^T:
 //
-//   sbar_i = sum_j (Kbar_ij + Kbar_ji) s_j g_ij
-//   lbar_i = sum_j (Kbar_ij + Kbar_ji) s_i s_j g_ij (1/(2 l_i) - l_i/A + 2 l_i D/A^2)
+//   sbar_i = sum_j S_ij s_j g_ij
+//   lbar_i = sum_j S_ij s_i s_j g_ij f_ij,  f_ij = 1/(2 l_i) - l_i/A + 2 l_i D/A^2
 //
-// with A = l_i^2 + l_j^2, D = (x_i - x_j)^2; the factor is 0 at j == i and
-// the jitter carries no gradient.  It reads Kbar once along rows and once as
-// transposed tiles through shared memory, so it is bound by the bytes read,
-// at least n*n*sizeof(T) (8 MB at N=1000 float64, about 2.4 us at
-// 3.35 TB/s).  Each block owns 16 rows and a strided share of the column
-// tiles, sums in registers, reduces over the tile's columns with warp
-// shuffles and writes one partial per (share, row); a second pass adds the
-// shares in a fixed order.  No N x N intermediate is stored.
+// with A = l_i^2 + l_j^2, D = (x_i - x_j)^2; f is 0 at j == i and the
+// jitter carries no gradient.  What bounds it: the bytes of Kbar, read once,
+// n*n*sizeof(T) (8 MB at N=1000 float64, about 2.4 us at 3.35 TB/s on an
+// H100 SXM); the rest is O(n).  Beside that read, each unordered pair costs
+// one float64 exp and one rsqrt and some 20 other operations, and on an
+// NVIDIA H100 80GB HBM3 at 700 W those, not the read, set the time at N=1000
+// (PERF.md: staging each pair in chunks to overlap the two gained
+// nothing).  The design, K3's backward carried over to M = 1:
+// * The blocks walk the unordered tile pairs (I <= J), row-major, in one
+//   fixed order (pair q = (I, J) counted along I = 0, 1, ...; block b takes
+//   q = b, b + gridDim.x, ...: a persistent grid sized from the SM count).
+//   Tiles are TILE = 32 inputs a side, or 16 where that gives too few pairs
+//   to fill the card (gram_kernels.k1_backward_schedule).
+// * A pair stages Kbar[I,J] and Kbar[J,I] (one tile when I == J) into a
+//   second shared-memory stage with element-wise cp.async while the current
+//   pair computes, so each element of Kbar is read once and Kbar's row
+//   stride need not be a multiple of 16 bytes.  Staged tiles have an odd
+//   pitch (TILE + 1), so the transposed read has no bank conflicts in
+//   float64.  The next pair's x, s, l are loaded into registers at the same
+//   time and written to the stage, with 1/(2 l) and u = sqrt(sqrt(2) l),
+//   once the current pair is done.
+// * Each unordered input pair (i, j) is evaluated once, with one root and
+//   no division: q = rsqrt(A), r = q^2, g = u_i u_j q exp(-D r), f_i =
+//   1/(2 l_i) + l_i (2 D r - 1) r and f_j likewise; it adds its shares to
+//   both rows i and j.  Thread t takes column t % TILE of rows t / TILE +
+//   k (256 / TILE).  On a
+//   diagonal tile row < column counts once and i == j once, on the row side
+//   alone, with f = 0 and S = 2 Kbar_ii.
+// * The result does not depend on scheduling.  A row's shares are summed
+//   over its TILE lanes by a shuffle tree; a column's over a thread's rows
+//   in order, over the warp's rows by shuffles, then over the warps in
+//   order; both are written to fixed slots, partial[partner tile][row][2]:
+//   rows of tile I to slot J, rows of tile J to slot I.  Every (slot, row)
+//   is written exactly once, and a second launch sums each row's slots in
+//   one fixed order (a warp per row, lanes over slots, then a shuffle tree).
+//   It is a programmatic dependent launch (Hopper): its launch overlaps the
+//   pair kernel's tail, and griddepcontrol.wait holds it until the partials
+//   are written.  The partials are ceil(N/TILE) N 2 values: 0.5 MB at
+//   N=1000 float64.
+// * The ragged last tile is staged whole with x = 0, s = 0, l = 1 and
+//   Kbar = 0 past N, so anything it adds is exactly 0.
+// No tensor cores: wgmma has no float64 form and nothing here is a matrix
+// product.  The backward is held to a tolerance and uses explicit fma().
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBwdTile = 16;
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
 
 __device__ __forceinline__ float gexp(float v) { return expf(v); }
 __device__ __forceinline__ double gexp(double v) { return exp(v); }
 __device__ __forceinline__ float gsqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double gsqrt(double v) { return sqrt(v); }
+__device__ __forceinline__ float grsqrt(float v) { return rsqrtf(v); }
+__device__ __forceinline__ double grsqrt(double v) { return rsqrt(v); }
 
 template <typename T>
 __global__ void gibbs_gram_kernel(const T* __restrict__ x1, const T* __restrict__ s1,
@@ -82,94 +121,262 @@ int launch(const void* x1, const void* s1, const void* l1, int n1, const void* x
   return static_cast<int>(cudaGetLastError());
 }
 
-// partial[chunk][i][0] = sbar share, [1] = lbar share.
-template <typename T>
-__global__ void gibbs_gram_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s,
-                                      const T* __restrict__ l, int n,
-                                      const T* __restrict__ kbar, int n_chunks,
-                                      T* __restrict__ partial) {
-  __shared__ T x_r[kBwdTile], s_r[kBwdTile], l_r[kBwdTile];
-  __shared__ T x_c[kBwdTile], s_c[kBwdTile], l_c[kBwdTile];
-  __shared__ T kbt[kBwdTile][kBwdTile + 1];  // kbt[q][r] = Kbar[p0 + q][n0 + r]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int n0 = blockIdx.x * kBwdTile;
-  const int chunk = blockIdx.y;
-  const int n_tiles = (n + kBwdTile - 1) / kBwdTile;
-  const int i = n0 + ty;
-  if (ty == 0) {
-    const bool ok = n0 + tx < n;
-    x_r[tx] = ok ? x[n0 + tx] : T(0);
-    s_r[tx] = ok ? s[n0 + tx] : T(0);
-    l_r[tx] = ok ? l[n0 + tx] : T(1);
+// Tile pair q of the row-major walk over I <= J.  Row I starts at pair
+// I*nt - I*(I-1)/2; a float root gives I, and the two loops correct it.
+__device__ __forceinline__ int first_pair(int i, int n_tiles) { return i * n_tiles - i * (i - 1) / 2; }
+
+__device__ __forceinline__ void tile_pair(int q, int n_tiles, int& I, int& J) {
+  const float b = 2.0f * n_tiles + 1.0f;
+  int i = static_cast<int>((b - sqrtf(fmaxf(b * b - 8.0f * q, 0.0f))) * 0.5f);
+  i = max(0, min(i, n_tiles - 1));
+  while (i > 0 && q < first_pair(i, n_tiles)) --i;
+  while (i + 1 < n_tiles && q >= first_pair(i + 1, n_tiles)) ++i;
+  I = i;
+  J = i + q - first_pair(i, n_tiles);
+}
+
+// Backward's shapes for tiles of TILE inputs a side: thread t takes column
+// c = t % TILE of rows t / TILE + k * STEP, k < ROWS.
+template <int TILE>
+struct Bwd {
+  static constexpr int STEP = kBwdThreads / TILE;  // rows of a pair the block takes at once
+  static constexpr int ROWS = TILE / STEP;         // rows of a pair a thread takes
+  static constexpr int PITCH = TILE + 1;           // odd: conflict-free transposed reads
+  static_assert(32 % TILE == 0 && TILE % STEP == 0, "a warp holds whole tile rows");
+};
+
+// One stage: Kbar[I,J] and Kbar[J,I], and x, s, l, 1/(2 l), sqrt(sqrt(2) l)
+// of tiles I (side 0) and J (side 1).
+template <typename T, int TILE>
+struct BwdStage {
+  T kb[2][TILE][Bwd<TILE>::PITCH];
+  T x[2][TILE], s[2][TILE], l[2][TILE], h[2][TILE], u[2][TILE];
+};
+
+// Kbar's tile (row tile R, column tile C), read along Kbar's rows; the
+// ragged edge is 0.
+template <typename T, int TILE>
+__device__ __forceinline__ void stage_kbar(T (*dst)[Bwd<TILE>::PITCH], int R, int C, int n,
+                                           const T* __restrict__ kbar, int tid) {
+  using B = Bwd<TILE>;
+  const int r0 = R * TILE, c0 = C * TILE;
+  const int c = tid % TILE;
+  const bool col_ok = c0 + c < n;
+#pragma unroll
+  for (int k = 0; k < B::ROWS; ++k) {
+    const int r = tid / TILE + k * B::STEP;
+    if (col_ok && r0 + r < n)
+      __pipeline_memcpy_async(&dst[r][c], kbar + static_cast<size_t>(r0 + r) * n + c0 + c, sizeof(T));
+    else dst[r][c] = T(0);
   }
-  T acc_s = T(0), acc_l = T(0);
-  for (int jt = chunk; jt < n_tiles; jt += n_chunks) {
-    const int p0 = jt * kBwdTile;
-    __syncthreads();  // the previous column tile is done with the shared strips
-    if (ty == 0) {
-      const bool ok = p0 + tx < n;
-      x_c[tx] = ok ? x[p0 + tx] : T(0);
-      s_c[tx] = ok ? s[p0 + tx] : T(0);
-      l_c[tx] = ok ? l[p0 + tx] : T(1);
+}
+
+// One input of a pair's strips, held in registers between its load and its
+// store: threads 0..TILE-1 take tile I, the next TILE tile J; past N, x =
+// 0, s = 0, l = 1.
+template <typename T, int TILE>
+struct StripIn {
+  T x, s, l;
+
+  __device__ __forceinline__ void load(int I, int J, int n, const T* __restrict__ x_,
+                                       const T* __restrict__ s_, const T* __restrict__ l_, int tid) {
+    if (tid >= 2 * TILE) return;
+    const int i = (tid < TILE ? I : J) * TILE + tid % TILE;
+    const bool in = i < n;
+    x = in ? x_[i] : T(0);
+    s = in ? s_[i] : T(0);
+    l = in ? l_[i] : T(1);
+  }
+
+  __device__ __forceinline__ void store(BwdStage<T, TILE>& st, int tid) const {
+    if (tid >= 2 * TILE) return;
+    const int side = tid / TILE, e = tid % TILE;
+    st.x[side][e] = x;
+    st.s[side][e] = s;
+    st.l[side][e] = l;
+    st.h[side][e] = T(1) / (T(2) * l);
+    st.u[side][e] = gsqrt(T(1.4142135623730951) * l);  // u_i u_j = sqrt(2 l_i l_j)
+  }
+};
+
+// One block walks tile pairs q = blockIdx.x, + gridDim.x, ...; writes
+// partial[slot][row][0] = sbar's share, [1] = lbar's.
+template <typename T, int TILE>
+__global__ void __launch_bounds__(kBwdThreads)
+gibbs_gram_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s, const T* __restrict__ l,
+                      int n, const T* __restrict__ kbar, T* __restrict__ partial) {
+  using B = Bwd<TILE>;
+  __shared__ BwdStage<T, TILE> stages[2];
+  __shared__ T red_row[TILE][2];
+  __shared__ T red_col[kBwdWarps][TILE][2];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int c = tid % TILE, r0 = tid / TILE;
+  const int n_tiles = (n + TILE - 1) / TILE;
+  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
+
+  int q = blockIdx.x, I, J;
+  tile_pair(q, n_tiles, I, J);
+  StripIn<T, TILE> strip;
+  strip.load(I, J, n, x, s, l, tid);
+  stage_kbar<T, TILE>(stages[0].kb[0], I, J, n, kbar, tid);
+  if (I != J) stage_kbar<T, TILE>(stages[0].kb[1], J, I, n, kbar, tid);
+  __pipeline_commit();
+  strip.store(stages[0], tid);
+  for (int it = 0; q < n_pairs; ++it, q += gridDim.x) {
+    const BwdStage<T, TILE>& st = stages[it & 1];
+    BwdStage<T, TILE>& next = stages[(it + 1) & 1];
+    const bool more = q + gridDim.x < n_pairs;
+    int In = 0, Jn = 0;
+    if (more) {
+      tile_pair(q + gridDim.x, n_tiles, In, Jn);
+      strip.load(In, Jn, n, x, s, l, tid);
+      stage_kbar<T, TILE>(next.kb[0], In, Jn, n, kbar, tid);
+      if (In != Jn) stage_kbar<T, TILE>(next.kb[1], Jn, In, n, kbar, tid);
     }
-    kbt[ty][tx] = (p0 + ty < n && n0 + tx < n)
-        ? kbar[static_cast<size_t>(p0 + ty) * n + n0 + tx] : T(0);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // this pair's copies have landed
     __syncthreads();
-    const int j = p0 + tx;
-    if (i < n && j < n) {
-      const T sym = kbar[static_cast<size_t>(i) * n + j] + kbt[tx][ty];
-      const T li = l_r[ty];
-      const T lj = l_c[tx];
-      const T a = li * li + lj * lj;
-      const T b = li * lj;
-      const T dx = x_r[ty] - x_c[tx];
-      const T d = dx * dx;
-      const T g = gsqrt(T(2) * b / a) * gexp(-d / a);
-      acc_s = acc_s + sym * s_c[tx] * g;
-      const T f = i == j ? T(0) : T(1) / (T(2) * li) - li / a + T(2) * li * d / (a * a);
-      acc_l = acc_l + sym * (s_r[ty] * s_c[tx]) * g * f;
+
+    const bool diag = I == J;
+    const T (*kt)[B::PITCH] = st.kb[diag ? 0 : 1];  // kt[c][r] = Kbar[J*TILE + c][I*TILE + r]
+    const T xj = st.x[1][c], sj = st.s[1][c], lj = st.l[1][c], hj = st.h[1][c], uj = st.u[1][c];
+    T col_s = T(0), col_l = T(0);
+#pragma unroll
+    for (int k = 0; k < B::ROWS; ++k) {
+      const int r = r0 + k * B::STEP;
+      T row_s = T(0), row_l = T(0);
+      if (!diag || r <= c) {
+        const T xi = st.x[0][r], si = st.s[0][r], li = st.l[0][r], hi = st.h[0][r], ui = st.u[0][r];
+        const T dx = xi - xj;
+        const T d = dx * dx;
+        const T rs = grsqrt(fma(li, li, lj * lj));  // the pair's one root, and no division
+        const T ra = rs * rs;
+        const T g = (ui * uj) * rs * gexp(-d * ra);  // sqrt(2 l_i l_j / A) exp(-D / A)
+        const T w = (st.kb[0][r][c] + kt[c][r]) * g;
+        const T e = fma(T(2) * d, ra, T(-1)) * ra;  // f = 1/(2 l) + l e
+        const T wss = w * (si * sj);
+        row_s = w * sj;
+        if (!diag || r != c) {
+          row_l = wss * fma(li, e, hi);
+          col_s = fma(w, si, col_s);
+          col_l = fma(wss, fma(lj, e, hj), col_l);
+        }
+      }
+      // the row's shares over its TILE lanes; each of them ends with the sum
+#pragma unroll
+      for (int off = TILE / 2; off > 0; off >>= 1) {
+        row_s += __shfl_xor_sync(0xffffffffu, row_s, off);
+        row_l += __shfl_xor_sync(0xffffffffu, row_l, off);
+      }
+      if (c == 0) {
+        red_row[r][0] = row_s;
+        red_row[r][1] = row_l;
+      }
     }
-  }
-  for (int off = kBwdTile / 2; off > 0; off >>= 1) {
-    acc_s = acc_s + __shfl_xor_sync(0xffffffffu, acc_s, off);
-    acc_l = acc_l + __shfl_xor_sync(0xffffffffu, acc_l, off);
-  }
-  if (tx == 0 && i < n) {
-    T* dst = partial + (static_cast<size_t>(chunk) * n + i) * 2;
-    dst[0] = acc_s;
-    dst[1] = acc_l;
+    // the column's shares over the warp's rows, then (below) over the warps
+#pragma unroll
+    for (int off = TILE; off < 32; off <<= 1) {
+      col_s += __shfl_xor_sync(0xffffffffu, col_s, off);
+      col_l += __shfl_xor_sync(0xffffffffu, col_l, off);
+    }
+    if ((tid & 31) < TILE) {
+      red_col[warp][c][0] = col_s;
+      red_col[warp][c][1] = col_l;
+    }
+    if (more) strip.store(next, tid);
+    __syncthreads();  // also: every thread is done with this stage
+
+    if (tid < 2 * TILE) {
+      const int i = tid >> 1, v = tid & 1;
+      const T rs = red_row[i][v];
+      T cs = red_col[0][i][v];
+#pragma unroll
+      for (int w = 1; w < kBwdWarps; ++w) cs += red_col[w][i][v];
+      const int ri = I * TILE + i, ci = J * TILE + i;
+      if (diag) {
+        if (ri < n) partial[(static_cast<size_t>(I) * n + ri) * 2 + v] = rs + cs;
+      } else {
+        if (ri < n) partial[(static_cast<size_t>(J) * n + ri) * 2 + v] = rs;
+        if (ci < n) partial[(static_cast<size_t>(I) * n + ci) * 2 + v] = cs;
+      }
+    }
+    I = In;
+    J = Jn;
   }
 }
 
+// Sums each row's slots in one fixed order: one warp per row, lane j adds
+// slots j, j + 32, ... in turn, then a fixed shuffle tree adds the lanes.
+// Launched as a programmatic dependent of the pair kernel: it waits here
+// until that grid has finished and its partials are visible.
 template <typename T>
-__global__ void gibbs_gram_bwd_reduce(const T* __restrict__ partial, int n_chunks, int n,
+__global__ void gibbs_gram_bwd_reduce(const T* __restrict__ partial, int n_slots, int n,
                                       T* __restrict__ s_bar, T* __restrict__ l_bar) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 2 * n) return;
-  const size_t stride = static_cast<size_t>(n) * 2;
-  T v = partial[i];
-  for (int c = 1; c < n_chunks; ++c) v = v + partial[c * stride + i];
-  if (i % 2 == 0) s_bar[i / 2] = v;
-  else l_bar[i / 2] = v;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;  // whole warps leave together
+  T vs = T(0), vl = T(0);
+  for (int slot = lane; slot < n_slots; slot += 32) {
+    const T* src = partial + (static_cast<size_t>(slot) * n + row) * 2;
+    vs += src[0];
+    vl += src[1];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    vs += __shfl_xor_sync(0xffffffffu, vs, off);
+    vl += __shfl_xor_sync(0xffffffffu, vl, off);
+  }
+  if (lane == 0) {
+    s_bar[row] = vs;
+    l_bar[row] = vl;
+  }
 }
 
-template <typename T>
-int launch_backward(const void* x, const void* s, const void* l, int n, const void* kbar,
-                    int n_chunks, void* partial, void* s_bar, void* l_bar, void* stream) {
-  const int n_tiles = (n + kBwdTile - 1) / kBwdTile;
-  if (n_chunks < 1 || n_chunks > n_tiles) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_tiles, n_chunks);
-  const dim3 block(kBwdTile, kBwdTile);
-  gibbs_gram_bwd_kernel<T><<<grid, block, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(s), static_cast<const T*>(l), n,
-      static_cast<const T*>(kbar), n_chunks, static_cast<T*>(partial));
+template <typename T, int TILE>
+int launch_backward_tile(const T* x, const T* s, const T* l, int n, const T* kbar, int grid,
+                         T* partial, T* s_bar, T* l_bar, cudaStream_t st) {
+  gibbs_gram_bwd_kernel<T, TILE><<<grid, kBwdThreads, 0, st>>>(x, s, l, n, kbar, partial);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gibbs_gram_bwd_reduce<T><<<(2 * n + 255) / 256, 256, 0, st>>>(
-      static_cast<const T*>(partial), n_chunks, n, static_cast<T*>(s_bar),
-      static_cast<T*>(l_bar));
+  // programmatic stream serialization: the sum's launch overlaps the pair
+  // kernel's tail instead of following its end
+  constexpr int rows_per_block = 256 / 32;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + rows_per_block - 1) / rows_per_block);
+  cfg.blockDim = dim3(256);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err2 = cudaLaunchKernelEx(&cfg, gibbs_gram_bwd_reduce<T>, static_cast<const T*>(partial),
+                                              (n + TILE - 1) / TILE, n, s_bar, l_bar);
+  if (err2 != cudaSuccess) return static_cast<int>(err2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// tile is 16 or 32, and 1 <= grid <= the number of tile pairs, which must
+// fit an int.
+template <typename T>
+int launch_backward(const void* x, const void* s, const void* l, int n, const void* kbar,
+                    int tile, int grid, void* partial, void* s_bar, void* l_bar, void* stream) {
+  const int n_tiles = tile > 0 ? (n + tile - 1) / tile : 0;
+  if (n < 1 || (tile != 16 && tile != 32) || n_tiles > 46340 || grid < 1 ||
+      grid > n_tiles * (n_tiles + 1) / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xt = static_cast<const T*>(x);
+  const auto* st = static_cast<const T*>(s);
+  const auto* lt = static_cast<const T*>(l);
+  const auto* kt = static_cast<const T*>(kbar);
+  auto* pt = static_cast<T*>(partial);
+  auto* sb = static_cast<T*>(s_bar);
+  auto* lb = static_cast<T*>(l_bar);
+  const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if (tile == 16) return launch_backward_tile<T, 16>(xt, st, lt, n, kt, grid, pt, sb, lb, strm);
+  return launch_backward_tile<T, 32>(xt, st, lt, n, kt, grid, pt, sb, lb, strm);
 }
 
 }  // namespace
@@ -189,17 +396,18 @@ int gibbs_gram_f64(const void* x1, const void* s1, const void* l1, int n1,
   return launch<double>(x1, s1, l1, n1, x2, s2, l2, n2, jitter, out, stream);
 }
 
-// Self-form backward.  partial: n_chunks * n * 2 scratch values; s_bar, l_bar (n,).
+// Self-form backward.  partial: ceil(n/tile) * n * 2 scratch values; s_bar,
+// l_bar (n,).  tile, grid: gram_kernels.k1_backward_schedule(n).
 int gibbs_gram_backward_f32(const void* x, const void* s, const void* l, int n,
-                            const void* kbar, int n_chunks, void* partial, void* s_bar,
+                            const void* kbar, int tile, int grid, void* partial, void* s_bar,
                             void* l_bar, void* stream) {
-  return launch_backward<float>(x, s, l, n, kbar, n_chunks, partial, s_bar, l_bar, stream);
+  return launch_backward<float>(x, s, l, n, kbar, tile, grid, partial, s_bar, l_bar, stream);
 }
 
 int gibbs_gram_backward_f64(const void* x, const void* s, const void* l, int n,
-                            const void* kbar, int n_chunks, void* partial, void* s_bar,
+                            const void* kbar, int tile, int grid, void* partial, void* s_bar,
                             void* l_bar, void* stream) {
-  return launch_backward<double>(x, s, l, n, kbar, n_chunks, partial, s_bar, l_bar, stream);
+  return launch_backward<double>(x, s, l, n, kbar, tile, grid, partial, s_bar, l_bar, stream);
 }
 
 }  // extern "C"

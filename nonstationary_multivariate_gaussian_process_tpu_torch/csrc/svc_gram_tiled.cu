@@ -41,8 +41,10 @@
 //   a lane keeps the L rows of its chunks in registers for the whole item;
 //   for M = 5..8 the warp stages its strip of L in shared memory, transposed
 //   to [b][e], and a lane holds one row of L_n at a time, so nothing spills.
-// * M > 8 keeps the first generic kernel: one block per 16 x 16 tile of
-//   input pairs, staged strips, a runtime task loop, scalar stores.
+// * M > 8 takes the generic route: one block per 16 x 16 tile of input
+//   pairs, a runtime task loop, scalar stores.  Its shared memory holds x,
+//   l and the Gibbs terms of the tile, a fixed size; L is read through the
+//   cache, so any M that fits the card runs.
 // The ragged edge is masked.  Values never depend on the schedule: each
 // output is kx * bsum of its own (n, a, p, c).  What holds it back on the
 // card (PERF.md): in float64 the Gibbs term's exp, sqrt and two divisions
@@ -91,6 +93,10 @@
 //   ceil(N/T) N (M^2 + 1) values: 2.5 MB at N=1000, M=2, T=16, float64.
 // * T (16 for M <= 4, else 8) and M are template parameters.  No tensor
 //   cores: wgmma has no float64 form and the task contraction has length M.
+// * M > 8 takes a generic route with M at run time: one block per row input,
+//   no partials, and shared memory of a fixed size (see
+//   svc_gram_tiled_bwd_generic_kernel).  It is simple, not fast: it reads
+//   Kbar twice.
 //
 // Built without fast math and with -fmad=false: the forward's task sum runs
 // b = 0..M-1 in the plain version's order, each operation rounded on its own,
@@ -103,8 +109,9 @@
 namespace {
 
 constexpr int kTile = 16;  // forward, M > 8: input pairs per tile side
+constexpr int kGenericSmem = 4 * kTile + kTile * kTile;  // forward, M > 8: shared values a block
 constexpr int kThreads = 256;
-constexpr int kMaxM = 8;  // tasks per input, a template parameter
+constexpr int kMaxM = 8;  // the largest M of the templated routes
 constexpr int kFwdMaxThreads = 256;  // forward, M <= 8: at most 8 warps a block
 
 __device__ __forceinline__ float gexp(float v) { return expf(v); }
@@ -261,7 +268,9 @@ svc_gram_tiled_fwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
   }
 }
 
-// M > 8: the first kernel, one block per 16 x 16 tile of input pairs.
+// M > 8, any M: one block per 16 x 16 tile of input pairs.  Shared memory
+// holds the tile's x, l and Gibbs terms alone, kGenericSmem values whatever
+// M is; the rows of L_n and L_p are read through the cache.
 template <typename T>
 __global__ void svc_gram_tiled_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell,
                                               const T* __restrict__ ls, int n, int m, T jitter,
@@ -274,8 +283,6 @@ __global__ void svc_gram_tiled_generic_kernel(const T* __restrict__ x, const T* 
   T* x_c = l_r + kTile;              // kTile
   T* l_c = x_c + kTile;              // kTile
   T* kx_s = l_c + kTile;             // kTile * kTile
-  T* L_r = kx_s + kTile * kTile;     // kTile * mm
-  T* L_c = L_r + kTile * mm;         // kTile * mm
 
   const int n0 = blockIdx.y * kTile;
   const int p0 = blockIdx.x * kTile;
@@ -288,10 +295,6 @@ __global__ void svc_gram_tiled_generic_kernel(const T* __restrict__ x, const T* 
     l_r[i] = i < rows_in ? ell[n0 + i] : T(1);
     x_c[i] = i < cols_in ? x[p0 + i] : T(0);
     l_c[i] = i < cols_in ? ell[p0 + i] : T(1);
-  }
-  for (int i = tid; i < kTile * mm; i += blockDim.x) {
-    L_r[i] = i < rows_in * mm ? ls[static_cast<size_t>(n0) * mm + i] : T(0);
-    L_c[i] = i < cols_in * mm ? ls[static_cast<size_t>(p0) * mm + i] : T(0);
   }
   __syncthreads();
 
@@ -308,15 +311,17 @@ __global__ void svc_gram_tiled_generic_kernel(const T* __restrict__ x, const T* 
   const int rows = rows_in * m;
   const int cols = cols_in * m;
   const size_t nm = static_cast<size_t>(n) * m;
+  const T* L_r = ls + static_cast<size_t>(n0) * mm;
+  const T* L_c = ls + static_cast<size_t>(p0) * mm;
   T* tile_out = out + static_cast<size_t>(n0) * m * nm + static_cast<size_t>(p0) * m;
   for (int e = tid; e < rows * cols; e += blockDim.x) {
     const int r = e / cols, q = e % cols;
     const int nl = r / m, a = r % m;
     const int pl = q / m, c = q % m;
-    const T* lr = L_r + nl * mm + a * m;
-    const T* lc = L_c + pl * mm + c * m;
-    T bsum = lr[0] * lc[0];
-    for (int b = 1; b < m; ++b) bsum = bsum + lr[b] * lc[b];
+    const T* lr = L_r + static_cast<size_t>(nl) * mm + a * m;
+    const T* lc = L_c + static_cast<size_t>(pl) * mm + c * m;
+    T bsum = __ldg(lr) * __ldg(lc);
+    for (int b = 1; b < m; ++b) bsum = bsum + __ldg(lr + b) * __ldg(lc + b);
     tile_out[static_cast<size_t>(r) * nm + q] = kx_s[nl * kTile + pl] * bsum;
   }
 }
@@ -352,15 +357,12 @@ int launch_forward(const void* x_, const void* ell_, const void* ls_, int n, int
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (m > kMaxM) {
+    // a tile's (16 M)^2 outputs and N M must fit an int
     const int tiles = (n + kTile - 1) / kTile;
-    if (vec != 1 || rows != kTile || tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = sizeof(T) * (4 * kTile + kTile * kTile + 2 * kTile * m * m);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          svc_gram_tiled_generic_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    if (vec != 1 || rows != kTile || tiles > 65535 || static_cast<long long>(n) * m > 0x7fffffff ||
+        kTile * m > 46340)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = sizeof(T) * kGenericSmem;
     svc_gram_tiled_generic_kernel<T><<<dim3(tiles, tiles), kThreads, smem, stream>>>(
         x, ell, ls, n, m, jitter, out);
     return static_cast<int>(cudaGetLastError());
@@ -667,6 +669,81 @@ __global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_s
   }
 }
 
+// M > 8, any M: one block per row input n, no scratch and no second launch.
+// For each column input p, t[a,b] = sum_c S[(n,a),(p,c)] L[p,c,b]; then
+// Lbar[n,a,b] = sum_p kxj[n,p] t[a,b] and, since gsum[n,p] = sum_{a,b}
+// L[n,a,b] t[a,b], lbar[n] = sum_{a,b} sum_p kx[n,p] f L[n,a,b] t[a,b].
+// Thread k owns (a, b) = (k / M, k % M), then k + kThreads, ...; it walks p
+// in order, c in order within p.  kxj and kx f of a chunk of kThreads column
+// inputs are computed once into shared memory (the only shared memory, a
+// fixed size).  Kbar and L are read through the cache: Kbar[(n,a),:] along
+// the row, Kbar[:,(n,a)] down the column, so each element is read twice in
+// all.  lbar's shares are summed through shared memory by a fixed tree.
+// The sums run in double for either T: at large M, lbar is a small
+// difference of large terms (M = 130: sums of 10^4 terms of ~10^2 that
+// cancel to ~50), which float32 sums would carry with errors of 1e-4 of it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+svc_gram_tiled_bwd_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell,
+                                  const T* __restrict__ ls, int n, int m, T jitter,
+                                  const T* __restrict__ kbar, T* __restrict__ ls_bar,
+                                  T* __restrict__ ell_bar) {
+  __shared__ double kxj_s[kThreads], w_s[kThreads], red[kThreads];
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int mm = m * m;
+  const size_t nm = static_cast<size_t>(n) * m;
+  const T xn = x[row], ln = ell[row];
+  const T* Ln = ls + static_cast<size_t>(row) * mm;
+  const T* krow = kbar + static_cast<size_t>(row) * m * nm;  // Kbar[(n,0), :]
+  const T* kcol = kbar + static_cast<size_t>(row) * m;       // Kbar[:, (n,0)]
+  double lsh = 0.0;
+  for (int k0 = 0; k0 < mm; k0 += kThreads) {
+    const int k = k0 + tid;
+    const bool own = k < mm;
+    const int a = own ? k / m : 0, b = own ? k % m : 0;
+    const double lnab = own ? static_cast<double>(Ln[k]) : 0.0;
+    double acc = 0.0;
+    for (int p0 = 0; p0 < n; p0 += kThreads) {
+      __syncthreads();  // every thread is done with the previous chunk
+      const int pi = p0 + tid;
+      if (pi < n) {
+        const T lp = ell[pi];
+        const T dx = xn - x[pi];
+        const T d = dx * dx;
+        const T a2 = ln * ln + lp * lp;
+        const T kx = gsqrt(T(2) * (ln * lp) / a2) * gexp(-d / a2);
+        kxj_s[tid] = pi == row ? kx + jitter : kx;
+        w_s[tid] = pi == row ? T(0) : kx * (T(1) / (T(2) * ln) - ln / a2 + T(2) * ln * d / (a2 * a2));
+      }
+      __syncthreads();
+      if (own) {
+        const int p1 = min(n, p0 + kThreads);
+        for (int p = p0; p < p1; ++p) {
+          const T* Lp = ls + static_cast<size_t>(p) * mm + b;
+          const T* kr = krow + a * nm + static_cast<size_t>(p) * m;   // Kbar[(n,a),(p,c)] at c
+          const T* kc = kcol + static_cast<size_t>(p) * m * nm + a;  // Kbar[(p,c),(n,a)] at c nm
+          double t = 0.0;
+          for (int c = 0; c < m; ++c) {
+            const double s = static_cast<double>(__ldg(kr + c)) + static_cast<double>(__ldg(kc + c * nm));
+            t = fma(s, static_cast<double>(__ldg(Lp + c * m)), t);
+          }
+          acc = fma(kxj_s[p - p0], t, acc);
+          lsh = fma(w_s[p - p0] * lnab, t, lsh);
+        }
+      }
+    }
+    if (own) ls_bar[static_cast<size_t>(row) * mm + k] = static_cast<T>(acc);
+  }
+  red[tid] = lsh;
+  __syncthreads();
+  for (int off = kThreads / 2; off > 0; off >>= 1) {
+    if (tid < off) red[tid] = red[tid] + red[tid + off];
+    __syncthreads();
+  }
+  if (tid == 0) ell_bar[row] = static_cast<T>(red[0]);
+}
+
 template <typename T>
 struct BwdArgs {
   const T* x;
@@ -701,15 +778,26 @@ int launch_backward_m(const BwdArgs<T>& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// tile must be the backward's tile side for m (16 for m <= 4, else 8), and
-// 1 <= grid <= the number of tile pairs, which must fit an int.
+// For m <= 8, tile must be the backward's tile side for m (16 for m <= 4,
+// else 8), and 1 <= grid <= the number of tile pairs, which must fit an
+// int.  For m > 8 (the generic route), tile = 1, grid = n and partial is
+// not used; a row's (M N)-long slice of Kbar must fit an int.
 template <typename T>
 int launch_backward(const void* x, const void* ell, const void* ls, int n, int m,
                     double jitter, const void* kbar, int tile, int grid, void* partial,
                     void* ls_bar, void* ell_bar, void* stream) {
+  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (m > kMaxM) {
+    if (tile != 1 || grid != n || static_cast<long long>(n) * m > 0x7fffffff)
+      return static_cast<int>(cudaErrorInvalidValue);
+    svc_gram_tiled_bwd_generic_kernel<T><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n, m,
+        static_cast<T>(jitter), static_cast<const T*>(kbar), static_cast<T*>(ls_bar),
+        static_cast<T*>(ell_bar));
+    return static_cast<int>(cudaGetLastError());
+  }
   const int n_tiles = (n + tile - 1) / tile;
-  if (m < 1 || m > kMaxM || tile != (m <= 4 ? 16 : 8) || n_tiles > 46340 || grid < 1 ||
-      grid > n_tiles * (n_tiles + 1) / 2)
+  if (tile != (m <= 4 ? 16 : 8) || n_tiles > 46340 || grid < 1 || grid > n_tiles * (n_tiles + 1) / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n,
                      static_cast<T>(jitter), static_cast<const T*>(kbar), grid, static_cast<T*>(partial),
@@ -744,8 +832,8 @@ int svc_gram_tiled_f64(const void* x, const void* ell, const void* ls, int n, in
   return launch_forward<double>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, out, stream);
 }
 
-// partial: ceil(n/tile) * n * (m*m + 1) scratch values; ls_bar (n, m, m); ell_bar (n,).
-// grid: blocks of the persistent walk over the tile pairs.
+// partial: ceil(n/tile) * n * (m*m + 1) scratch values (none for m > 8);
+// ls_bar (n, m, m); ell_bar (n,).  tile, grid: gram_kernels.k3_backward_schedule(n, m).
 int svc_gram_tiled_backward_f32(const void* x, const void* ell, const void* ls, int n, int m,
                                 double jitter, const void* kbar, int tile, int grid,
                                 void* partial, void* ls_bar, void* ell_bar, void* stream) {

@@ -54,7 +54,7 @@ _MAX_ROWS = 65535 * 8
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "gibbs_gram": [_P, _P, _P, _I, _P, _P, _P, _I, _D, _P, _P],
-    "gibbs_gram_backward": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P],
+    "gibbs_gram_backward": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
     "svc_gram": [_P, _P, _P, _I, _I, _D, _I, _P, _P],
     "svc_gram_tiled": [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P, _P],
     "svc_gram_tiled_backward": [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P, _P],
@@ -186,11 +186,57 @@ def _gibbs_gram_forward(x1, s1, l1, x2, s2, l2, jitter) -> torch.Tensor:
 gibbs_gram.launches = 0
 
 
-def _n_chunks(n_tiles: int) -> int:
-    """Column shares per row tile in K1's backward kernel: enough blocks to
-    give each of the H100's 132 SMs about four, never more shares than
-    column tiles."""
-    return min(n_tiles, max(1, -(-528 // n_tiles)))
+class _TilePairs:
+    """The unordered tile pairs ``(I, J)``, ``I <= J``, of ``n`` inputs in
+    tiles of ``tile``, in the row-major order the backward kernels walk
+    (each kernel computes a pair from its index itself, ``tile_pair``)."""
+
+    n: int
+    tile: int
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.n // self.tile)
+
+    @property
+    def n_pairs(self) -> int:
+        return self.n_tiles * (self.n_tiles + 1) // 2
+
+    def pairs(self) -> list[tuple[int, int]]:
+        return [(i, j) for i in range(self.n_tiles) for j in range(i, self.n_tiles)]
+
+
+@dataclasses.dataclass(frozen=True)
+class K1BackwardSchedule(_TilePairs):
+    """How K1's backward kernel cuts its work, from N alone.
+
+    Block ``b`` of ``grid`` takes the tile pairs ``b, b + grid, ...`` of
+    :meth:`pairs`.  Pair ``(I, J)`` writes the rows of tile ``I`` into slot
+    ``J`` and the rows of tile ``J`` into slot ``I`` of
+    ``partial[slot][row][2]`` (σ̄'s share, ℓ̄'s); every (slot, row) is
+    written once, and a second launch sums each row's slots in one fixed
+    order (lane ``j`` of the row's warp adds slots ``j, j + 32, ...``, then a
+    shuffle tree), so the result does not depend on ``grid``.
+    """
+
+    n: int
+    tile: int
+    grid: int
+
+    @property
+    def partial_numel(self) -> int:
+        return self.n_tiles * self.n * 2
+
+
+def k1_backward_schedule(n: int, sms: int = 132) -> K1BackwardSchedule:
+    """32-input tiles, or 16 where 32-input tiles would give fewer pairs
+    than SMs, and a persistent grid of 4 blocks per SM, never more blocks
+    than tile pairs (both chosen by measurement on an NVIDIA H100 80GB HBM3
+    at 700 W: ``PERF.md``)."""
+    sched = K1BackwardSchedule(n, 32, 1)
+    if sched.n_pairs < sms:
+        sched = dataclasses.replace(sched, tile=16)
+    return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs, 4 * sms)))
 
 
 def gibbs_gram_backward_plain(x, s, l, jitter: float, kbar):
@@ -220,12 +266,12 @@ def gibbs_gram_backward(x, s, l, kbar, jitter: float = 0.0):
     l_bar = torch.empty(n, dtype=dtype, device=device)
     if n == 0:
         return s_bar, l_bar
-    n_chunks = _n_chunks(-(-n // 16))
-    partial = torch.empty(n_chunks * n * 2, dtype=dtype, device=device)
+    sched = k1_backward_schedule(n, sm_count(device))
+    partial = torch.empty(sched.partial_numel, dtype=dtype, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = _kernel_fn("gibbs_gram_backward", dtype)(
-            x.data_ptr(), s.data_ptr(), l.data_ptr(), n, kbar.data_ptr(), n_chunks,
+            x.data_ptr(), s.data_ptr(), l.data_ptr(), n, kbar.data_ptr(), sched.tile, sched.grid,
             partial.data_ptr(), s_bar.data_ptr(), l_bar.data_ptr(), stream,
         )
     gibbs_gram_backward.launches += 1
@@ -326,9 +372,13 @@ svc_gram.launches = 0
 # K3: tiled SVC Gram (input-major) and its backward
 # ---------------------------------------------------------------------------
 
-#: The forward and backward kernels are specialised for M = 1..8 tasks per
-#: input; above that the forward takes its generic route and the backward raises.
+#: The largest M with a specialised (templated) route in K3's forward and
+#: backward; above it both take their generic routes, with M at run time.
 K3_MAX_M = 8
+
+#: K3's forward, generic route: the shared values of a block (x and ℓ of a
+#: 16-input row and column strip, the tile's 16 × 16 Gibbs terms), whatever M.
+_K3_GENERIC_SMEM = 4 * 16 + 16 * 16
 
 
 def svc_gram_tiled_plain(x, ell, ls, jitter: float) -> torch.Tensor:
@@ -366,8 +416,11 @@ class K3ForwardSchedule:
     float64, 4 or 2 for M divisible by 4 or 2 in float32, else 1: then every
     row offset ``(n·M + a)·N·M`` and strip offset ``p0·M`` is a multiple of
     ``vec``, and the output's base is 256-B aligned.  The generic route
-    (M > 8) is the first kernel: one block per 16 × 16 tile of input pairs
-    (``rows`` = 16, ``grid`` = tiles²), scalar stores.
+    (M > 8) takes one block per 16 × 16 tile of input pairs (``rows`` = 16,
+    ``grid`` = tiles²) with scalar stores.  ``smem_bytes`` is a block's
+    dynamic shared memory as the kernel sizes it: the warps' strips of L for
+    M = 5..8, none for M ≤ 4, and for the generic route a size that does not
+    depend on M (L is read through the cache).
     """
 
     n: int
@@ -377,6 +430,7 @@ class K3ForwardSchedule:
     rows: int
     warps: int
     grid: int
+    smem_bytes: int
 
     @property
     def n_strips(self) -> int:
@@ -399,16 +453,19 @@ def k3_forward_schedule(n: int, m: int, dtype: torch.dtype, sms: int = 132) -> K
     """The store route and width, the rows of an item (the most of 8, 4, 2,
     1 that still gives every SM 16 warps' items), 4 warps a block and a grid
     of at most 16 blocks per SM, never more blocks than the items fill."""
+    size = torch.tensor([], dtype=dtype).element_size()
     if m > K3_MAX_M:
         tiles = -(-n // 16)
-        return K3ForwardSchedule(n, m, "generic", 1, 16, 8, tiles * tiles)
+        return K3ForwardSchedule(n, m, "generic", 1, 16, 8, tiles * tiles, size * _K3_GENERIC_SMEM)
     if dtype == torch.float64:
         vec = 2 if m % 2 == 0 else 1
     else:
         vec = 4 if m % 4 == 0 else 2 if m % 2 == 0 else 1
     strips = -(-n // 32)
     rows = next((r for r in (8, 4, 2) if -(-n // r) * strips >= _K3_FWD_WARPS_PER_SM * sms), 1)
-    sched = K3ForwardSchedule(n, m, "vector" if vec > 1 else "scalar", vec, rows, 4, 1)
+    warps = 4
+    smem = 0 if m <= 4 else size * 32 * m * m * warps
+    sched = K3ForwardSchedule(n, m, "vector" if vec > 1 else "scalar", vec, rows, warps, 1, smem)
     return dataclasses.replace(sched, grid=max(1, min(-(-sched.n_items // sched.warps), 16 * sms)))
 
 
@@ -459,10 +516,14 @@ def svc_gram_tiled_backward_plain(x, ell, ls, jitter: float, kbar):
 
 
 @dataclasses.dataclass(frozen=True)
-class K3BackwardSchedule:
+class K3BackwardSchedule(_TilePairs):
     """How K3's backward kernel cuts its work, from (N, M) alone.
 
-    The kernel walks the unordered tile pairs ``(I, J)``, ``I <= J``, in the
+    ``route`` is ``"tiled"`` for M ≤ 8 (below) or ``"generic"`` above: one
+    block per row input (``tile`` = 1, ``grid`` = N), which writes ℓ̄ and L̄
+    of its row itself, so it needs no partials (``partial_numel`` = 0).
+
+    The tiled route walks the unordered tile pairs ``(I, J)``, ``I <= J``, in the
     order of :meth:`pairs` (row-major), and computes the same mapping from a
     pair's index itself; block ``b`` of ``grid`` takes pairs ``b, b + grid,
     ...``.  Pair ``(I, J)`` writes the rows of tile ``I`` into slot ``J`` and
@@ -475,30 +536,24 @@ class K3BackwardSchedule:
 
     n: int
     m: int
+    route: str
     tile: int
     grid: int
 
     @property
-    def n_tiles(self) -> int:
-        return -(-self.n // self.tile)
-
-    @property
-    def n_pairs(self) -> int:
-        return self.n_tiles * (self.n_tiles + 1) // 2
-
-    @property
     def partial_numel(self) -> int:
+        if self.route == "generic":
+            return 0
         return self.n_tiles * self.n * (self.m * self.m + 1)
-
-    def pairs(self) -> list[tuple[int, int]]:
-        return [(i, j) for i in range(self.n_tiles) for j in range(i, self.n_tiles)]
 
 
 def k3_backward_schedule(n: int, m: int, sms: int = 132) -> K3BackwardSchedule:
-    """The tile side (16 inputs for M ≤ 4, else 8), the persistent grid (4
-    blocks per SM, never more blocks than tile pairs) and, through the
-    result's properties, the pairs and the partials' size."""
-    sched = K3BackwardSchedule(n, m, 16 if m <= 4 else 8, 1)
+    """The route; for M ≤ 8 the tile side (16 inputs for M ≤ 4, else 8),
+    the persistent grid (4 blocks per SM, never more blocks than tile pairs)
+    and, through the result's properties, the pairs and the partials' size."""
+    if m > K3_MAX_M:
+        return K3BackwardSchedule(n, m, "generic", 1, max(1, n))
+    sched = K3BackwardSchedule(n, m, "tiled", 16 if m <= 4 else 8, 1)
     return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs, 4 * sms)))
 
 
@@ -513,10 +568,6 @@ def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float):
         raise ValueError(f"svc_gram_tiled_backward: kbar must be ({n * m}, {n * m}) {dtype} on {device}")
     if not kbar.is_contiguous():
         raise ValueError("svc_gram_tiled_backward: kbar must be contiguous")
-    if m > K3_MAX_M:
-        raise NotImplementedError(
-            f"svc_gram_tiled_backward: M={m} tasks is not yet ported (at most {K3_MAX_M})"
-        )
     ell_bar = torch.empty(n, dtype=dtype, device=device)
     ls_bar = torch.empty((n, m, m), dtype=dtype, device=device)
     if n == 0:

@@ -54,9 +54,10 @@ def log(msg: str) -> None:
     print(f"[k3_ab] {msg}", flush=True)
 
 
-def ptxas_report(nvcc, flags, src, out_dir) -> list[str]:
+def ptxas_report(nvcc, flags, src, out_dir, wanted=lambda entry: "bwd" not in entry) -> list[str]:
     """``-Xptxas -v`` lines (registers, shared memory, spills) of the
-    forward kernels in ``src``."""
+    kernels in ``src`` whose entry line ``wanted`` accepts (by default the
+    forward kernels)."""
     proc = subprocess.run(
         [nvcc, *flags, "-Xptxas", "-v", "-o", os.path.join(out_dir, "ptxas.so"), src],
         capture_output=True, text=True, check=True, timeout=600,
@@ -64,7 +65,7 @@ def ptxas_report(nvcc, flags, src, out_dir) -> list[str]:
     keep, on = [], False
     for line in (proc.stdout + proc.stderr).splitlines():
         if "Compiling entry function" in line:
-            on = "bwd" not in line
+            on = wanted(line)
         if on:
             keep.append(line.strip())
     return keep

@@ -55,7 +55,7 @@ def _jax_grad(x, ell, ls, kbar):
         k = jgnmgp.gram(kx, l).reshape(m, n, m, n).transpose(1, 0, 3, 2).reshape(n * m, n * m)
         return jnp.sum(jnp.asarray(kbar) * k)
 
-    return jax.grad(loss, argnums=(0, 1))(jnp.asarray(ell), jnp.asarray(ls))
+    return jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(ell), jnp.asarray(ls))
 
 
 def _kernel_tile_pair(q, n_tiles):
@@ -244,3 +244,79 @@ def test_emulation_does_not_depend_on_the_grid(rng):
     one = emulate(x, ell, ls, kbar, JITTER, sms=1)
     many = emulate(x, ell, ls, kbar, JITTER, sms=132)
     assert torch.equal(one[0], many[0]) and torch.equal(one[1], many[1])
+
+
+def emulate_generic(x, ell, ls, kbar, jitter, threads=256):
+    """(ℓ̄, L̄) by the generic route's order of work (M > 8): one block per
+    row input n; thread k owns (a, b) = (k / M, k % M), then k + threads,
+    ...; for each column input p in order, t[a,b] = Σ_c S[(n,a),(p,c)]·L[p,c,b]
+    in c order, L̄ += kxj·t, and the thread's ℓ̄ share += kx·f·L[n,a,b]·t;
+    the shares are summed by the block's tree."""
+    n, m, _ = ls.shape
+    mm = m * m
+    d = (x[:, None] - x[None, :]) ** 2
+    a2 = ell[:, None] ** 2 + ell[None, :] ** 2
+    kx = torch.sqrt(2 * (ell[:, None] * ell[None, :]) / a2) * torch.exp(-d / a2)
+    f = 1 / (2 * ell[:, None]) - ell[:, None] / a2 + 2 * ell[:, None] * d / (a2 * a2)
+    w = (kx * f).fill_diagonal_(0)
+    kxj = kx + jitter * torch.eye(n, dtype=T64)
+    kb4 = kbar.reshape(n, m, n, m)
+    ls_bar = torch.empty((n, mm), dtype=T64)
+    ell_bar = torch.empty(n, dtype=T64)
+    a_of, b_of = torch.arange(mm) // m, torch.arange(mm) % m
+    for r in range(n):
+        acc = torch.zeros(mm, dtype=T64)
+        lsh = torch.zeros(mm, dtype=T64)
+        for p in range(n):
+            t = torch.zeros(mm, dtype=T64)
+            for c in range(m):
+                t = t + (kb4[r, a_of, p, c] + kb4[p, c, r, a_of]) * ls[p, c, b_of]
+            acc = acc + kxj[r, p] * t
+            lsh = lsh + w[r, p] * ls[r].reshape(-1) * t
+        ls_bar[r] = acc
+        # thread k % threads holds the shares of k, k + threads, ...; then the tree
+        red = torch.zeros(threads, dtype=T64)
+        for k0 in range(0, mm, threads):
+            chunk = lsh[k0:k0 + threads]
+            red[:chunk.numel()] += chunk
+        off = threads // 2
+        while off:
+            red = red[:off] + red[off:2 * off]
+            off //= 2
+        ell_bar[r] = red[0]
+    return ell_bar, ls_bar.reshape(n, m, m)
+
+
+@pytest.mark.parametrize("n,m", [(6, 9), (4, 13), (3, 17)])
+def test_generic_route_order_of_work_matches_jax_grad(rng, n, m):
+    """M > 8: the generic route, at M = 9, 13 and 17 (M² over a block's 256
+    threads, so a thread owns two (a, b))."""
+    x, _, ls, kbar = _inputs(rng, n, m)
+    # lengthscales that couple these few inputs, so that ℓ̄ is not 0 up to rounding
+    ell = np.exp(-1 + 0.2 * rng.normal(size=n))
+    want_e, want_l = _jax_grad(x, ell, ls, kbar)
+    got_e, got_l = emulate_generic(*(torch.tensor(a, dtype=T64) for a in (x, ell, ls, kbar)), JITTER)
+    for got, want in ((got_e, want_e), (got_l, want_l)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-10 * np.abs(want).max())
+
+
+def test_generic_route_schedule():
+    sched = gk.k3_backward_schedule(40, 9)
+    assert (sched.route, sched.tile, sched.grid, sched.partial_numel) == ("generic", 1, 40, 0)
+    assert gk.k3_backward_schedule(40, 8).route == "tiled"
+
+
+def test_generic_route_shared_memory_does_not_grow_with_m():
+    """Every M above 8 (9..256 here) takes the generic route, whose only
+    shared memory is three double arrays of a block's 256 threads: 6,144 B
+    whatever M and the type are, far under the H100's 232,448 B a block."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "svc_gram_tiled.cu")) as f:
+        src = f.read()
+    body = src[src.index("svc_gram_tiled_bwd_generic_kernel(const T*"):]
+    body = body[:body.index("\ntemplate <typename T>")]
+    assert "extern __shared__" not in body
+    assert [ln.strip() for ln in body.splitlines() if "__shared__" in ln] == [
+        "__shared__ double kxj_s[kThreads], w_s[kThreads], red[kThreads];"]
+    assert "constexpr int kThreads = 256;" in src
+    assert all(gk.k3_backward_schedule(40, m).route == "generic" for m in range(9, 257))

@@ -138,7 +138,7 @@ def test_schedule_at_the_timed_shapes():
     assert gk.k3_forward_schedule(20000, 2, torch.float64).grid == 16 * 132  # a persistent walk
 
 
-@pytest.mark.parametrize("n,m", [(1, 2), (1, 9), (21, 9)])
+@pytest.mark.parametrize("n,m", [(1, 2), (1, 9), (21, 9), (5, 30)])
 def test_svc_gram_tiled_cpu_matches_permuted_jax_gram(rng, n, m):
     x, ell, ls = _inputs(rng, n, m)
     kx = jkernels.nonstationary_rbf_cov(jnp.asarray(x.numpy()), ell1=jnp.asarray(ell.numpy()))
@@ -169,3 +169,45 @@ def test_emulation_mirrors_the_kernel_source():
         "static constexpr int V = sizeof(T) == 8 ? (M % 2 == 0 ? 2 : 1) : (M % 4 == 0 ? 4 : M % 2 == 0 ? 2 : 1);",
     ):
         assert line in src, line
+
+
+def test_shared_memory_fits_the_card_at_every_m():
+    """A block's dynamic shared memory, as the schedule computes it from (M,
+    dtype), stays under the H100's 232,448 B a block for M = 1..256: the
+    generic route (M > 8) holds x, ℓ and the Gibbs terms of its tile alone,
+    a size that does not depend on M."""
+    for dtype, size in ((torch.float64, 8), (torch.float32, 4)):
+        for m in range(1, 257):
+            sched = gk.k3_forward_schedule(1000, m, dtype)
+            assert 0 <= sched.smem_bytes <= 232_448
+            if m > gk.K3_MAX_M:
+                assert sched.smem_bytes == size * (4 * 16 + 16 * 16)
+            elif m <= 4:
+                assert sched.smem_bytes == 0
+            else:
+                assert sched.smem_bytes == size * 32 * m * m * sched.warps
+
+
+def test_shared_memory_formula_mirrors_the_kernel_source():
+    """The lines of ``svc_gram_tiled.cu`` that size the forward's shared
+    memory, and the generic kernel's use of it: L is read through the
+    cache, never staged."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "svc_gram_tiled.cu")) as f:
+        raw = f.read()
+    src = " ".join(raw.split())
+    for line in (
+        "constexpr int kTile = 16;",
+        "constexpr int kGenericSmem = 4 * kTile + kTile * kTile;",
+        "const size_t smem = sizeof(T) * kGenericSmem;",
+        "static constexpr bool REGS = M <= 4;",
+        "static constexpr int STRIP = 32 * MM;",
+        "const size_t smem = F::REGS ? 0 : sizeof(T) * F::STRIP * warps;",
+        "T* kx_s = l_c + kTile; // kTile * kTile",
+        "T bsum = __ldg(lr) * __ldg(lc);",
+        "for (int b = 1; b < m; ++b) bsum = bsum + __ldg(lr + b) * __ldg(lc + b);",
+        "tile_out[static_cast<size_t>(r) * nm + q] = kx_s[nl * kTile + pl] * bsum;",
+    ):
+        assert line in src, line
+    body = raw[raw.index("svc_gram_tiled_generic_kernel(const T*"):]
+    body = body[:body.index("\ntemplate <typename T")]
+    assert "kx_s + kTile * kTile" not in body  # nothing staged past the Gibbs terms
