@@ -12,19 +12,24 @@ Phases, each printing its lines:
 2. kernels   — each kernel against its plain PyTorch version on the card, in
                float32 and float64, with its warm time, the plain version's
                time and its bound (bytes over 3.35 TB/s, operations over the
-               peak rate of their type).  A backward kernel's plain version
-               is autograd through its forward's; the tiled SVC Gram (K3) must
-               equal K2's input-major layout bit for bit.  K3's forward and
-               backward must give bit-equal results on a repeat and are also
-               timed with a cold L2; the forward beside a write floor (fill_
-               of the same bytes) with its store route, the backward with its
-               scratch bytes.  Both are also checked, untimed, at every other
-               M they take (the forward: 1..8, an odd N·M and N = 1), and
-               their generic routes (M > 8) at large M (the forward up to
-               M = 130, bit for bit) and timed at N=200, M=9.  K1's backward
-               likewise: bit-equal repeats, cold-L2 time and scratch bytes,
-               and untimed checks at N = 1..1100 (single input, whole and
-               ragged last tiles of both tile sizes, more slots than lanes).
+               peak rate of their type).  The forward kernels (K1's self and
+               cross forms, K2 task-major, K3) must equal their plain
+               versions bit for bit, and K1's self form must be exactly
+               symmetric; K3 must equal K2's task-major output permuted to
+               input-major.  A backward kernel's plain version is autograd
+               through its forward's.  Each kernel of the training and
+               serving paths must give bit-equal results on a repeat and is
+               also timed with a cold L2; a forward beside a write floor
+               (fill_ of the same bytes) with its route, a backward with its
+               scratch bytes.  Each is also checked, untimed, at the other
+               shapes its routes take: K1's self form at N = 1..1100 (single
+               input, odd N, whole and ragged last tiles), its cross form at
+               37 x 45; K2 at M = 1..4 with even and odd N and its generic
+               route at M = 5, 9, 17; K3's forward at every other M (1..8,
+               an odd N·M, N = 1) and its generic route up to M = 130; K3's
+               backward at M = 1, 4..8 and large M; K1's backward at
+               N = 1..1100.  The generic routes of K3 are timed at N=200,
+               M=9.
 3. serving   — (slice 1's path) a ``sim_mnts`` subject at N=1000, M=2
                (float64) written to an artifact store, served over HTTP by
                the port's ``serve``; its /predict answers are checked and
@@ -115,6 +120,23 @@ K3_FWD_GENERIC_SHAPES = {"float64": ((40, 9), (24, 29), (24, 30), (8, 64), (4, 1
                          "float32": ((40, 9), (24, 42), (24, 43), (4, 130))}
 K3_BWD_GENERIC_SHAPES = ((40, 9), (33, 12), (20, 16), (12, 30), (4, 130))
 GENERIC_N, GENERIC_M = 200, 9
+
+#: K1's forward, self form, is timed at N=1000 (pairs route) and N=257
+#: (threads route); these N cover the threads route up to N = 735 and the
+#: pairs route above it (odd N: scalar stores; N % 4 = 2: float32's two-value
+#: stores; whole and ragged last tiles), each checked once.  Up to N = 735
+#: the pairs route is also checked by a launch with its schedule, so that
+#: its single-input and small ragged tiles run too.  The cross form is also
+#: checked at a ragged 37 x 45.
+K1_FWD_OTHER_SIZES = (1, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65, 600, 737, 738, 1024, 1100)
+K1_CROSS_OTHER_SHAPES = ((37, 45), (1, 1))
+
+#: K2 is timed at N=1000 M=2 and N=257 M=3; these (N, M) cover M = 1..4 on
+#: the vector route (float64: even N; float32: N divisible by 4 or 2) and the
+#: scalar route (odd N), N = 1, and the generic route (M > 4), each checked
+#: once.
+K2_OTHER_SHAPES = ((64, 1), (37, 1), (38, 2), (37, 2), (36, 3), (37, 3), (40, 4), (37, 4), (1, 2),
+                   (40, 5), (24, 9), (12, 17))
 
 #: K1's backward is timed at N=1000 and N=257; these N cover a single input,
 #: whole and ragged last tiles of 16 and 32 inputs, and more partial slots
@@ -227,16 +249,23 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
     served path pads a request to."""
     gen = torch.Generator().manual_seed(seed)
     dev = torch.device(DEVICE)
+    sms = gk.sm_count(dev)
     main = {}
     for dtype in (torch.float32, torch.float64):
         dn = str(dtype).replace("torch.", "")
         size = torch.tensor([], dtype=dtype).element_size()
         cases = []
+        # forward kernels checked bit for bit and timed cold beside a write
+        # floor: label -> (outputs, schedule, description of the walk)
+        fwd = {}
         # K1 self form at N=1000 and a ragged N=257; cross form at each bucket
         for n in (1000, 257):
             x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
+            label = f"gibbs_gram self N={n}"
+            sched = gk.k1_forward_schedule(n, n, True, dtype, sms)
+            fwd[label] = (n * n, sched, k1_walk(sched))
             cases.append((
-                f"gibbs_gram self N={n}", "gibbs_gram",
+                label, "gibbs_gram",
                 lambda x=x, s=s, l=l: gk.gibbs_gram(x, s, l, jitter=settings.jitter),
                 lambda x=x, s=s, l=l: gk.gibbs_gram_plain(x, s, l, x, s, l, settings.jitter),
                 3 * n * size + n * n * size, 15 * n * n,
@@ -246,27 +275,33 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
         for g in cross_columns:
             x2, s2, l2 = kernel_inputs(torch, gen, g, dtype, dev)
             s2 = torch.ones_like(s2)
+            label = f"gibbs_gram cross {SERVED_N}x{g}"
+            sched = gk.k1_forward_schedule(SERVED_N, g, False, dtype, sms)
+            fwd[label] = (SERVED_N * g, sched, k1_walk(sched))
             cases.append((
-                f"gibbs_gram cross {SERVED_N}x{g}", "gibbs_gram",
+                label, "gibbs_gram",
                 lambda x2=x2, s2=s2, l2=l2: gk.gibbs_gram(x1, s1, l1, x2, s2, l2),
                 lambda x2=x2, s2=s2, l2=l2: gk.gibbs_gram_plain(x1, s1, l1, x2, s2, l2),
                 3 * (SERVED_N + g) * size + SERVED_N * g * size, 15 * SERVED_N * g,
             ))
-        # K2 in both layouts at the served shape and a ragged small M=3
-        for n, m in ((1000, 2), (37, 3)):
+        # K2 (task-major; the input-major layout is K3's) at the served shape
+        # and a ragged N=257, M=3
+        for n, m in ((1000, 2), (257, 3)):
             x, _, l = kernel_inputs(torch, gen, n, dtype, dev)
             ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
             ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
-            for layout in ("task", "input"):
-                cases.append((
-                    f"svc_gram {layout} N={n} M={m}", "svc_gram",
-                    lambda x=x, l=l, ls=ls, lay=layout: gk.svc_gram(x, l, ls, settings.jitter, lay),
-                    lambda x=x, l=l, ls=ls, lay=layout: gk.svc_gram_plain(x, l, ls, settings.jitter, lay),
-                    (2 * n + n * m * m) * size + (n * m) ** 2 * size, n * n * (12 + 2 * m**3),
-                ))
+            label = f"svc_gram task N={n} M={m}"
+            sched = gk.k2_schedule(n, m, dtype, sms)
+            fwd[label] = ((n * m) ** 2, sched, strip_walk(sched))
+            cases.append((
+                label, "svc_gram",
+                lambda x=x, l=l, ls=ls: gk.svc_gram(x, l, ls, settings.jitter),
+                lambda x=x, l=l, ls=ls: gk.svc_gram_plain(x, l, ls, settings.jitter),
+                (2 * n + n * m * m) * size + (n * m) ** 2 * size, n * n * (12 + 2 * m**3),
+            ))
         # K3 and the two backward kernels (the training path) at the served
         # shape and a ragged N=257, M=3; in f64 also K3's generic routes
-        grads, k3_shapes, k3_fwd_shapes, k1_sizes = [], {}, {}, {}
+        grads, k3_shapes, k1_sizes = [], {}, {}
         k3_timed = ((1000, 2), (257, 3)) + (((GENERIC_N, GENERIC_M),) if dn == "float64" else ())
         for n, m in k3_timed:
             x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
@@ -275,7 +310,10 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             kbar = torch.randn(n * m, n * m, generator=gen, dtype=torch.float64).to(dev, dtype)
             kbar1 = torch.randn(n, n, generator=gen, dtype=torch.float64).to(dev, dtype)
             k3_equals_k2(torch, gk, settings, f"svc_gram_tiled N={n} M={m} {dn}", x, l, ls)
-            k3_fwd_shapes[f"svc_gram_tiled N={n} M={m}"] = (n, m)
+            sched = gk.k3_forward_schedule(n, m, dtype, sms)
+            walk = (f"tiles of {sched.rows} x {sched.rows} inputs, {sched.warps} warps a block, grid {sched.grid}"
+                    if sched.route == "generic" else strip_walk(sched))
+            fwd[f"svc_gram_tiled N={n} M={m}"] = ((n * m) ** 2, sched, walk)
             out_bytes = (n * m) ** 2 * size
             cases.append((
                 f"svc_gram_tiled N={n} M={m}", "svc_gram_tiled",
@@ -303,6 +341,7 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
         main_labels = (f"gibbs_gram cross {SERVED_N}x256", "svc_gram task N=1000 M=2",
                        "svc_gram_tiled N=1000 M=2", "svc_gram_tiled_backward N=1000 M=2",
                        "gibbs_gram_backward N=1000")
+        rows = {}
         for label, kname, kern, plain, nbytes, ops in cases + grads:
             if kname.endswith("_backward"):
                 err = check_grad(torch, f"{label} {dn}", kern(), plain(), dn)
@@ -333,28 +372,65 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                     sched = gk.k1_backward_schedule(k1_sizes[label], gk.sm_count(dev))
                     walk = f"{sched.n_pairs} tile pairs of {sched.tile} inputs, grid {sched.grid}"
                 row.update(cold_ms=time_cold_ms(torch, kern), scratch_bytes=sched.partial_numel * size,
-                           repeat_bit_equal=True)
+                           kernel_route=getattr(sched, "route", "tiled"), repeat_bit_equal=True)
                 log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
                     f"(warm {ms:.5f}); scratch {row['scratch_bytes']} B; {walk}")
-            if label in k3_fwd_shapes:
-                # K3's forward: bit-equal on a repeat, a cold-L2 time, the
+            if label in fwd:
+                # a forward: bit-equal to its plain version and on a repeat
+                # (K1's self form also exactly symmetric), a cold-L2 time, the
                 # write floor (fill_ of the same bytes) warm and cold, its route
-                n, m = k3_fwd_shapes[label]
-                if not torch.equal(kern(), kern()):
+                numel, sched, walk = fwd[label]
+                out = kern()
+                if not torch.equal(out, plain()):
+                    raise AssertionError(f"{label} {dn}: not bit-equal to the plain version")
+                if label.startswith("gibbs_gram self") and not torch.equal(out, out.T):
+                    raise AssertionError(f"{label} {dn}: not exactly symmetric")
+                if not torch.equal(out, kern()):
                     raise AssertionError(f"{label} {dn}: two launches on the same inputs differ")
-                sched = gk.k3_forward_schedule(n, m, dtype, gk.sm_count(dev))
-                fill = lambda n=n, m=m: torch.empty((n * m) ** 2, dtype=dtype, device=dev).fill_(1.0)
+                fill = lambda numel=numel: torch.empty(numel, dtype=dtype, device=dev).fill_(1.0)
                 row.update(cold_ms=time_cold_ms(torch, kern), write_floor_ms=time_ms(torch, fill),
-                           write_floor_cold_ms=time_cold_ms(torch, fill), store_route=sched.route,
-                           vec=sched.vec, repeat_bit_equal=True)
-                walk = (f"tiles of {sched.rows} x {sched.rows} inputs" if sched.route == "generic"
-                        else f"items of {sched.rows} x 32 inputs")
-                log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
-                    f"(warm {ms:.5f}); write floor (fill_ of the same bytes) warm {row['write_floor_ms']:.5f} "
-                    f"cold {row['write_floor_cold_ms']:.5f}; {sched.route} route, {sched.vec} values a store, "
-                    f"{walk}, {sched.warps} warps a block, grid {sched.grid}")
+                           write_floor_cold_ms=time_cold_ms(torch, fill), kernel_route=sched.route,
+                           vec=sched.vec, bit_equal_to_plain=True, repeat_bit_equal=True)
+                log("kernels", f"{label} {dn}: bit-equal to the plain version"
+                    + (", exactly symmetric" if label.startswith("gibbs_gram self") else "")
+                    + f" and on a repeat; cold-L2 ms={row['cold_ms']:.5f} (warm {ms:.5f}); write floor "
+                    f"(fill_ of the same bytes) warm {row['write_floor_ms']:.5f} cold "
+                    f"{row['write_floor_cold_ms']:.5f}; {sched.route} route, {sched.vec} values a store, {walk}")
+            rows[label] = row
             if dn == "float64" and label in main_labels:
                 main[kname] = row
+        if dn == "float64":
+            # K1's self form (the training path's) beside the served cross form
+            main["gibbs_gram"]["self_form_n1000"] = rows["gibbs_gram self N=1000"]
+        # K1's forward at other N, untimed: bit-equal to the plain version and
+        # on a repeat, the self form exactly symmetric
+        for n in K1_FWD_OTHER_SIZES:
+            x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
+            want = gk.gibbs_gram_plain(x, s, l, x, s, l, settings.jitter)
+            sched = gk.k1_forward_schedule(n, n, True, dtype, sms)
+            check_forward(torch, f"gibbs_gram self N={n} {dn}", lambda: gk.gibbs_gram(x, s, l, jitter=settings.jitter),
+                          want, dn, sched, symmetric=True)
+            if sched.route != "pairs":
+                pairs = gk.k1_pairs_schedule(n, dtype, sms)
+                check_forward(torch, f"gibbs_gram self N={n} {dn}, pairs route by its schedule",
+                              lambda: gk._k1_launch(pairs, x, s, l, x, s, l, settings.jitter), want, dn, pairs,
+                              symmetric=True)
+        for n1, n2 in K1_CROSS_OTHER_SHAPES:
+            x1, s1, l1 = kernel_inputs(torch, gen, n1, dtype, dev)
+            x2, s2, l2 = kernel_inputs(torch, gen, n2, dtype, dev)
+            check_forward(torch, f"gibbs_gram cross {n1}x{n2} {dn}", lambda: gk.gibbs_gram(x1, s1, l1, x2, s2, l2),
+                          gk.gibbs_gram_plain(x1, s1, l1, x2, s2, l2), dn,
+                          gk.k1_forward_schedule(n1, n2, False, dtype, sms))
+        # K2 at the other M and N, untimed: both store routes and the generic
+        # route, each bit-equal to the plain version and K3 to it permuted
+        for n, m in K2_OTHER_SHAPES:
+            x, _, l = kernel_inputs(torch, gen, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
+            ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
+            label = f"svc_gram task N={n} M={m} {dn}"
+            check_forward(torch, label, lambda: gk.svc_gram(x, l, ls, settings.jitter),
+                          gk.svc_gram_plain(x, l, ls, settings.jitter), dn, gk.k2_schedule(n, m, dtype, sms))
+            k3_equals_k2(torch, gk, settings, f"svc_gram_tiled N={n} M={m} {dn}", x, l, ls)
         # K3's backward at the other M it takes, untimed: tile 16 at M=1 and
         # M=4, tile 8 at M=5..8, with ragged and whole last tiles; the
         # generic route above M = 8
@@ -382,7 +458,7 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             got = gk.svc_gram_tiled(x, l, ls, settings.jitter)
             want = gk.svc_gram_tiled_plain(x, l, ls, settings.jitter)
             err = check_close(torch, label, got, want, dn)
-            if m > gk.K3_MAX_M and not torch.equal(got, want):
+            if not torch.equal(got, want):
                 raise AssertionError(f"{label}: not bit-equal to the plain version")
             k3_equals_k2(torch, gk, settings, label, x, l, ls)
             if not torch.equal(got, gk.svc_gram_tiled(x, l, ls, settings.jitter)):
@@ -416,10 +492,42 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
 
 
 def k3_equals_k2(torch, gk, settings, label, x, l, ls) -> None:
-    """K3's forward must equal K2's input-major layout bit for bit."""
-    if not torch.equal(gk.svc_gram_tiled(x, l, ls, settings.jitter), gk.svc_gram(x, l, ls, settings.jitter, "input")):
-        raise AssertionError(f"{label}: not bit-equal to svc_gram input-major")
-    log("kernels", f"{label} vs svc_gram input-major: equal bit for bit")
+    """K3's forward must equal K2's task-major output permuted to input-major
+    bit for bit: two kernels held against each other."""
+    n, m = ls.shape[0], ls.shape[1]
+    task = gk.svc_gram(x, l, ls, settings.jitter).reshape(m, n, m, n)
+    if not torch.equal(gk.svc_gram_tiled(x, l, ls, settings.jitter), task.permute(1, 0, 3, 2).reshape(n * m, n * m)):
+        raise AssertionError(f"{label}: not bit-equal to svc_gram task-major, permuted")
+    log("kernels", f"{label} vs svc_gram task-major permuted: equal bit for bit")
+
+
+def k1_walk(sched) -> str:
+    """K1's forward route's shape, for the log."""
+    if sched.route == "pairs":
+        return f"{sched.n_pairs} tile pairs of {sched.tile} inputs, grid {sched.grid}"
+    return f"one thread per output, {sched.grid} blocks of 32 x 8"
+
+
+def strip_walk(sched) -> str:
+    """A strip walk's shape, for the log."""
+    return (f"items of {sched.rows} x {sched.strip} inputs, {sched.n_items} items, "
+            f"{sched.warps} warps a block, grid {sched.grid}")
+
+
+def check_forward(torch, label, kern, want, dn, sched, symmetric=False) -> None:
+    """An untimed forward check: bit-equal to the plain version's ``want``
+    and on a repeat (and, for K1's self form, exactly symmetric)."""
+    got = kern()
+    err = check_close(torch, label, got, want, dn)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: not bit-equal to the plain version")
+    if symmetric and not torch.equal(got, got.T):
+        raise AssertionError(f"{label}: not exactly symmetric")
+    if not torch.equal(got, kern()):
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
+    log("kernels", f"{label} ({sched.route} route, {sched.vec} values a store): ok, bit-equal to the plain "
+        f"version{', exactly symmetric' if symmetric else ''}, max_abs_err={err:.3e}, two launches bit-equal "
+        "(untimed)")
 
 
 def write_subject(torch, sim, transforms, store_cls, root, seed):
@@ -877,7 +985,7 @@ def main() -> int:
         served = name in SERVED_KERNELS
         row = {
             "name": name,
-            "route": "cuda",
+            "route": "cuda",  # the contract's: CUDA C++ (kernel_route: the schedule's route)
             "source": f"nonstationary_multivariate_gaussian_process_tpu_torch/csrc/{gk.SOURCES[name]}.cu",
             "replaces": replaces[name],
             "launches": launches[name] if served else train_launches[name],

@@ -5,22 +5,42 @@
 //
 // Replaces the TPU kernel `gibbs_gram_pallas` (tile body `_gibbs_tile_kernel`)
 // in nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py.
-// The TPU kernel only had the self form (x1 == x2, jitter baked in); this one
-// takes a row strip (x1, s1, l1) and a column strip (x2, s2, l2) of any
-// lengths, so the same body serves the self-covariance (the wrapper passes the
-// jitter) and the predictive cross-covariance (jitter 0).
+// The TPU kernel only had the self form (x1 == x2, jitter baked in); here the
+// forward also takes the cross form (a row strip x1, s1, l1 against a column
+// strip x2, s2, l2 of any lengths, no jitter: the predictive
+// cross-covariance).
 //
-// What bounds it on the H100: it reads O(n1 + n2) inputs and writes n1*n2
-// outputs, with ~12 operations per output, so it is bound by the bytes it
-// writes (n1*n2*sizeof(T) over 3.35 TB/s).  The design does nothing more than
-// keep that write the only traffic: one thread per output element, threads
-// of a warp on neighbouring columns so every store is coalesced, the input
-// strips read through the cache.  The TPU kernel's padding (sigma with 0,
-// ell with 1) becomes a bounds mask on the ragged edge.
+// What bounds the forward on the H100: it reads O(n1 + n2) inputs and writes
+// n1 n2 outputs (8 MB at N=1000 float64, 2.4 us at 3.35 TB/s), but in float64
+// each Gibbs term's exp, sqrt and two divisions cost about as much: some 8 us
+// for 10^6 terms on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).  Two routes,
+// chosen from the shapes (gram_kernels.k1_forward_schedule):
+// * Pairs (the self form where its N^2 outputs need more than one wave of
+//   the threads route): the blocks walk the unordered tile pairs (I <= J) of
+//   32 inputs, in the backward's row-major order, on a persistent grid of 4
+//   blocks per SM.  A block stages the pair's two strips of x, s and l, and
+//   each of its 256 threads evaluates 4 terms in registers: V consecutive
+//   columns of 4 / V rows.  Every operation of the term is commutative in
+//   (i, j), so the one evaluation of an unordered pair is also the bits of
+//   (j, i): the output is exactly symmetric, with half the terms of an
+//   ordered walk.  Tile (I, J) is stored from registers, V values at once,
+//   lanes on neighbouring columns; tile (J, I) goes through shared memory
+//   with an odd pitch and is stored the same way along its rows.  A diagonal
+//   tile evaluates its upper triangle (the jitter on i == j) and stores the
+//   whole tile once, its lower triangle read back transposed.  V is 2 in
+//   float64 and 4 or 2 in float32 where N is divisible by it (so every row
+//   offset i N + j is a multiple of V), else 1.
+// * Threads (the cross form, and the self form at small N): one thread per
+//   output on (32, 8) blocks, threads of a warp on neighbouring columns, so
+//   every store is coalesced.  Below a full wave the kernel is bound by one
+//   term's latency and the launch, and the most threads in flight win: the
+//   pairs route and warp strips with wide stores (K3's design: fewer threads,
+//   more registers, V terms a lane) were slower there (PERF.md).
+// The ragged edge is masked.
 //
 // Built without fast math and with -fmad=false, so each operation rounds as
-// the plain PyTorch version's separate elementwise operations do; only the
-// last-ulp differences of exp/sqrt remain.
+// the plain PyTorch version's separate elementwise operations do, and the
+// forward equals the plain version bit for bit on the card.
 //
 // Backward of the self form (a second entry point; the TPU had none, XLA
 // differentiated the jnp Gram).  With g_ij the Gibbs term (s = 1) and Kbar
@@ -88,39 +108,6 @@ __device__ __forceinline__ double gsqrt(double v) { return sqrt(v); }
 __device__ __forceinline__ float grsqrt(float v) { return rsqrtf(v); }
 __device__ __forceinline__ double grsqrt(double v) { return rsqrt(v); }
 
-template <typename T>
-__global__ void gibbs_gram_kernel(const T* __restrict__ x1, const T* __restrict__ s1,
-                                  const T* __restrict__ l1, int n1,
-                                  const T* __restrict__ x2, const T* __restrict__ s2,
-                                  const T* __restrict__ l2, int n2, T jitter,
-                                  T* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= n1 || j >= n2) return;
-  const T li = l1[i];
-  const T lj = l2[j];
-  const T a = li * li + lj * lj;
-  const T b = li * lj;
-  const T dx = x1[i] - x2[j];
-  const T d = dx * dx;
-  T k = (s1[i] * s2[j]) * gsqrt(T(2) * b / a) * gexp(-d / a);
-  if (jitter != T(0) && i == j) k = k + jitter;
-  out[static_cast<size_t>(i) * n2 + j] = k;
-}
-
-template <typename T>
-int launch(const void* x1, const void* s1, const void* l1, int n1, const void* x2,
-           const void* s2, const void* l2, int n2, double jitter, void* out,
-           void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((n2 + block.x - 1) / block.x, (n1 + block.y - 1) / block.y);
-  gibbs_gram_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x1), static_cast<const T*>(s1), static_cast<const T*>(l1),
-      n1, static_cast<const T*>(x2), static_cast<const T*>(s2),
-      static_cast<const T*>(l2), n2, static_cast<T>(jitter), static_cast<T*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Tile pair q of the row-major walk over I <= J.  Row I starts at pair
 // I*nt - I*(I-1)/2; a float root gives I, and the two loops correct it.
 __device__ __forceinline__ int first_pair(int i, int n_tiles) { return i * n_tiles - i * (i - 1) / 2; }
@@ -134,6 +121,189 @@ __device__ __forceinline__ void tile_pair(int q, int n_tiles, int& I, int& J) {
   I = i;
   J = i + q - first_pair(i, n_tiles);
 }
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+// The Gibbs term of (i, j): the plain version's operations in its order.
+// Each step is commutative in (i, j), so gibbs of (j, i) is the same bits.
+template <typename T>
+__device__ __forceinline__ T gibbs(T xi, T si, T li, T xj, T sj, T lj) {
+  const T a = li * li + lj * lj;
+  const T b = li * lj;
+  const T dx = xi - xj;
+  const T d = dx * dx;
+  return (si * sj) * gsqrt(T(2) * b / a) * gexp(-d / a);
+}
+
+// V consecutive values stored at once; `p` is aligned to V values.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[V]) {
+  if constexpr (V == 1) {
+    *p = v[0];
+  } else if constexpr (sizeof(T) == 8) {
+    static_assert(V == 2, "float64 stores at most two values at once");
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    static_assert(V == 4, "float32 stores at most four values at once");
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The store width: the widest of 16 B whose value count divides n, so that
+// every row offset i * n + j (j a multiple of V) is a multiple of V.
+template <typename T>
+__host__ __device__ constexpr int fwd_vec(int n) {
+  return sizeof(T) == 8 ? (n % 2 == 0 ? 2 : 1) : (n % 4 == 0 ? 4 : n % 2 == 0 ? 2 : 1);
+}
+
+// The pairs route's shapes for stores of V values: thread t takes columns
+// c0 = (t % LANES) V .. + V - 1 of rows t / LANES + k STEP of a tile pair.
+template <int V>
+struct Pairs {
+  static constexpr int TILE = 32;                  // inputs a tile side
+  static constexpr int THREADS = TILE * TILE / 4;  // four terms a thread
+  static constexpr int LANES = TILE / V;           // threads along a tile row
+  static constexpr int STEP = THREADS / LANES;     // tile rows the block takes at once
+  static constexpr int ROWS = TILE / STEP;         // rows a thread takes: 4 / V
+  static constexpr int PITCH = TILE + 1;           // odd: the transposed reads spread over the banks
+};
+
+// Self form, pairs route: one block walks tile pairs q = blockIdx.x,
+// + gridDim.x, ...; see the header.
+template <typename T, int V>
+__global__ void __launch_bounds__(Pairs<V>::THREADS)
+gibbs_gram_pairs_kernel(const T* __restrict__ x, const T* __restrict__ s, const T* __restrict__ l,
+                        int n, T jitter, T* __restrict__ out) {
+  using F = Pairs<V>;
+  constexpr int TILE = F::TILE;
+  __shared__ T sx[2][TILE], ss[2][TILE], sl[2][TILE];  // tile I (side 0) and tile J (side 1)
+  __shared__ T tile[TILE][F::PITCH];                  // tile[r][c] = K[I TILE + r, J TILE + c]
+  const int tid = threadIdx.x;
+  const int c0 = tid % F::LANES * V;
+  const int r0 = tid / F::LANES;
+  const int n_tiles = (n + TILE - 1) / TILE;
+  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
+  for (int q = blockIdx.x; q < n_pairs; q += gridDim.x) {
+    int I, J;
+    tile_pair(q, n_tiles, I, J);
+    __syncthreads();  // the previous pair is done with the shared memory
+    if (tid < 2 * TILE) {
+      const int side = tid / TILE, e = tid % TILE;
+      const int i = (side == 0 ? I : J) * TILE + e;
+      const bool in = i < n;
+      sx[side][e] = in ? x[i] : T(0);
+      ss[side][e] = in ? s[i] : T(0);
+      sl[side][e] = in ? l[i] : T(1);
+    }
+    __syncthreads();
+    const bool diag = I == J;
+    T k[F::ROWS][V];
+#pragma unroll
+    for (int rr = 0; rr < F::ROWS; ++rr) {
+      const int r = r0 + rr * F::STEP;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int c = c0 + v;
+        k[rr][v] = T(0);
+        if (!diag || r <= c) {
+          k[rr][v] = gibbs(sx[0][r], ss[0][r], sl[0][r], sx[1][c], ss[1][c], sl[1][c]);
+          if (diag && r == c && jitter != T(0)) k[rr][v] = k[rr][v] + jitter;
+          tile[r][c] = k[rr][v];
+        }
+      }
+    }
+    if (!diag) {  // tile (I, J) from registers
+      const int j = J * TILE + c0;
+#pragma unroll
+      for (int rr = 0; rr < F::ROWS; ++rr) {
+        const int i = I * TILE + r0 + rr * F::STEP;
+        if (i < n && j < n) store_vec<T, V>(out + static_cast<size_t>(i) * n + j, k[rr]);
+      }
+    }
+    __syncthreads();  // the pair's terms are in shared memory
+    // tile (J, I), or on the diagonal tile (I, I) with its lower triangle,
+    // read transposed: row R TILE + r, columns I TILE + c0 ..
+    const int R = diag ? I : J;
+    const int j = I * TILE + c0;
+#pragma unroll
+    for (int rr = 0; rr < F::ROWS; ++rr) {
+      const int r = r0 + rr * F::STEP;
+      const int i = R * TILE + r;
+      T val[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) val[v] = diag && r <= c0 + v ? k[rr][v] : tile[c0 + v][r];
+      if (i < n && j < n) store_vec<T, V>(out + static_cast<size_t>(i) * n + j, val);
+    }
+  }
+}
+
+constexpr int kThreadsX = 32, kThreadsY = 8;  // threads route: the block
+
+// Threads route: one thread per output (i, j), threads of a warp on
+// neighbouring columns; the jitter on i == j (self form only).
+template <typename T>
+__global__ void gibbs_gram_threads_kernel(const T* __restrict__ x1, const T* __restrict__ s1,
+                                          const T* __restrict__ l1, int n1, const T* __restrict__ x2,
+                                          const T* __restrict__ s2, const T* __restrict__ l2, int n2,
+                                          T jitter, T* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= n1 || j >= n2) return;
+  T k = gibbs(x1[i], s1[i], l1[i], x2[j], s2[j], l2[j]);
+  if (jitter != T(0) && i == j) k = k + jitter;
+  out[static_cast<size_t>(i) * n2 + j] = k;
+}
+
+template <typename T, int V>
+int launch_pairs_vec(const T* x, const T* s, const T* l, int n, T jitter, int grid, T* out, cudaStream_t stream) {
+  gibbs_gram_pairs_kernel<T, V><<<grid, Pairs<V>::THREADS, 0, stream>>>(x, s, l, n, jitter, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vec must be the store width of n, and 1 <= grid <= the number of tile
+// pairs, which must fit an int.
+template <typename T>
+int launch_pairs(const void* x_, const void* s_, const void* l_, int n, double jitter, int vec, int grid,
+                 void* out_, void* stream_) {
+  const int n_tiles = (n + 31) / 32;
+  if (n < 1 || n_tiles > 46340 || grid < 1 || grid > n_tiles * (n_tiles + 1) / 2 || vec != fwd_vec<T>(n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* x = static_cast<const T*>(x_);
+  const auto* s = static_cast<const T*>(s_);
+  const auto* l = static_cast<const T*>(l_);
+  auto* out = static_cast<T*>(out_);
+  const auto stream = static_cast<cudaStream_t>(stream_);
+  const T jit = static_cast<T>(jitter);
+  if constexpr (sizeof(T) == 4) {
+    if (vec == 4) return launch_pairs_vec<T, 4>(x, s, l, n, jit, grid, out, stream);
+  }
+  if (vec == 2) return launch_pairs_vec<T, 2>(x, s, l, n, jit, grid, out, stream);
+  return launch_pairs_vec<T, 1>(x, s, l, n, jit, grid, out, stream);
+}
+
+// grid must be the blocks of the (32, 8) grid, ceil(n2 / 32) * ceil(n1 / 8).
+template <typename T>
+int launch_threads(const void* x1, const void* s1, const void* l1, int n1, const void* x2, const void* s2,
+                   const void* l2, int n2, double jitter, int grid, void* out, void* stream) {
+  const dim3 block(kThreadsX, kThreadsY);
+  const dim3 blocks((n2 + kThreadsX - 1) / kThreadsX, (n1 + kThreadsY - 1) / kThreadsY);
+  if (n1 < 1 || n2 < 1 || blocks.y > 65535 ||
+      static_cast<long long>(grid) != static_cast<long long>(blocks.x) * blocks.y)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gibbs_gram_threads_kernel<T><<<blocks, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x1), static_cast<const T*>(s1), static_cast<const T*>(l1), n1,
+      static_cast<const T*>(x2), static_cast<const T*>(s2), static_cast<const T*>(l2), n2,
+      static_cast<T>(jitter), static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
 
 // Backward's shapes for tiles of TILE inputs a side: thread t takes column
 // c = t % TILE of rows t / TILE + k * STEP, k < ROWS.
@@ -383,17 +553,31 @@ int launch_backward(const void* x, const void* s, const void* l, int n, const vo
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
-int gibbs_gram_f32(const void* x1, const void* s1, const void* l1, int n1,
-                   const void* x2, const void* s2, const void* l2, int n2,
-                   double jitter, void* out, void* stream) {
-  return launch<float>(x1, s1, l1, n1, x2, s2, l2, n2, jitter, out, stream);
+// Each returns cudaGetLastError() after its launches (0 on success).
+// Self form, pairs route: vec, grid from gram_kernels.k1_forward_schedule(n, n, True, dtype).
+int gibbs_gram_pairs_f32(const void* x, const void* s, const void* l, int n, double jitter, int vec, int grid,
+                         void* out, void* stream) {
+  return launch_pairs<float>(x, s, l, n, jitter, vec, grid, out, stream);
 }
 
-int gibbs_gram_f64(const void* x1, const void* s1, const void* l1, int n1,
-                   const void* x2, const void* s2, const void* l2, int n2,
-                   double jitter, void* out, void* stream) {
-  return launch<double>(x1, s1, l1, n1, x2, s2, l2, n2, jitter, out, stream);
+int gibbs_gram_pairs_f64(const void* x, const void* s, const void* l, int n, double jitter, int vec, int grid,
+                         void* out, void* stream) {
+  return launch_pairs<double>(x, s, l, n, jitter, vec, grid, out, stream);
+}
+
+// Threads route (the cross form, and the self form at small N, with
+// x2 = x1 ...): grid from gram_kernels.k1_forward_schedule; jitter 0 for
+// the cross form.
+int gibbs_gram_threads_f32(const void* x1, const void* s1, const void* l1, int n1, const void* x2,
+                           const void* s2, const void* l2, int n2, double jitter, int grid, void* out,
+                           void* stream) {
+  return launch_threads<float>(x1, s1, l1, n1, x2, s2, l2, n2, jitter, grid, out, stream);
+}
+
+int gibbs_gram_threads_f64(const void* x1, const void* s1, const void* l1, int n1, const void* x2,
+                           const void* s2, const void* l2, int n2, double jitter, int grid, void* out,
+                           void* stream) {
+  return launch_threads<double>(x1, s1, l1, n1, x2, s2, l2, n2, jitter, grid, out, stream);
 }
 
 // Self-form backward.  partial: ceil(n/tile) * n * 2 scratch values; s_bar,

@@ -4,11 +4,14 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
 
 * :func:`gibbs_gram` — kernel K1, ``csrc/gibbs_gram.cu``, replaces
   ``gibbs_gram_pallas``.  The Gibbs kernel of a row strip (x1, σ1, ℓ1) and a
-  column strip (x2, σ2, ℓ2); the self form adds the jitter on i == j.
+  column strip (x2, σ2, ℓ2); the self form adds the jitter on i == j.  The
+  self form walks unordered tile pairs where it fills the card, else one
+  thread per output, as the cross form does (:func:`k1_forward_schedule`).
 * :func:`svc_gram` — kernel K2, ``csrc/svc_gram.cu``, replaces
   ``svc_gram_fused2d``.  The fused GNMGP Gram
   ``K[(n,a),(p,c)] = (K_x[n,p] + jitter·δ_np)·(L_n L_pᵀ)[a,c]`` in the
-  task-major (row ``a·N + n``) or input-major (row ``n·M + a``) layout.
+  task-major layout (row ``a·N + n``), in warp strips with wide stores
+  (:func:`k2_schedule`); its input-major layout (row ``n·M + a``) is K3's.
   Prediction only: nothing differentiates through it.
 * :func:`svc_gram_tiled` — kernel K3, ``csrc/svc_gram_tiled.cu``, replaces
   ``svc_gram_fused``.  The same Gram, input-major, written strip by strip
@@ -18,8 +21,8 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
   backward kernels of K1's self form and of K3 (new: the TPU had none).
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
-launches its kernel for a CUDA tensor, on the current stream, or raises.  It
-counts its launches in a plain integer attribute (``gibbs_gram.launches``),
+launches its kernel for a CUDA tensor, on the current stream (:func:`_launch`),
+or raises.  It counts its launches in a plain integer attribute (``gibbs_gram.launches``),
 which a run sets to 0 with :func:`reset_launches` to show afterwards that its
 path went through the kernels.  The plain versions (:func:`gibbs_gram_plain`,
 :func:`svc_gram_plain`, ...) repeat the kernels' arithmetic operation by
@@ -48,22 +51,31 @@ from . import cuda_build
 KERNEL_SOURCES = ("gibbs_gram", "svc_gram", "svc_gram_tiled")
 LAYOUTS = ("task", "input")
 
-#: Grid rows are blockIdx.y with blocks of 8 rows; CUDA caps gridDim.y.
+#: Grid rows are blockIdx.y with blocks of 8 rows; CUDA caps gridDim.y (K1's
+#: threads route, K2's generic route; K3's kernels and K1's backward keep
+#: the same cap).
 _MAX_ROWS = 65535 * 8
 
+#: The device types whose tensors go to the kernels (others than the CPU's
+#: and these raise).
+_KERNEL_DEVICE_TYPES = ("cuda",)
+
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_SIGNATURES = {
-    "gibbs_gram": [_P, _P, _P, _I, _P, _P, _P, _I, _D, _P, _P],
-    "gibbs_gram_backward": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
-    "svc_gram": [_P, _P, _P, _I, _I, _D, _I, _P, _P],
-    "svc_gram_tiled": [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P, _P],
-    "svc_gram_tiled_backward": [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P, _P],
-}
-#: The source (``csrc/<name>.cu``) each entry point lives in.
+#: Each wrapper's source, ``csrc/<name>.cu``.
 SOURCES = {
     "gibbs_gram": "gibbs_gram", "gibbs_gram_backward": "gibbs_gram",
     "svc_gram": "svc_gram",
     "svc_gram_tiled": "svc_gram_tiled", "svc_gram_tiled_backward": "svc_gram_tiled",
+}
+#: Each entry point: the wrapper that launches it (and counts its launches),
+#: and its arguments before the stream, which every one takes last.
+_ENTRY_POINTS = {
+    "gibbs_gram_pairs": ("gibbs_gram", [_P, _P, _P, _I, _D, _I, _I, _P]),
+    "gibbs_gram_threads": ("gibbs_gram", [_P, _P, _P, _I, _P, _P, _P, _I, _D, _I, _P]),
+    "gibbs_gram_backward": ("gibbs_gram_backward", [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P]),
+    "svc_gram": ("svc_gram", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
+    "svc_gram_tiled": ("svc_gram_tiled", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
+    "svc_gram_tiled_backward": ("svc_gram_tiled_backward", [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P]),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns: dict = {}  # (name, dtype) -> bound ctypes function
@@ -77,8 +89,9 @@ def build() -> None:
 def _kernel_fn(name: str, dtype: torch.dtype):
     key = (name, dtype)
     if key not in _fns:
-        fn = getattr(cuda_build.load(SOURCES[name]), f"{name}_{_SUFFIX[dtype]}")
-        fn.argtypes = _SIGNATURES[name]
+        wrapper, argtypes = _ENTRY_POINTS[name]
+        fn = getattr(cuda_build.load(SOURCES[wrapper]), f"{name}_{_SUFFIX[dtype]}")
+        fn.argtypes = [*argtypes, _P]
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return _fns[key]
@@ -87,7 +100,7 @@ def _kernel_fn(name: str, dtype: torch.dtype):
 def _check_cuda(name: str, tensors: dict, ndims: dict) -> tuple[torch.device, torch.dtype]:
     first = next(iter(tensors.values()))
     device, dtype = first.device, first.dtype
-    if device.type != "cuda":
+    if device.type not in _KERNEL_DEVICE_TYPES:
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, got {device}")
     if dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtype must be float32 or float64, got {dtype}")
@@ -108,9 +121,61 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _raise_on(name: str, status: int) -> None:
+def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
+    """Launch entry point ``name`` on the current stream of ``device``;
+    raises if the launch fails."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = _kernel_fn(name, dtype)(*args, stream)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {status}")
+
+
+def _store_width(k: int, dtype: torch.dtype) -> int:
+    """The values a wide store writes where offsets are multiples of ``k``:
+    the widest store of at most 16 B whose value count divides ``k``."""
+    if dtype == torch.float64:
+        return 2 if k % 2 == 0 else 1
+    return 4 if k % 4 == 0 else 2 if k % 2 == 0 else 1
+
+
+def _strip_rows(n_rows: int, n_strips: int, sms: int, warps_per_sm: int) -> int:
+    """The row inputs of an item in a strip walk (K2, K3's forward): the
+    most of 8, 4, 2 that still gives every SM ``warps_per_sm`` warps'
+    items, else 1."""
+    return next((r for r in (8, 4, 2) if -(-n_rows // r) * n_strips >= warps_per_sm * sms), 1)
+
+
+def _strip_grid(n_items: int, warps: int, sms: int) -> int:
+    """A persistent grid of at most 16 blocks per SM, never more blocks
+    than the items fill."""
+    return max(1, min(-(-n_items // warps), 16 * sms))
+
+
+class _Strips:
+    """A walk of the N x N input pairs in items, each ``rows`` row inputs by
+    a strip of ``strip`` column inputs: item ``i`` is row chunk ``i //
+    n_strips`` and strip ``i % n_strips``; warp ``w`` of block ``b``
+    (``warps`` a block, ``grid`` blocks) takes items ``b·warps + w``, then
+    every ``grid·warps``-th."""
+
+    n: int
+    strip: int
+    rows: int
+    warps: int
+    grid: int
+
+    @property
+    def n_strips(self) -> int:
+        return -(-self.n // self.strip)
+
+    @property
+    def n_items(self) -> int:
+        return -(-self.n // self.rows) * self.n_strips
+
+    def items(self, block: int, warp: int) -> range:
+        """The items warp ``warp`` of block ``block`` takes, in its order."""
+        return range(block * self.warps + warp, self.n_items, self.grid * self.warps)
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +206,13 @@ def gibbs_gram(x1, s1, l1, x2=None, s2=None, l2=None, jitter: float = 0.0) -> to
     ``jitter`` is added on the diagonal.  Cross form: ``jitter`` must be 0.
     Returns (n1, n2).  The self form is differentiable in σ and ℓ (through
     :func:`gibbs_gram_backward`).
+
+    On the card the self form walks the unordered tile pairs and evaluates
+    each pair's term once where its outputs fill the card; the cross form,
+    and the self form at small N, take one thread per output
+    (:func:`k1_forward_schedule`).  Either way the output equals
+    :func:`gibbs_gram_plain` bit for bit there, and the self form's is
+    exactly symmetric.
     """
     cross = x2 is not None
     if cross and jitter:
@@ -157,7 +229,8 @@ def gibbs_gram(x1, s1, l1, x2=None, s2=None, l2=None, jitter: float = 0.0) -> to
 
 
 def _gibbs_gram_forward(x1, s1, l1, x2, s2, l2, jitter) -> torch.Tensor:
-    if x2 is None:
+    self_form = x2 is None
+    if self_form:
         x2, s2, l2 = x1, s1, l1
     if x1.device.type == "cpu":
         return gibbs_gram_plain(x1, s1, l1, x2, s2, l2, jitter)
@@ -168,18 +241,24 @@ def _gibbs_gram_forward(x1, s1, l1, x2, s2, l2, jitter) -> torch.Tensor:
         raise ValueError("gibbs_gram: each strip's x, sigma and ell must have one length")
     if n1 > _MAX_ROWS or n2 >= 2**31:
         raise ValueError(f"gibbs_gram: strips of {n1} x {n2} exceed the launch grid")
-    out = torch.empty((n1, n2), dtype=dtype, device=device)
     if n1 == 0 or n2 == 0:
-        return out
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = _kernel_fn("gibbs_gram", dtype)(
-            x1.data_ptr(), s1.data_ptr(), l1.data_ptr(), n1,
-            x2.data_ptr(), s2.data_ptr(), l2.data_ptr(), n2,
-            float(jitter), out.data_ptr(), stream,
-        )
+        return torch.empty((n1, n2), dtype=dtype, device=device)
+    sched = k1_forward_schedule(n1, n2, self_form, dtype, sm_count(device))
+    out = _k1_launch(sched, x1, s1, l1, x2, s2, l2, jitter)
     gibbs_gram.launches += 1
-    _raise_on("gibbs_gram", status)
+    return out
+
+
+def _k1_launch(sched, x1, s1, l1, x2, s2, l2, jitter) -> torch.Tensor:
+    """K1's forward by ``sched`` into a new (n1, n2) tensor (``x2`` is ``x1``
+    for the self form); counts nothing."""
+    out = torch.empty((sched.n, sched.n2), dtype=x1.dtype, device=x1.device)
+    if sched.route == "pairs":
+        _launch("gibbs_gram_pairs", x1.dtype, x1.device, x1.data_ptr(), s1.data_ptr(), l1.data_ptr(), sched.n,
+                float(jitter), sched.vec, sched.grid, out.data_ptr())
+    else:
+        _launch("gibbs_gram_threads", x1.dtype, x1.device, x1.data_ptr(), s1.data_ptr(), l1.data_ptr(), sched.n,
+                x2.data_ptr(), s2.data_ptr(), l2.data_ptr(), sched.n2, float(jitter), sched.grid, out.data_ptr())
     return out
 
 
@@ -188,8 +267,9 @@ gibbs_gram.launches = 0
 
 class _TilePairs:
     """The unordered tile pairs ``(I, J)``, ``I <= J``, of ``n`` inputs in
-    tiles of ``tile``, in the row-major order the backward kernels walk
-    (each kernel computes a pair from its index itself, ``tile_pair``)."""
+    tiles of ``tile``, in the row-major order that K1's self form and the
+    backward kernels walk (each kernel computes a pair from its index
+    itself, ``tile_pair``)."""
 
     n: int
     tile: int
@@ -204,6 +284,63 @@ class _TilePairs:
 
     def pairs(self) -> list[tuple[int, int]]:
         return [(i, j) for i in range(self.n_tiles) for j in range(i, self.n_tiles)]
+
+
+@dataclasses.dataclass(frozen=True)
+class K1ForwardSchedule(_TilePairs):
+    """How K1's forward kernel cuts its work, from (N1, N2, form, dtype) alone.
+
+    ``route`` is ``"pairs"`` or ``"threads"``.  Pairs (the self form only):
+    block ``b`` of ``grid`` takes the unordered tile pairs ``b, b + grid,
+    ...`` of :meth:`pairs` (tiles of ``tile`` = 32 inputs) with 256 threads:
+    thread ``t`` evaluates columns ``(t % (32/vec))·vec ..`` of rows
+    ``t // (32/vec) + 8·vec·k``, ``k < 4/vec``, four terms.  Tile (I, J) is
+    stored from registers, ``vec`` values at once; tile (J, I), and on the
+    diagonal the lower triangle, from the shared tile read transposed.
+    ``vec`` is 2 in float64 and 4 or 2 in float32 where N is divisible by it
+    (so every row offset ``i·N + j`` is a multiple of it), else 1.  Threads:
+    one thread per output on blocks of ``tile`` = 32 columns by 8 rows,
+    ``grid`` = ⌈N2/32⌉·⌈N1/8⌉ blocks, scalar stores (``vec`` = 1).
+    """
+
+    n: int
+    n2: int
+    form: str
+    route: str
+    vec: int
+    tile: int
+    grid: int
+
+
+#: K1's self form takes the pairs route where its N² outputs need more than
+#: two waves of the threads route (a thread per output, 2048 threads per
+#: SM): the routes cross between N = 640 and 704 on an NVIDIA H100 80GB HBM3
+#: at 700 W (``PERF.md``).
+_THREADS_PER_SM = 2048
+_K1_PAIRS_MIN_WAVES = 2
+#: K1's pairs route: blocks per SM of its persistent grid.
+_K1_PAIRS_BLOCKS_PER_SM = 4
+
+
+def k1_forward_schedule(n1: int, n2: int, self_form: bool, dtype: torch.dtype,
+                        sms: int = 132) -> K1ForwardSchedule:
+    """The self form's pairs route where N² > 2 waves of 2048 threads × SMs
+    (N > 735 on 132 SMs), with its store width and a grid of 4 blocks per
+    SM, never more blocks than tile pairs; else, and for the cross form, the
+    threads route (both chosen by measurement: ``PERF.md``)."""
+    if self_form and n1 != n2:
+        raise ValueError(f"k1_forward_schedule: the self form is square, got {n1} x {n2}")
+    if self_form and n1 * n1 > _K1_PAIRS_MIN_WAVES * _THREADS_PER_SM * sms:
+        return k1_pairs_schedule(n1, dtype, sms)
+    return K1ForwardSchedule(n1, n2, "self" if self_form else "cross", "threads", 1, 32,
+                             -(-n2 // 32) * -(-n1 // 8))
+
+
+def k1_pairs_schedule(n: int, dtype: torch.dtype, sms: int = 132) -> K1ForwardSchedule:
+    """The self form's pairs route at any N: its store width and a grid of 4
+    blocks per SM, never more blocks than tile pairs."""
+    sched = K1ForwardSchedule(n, n, "self", "pairs", _store_width(n, dtype), 32, 1)
+    return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs, _K1_PAIRS_BLOCKS_PER_SM * sms)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,14 +405,9 @@ def gibbs_gram_backward(x, s, l, kbar, jitter: float = 0.0):
         return s_bar, l_bar
     sched = k1_backward_schedule(n, sm_count(device))
     partial = torch.empty(sched.partial_numel, dtype=dtype, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = _kernel_fn("gibbs_gram_backward", dtype)(
-            x.data_ptr(), s.data_ptr(), l.data_ptr(), n, kbar.data_ptr(), sched.tile, sched.grid,
-            partial.data_ptr(), s_bar.data_ptr(), l_bar.data_ptr(), stream,
-        )
+    _launch("gibbs_gram_backward", dtype, device, x.data_ptr(), s.data_ptr(), l.data_ptr(), n,
+            kbar.data_ptr(), sched.tile, sched.grid, partial.data_ptr(), s_bar.data_ptr(), l_bar.data_ptr())
     gibbs_gram_backward.launches += 1
-    _raise_on("gibbs_gram_backward", status)
     return s_bar, l_bar
 
 
@@ -335,37 +467,87 @@ def svc_gram(x, ell, ls, jitter: float, layout: str = "task") -> torch.Tensor:
     """The fused GNMGP Gram ``(K_x + jitter·I)[n,p]·(L_n L_pᵀ)[a,c]``, (NM, NM).
 
     ``x``, ``ell``: (N,); ``ls``: (N, M, M).  ``layout="task"`` puts entry
-    (n, a) at row ``a·N + n`` (``models.gnmgp.gram``); ``layout="input"`` at
-    row ``n·M + a`` (``svc_gram_fused2d``'s contract).
+    (n, a) at row ``a·N + n`` (``models.gnmgp.gram``): kernel K2, in warp
+    strips with V-wide stores for M ≤ 4 and one thread per input pair above
+    (:func:`k2_schedule`), counted in ``svc_gram.launches``.
+    ``layout="input"`` puts it at row ``n·M + a`` (``svc_gram_fused2d``'s
+    contract): the same matrix bit for bit, computed by K3's forward kernel
+    (:func:`svc_gram_tiled`), so the launch is counted in
+    ``svc_gram_tiled.launches``.
     """
     _check_layout(layout)
+    if layout == "input":
+        return _svc_gram_tiled_forward(x, ell, ls, jitter)
     if x.device.type == "cpu":
         return svc_gram_plain(x, ell, ls, jitter, layout)
-    tensors = {"x": x, "ell": ell, "ls": ls}
-    device, dtype = _check_cuda("svc_gram", tensors, {"x": 1, "ell": 1, "ls": 3})
-    n, m = ls.shape[0], ls.shape[1]
-    if x.shape[0] != n or ell.shape[0] != n or ls.shape[2] != m:
-        raise ValueError(
-            f"svc_gram: want x (N,), ell (N,), ls (N, M, M); got {tuple(x.shape)}, "
-            f"{tuple(ell.shape)}, {tuple(ls.shape)}"
-        )
-    if n > _MAX_ROWS:
-        raise ValueError(f"svc_gram: N={n} exceeds the launch grid")
+    device, dtype, n, m = _check_svc("svc_gram", x, ell, ls)
     out = torch.empty((n * m, n * m), dtype=dtype, device=device)
     if n == 0 or m == 0:
         return out
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = _kernel_fn("svc_gram", dtype)(
-            x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m,
-            float(jitter), int(layout == "input"), out.data_ptr(), stream,
-        )
+    sched = k2_schedule(n, m, dtype, sm_count(device))
+    _k2_launch(sched, x, ell, ls, jitter, out)
     svc_gram.launches += 1
-    _raise_on("svc_gram", status)
+    return out
+
+
+def _k2_launch(sched, x, ell, ls, jitter, out) -> torch.Tensor:
+    """K2 by ``sched`` into ``out``; counts nothing."""
+    _launch("svc_gram", x.dtype, x.device, x.data_ptr(), ell.data_ptr(), ls.data_ptr(), sched.n, sched.m,
+            float(jitter), sched.vec, sched.rows, sched.warps, sched.grid, out.data_ptr())
     return out
 
 
 svc_gram.launches = 0
+
+#: The largest M with K2's templated (warp-strip) route; above it the
+#: generic route, one thread per input pair with M at run time.
+K2_MAX_M = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class K2Schedule(_Strips):
+    """How K2's kernel cuts its work, from (N, M, dtype) alone.
+
+    ``route`` is ``"vector"`` or ``"scalar"`` (M ≤ 4) or ``"generic"`` (M >
+    4).  For M ≤ 4 the strip walk (:class:`_Strips`): an item is ``rows``
+    row inputs by a strip of 32·``vec`` column inputs, and lane ``l`` owns
+    column inputs ``p = p0 + l·vec ..``; for each row input ``n`` and task
+    pair ``(a, c)`` it stores ``vec`` values at row ``a·N + n``, column
+    ``c·N + p``.  ``vec`` is 2 in float64, 4 or 2 in float32, where N is
+    divisible by it (then every such offset is a multiple of ``vec``), else
+    1.  The generic route takes one thread per input pair on blocks of 32 ×
+    8 threads (``rows`` = 8 row inputs, ``warps`` = 8): ``grid`` =
+    ⌈N/32⌉·⌈N/8⌉ blocks, scalar stores.
+    """
+
+    n: int
+    m: int
+    route: str
+    vec: int
+    rows: int
+    warps: int
+    grid: int
+
+    @property
+    def strip(self) -> int:
+        return 32 if self.route == "generic" else 32 * self.vec
+
+
+#: K2: every SM should get at least this many warps' items (K2's strips are
+#: ``vec`` times K3's width; chosen by measurement: ``PERF.md``).
+_K2_WARPS_PER_SM = 8
+
+
+def k2_schedule(n: int, m: int, dtype: torch.dtype, sms: int = 132) -> K2Schedule:
+    """The route and store width, the rows of an item (the most of 8, 4, 2,
+    1 that still gives every SM 8 warps' items), 4 warps a block and a grid
+    of at most 16 blocks per SM, never more blocks than the items fill."""
+    if m > K2_MAX_M:
+        return K2Schedule(n, m, "generic", 1, 8, 8, -(-n // 32) * -(-n // 8))
+    vec = _store_width(n, dtype)
+    rows = _strip_rows(n, -(-n // (32 * vec)), sms, _K2_WARPS_PER_SM)
+    sched = K2Schedule(n, m, "vector" if vec > 1 else "scalar", vec, rows, 4, 1)
+    return dataclasses.replace(sched, grid=_strip_grid(sched.n_items, sched.warps, sms))
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +584,7 @@ def _check_svc(name, x, ell, ls):
 
 
 @dataclasses.dataclass(frozen=True)
-class K3ForwardSchedule:
+class K3ForwardSchedule(_Strips):
     """How K3's forward kernel cuts its work, from (N, M, dtype) alone.
 
     ``route`` is ``"vector"`` or ``"scalar"`` (M ≤ 8) or ``"generic"`` (M >
@@ -432,17 +614,7 @@ class K3ForwardSchedule:
     grid: int
     smem_bytes: int
 
-    @property
-    def n_strips(self) -> int:
-        return -(-self.n // 32)
-
-    @property
-    def n_items(self) -> int:
-        return -(-self.n // self.rows) * self.n_strips
-
-    def items(self, block: int, warp: int) -> range:
-        """The items warp ``warp`` of block ``block`` takes, in its order."""
-        return range(block * self.warps + warp, self.n_items, self.grid * self.warps)
+    strip = 32
 
 
 #: K3's forward: every SM should get at least this many warps' items.
@@ -457,16 +629,12 @@ def k3_forward_schedule(n: int, m: int, dtype: torch.dtype, sms: int = 132) -> K
     if m > K3_MAX_M:
         tiles = -(-n // 16)
         return K3ForwardSchedule(n, m, "generic", 1, 16, 8, tiles * tiles, size * _K3_GENERIC_SMEM)
-    if dtype == torch.float64:
-        vec = 2 if m % 2 == 0 else 1
-    else:
-        vec = 4 if m % 4 == 0 else 2 if m % 2 == 0 else 1
-    strips = -(-n // 32)
-    rows = next((r for r in (8, 4, 2) if -(-n // r) * strips >= _K3_FWD_WARPS_PER_SM * sms), 1)
+    vec = _store_width(m, dtype)
+    rows = _strip_rows(n, -(-n // 32), sms, _K3_FWD_WARPS_PER_SM)
     warps = 4
     smem = 0 if m <= 4 else size * 32 * m * m * warps
     sched = K3ForwardSchedule(n, m, "vector" if vec > 1 else "scalar", vec, rows, warps, 1, smem)
-    return dataclasses.replace(sched, grid=max(1, min(-(-sched.n_items // sched.warps), 16 * sms)))
+    return dataclasses.replace(sched, grid=_strip_grid(sched.n_items, sched.warps, sms))
 
 
 def _svc_gram_tiled_forward(x, ell, ls, jitter) -> torch.Tensor:
@@ -477,14 +645,9 @@ def _svc_gram_tiled_forward(x, ell, ls, jitter) -> torch.Tensor:
     if n == 0 or m == 0:
         return out
     sched = k3_forward_schedule(n, m, dtype, sm_count(device))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = _kernel_fn("svc_gram_tiled", dtype)(
-            x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m, float(jitter),
-            sched.vec, sched.rows, sched.warps, sched.grid, out.data_ptr(), stream,
-        )
+    _launch("svc_gram_tiled", dtype, device, x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m,
+            float(jitter), sched.vec, sched.rows, sched.warps, sched.grid, out.data_ptr())
     svc_gram_tiled.launches += 1
-    _raise_on("svc_gram_tiled", status)
     return out
 
 
@@ -574,15 +737,10 @@ def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float):
         return ell_bar, ls_bar
     sched = k3_backward_schedule(n, m, sm_count(device))
     partial = torch.empty(sched.partial_numel, dtype=dtype, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = _kernel_fn("svc_gram_tiled_backward", dtype)(
-            x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m, float(jitter),
-            kbar.data_ptr(), sched.tile, sched.grid, partial.data_ptr(),
-            ls_bar.data_ptr(), ell_bar.data_ptr(), stream,
-        )
+    _launch("svc_gram_tiled_backward", dtype, device, x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m,
+            float(jitter), kbar.data_ptr(), sched.tile, sched.grid, partial.data_ptr(),
+            ls_bar.data_ptr(), ell_bar.data_ptr())
     svc_gram_tiled_backward.launches += 1
-    _raise_on("svc_gram_tiled_backward", status)
     return ell_bar, ls_bar
 
 

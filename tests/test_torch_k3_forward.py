@@ -2,11 +2,12 @@
 version and the JAX package's Gram.
 
 The CUDA kernel (``csrc/svc_gram_tiled.cu``) runs only on the card, where
-``chip_smoke.py`` holds it against the plain version and K2's input-major
-layout bit for bit.  Here a torch emulation follows the kernel's walk as
-``gram_kernels.k3_forward_schedule`` gives it: warp ``w`` of block ``b``
-takes items ``b·warps + w`` and every ``grid·warps``-th after it; an item is
-``rows`` row inputs by a strip of 32 column inputs; lane ``l`` stores chunks
+``chip_smoke.py`` holds it against the plain version and K2's task-major
+output, permuted to input-major, bit for bit.  Here a torch emulation
+follows the kernel's walk as ``gram_kernels.k3_forward_schedule`` gives
+it: warp ``w`` of block ``b`` takes items ``b·warps + w`` and every
+``grid·warps``-th after it; an item is ``rows`` row inputs by a strip of
+32 column inputs; lane ``l`` stores chunks
 ``(l + 32k)·vec ..`` of each output row of the strip, all of one column
 input, whose Gibbs term comes from its owner lane.  It counts the writes of
 every output and checks every store's alignment.  The Gibbs term is taken
