@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training and HMC paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
@@ -53,7 +53,17 @@ Phases, each printing its lines:
                store, held against ``predict_map`` on the CPU.  A smaller
                ``run_subject`` (N=200) on the card and on the CPU must agree
                on the final objective and the MAP vector at rtol 1e-6.
-7. summary   — one JSON line listing every kernel, the card's name and power
+7. hmc       — (slice 3's path) ``workflows.run_subject`` with ``do_hmc=True``
+               on the card, no device named, at N=1000, M=2, f64 with the
+               default HMC config (100 draws of 20 leapfrog steps) into an
+               artifact store: stage times, draws and gradients per second
+               inside the chain, acceptance, DIC, the chain summaries; K3
+               and its backward must launch exactly once per gradient of the
+               chain, 1 + draws × leapfrog steps.  Then ``hmc_sample`` at
+               N=200 on the card and on the CPU with the same injected noise
+               for the plain, dual-averaging and windowed drivers: the same
+               accept decisions, and draws and step sizes at rtol 1e-6.
+8. summary   — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -147,6 +157,12 @@ K1_BWD_OTHER_SIZES = (1, 16, 17, 31, 32, 33, 600, 1024, 1100)
 #: and budget, and the card-vs-CPU run.
 TRAIN_N, TRAIN_N_OPT = 1000, 30
 CHECK_N, CHECK_N_OPT = 200, 20
+
+#: The HMC path: the K3 kernels run once per gradient of the chain; the
+#: card-vs-CPU chains at N=HMC_CHECK_N take this many kept draws, leapfrog
+#: steps and warmup draws (the adaptive drivers).
+HMC_KERNELS = ("svc_gram_tiled", "svc_gram_tiled_backward")
+HMC_CHECK_N, HMC_CHECK_DRAWS, HMC_CHECK_LEAPFROG, HMC_CHECK_WARMUP = 200, 6, 5, 6
 OBJECTIVE_RTOL = 1e-6
 RATE_BATCHES, RATE_EVALS = 5, 5
 
@@ -940,6 +956,130 @@ def phase_training(torch, np, gk, seed):
     return launches
 
 
+def phase_hmc(torch, np, gk, seed) -> dict:
+    """Slice 3's path: run_subject(do_hmc=True) on the card, with no device
+    named, into a store; every kernel's launches read around it and the K3
+    kernels' also around the sampling stage.  Then hmc_sample's three drivers
+    on the card against the CPU with the same injected noise.  Returns the
+    sampling stage's launches."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import hmc
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
+
+    x, y, _, _ = training_subject(torch, seed + 1, TRAIN_N)
+    cfg = workflows.PipelineConfig(n_opt=TRAIN_N_OPT, do_hmc=True)
+    n_draws = cfg.n_hmc + cfg.hmc_warmup
+    n_grads = 1 + n_draws * cfg.hmc_leapfrog
+    stage: dict = {}
+    run_chain = workflows._run_chain
+
+    def counted_chain(*args, **kwargs):
+        # reads the launch counts around the sampling stage; the stage runs as is
+        before = gk.launches()
+        out = run_chain(*args, **kwargs)
+        after = gk.launches()
+        stage.update({k: after[k] - before[k] for k in after})
+        return out
+
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="smoke_hmc_") as root:
+        store = ArtifactStore(root)
+        workflows._run_chain = counted_chain
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            gk.reset_launches()  # the main path starts here
+            t0 = time.perf_counter()
+            res = workflows.run_subject(x, y, cfg, store=store, dataset="sim")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = gk.launches()  # the main path ends here
+        finally:
+            workflows._run_chain = run_chain
+        key = ArtifactStore.key("gnmgp", "sim", 0, "hmc")
+        stored = store.load(key)["samples"] if store.exists(key) else None
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    t_hmc = res["timings"]["hmc"]
+    samples = res["hmc_samples"]
+    log("hmc", f"run_subject gnmgp N={TRAIN_N} M=2 f64 n_opt={TRAIN_N_OPT} do_hmc=True on "
+        f"{samples.device} (no device named): {wall:.3f} s; stages (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items()))
+    log("hmc", f"chain: {cfg.n_hmc} draws + {cfg.hmc_warmup} warmup, {cfg.hmc_leapfrog} leapfrog steps, "
+        f"step size {cfg.hmc_step_size}: {n_draws / t_hmc:.3f} draws/s, {n_grads / t_hmc:.3f} gradients/s "
+        f"({n_grads} gradients in {t_hmc:.3f} s); mean acceptance {res['hmc_accept']:.6f}; "
+        f"peak device memory {peak_gib:.3f} GiB")
+    summ = res["latent_summary"]
+    log("hmc", f"DIC {res['dic']:.6e} (deviance at the MAP {res['deviance']:.6e}); latent_summary "
+        + ", ".join(f"{f} {tuple(v.shape)}" for f, v in zip(summ._fields, summ)))
+    log("hmc", f"sampling stage launched {stage}; the whole run launched {launches}")
+    p = gnmgp.n_params(TRAIN_N, 2)
+    if samples.device.type != torch.device(DEVICE).type or tuple(samples.shape) != (cfg.n_hmc, p):
+        raise AssertionError(f"hmc_samples on {samples.device} with shape {tuple(samples.shape)}")
+    if not (torch.isfinite(samples).all() and np.isfinite(res["dic"]) and 0.0 < res["hmc_accept"] <= 1.0):
+        raise AssertionError("non-finite draws or DIC, or no draw accepted")
+    want_shapes = {"tilde_l_q": (3, TRAIN_N), "std_q": (3, TRAIN_N, 2), "cor_q": (3, TRAIN_N, 2, 2),
+                   "b_mean": (TRAIN_N, 2, 2)}
+    for f, v in zip(summ._fields, summ):
+        if v.shape != want_shapes[f] or not np.isfinite(v).all():
+            raise AssertionError(f"latent_summary {f} has shape {v.shape} or non-finite entries")
+    if stored is None or not np.array_equal(stored, samples.cpu().numpy()):
+        raise AssertionError("the hmc artifact is missing or differs from the chain")
+    for name in HMC_KERNELS:
+        if stage[name] != n_grads:
+            raise AssertionError(f"{name} launched {stage[name]} times in the sampling stage, "
+                                 f"expected one per gradient: {n_grads}")
+    for name in TRAINING_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the HMC path")
+
+    # where a draw's time goes: one draw of the default chain at the MAP
+    nlp = gnmgp.make_objective(FullData(*(torch.as_tensor(a, dtype=torch.float64, device=DEVICE)
+                                          for a in (x, y))))
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    draw = lambda: hmc.hmc_sample(nlp, res["map_vec"], 1, gen, step_size=cfg.hmc_step_size,
+                                  n_leapfrog=cfg.hmc_leapfrog)
+    wall_ms, device_ms, kinds, top = device_profile(torch, draw)
+    per = 1 + cfg.hmc_leapfrog
+    log("profile", f"one HMC draw N={TRAIN_N} M=2 f64 ({per} gradients): wall {wall_ms:.3f} ms, device "
+        f"{device_ms:.3f} ms (busy share {device_ms / wall_ms:.3f}); per gradient wall {wall_ms / per:.3f} ms, "
+        f"device {device_ms / per:.3f} ms; {kinds} kernel kinds")
+    for ms, count, key in top:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+
+    # the card against the CPU, draw by draw, with the same injected noise
+    xc, yc, vec, _ = training_subject(torch, seed + 4, HMC_CHECK_N)
+    as_t = lambda a, dev: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    objectives = {dev: gnmgp.make_objective(FullData(as_t(xc, dev), as_t(yc, dev))) for dev in (DEVICE, "cpu")}
+    drivers = {"plain": {}, "dual averaging": dict(adapt_step_size=True, n_warmup=HMC_CHECK_WARMUP),
+               "windowed": dict(adapt_mass=True, n_warmup=HMC_CHECK_WARMUP)}
+    for name, kw in drivers.items():
+        n_total = HMC_CHECK_DRAWS + kw.get("n_warmup", 0)
+        gen = torch.Generator().manual_seed(seed + 5)
+        noise = (torch.randn(n_total, vec.shape[0], generator=gen, dtype=torch.float64),
+                 torch.rand(n_total, generator=gen, dtype=torch.float64))
+        chains = {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            chains[dev] = hmc.hmc_sample(objectives[dev], vec.to(dev), HMC_CHECK_DRAWS, noise=noise,
+                                         step_size=cfg.hmc_step_size, n_leapfrog=HMC_CHECK_LEAPFROG, **kw)
+            log("hmc", f"N={HMC_CHECK_N} {name} chain on {dev}: {time.perf_counter() - t0:.3f} s")
+        card, cpu = chains[DEVICE], chains["cpu"]
+        if not torch.equal(card.accepted.cpu(), cpu.accepted):
+            raise AssertionError(f"{name}: accept decisions differ, card {card.accepted.tolist()} "
+                                 f"vs CPU {cpu.accepted.tolist()}")
+        if not cpu.accepted.any():
+            raise AssertionError(f"{name}: no draw accepted, so the check compares nothing")
+        rel_s, frac_s = held(np, card.samples.cpu().numpy(), cpu.samples.numpy(), OBJECTIVE_RTOL)
+        rel_e, _ = held(np, [card.step_size.item()], [cpu.step_size.item()], OBJECTIVE_RTOL)
+        log("hmc", f"N={HMC_CHECK_N} {name}, card vs CPU: accept decisions equal "
+            f"({int(cpu.accepted.sum())} of {n_total} accepted); draws max rel err {rel_s:.3e}, max err "
+            f"{frac_s:.3e} of their scale; step size {card.step_size.item():.6e} (rel {rel_e:.3e}): "
+            f"ok at rtol {OBJECTIVE_RTOL}")
+    return stage
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -972,6 +1112,7 @@ def main() -> int:
     phase_drift(torch, *drift_inputs)
     rates = phase_objective(torch, np, gk, args.seed)
     train_launches = phase_training(torch, np, gk, args.seed)
+    hmc_launches = phase_hmc(torch, np, gk, args.seed)
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -994,6 +1135,8 @@ def main() -> int:
         }
         if served:
             row["launches_per_request"] = launches[name] / n_requests
+        if name in HMC_KERNELS:
+            row["launches_hmc"] = hmc_launches[name]  # the sampling stage of slice 3's path
         kernels.append(row)
     log("summary", "warm /predict latency ms by size: "
         + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))

@@ -67,8 +67,10 @@ def _to_numpy(v):
 
 def result_to_numpy(result: dict) -> dict:
     """A ``run_subject`` result dict of either package as nested plain
-    numpy: tensors and JAX arrays become arrays, named tuples become dicts
-    keyed by field, timings are dropped (they never compare)."""
+    numpy: tensors and JAX arrays become arrays (``hmc_samples`` among
+    them), named tuples become dicts keyed by field (the predictions,
+    ``empirical``, ``latent_summary``), timings are dropped (they never
+    compare)."""
     return {k: _to_numpy(v) for k, v in result.items() if k != "timings"}
 
 

@@ -1,14 +1,15 @@
-"""Model scoring: RMSE, LPD, PMSE, AIC and BIC.
+"""Model scoring: RMSE, LPD, PMSE, AIC, BIC and DIC.
 
-Counterpart of the scalar scores of the JAX package's ``evaluate.py``
-(reference ``Utility/utils.py:165-197``, ``Utility/model_validation.py``),
-host numpy code.  DIC, WAIC and PSIS-LOO need a posterior chain and are not
-ported yet.
+Counterpart of the JAX package's ``evaluate.py`` for these scores (reference
+``Utility/utils.py:165-197``, ``Utility/model_validation.py``): host numpy
+code, apart from DIC's deviances, which run on the chain's device.  WAIC and
+PSIS-LOO are not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 def mse(a, b, axis=None):
     """Mean squared error (utils.py:165-172)."""
@@ -45,3 +46,20 @@ def get_bic(vec, deviance_fn, n_obs: int, *args, **kwargs):
     the number of inputs N (the reference uses ``Y.size()[0]``)."""
     n_p = int(vec.shape[0])
     return float(deviance_fn(vec, *args, **kwargs)) + float(np.log(n_obs)) * n_p
+
+
+def get_dic(hist_vecs, deviance_fn, *args, **kwargs):
+    """DIC = bar_D + p_D with p_D = bar_D − D(posterior mean)
+    (model_validation.py:35-51).
+
+    ``hist_vecs`` is the (S, P) chain.  The JAX function vmaps the deviance
+    over it; here the draws go one at a time under ``torch.no_grad()``, so
+    a chain at N=1000 never holds S Grams at once.
+    """
+    hist = torch.as_tensor(hist_vecs)
+    with torch.no_grad():
+        devs = torch.stack([deviance_fn(v, *args, **kwargs) for v in hist])
+        bar_d = float(torch.mean(devs))
+        d_mean = float(deviance_fn(torch.mean(hist, dim=0), *args, **kwargs))
+    p_d = bar_d - d_mean
+    return bar_d + p_d

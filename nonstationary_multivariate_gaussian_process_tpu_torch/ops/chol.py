@@ -50,7 +50,10 @@ def safe_cholesky(a: torch.Tensor, force_robust: bool = False) -> torch.Tensor:
         eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
         chol, ok = _cholesky(a + (fallback * scale) * eye)
     if not ok:
-        chol = torch.full_like(a, float("nan"))
+        # NaNs that keep a's autograd link, so the gradient through a failed
+        # factor is NaN too, as JAX's is: a sampler's trajectory that leaves
+        # the positive-definite region then ends non-finite and is rejected
+        chol = a * float("nan")
     return chol
 
 

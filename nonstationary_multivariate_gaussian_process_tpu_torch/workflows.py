@@ -1,14 +1,15 @@
-"""The single-subject pipeline: empirical init → multi-start MAP → analysis →
-grid/test prediction → scoring.
+"""The single-subject pipeline: empirical init → multi-start MAP → HMC →
+analysis → grid/test prediction → scoring.
 
 Counterpart of ``PipelineConfig`` and ``run_subject`` of the JAX package's
-``workflows.py`` for ``model="gnmgp"`` on fully observed data.  The stages,
-their order, the result dict and the artifacts written (``data``, ``map``,
-``map_ckpt``, ``pred_grid``, ``scores``) are the JAX package's, so a store
-written here serves from either package's engine.
+``workflows.py`` for ``model="gnmgp"`` on fully observed data, with the
+reference-contract HMC sampler (``sampler="hmc"``, any ``hmc_mass``).  The
+stages, their order, the result dict and the artifacts written (``data``,
+``map``, ``map_ckpt``, ``hmc``, ``pred_grid``, ``scores``) are the JAX
+package's, so a store written here serves from either package's engine.
 
-Not ported yet, and refused with ``ValueError``: other models, ``do_hmc``,
-``do_loo`` and any sampler option.
+Not ported yet, and refused with ``ValueError``: other models, ``do_loo``,
+samplers other than ``"hmc"`` and ``whiten``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from . import evaluate, settings
 from .data import preprocess
 from .inference import empirical
+from .inference import hmc
 from .inference import init as init_mod
 from .inference import map as map_mod
 from .models import gnmgp, snmgp
@@ -33,6 +35,7 @@ from .predict import gnmgp as pred_gnmgp
 from .utils.artifacts import ArtifactStore
 
 MODELS = ("gnmgp",)
+HMC_MASSES = ("none", "pilot", "window")
 
 
 @dataclasses.dataclass
@@ -55,7 +58,16 @@ class PipelineConfig:
     lr: float = 2e-1
     map_method: str = "lbfgs"  # "lbfgs" (optax's, with the zoom linesearch) | "adam"
     err_opt: float | None = None
-    sampler: str = "hmc"
+    n_hmc: int = 100
+    sampler: str = "hmc"  # the reference contract (inference/hmc.py)
+    hmc_step_size: float = 1e-4
+    hmc_leapfrog: int = 20
+    hmc_adapt: bool = False  # dual-averaging step-size adaptation
+    hmc_warmup: int = 0
+    hmc_mass: str = "none"  # "none" | "pilot" (mass matrix from a pilot run,
+    #                          the reference's preconditioning recipe)
+    #                          | "window" (Stan-style windowed warmup)
+    whiten: bool | str = False
     n_grid: int = 201
     window_size: int = 30
     test_size: float = 0.0
@@ -66,10 +78,14 @@ class PipelineConfig:
             raise ValueError(
                 f"model {self.model!r} is not yet ported to the torch package (it runs {MODELS})"
             )
-        if self.do_hmc or self.do_loo:
-            raise ValueError("do_hmc and do_loo are not yet ported to the torch package")
+        if self.do_loo:
+            raise ValueError("do_loo is not yet ported to the torch package")
         if self.sampler != "hmc":
             raise ValueError(f"sampler {self.sampler!r} is not yet ported to the torch package")
+        if self.whiten:
+            raise ValueError(f"whiten={self.whiten!r} is not yet ported to the torch package")
+        if self.hmc_mass not in HMC_MASSES:
+            raise ValueError(f"hmc_mass must be one of {HMC_MASSES}, got {self.hmc_mass!r}")
         if self.map_method not in map_mod.METHODS:
             raise ValueError(f"map_method must be one of {map_mod.METHODS}, got {self.map_method!r}")
 
@@ -105,6 +121,34 @@ def _build_inits(cfg: PipelineConfig, emp, data: FullData) -> dict:
     }
 
 
+def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch.Generator):
+    """Posterior sampling stage, the reference-contract HMC (JAX
+    ``_run_chain``, ``sampler="hmc"``).  Returns ``(samples (n_hmc, P) on the
+    chain's device, mean acceptance over every draw, warmup included)``.
+    ``cfg.hmc_mass`` picks the preconditioning: "pilot" is the reference's
+    pilot-covariance recipe, "window" Stan-style windowed warmup."""
+    mass = None
+    if cfg.hmc_mass == "pilot":
+        # mass matrix from a short pilot chain's sample covariance
+        # (Nonseparable_model_mpiKAISER_extended.py:542-570 recipe).  Where
+        # JAX derives the pilot's key as fold_in(key, 7), the pilot's
+        # generator is seeded from SeedSequence([seed, 7]): a stream of its
+        # own, fixed by cfg.seed
+        seed = int(np.random.SeedSequence([cfg.seed, 7]).generate_state(1, np.uint64)[0])
+        pilot = hmc.hmc_sample(
+            nlp, map_vec, max(20, cfg.n_hmc // 10), torch.Generator(map_vec.device).manual_seed(seed),
+            step_size=cfg.hmc_step_size, n_leapfrog=cfg.hmc_leapfrog,
+        )
+        mass = hmc.estimate_mass_matrix(pilot.samples)
+    chain = hmc.hmc_sample(
+        nlp, map_vec, cfg.n_hmc, generator, step_size=cfg.hmc_step_size,
+        n_leapfrog=cfg.hmc_leapfrog, adapt_step_size=cfg.hmc_adapt,
+        n_warmup=cfg.hmc_warmup, mass_matrix=mass,
+        adapt_mass=(cfg.hmc_mass == "window"),
+    )
+    return chain.samples, float(torch.mean(chain.accept_prob))
+
+
 def run_subject(
     x,
     y,
@@ -120,7 +164,8 @@ def run_subject(
 
     Returns the JAX package's result dict (tensors where it has arrays);
     stages are also written to ``store`` when one is given, and a stored MAP
-    of the right length is resumed.
+    of the right length is resumed.  The HMC stage draws from
+    ``torch.Generator(device).manual_seed(cfg.seed)``.
     """
     cfg = cfg or PipelineConfig()
     device = settings.resolve_device(device)
@@ -183,10 +228,23 @@ def run_subject(
             if store is not None:
                 store.save(_key("map"), vec=map_vec.cpu().numpy(), target_hist=result["target_hist"])
 
+    if cfg.do_hmc and map_vec is not None:
+        t0 = time.time()
+        samples, accept = _run_chain(nlp, map_vec, cfg, torch.Generator(device).manual_seed(cfg.seed))
+        result["timings"]["hmc"] = time.time() - t0
+        result["hmc_samples"] = samples
+        result["hmc_accept"] = accept
+        if store is not None:
+            store.save(_key("hmc"), samples=samples.cpu().numpy())
+
     if cfg.do_map_analysis and map_vec is not None:
         tilde_l, b_proc, cor_proc, std_proc = analysis.gnmgp_map_latents(map_vec.cpu().numpy(), n, m)
         result["map_latents"] = {"tilde_l": tilde_l, "B": b_proc, "R": cor_proc,
                                  "stds": std_proc, "inputs": x}
+        if "hmc_samples" in result:
+            result["latent_summary"] = analysis.gnmgp_latent_summary(
+                result["hmc_samples"].cpu().numpy(), n, m
+            )
 
     grid = torch.linspace(float(x.min()), float(x.max()), cfg.n_grid, dtype=dtype, device=device)
     if cfg.do_pred_grid and map_vec is not None:
@@ -218,4 +276,6 @@ def run_subject(
         result["deviance"] = float(dev(map_vec))
         result["aic"] = evaluate.get_aic(map_vec, dev)
         result["bic"] = evaluate.get_bic(map_vec, dev, n_obs=n)
+        if "hmc_samples" in result:
+            result["dic"] = evaluate.get_dic(result["hmc_samples"], dev)
     return result
