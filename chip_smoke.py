@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and HMC paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, HMC and chain-consumer paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
@@ -63,7 +63,19 @@ Phases, each printing its lines:
                N=200 on the card and on the CPU with the same injected noise
                for the plain, dual-averaging and windowed drivers: the same
                accept decisions, and draws and step sizes at rtol 1e-6.
-8. summary   — one JSON line listing every kernel, the card's name and power
+8. chain     — (the chain's consumers' path, no device named) the
+               LOO stage on the hmc phase's chain (``chain_conditional_loglik``,
+               ``psis_loo``, ``waic``): its wall time with the card's and the
+               host's parts, the criteria, and K2 launched exactly once per
+               draw; ``mode="sample"`` over HTTP from the hmc phase's store at
+               7, 201 and 1000 points over 100 draws, with warm latencies and
+               K1 and K2 launched exactly once per draw per request, and a
+               profile of one request; the LOO conditionals, ``predict_sample``
+               and the three returns of ``predict_map_sampling`` card against
+               CPU at N=200 with the same draws and noise; then
+               ``run_subject(do_hmc=True, do_loo=True)`` at N=200 and the
+               port's CLI into ``chiprun_out/cli``.
+9. summary   — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -169,6 +181,16 @@ RATE_BATCHES, RATE_EVALS = 5, 5
 #: The served answer against the CPU plain path: rtol, and an absolute floor
 #: as a fraction of the largest |value| for entries near 0.
 SERVED_RTOL, SERVED_ATOL_OF_SCALE = 1e-6, 1e-6
+
+#: The chain's consumers: mode="sample" requests take the chain's last
+#: CHAIN_N_SAMPLE draws; the card-vs-CPU checks run at N=CHAIN_CHECK_N with
+#: CHAIN_CHECK_DRAWS draws, the LOO conditionals at rtol CHAIN_LOO_RTOL (with
+#: a floor of that fraction of the scale) and the kriged latents with an
+#: absolute floor KRIGE_ATOL (the kriging solve's condition, as in the CPU
+#: tests); the CLI samples CHAIN_CLI_HMC draws.
+CHAIN_N_SAMPLE = 100
+CHAIN_CHECK_N, CHAIN_CHECK_DRAWS, CHAIN_CLI_HMC = 200, 8, 20
+CHAIN_LOO_RTOL, KRIGE_ATOL = 1e-8, 5e-7
 
 
 def log(phase: str, msg: str) -> None:
@@ -956,12 +978,12 @@ def phase_training(torch, np, gk, seed):
     return launches
 
 
-def phase_hmc(torch, np, gk, seed) -> dict:
+def phase_hmc(torch, np, gk, seed, root):
     """Slice 3's path: run_subject(do_hmc=True) on the card, with no device
-    named, into a store; every kernel's launches read around it and the K3
-    kernels' also around the sampling stage.  Then hmc_sample's three drivers
-    on the card against the CPU with the same injected noise.  Returns the
-    sampling stage's launches."""
+    named, into the store at ``root``; every kernel's launches read around it
+    and the K3 kernels' also around the sampling stage.  Then hmc_sample's
+    three drivers on the card against the CPU with the same injected noise.
+    Returns the sampling stage's launches, the run's result and its (x, y)."""
     from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
     from nonstationary_multivariate_gaussian_process_tpu_torch.inference import hmc
     from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
@@ -983,23 +1005,20 @@ def phase_hmc(torch, np, gk, seed) -> dict:
         stage.update({k: after[k] - before[k] for k in after})
         return out
 
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir, prefix="smoke_hmc_") as root:
-        store = ArtifactStore(root)
-        workflows._run_chain = counted_chain
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            gk.reset_launches()  # the main path starts here
-            t0 = time.perf_counter()
-            res = workflows.run_subject(x, y, cfg, store=store, dataset="sim")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = gk.launches()  # the main path ends here
-        finally:
-            workflows._run_chain = run_chain
-        key = ArtifactStore.key("gnmgp", "sim", 0, "hmc")
-        stored = store.load(key)["samples"] if store.exists(key) else None
+    store = ArtifactStore(root)
+    workflows._run_chain = counted_chain
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        gk.reset_launches()  # the main path starts here
+        t0 = time.perf_counter()
+        res = workflows.run_subject(x, y, cfg, store=store, dataset="sim")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gk.launches()  # the main path ends here
+    finally:
+        workflows._run_chain = run_chain
+    key = ArtifactStore.key("gnmgp", "sim", 0, "hmc")
+    stored = store.load(key)["samples"] if store.exists(key) else None
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     t_hmc = res["timings"]["hmc"]
     samples = res["hmc_samples"]
@@ -1077,7 +1096,194 @@ def phase_hmc(torch, np, gk, seed) -> dict:
             f"({int(cpu.accepted.sum())} of {n_total} accepted); draws max rel err {rel_s:.3e}, max err "
             f"{frac_s:.3e} of their scale; step size {card.step_size.item():.6e} (rel {rel_e:.3e}): "
             f"ok at rtol {OBJECTIVE_RTOL}")
-    return stage
+    return stage, res, (x, y)
+
+
+def check_sample_answer(np, out, g):
+    """A mode="sample" answer: shapes, finite values, std > 0, lower <= upper."""
+    arr = {k: np.asarray(out[k], dtype=float) for k in ("mean", "std", "lower", "upper")}
+    for k, v in arr.items():
+        if v.shape != (g, SERVED_M) or not np.isfinite(v).all():
+            raise AssertionError(f"sample /predict {g} points: {k} has shape {v.shape} or non-finite values")
+    if not ((arr["std"] > 0).all() and (arr["lower"] <= arr["upper"]).all()):
+        raise AssertionError(f"sample /predict {g} points: std not positive or lower > upper")
+    return arr
+
+
+def phase_chain(torch, np, gk, seed, root, res, data) -> dict:
+    """The chain's consumers' path, on the card with no device
+    named: (a) the LOO stage on the hmc phase's chain; (b) mode="sample"
+    requests over HTTP from the hmc phase's store; (c) the LOO conditionals
+    and the sampling predictions card against CPU at N=CHAIN_CHECK_N with
+    the same draws and noise; (d) run_subject(do_loo=True) and the CLI.
+    Returns K1's and K2's launches in the LOO stage and per sample request."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, viz, workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData, task_major
+    from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp as pred
+    from nonstationary_multivariate_gaussian_process_tpu_torch.serving import serve
+    from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
+
+    counted = {"gibbs_gram": "K1", "svc_gram": "K2"}
+    x, y = data
+    samples = res["hmc_samples"]
+    s = samples.shape[0]
+
+    # (a) the LOO stage at the headline shape
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()  # the LOO stage starts here
+    t0 = time.perf_counter()
+    cond_ll = evaluate.chain_conditional_loglik("gnmgp", samples, x, y)
+    t1 = time.perf_counter()
+    loo = evaluate.psis_loo(cond_ll)
+    wa = evaluate.waic(cond_ll)
+    t2 = time.perf_counter()
+    loo_launches = gk.launches()  # the LOO stage ends here
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log("chain", f"LOO stage N={len(x)} M=2 f64 over {s} draws: {t2 - t0:.3f} s (conditionals on the card "
+        f"{t1 - t0:.3f} s, {(t1 - t0) / s * 1e3:.3f} ms a draw; psis_loo + waic on the host {t2 - t1:.3f} s); "
+        f"peak device memory {peak_gib:.3f} GiB")
+    log("chain", f"elpd_loo {loo['elpd_loo']:.6f}, p_loo {loo['p_loo']:.6f}, looic {loo['looic']:.6f}, "
+        f"n_bad_k {loo['n_bad_k']} of {cond_ll.shape[1]}, k_hat_max {np.max(loo['k_hat']):.6f}, k_hat median "
+        f"{np.median(loo['k_hat']):.6f}; elpd_waic {wa['elpd_waic']:.6f}, p_waic {wa['p_waic']:.6f}; the chain "
+        f"holds {len(torch.unique(samples, dim=0))} distinct draws of {s} (a rejected draw repeats the last)")
+    log("chain", f"LOO stage launched {loo_launches}")
+    if cond_ll.shape != (s, 2 * len(x)) or not np.isfinite(cond_ll).all():
+        raise AssertionError(f"LOO conditionals have shape {cond_ll.shape} or non-finite entries")
+    if not all(np.isfinite(v) for v in (loo["elpd_loo"], loo["p_loo"], wa["elpd_waic"], wa["p_waic"])):
+        raise AssertionError("non-finite elpd_loo, p_loo, elpd_waic or p_waic")
+    if loo_launches["svc_gram"] != s:
+        raise AssertionError(f"K2 launched {loo_launches['svc_gram']} times in the LOO stage, "
+                             f"expected one per draw: {s}")
+    xd, yd = (torch.as_tensor(a, dtype=torch.float64, device=DEVICE) for a in (x, y))
+    one_draw = lambda: evaluate.pointwise_conditional_loglik(
+        evaluate.observation_cov("gnmgp", samples[0], xd, len(x), 2), task_major(yd))
+    wall_ms, device_ms, kinds, top = device_profile(torch, one_draw)
+    log("profile", f"one LOO draw N={len(x)} M=2 f64: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms "
+        f"(busy share {device_ms / wall_ms:.3f}); {kinds} kernel kinds")
+    for ms, count, key in top:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+
+    # (b) mode="sample" over HTTP from the hmc phase's store
+    httpd = serve(root, port=0)  # warms mode="map" at the 64- and 256-point buckets
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_port}/predict"
+
+    def post(xs):
+        body = json.dumps({"subject": "0", "x": list(map(float, xs)), "mode": "sample",
+                           "n_sample": CHAIN_N_SAMPLE}).encode()
+        req = urllib.request.Request(url, data=body, method="POST")
+        return json.load(urllib.request.urlopen(req, timeout=300))
+
+    lo, hi = float(x.min()), float(x.max())
+    grids = {g: np.linspace(lo, hi, g) for g in REQUEST_SIZES}
+    per_request, latency = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for g, xs in grids.items():
+            check_sample_answer(np, post(xs), g)  # first request at this bucket
+            times = []
+            for _ in range(TIMED_REQUESTS):
+                gk.reset_launches()  # a request starts here
+                t0 = time.perf_counter()
+                check_sample_answer(np, post(xs), g)
+                times.append((time.perf_counter() - t0) * 1e3)
+                rose = {name: gk.launches()[name] for name in counted}  # a request ends here
+                if any(v != s for v in rose.values()):
+                    raise AssertionError(f"a {g}-point sample request launched {rose}, expected {s} each")
+                per_request[g] = rose
+            latency[g] = statistics.median(times)
+            log("chain", f"POST /predict mode=sample n_sample={CHAIN_N_SAMPLE} {g} points: ok, warm latency "
+                f"median {latency[g]:.3f} ms (min {min(times):.3f}, max {max(times):.3f}, "
+                f"{TIMED_REQUESTS} requests); launches per request {per_request[g]}")
+        log("chain", f"peak device memory over the sample requests {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        xs = grids[201]
+        wall_ms, device_ms, kinds, top = device_profile(
+            torch, lambda: httpd.engine.predict("0", xs, mode="sample", n_sample=CHAIN_N_SAMPLE), reps=2)
+        log("profile", f"engine.predict mode=sample 201 points, {s} draws: wall {wall_ms:.3f} ms, device "
+            f"{device_ms:.3f} ms per request (busy share {device_ms / wall_ms:.3f}), {kinds} kernel kinds; "
+            f"HTTP request {latency[201]:.3f} ms")
+        for ms, count, key in top:
+            log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("server thread did not stop")
+
+    # (c) card against CPU at N=CHAIN_CHECK_N, the same draws and noise
+    xc, yc, vec, _ = training_subject(torch, seed + 6, CHAIN_CHECK_N)
+    gen = torch.Generator().manual_seed(seed + 7)
+    f64 = torch.float64
+    hist = vec[None, :] + 0.01 * torch.randn(CHAIN_CHECK_DRAWS, vec.shape[0], generator=gen, dtype=f64)
+    grid = np.linspace(float(xc.min()), float(xc.max()), 201)
+    t = 3
+    normals = lambda *shape: torch.randn((CHAIN_CHECK_DRAWS,) + shape, generator=gen, dtype=f64)
+    z_y = (normals(201), normals(t, 201), normals(201, 2))
+    z_l, z_ul = normals(201), normals(t, 201)
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        data = FullData(xc, yc)
+        outs[dev] = {
+            "LOO conditionals": evaluate.chain_conditional_loglik("gnmgp", hist, xc, yc, device=dev),
+            "predict_sample": pred.predict_sample(None, hist, data, grid, device=dev, noise=z_y),
+            "predict_map_sampling ℓ̃": pred.predict_map_sampling(None, CHAIN_CHECK_DRAWS, vec, data, grid,
+                                                                pred_smoothness=True, device=dev, noise=z_l),
+            "predict_map_sampling L_f": pred.predict_map_sampling(None, CHAIN_CHECK_DRAWS, vec, data, grid,
+                                                                  pred_cov=True, device=dev, noise=z_ul),
+            "predict_map_sampling y": pred.predict_map_sampling(None, CHAIN_CHECK_DRAWS, vec, data, grid,
+                                                                device=dev, noise=z_y),
+        }
+    for name, got in outs[DEVICE].items():
+        want = outs["cpu"][name]
+        # the LOO conditionals as in the CPU tests; the kriged latents with the
+        # kriging solve's absolute floor; y draws as the served answers
+        rtol, atol, of_scale = {"LOO conditionals": (CHAIN_LOO_RTOL, 0.0, CHAIN_LOO_RTOL),
+                                "predict_map_sampling ℓ̃": (SERVED_RTOL, KRIGE_ATOL, 0.0),
+                                "predict_map_sampling L_f": (SERVED_RTOL, KRIGE_ATOL, 0.0)}.get(
+            name, (SERVED_RTOL, 0.0, SERVED_ATOL_OF_SCALE))
+        errs = []
+        for g_, w_ in (zip(got, want) if isinstance(got, tuple) else [(got, want)]):
+            g_, w_ = (np.asarray(v.cpu() if torch.is_tensor(v) else v) for v in (g_, w_))
+            err = np.abs(g_ - w_)
+            if not (np.isfinite(g_).all() and (err <= rtol * np.abs(w_) + atol + of_scale * np.abs(w_).max()).all()):
+                raise AssertionError(f"N={CHAIN_CHECK_N} {name}: card vs CPU off by {err.max():.3e}")
+            errs.append(err.max() / np.abs(w_).max())
+        log("chain", f"N={CHAIN_CHECK_N} {name}, card vs CPU, {CHAIN_CHECK_DRAWS} draws, the same noise: ok at "
+            f"rtol {rtol}, atol {atol}, floor {of_scale} of the scale; max abs err {max(errs):.3e} of the scale")
+
+    # (d) the pipeline wiring: run_subject(do_loo=True) and the CLI, on the card
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="smoke_loo_") as loo_root:
+        cfg = workflows.PipelineConfig(n_opt=CHECK_N_OPT, do_hmc=True, do_loo=True, n_hmc=CHAIN_CHECK_DRAWS)
+        t0 = time.perf_counter()
+        run = workflows.run_subject(xc, yc, cfg, store=ArtifactStore(loo_root), dataset="sim")
+        wall = time.perf_counter() - t0
+        key = ArtifactStore.key("gnmgp", "sim", 0, "loo")
+        stored = ArtifactStore(loo_root).load(key) if ArtifactStore(loo_root).exists(key) else None
+    scalars = {k: v for k, v in run["loo"].items() if k != "pointwise"}
+    log("chain", f"run_subject N={CHAIN_CHECK_N} do_hmc do_loo n_hmc={CHAIN_CHECK_DRAWS} on "
+        f"{run['hmc_samples'].device}: {wall:.3f} s; loo " + ", ".join(f"{k} {v:.6g}" for k, v in scalars.items()))
+    if len(scalars) != 8 or not all(np.isfinite(v) for v in scalars.values()):
+        raise AssertionError(f"run_subject's loo keys are missing or non-finite: {scalars}")
+    if stored is None or {k: float(v) for k, v in stored.items()} != {k: float(v) for k, v in scalars.items()}:
+        raise AssertionError("the loo artifact is missing or differs from result['loo']")
+    cli_out = os.path.join(out_dir, "cli")
+    t0 = time.perf_counter()
+    summary = run_sim_pipeline.main(["--n", str(CHAIN_CHECK_N), "--n-opt", str(CHECK_N_OPT),
+                                     "--n-hmc", str(CHAIN_CLI_HMC), "--out", cli_out])
+    log("chain", f"CLI --n {CHAIN_CHECK_N} --n-opt {CHECK_N_OPT} --n-hmc {CHAIN_CLI_HMC} on the card: "
+        f"{time.perf_counter() - t0:.3f} s, figures by {'matplotlib' if viz.plt else 'the raster writer'}; "
+        f"summary {summary}")
+    for name in ("posterior.png", "target_trace.png", "manifest.json"):
+        if not os.path.getsize(os.path.join(cli_out, name)) > 0:
+            raise AssertionError(f"the CLI did not write {name}")
+    if not {"deviance", "aic", "bic", "dic", "hmc_accept"} <= set(summary):
+        raise AssertionError(f"the CLI's summary lacks finite scores: {summary}")
+    return {name: {"launches_loo": loo_launches[name], "launches_sample_request": per_request[201][name]}
+            for name in counted}
 
 
 def main() -> int:
@@ -1112,7 +1318,11 @@ def main() -> int:
     phase_drift(torch, *drift_inputs)
     rates = phase_objective(torch, np, gk, args.seed)
     train_launches = phase_training(torch, np, gk, args.seed)
-    hmc_launches = phase_hmc(torch, np, gk, args.seed)
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="smoke_hmc_") as root:
+        hmc_launches, hmc_res, hmc_data = phase_hmc(torch, np, gk, args.seed, root)
+        chain_launches = phase_chain(torch, np, gk, args.seed, root, hmc_res, hmc_data)
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -1137,9 +1347,12 @@ def main() -> int:
             row["launches_per_request"] = launches[name] / n_requests
         if name in HMC_KERNELS:
             row["launches_hmc"] = hmc_launches[name]  # the sampling stage of slice 3's path
+        row.update(chain_launches.get(name, {}))  # the LOO stage and a sample request
         kernels.append(row)
     log("summary", "warm /predict latency ms by size: "
         + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
+    log("summary", "launches in the LOO stage and per sample request: "
+        + ", ".join(f"{k}: {v}" for k, v in chain_launches.items()))
     log("summary", "gradient evaluations/s at N=1000, M=2: "
         + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
     print(json.dumps({"kernels": kernels}), flush=True)

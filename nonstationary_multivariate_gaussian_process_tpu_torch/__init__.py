@@ -17,7 +17,14 @@ Ported so far:
   backward kernels in ``ops.gram_kernels``, ``models`` (gnmgp objective,
   snmgp), ``native`` (the variogram library), ``inference`` (empirical,
   init, map), ``postprocess.analysis``, ``evaluate``, ``data.preprocess``
-  and ``workflows``.
+  and ``workflows``;
+* slice 3, HMC (``run_subject(do_hmc=True)``): ``inference`` (hmc, warmup,
+  diagnostics), the chain summaries and the DIC;
+* the chain's consumers: WAIC and PSIS-LOO (``run_subject(do_loo=True)``,
+  ``evaluate``, ``inference.pathfinder``'s PSIS), ``mode="sample"``
+  prediction and serving (``predict.gnmgp``, ``serving``), and the
+  single-subject CLI (``examples.run_sim_pipeline`` with ``viz`` and
+  ``data.io``).
 """
 
 from . import settings  # noqa: F401

@@ -1,15 +1,31 @@
-"""Model scoring: RMSE, LPD, PMSE, AIC, BIC and DIC.
+"""Model scoring: RMSE, LPD, PMSE, AIC, BIC, DIC, WAIC and PSIS-LOO.
 
 Counterpart of the JAX package's ``evaluate.py`` for these scores (reference
 ``Utility/utils.py:165-197``, ``Utility/model_validation.py``): host numpy
-code, apart from DIC's deviances, which run on the chain's device.  WAIC and
-PSIS-LOO are not ported yet.
+code, apart from DIC's deviances and the LOO conditionals, which run on the
+chain's device.  WAIC and PSIS-LOO take their non-factorized form: the GP
+likelihood is one joint MVN, so the pointwise terms are the exact
+leave-one-out conditionals ``p(y_i | y_{−i}, θ)`` from one precision matrix
+per draw.  The dense LOO conditionals cover ``gnmgp``; the G/P/D scores,
+``loo_compare``, ``stacking_weights`` and the Hadamard and sparse
+conditionals are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from . import settings
+from .models import gnmgp
+from .models.base import task_major
+from .ops import chol
+
+#: Models whose observation covariance the JAX package builds and this port
+#: does not yet.
+_NOT_PORTED = ("gnmgp_hetero", "snmgp", "lmc")
 
 def mse(a, b, axis=None):
     """Mean squared error (utils.py:165-172)."""
@@ -63,3 +79,134 @@ def get_dic(hist_vecs, deviance_fn, *args, **kwargs):
         d_mean = float(deviance_fn(torch.mean(hist, dim=0), *args, **kwargs))
     p_d = bar_d - d_mean
     return bar_d + p_d
+
+
+def _logsumexp(a, axis=None):
+    a = np.asarray(a, dtype=np.float64)
+    mx = np.max(a, axis=axis, keepdims=True)
+    s = np.sum(np.exp(a - mx), axis=axis)
+    out = np.log(s) + np.reshape(mx, np.shape(s))
+    return out if axis is not None else float(out)
+
+
+def observation_cov(model: str, vec: torch.Tensor, x: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Dense task-major (MN×MN) observation covariance for one packed vector:
+    the marginal covariance of ``y = Y.T.reshape(-1)`` under the model's
+    likelihood (Gram + noise).  For ``gnmgp`` the Gram is kernel K2 on CUDA
+    (``models.gnmgp.gram``, with its self-nugget)."""
+    if model in _NOT_PORTED:
+        raise ValueError(f"observation_cov for model {model!r} is not yet ported to the torch package")
+    if model != "gnmgp":
+        raise ValueError(f"unknown model {model!r}")
+    p = gnmgp.unpack(vec, n, m)
+    ls = gnmgp.chol_process(p.ul_vecs, n, m)
+    cov = gnmgp.gram(x, torch.exp(p.tilde_l), ls)
+    cov.diagonal().add_(torch.exp(p.tilde_sigma2_err))  # in place: the Gram is this function's own
+    return cov
+
+
+def pointwise_conditional_loglik(cov: torch.Tensor, y_tm: torch.Tensor, mask_tm=None) -> torch.Tensor:
+    """Exact per-coordinate leave-one-out conditional log densities.
+
+    For ``y ~ N(0, cov)`` with precision ``Λ = cov⁻¹`` the conditional of
+    coordinate *i* given all others is ``N(y_i − (Λy)_i/Λ_ii, 1/Λ_ii)``
+    evaluated at ``y_i``: ``½log Λ_ii − ½log 2π − ½(Λy)_i²/Λ_ii``, from one
+    Cholesky factor and a solve against I.  ``y_tm`` is the task-major
+    observation vector; ``mask_tm`` (MN,) boolean projects padded slots out
+    and zeroes their terms.  A factor that fails gives NaN terms, as in JAX.
+    """
+    if mask_tm is not None:
+        mask_tm = torch.as_tensor(mask_tm, dtype=torch.bool, device=cov.device)
+        mv = mask_tm.to(cov.dtype)
+        cov = cov * (mv[:, None] * mv[None, :]) + torch.diag(1.0 - mv)
+        y_tm = y_tm * mv
+    l = chol.safe_cholesky(cov)
+    lam = chol.chol_solve(l, torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device))
+    d = torch.diagonal(lam)
+    lam_y = lam @ y_tm
+    ll = 0.5 * torch.log(d) - 0.5 * math.log(2.0 * math.pi) - 0.5 * lam_y**2 / d
+    if mask_tm is not None:
+        ll = torch.where(mask_tm, ll, 0.0)
+    return ll
+
+
+def chain_conditional_loglik(
+    model: str, hist_vecs, x, y, mask=None, chunk: int = 8, device=None, dtype=None
+) -> np.ndarray:
+    """(S, MN) exact LOO-conditional log densities across a chain, as numpy
+    float64.
+
+    The draws run one at a time on ``device`` (default ``cuda``, raising
+    when there is none) in ``dtype`` (default ``settings.dtype``): each
+    builds its covariance, factors it and forms its precision, so only one
+    MN×MN precision is alive at a time; ``chunk`` draws' rows are copied to
+    the host together.  The result does not depend on ``chunk``.  ``mask``
+    is the (N,) subject mask, tiled to the task-major layout.
+    """
+    device = settings.resolve_device(device)
+    dtype = dtype or settings.dtype
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    hist, x, y = as_t(hist_vecs), as_t(x), as_t(y)
+    n, m = y.shape
+    y_tm = task_major(y)
+    mask_tm = None if mask is None else torch.as_tensor(mask, dtype=torch.bool, device=device).repeat(m)
+    out = np.empty((hist.shape[0], n * m))
+    with torch.no_grad():
+        for start in range(0, hist.shape[0], chunk):
+            rows = [pointwise_conditional_loglik(observation_cov(model, v, x, n, m), y_tm, mask_tm)
+                    for v in hist[start : start + chunk]]
+            out[start : start + len(rows)] = torch.stack(rows).cpu().numpy()
+    return out
+
+
+def waic(cond_loglik) -> dict:
+    """WAIC from (S, MN) pointwise log densities (non-factorized form).
+
+    ``elpd_i = log mean_s exp(ll_is) − var_s(ll_is)``; with the exact LOO
+    conditionals (:func:`chain_conditional_loglik`) as pointwise terms this
+    is the conditional WAIC.  Returns totals, the effective parameter count
+    ``p_waic`` and the pointwise vector.
+    """
+    ll = np.asarray(cond_loglik, dtype=np.float64)
+    s = ll.shape[0]
+    lppd_i = _logsumexp(ll, axis=0) - np.log(s)
+    p_i = ll.var(axis=0, ddof=1)
+    elpd_i = lppd_i - p_i
+    return {
+        "elpd_waic": float(elpd_i.sum()),
+        "p_waic": float(p_i.sum()),
+        "waic": float(-2.0 * elpd_i.sum()),
+        "pointwise": elpd_i,
+    }
+
+
+def psis_loo(cond_loglik) -> dict:
+    """PSIS-LOO from (S, MN) exact LOO-conditional log densities.
+
+    The importance ratios for leaving out coordinate *i* are
+    ``r_is ∝ 1/p(y_i | y_{−i}, θ_s)``; each coordinate's log ratios are
+    Pareto-smoothed (``inference.pathfinder.psis_smooth``) and its k̂ is the
+    reliability diagnostic (k̂ > 0.7 flags an untrustworthy estimate).
+    Returns ``elpd_loo``, ``p_loo``, ``looic``, the pointwise elpd, the k̂
+    vector and ``n_bad_k``.
+    """
+    from .inference.pathfinder import psis_smooth
+
+    ll = np.asarray(cond_loglik, dtype=np.float64)
+    s, mn = ll.shape
+    elpd_i = np.empty(mn)
+    k_hats = np.empty(mn)
+    for i in range(mn):
+        lw, k = psis_smooth(-ll[:, i])
+        lw = lw - _logsumexp(lw)
+        elpd_i[i] = _logsumexp(lw + ll[:, i])
+        k_hats[i] = k
+    lppd = _logsumexp(ll, axis=0) - np.log(s)
+    return {
+        "elpd_loo": float(elpd_i.sum()),
+        "p_loo": float((lppd - elpd_i).sum()),
+        "looic": float(-2.0 * elpd_i.sum()),
+        "pointwise": elpd_i,
+        "k_hat": k_hats,
+        "n_bad_k": int((k_hats > 0.7).sum()),
+    }

@@ -36,6 +36,11 @@ class LatentConditional(NamedTuple):
 def krige_proj(x: torch.Tensor, grid: torch.Tensor, alpha: float, beta: float):
     """The shared pieces of :func:`krige_rbf`: ``(proj (N, G), var (G,))``,
     in the dtype of ``x``, computed in float64 on ``x``'s device."""
+    if x.dim() != 1 or grid.dim() != 1:
+        raise ValueError(
+            f"krige_rbf expects 1-D training inputs and query grid; got "
+            f"x shape {tuple(x.shape)}, grid shape {tuple(grid.shape)}"
+        )
     x64 = x.to(torch.float64)
     g64 = grid.to(torch.float64)
     sigma = kernels.rbf_cov(x64, alpha=alpha, beta=beta)  # with the self-nugget
@@ -54,18 +59,16 @@ def krige_rbf(
     mu: float,
     alpha: float,
     beta: float,
+    proj=None,
 ) -> LatentConditional:
     """Pointwise GP conditional of latent ``values`` (…, N) at ``grid`` (G,).
 
     ``values`` may carry leading batch axes (e.g. the T L-entry processes of
     the GNMGP, which share one projection).  Returns means (…, G) and the
-    shared marginal variances (G,).
+    shared marginal variances (G,).  ``proj`` is :func:`krige_proj`'s
+    ``(proj, var)`` for the same (x, grid, alpha, beta), when the caller
+    already has it.
     """
-    if x.dim() != 1 or grid.dim() != 1:
-        raise ValueError(
-            f"krige_rbf expects 1-D training inputs and query grid; got "
-            f"x shape {tuple(x.shape)}, grid shape {tuple(grid.shape)}"
-        )
-    proj, var = krige_proj(x, grid, alpha, beta)
+    proj, var = proj or krige_proj(x, grid, alpha, beta)
     mean = mu + (values - mu) @ proj
     return LatentConditional(mean=mean, var=var)

@@ -1,14 +1,16 @@
 """Serving layer: predict endpoints over the artifact store.
 
-Counterpart of the JAX package's ``serving/engine.py`` for the GNMGP model in
-``mode="map"``.  ``PredictEngine(root)`` stands up from an artifact root
-alone: the conditioning data (``data`` stage) next to the MAP vector
-(``map``), as ``workflows.run_subject`` of the JAX package writes them.
+Counterpart of the JAX package's ``serving/engine.py`` for the GNMGP model,
+with its two modes: ``mode="map"`` (plug-in prediction) and
+``mode="sample"`` (prediction over the stored HMC chain).
+``PredictEngine(root)`` stands up from an artifact root alone: the
+conditioning data (``data`` stage) next to the MAP vector (``map``) and the
+chain (``hmc``), as ``workflows.run_subject`` of either package writes them.
 
 Requests are padded to a small set of grid buckets (repeating the last point)
 and cropped, as in the JAX engine, so that a request sees the same shapes
 there and here.  The port runs eagerly: there is nothing to compile.  Other
-models and ``mode="sample"`` are not ported yet and raise ``ValueError``.
+models are not ported yet and raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import threading
 
 import numpy as np
+import torch
 
 from .. import settings
 from ..convert import subject_from_store
@@ -23,7 +26,7 @@ from ..predict import gnmgp as pred_gnmgp
 from ..utils.artifacts import ArtifactStore
 
 MODELS = ("gnmgp",)
-MODES = ("map",)
+MODES = ("map", "sample")
 
 GRID_BUCKETS = (32, 64, 128, 256, 512, 1024)
 #: Request sizes that :meth:`PredictEngine.warm` runs for each subject shape.
@@ -41,7 +44,8 @@ class PredictEngine:
     """Loads fitted subjects from an artifact store and serves predictions.
 
     ``device`` defaults to ``cuda`` and raises when there is none; pass
-    ``device="cpu"`` to serve on the CPU.
+    ``device="cpu"`` to serve on the CPU.  ``mode="sample"`` draws from the
+    engine's own ``torch.Generator`` on ``device``, seeded by ``seed``.
     """
 
     def __init__(
@@ -49,6 +53,7 @@ class PredictEngine:
         root: str,
         model: str = "gnmgp",
         dataset: str = "sim",
+        seed: int = 0,
         device=None,
         dtype=None,
     ):
@@ -63,6 +68,7 @@ class PredictEngine:
         self.model = model
         self.dataset = dataset
         self._subjects: dict[str, dict] = {}
+        self._generator = torch.Generator(self.device).manual_seed(seed)
         # serialize device work (loading a subject onto the device, predicting,
         # the kernels' launch counts) and the subject cache across the HTTP
         # server's threads
@@ -92,23 +98,25 @@ class PredictEngine:
             rec = {"data": subj.data, "vec": subj.vec}
             hmc = ArtifactStore.key(self.model, self.dataset, sid, "hmc")
             if self.store.exists(hmc):
-                rec["n_draws"] = int(self.store.load(hmc)["samples"].shape[0])
+                rec["chain"] = torch.as_tensor(
+                    self.store.load(hmc)["samples"], dtype=self.dtype, device=self.device
+                )
             self._subjects[sid] = rec
         return self._subjects[sid]
 
     # -- endpoints ----------------------------------------------------------
 
-    def predict(self, sid: str, x_star, mode: str = "map") -> dict:
+    def predict(self, sid: str, x_star, mode: str = "map", n_sample: int = 100) -> dict:
         """Predict at arbitrary inputs ``x_star`` for a fitted subject.
 
         Pads the request to the next grid bucket (repeating the last point),
         then crops.  Returns plain-numpy ``{"mean", "std", "lower", "upper"}``
-        (G, M).
+        (G, M): the plug-in mean and ±1.96σ bands for ``mode="map"``; for
+        ``mode="sample"`` the mean, std and 2.5/97.5 percentiles over y
+        drawn at each of the chain's last ``n_sample`` draws.
         """
         if mode not in MODES:
-            raise ValueError(
-                f"mode {mode!r} is not yet ported to the torch package (it serves {MODES})"
-            )
+            raise ValueError(f"unknown mode {mode!r} (want 'map' or 'sample')")
         xs = np.atleast_1d(np.asarray(x_star, float))
         if xs.ndim != 1:
             raise ValueError(f"x_star must be 1-D, got shape {xs.shape}")
@@ -116,6 +124,21 @@ class PredictEngine:
         grid = np.concatenate([xs, np.full((_bucket(g) - g,), xs[-1])])
         with self._lock:
             rec = self._load(sid)
+            if mode == "sample":
+                if "chain" not in rec:
+                    raise KeyError(f"subject {sid!r} has no stored HMC chain")
+                draws = pred_gnmgp.predict_sample(
+                    self._generator, rec["chain"][-int(n_sample):], rec["data"], grid,
+                    device=self.device, dtype=self.dtype,
+                )[:g]  # (G, S, M)
+                q = torch.tensor([0.025, 0.975], dtype=draws.dtype, device=draws.device)
+                lower, upper = torch.quantile(draws, q, dim=1).cpu().numpy()
+                return {
+                    "mean": draws.mean(dim=1).cpu().numpy(),
+                    "std": draws.std(dim=1, correction=0).cpu().numpy(),
+                    "lower": lower,
+                    "upper": upper,
+                }
             gp = pred_gnmgp.predict_map(
                 rec["vec"], rec["data"], grid, device=self.device, dtype=self.dtype
             )
@@ -146,10 +169,10 @@ class PredictEngine:
             "model": self.model,
             "n": int(rec["data"].x.shape[0]),
             "m": int(rec["data"].y.shape[1]),
-            "has_chain": "n_draws" in rec,
+            "has_chain": "chain" in rec,
         }
-        if "n_draws" in rec:
-            out["n_draws"] = rec["n_draws"]
+        if "chain" in rec:
+            out["n_draws"] = int(rec["chain"].shape[0])
         if self.store.exists(k("sampling")):
             out["sampling"] = scalarize(self.store.load(k("sampling")))
         if self.store.exists(k("scores")):

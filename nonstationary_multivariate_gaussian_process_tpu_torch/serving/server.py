@@ -7,11 +7,13 @@ Counterpart of the JAX package's ``serving/server.py``, with the same API:
 * ``GET  /subjects/<id>`` → fit metadata: shapes, stored stages, the
   persisted sampling record, held-out scores
 * ``POST /predict``  → body ``{"subject": "0", "x": [...], "mode": "map"}``
-  → ``{"mean": [[...]], "std": ..., "lower": ..., "upper": ...}``
+  (``"mode": "sample"`` with an optional ``"n_sample"``, default 100, draws
+  over the stored chain) → ``{"mean": [[...]], "std": ..., "lower": ...,
+  "upper": ...}``
 
 Built on the stdlib ``http.server`` (threaded; the engine serializes device
-work internally).  A request for a mode the port does not serve yet gets a
-400 with a message that names it.
+work internally).  An unknown subject, or ``mode="sample"`` for a subject
+with no stored chain, gets a 404; a bad request a 400.
 """
 
 from __future__ import annotations
@@ -71,7 +73,12 @@ def make_handler(engine: PredictEngine):
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 req = json.loads(self.rfile.read(length) or b"{}")
-                out = engine.predict(str(req["subject"]), req["x"], mode=req.get("mode", "map"))
+                out = engine.predict(
+                    str(req["subject"]),
+                    req["x"],
+                    mode=req.get("mode", "map"),
+                    n_sample=int(req.get("n_sample", 100)),
+                )
                 self._reply(200, out)
             except KeyError as exc:
                 self._reply(404, {"error": str(exc)})

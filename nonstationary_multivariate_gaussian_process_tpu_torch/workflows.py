@@ -3,13 +3,14 @@ analysis → grid/test prediction → scoring.
 
 Counterpart of ``PipelineConfig`` and ``run_subject`` of the JAX package's
 ``workflows.py`` for ``model="gnmgp"`` on fully observed data, with the
-reference-contract HMC sampler (``sampler="hmc"``, any ``hmc_mass``).  The
-stages, their order, the result dict and the artifacts written (``data``,
-``map``, ``map_ckpt``, ``hmc``, ``pred_grid``, ``scores``) are the JAX
-package's, so a store written here serves from either package's engine.
+reference-contract HMC sampler (``sampler="hmc"``, any ``hmc_mass``) and,
+with ``do_loo``, WAIC and PSIS-LOO from the chain.  The stages, their order,
+the result dict and the artifacts written (``data``, ``map``, ``map_ckpt``,
+``hmc``, ``pred_grid``, ``scores``, ``loo``) are the JAX package's, so a
+store written here serves from either package's engine.
 
-Not ported yet, and refused with ``ValueError``: other models, ``do_loo``,
-samplers other than ``"hmc"`` and ``whiten``.
+Not ported yet, and refused with ``ValueError``: other models, samplers
+other than ``"hmc"`` and ``whiten``.
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ class PipelineConfig:
     do_pred_grid: bool = True
     do_pred_test: bool = True
     do_evaluation: bool = True
-    do_loo: bool = False
+    do_loo: bool = False  # with do_hmc: WAIC and PSIS-LOO from the chain
+    loo_draws: int = 200  # chain draws used for LOO (evenly thinned)
     n_opt: int = 1000
     lr: float = 2e-1
     map_method: str = "lbfgs"  # "lbfgs" (optax's, with the zoom linesearch) | "adam"
@@ -78,8 +80,6 @@ class PipelineConfig:
             raise ValueError(
                 f"model {self.model!r} is not yet ported to the torch package (it runs {MODELS})"
             )
-        if self.do_loo:
-            raise ValueError("do_loo is not yet ported to the torch package")
         if self.sampler != "hmc":
             raise ValueError(f"sampler {self.sampler!r} is not yet ported to the torch package")
         if self.whiten:
@@ -278,4 +278,25 @@ def run_subject(
         result["bic"] = evaluate.get_bic(map_vec, dev, n_obs=n)
         if "hmc_samples" in result:
             result["dic"] = evaluate.get_dic(result["hmc_samples"], dev)
+        if cfg.do_loo and "hmc_samples" in result:
+            # fully Bayesian criteria from the chain: the pointwise terms are
+            # the exact LOO conditionals of the joint MVN likelihood (no refits)
+            hist = result["hmc_samples"]
+            if hist.shape[0] > cfg.loo_draws:
+                idx = np.linspace(0, hist.shape[0] - 1, cfg.loo_draws).astype(int)
+                hist = hist[torch.as_tensor(idx, device=hist.device)]
+            cond_ll = evaluate.chain_conditional_loglik(cfg.model, hist, xd, yd, device=device, dtype=dtype)
+            loo = evaluate.psis_loo(cond_ll)
+            wa = evaluate.waic(cond_ll)
+            result["loo"] = {
+                "elpd_loo": loo["elpd_loo"], "p_loo": loo["p_loo"],
+                "looic": loo["looic"], "n_bad_k": loo["n_bad_k"],
+                "k_hat_max": float(np.max(loo["k_hat"])),
+                "elpd_waic": wa["elpd_waic"], "p_waic": wa["p_waic"],
+                "waic": wa["waic"],
+            }
+            if store is not None:
+                store.save(_key("loo"), **result["loo"])
+            # the pointwise elpd vector, kept out of the scalar artifact
+            result["loo"]["pointwise"] = loo["pointwise"]
     return result

@@ -87,7 +87,7 @@ def test_engine_matches_jax_engine(store_root, sid):
 
 def test_engine_errors_name_what_is_not_ported(store_root):
     eng = PredictEngine(store_root, device="cpu")
-    with pytest.raises(ValueError, match="mode 'sample' is not yet ported"):
+    with pytest.raises(KeyError, match="no stored HMC chain"):
         eng.predict("0", [0.5], mode="sample")
     with pytest.raises(ValueError, match="model 'lmc' is not yet ported"):
         PredictEngine(store_root, model="lmc", device="cpu")
@@ -149,7 +149,7 @@ def test_http_server_matches_jax_engine(store_root):
         _close(out, JaxEngine(store_root).predict("0", np.asarray(xs)))
         with pytest.raises(urllib.error.HTTPError) as ei:
             post({"subject": "0", "x": [0.5], "mode": "sample"})
-        assert ei.value.code == 400 and "not yet ported" in json.load(ei.value)["error"]
+        assert ei.value.code == 404 and "no stored HMC chain" in json.load(ei.value)["error"]
         with pytest.raises(urllib.error.HTTPError) as ei:
             post({"subject": "42", "x": [0.5]})
         assert ei.value.code == 404
@@ -195,5 +195,7 @@ def test_port_and_chip_smoke_import_no_jax():
     for d, _, names in os.walk(PORT_PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    for new in ("inference/pathfinder.py", "viz.py", "data/io.py", "examples/run_sim_pipeline.py"):
+        assert os.path.join(PORT_PKG, new) in files, new
     bad = {f: sorted({n for n in _imports(f) if _forbidden(n)}) for f in files}
     assert {f: n for f, n in bad.items() if n} == {}
