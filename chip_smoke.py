@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, HMC and chain-consumer paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer and other-model paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
@@ -75,7 +75,23 @@ Phases, each printing its lines:
                CPU at N=200 with the same draws and noise; then
                ``run_subject(do_hmc=True, do_loo=True)`` at N=200 and the
                port's CLI into ``chiprun_out/cli``.
-9. summary   — one JSON line listing every kernel, the card's name and power
+9. models    — (the other model families: LMC, SNMGP and the
+               heteroscedastic GNMGP, no device named) for each model at
+               N=1000, M=2, f64: the objective's value and gradient on the
+               card against the CPU at rtol 1e-6, its gradient evaluations
+               per second and a profile of one gradient;
+               ``run_subject(do_hmc=True, do_loo=True)`` into a store with
+               the default chain, its stage times, acceptance, DIC and LOO,
+               and each kernel's launches counted exactly in the chain (per
+               gradient), the DIC and the LOO stage (per draw);
+               ``mode="map"`` and ``mode="sample"`` over HTTP from that store
+               at 201 points, with warm latencies, exact launches per request,
+               the map answer held against ``predict_map`` on the CPU and the
+               card's ``predict_sample`` against the CPU's given the same
+               draws and noise, and a profile of one sample request; then ``run_subject`` at N=200 on the card and
+               on the CPU; and the CLI with ``--model gnmgp_hetero`` at N=200
+               into ``chiprun_out/cli_hetero``.
+10. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -191,6 +207,25 @@ SERVED_RTOL, SERVED_ATOL_OF_SCALE = 1e-6, 1e-6
 CHAIN_N_SAMPLE = 100
 CHAIN_CHECK_N, CHAIN_CHECK_DRAWS, CHAIN_CLI_HMC = 200, 8, 20
 CHAIN_LOO_RTOL, KRIGE_ATOL = 1e-8, 5e-7
+
+#: The other dense model families: the kernels each launches per gradient of
+#: its objective, per DIC draw, per LOO draw, per mode="map" request and per
+#: draw of a mode="sample" request (K1's self and cross forms both count as
+#: gibbs_gram); every other kernel must launch 0 times there.  The card's
+#: predict_sample is held against the CPU's over MODELS_CHECK_DRAWS draws;
+#: the CLI samples CHAIN_CLI_HMC draws.
+MODEL_FAMILIES = ("lmc", "snmgp", "gnmgp_hetero")
+MODEL_LAUNCHES = {
+    "lmc": {"gradient": {"gibbs_gram": 1, "gibbs_gram_backward": 1}, "dic": {"gibbs_gram": 1},
+            "loo": {"gibbs_gram": 1}, "map_request": {}, "sample_draw": {}},
+    "snmgp": {"gradient": {"gibbs_gram": 1, "gibbs_gram_backward": 1}, "dic": {"gibbs_gram": 1},
+              "loo": {"gibbs_gram": 1}, "map_request": {"gibbs_gram": 2}, "sample_draw": {"gibbs_gram": 2}},
+    "gnmgp_hetero": {"gradient": {"svc_gram_tiled": 1, "svc_gram_tiled_backward": 1},
+                     "dic": {"svc_gram_tiled": 1}, "loo": {"svc_gram": 1},
+                     "map_request": {"svc_gram": 1, "gibbs_gram": 1},
+                     "sample_draw": {"svc_gram": 1, "gibbs_gram": 1}},
+}
+MODELS_CHECK_DRAWS = 4
 
 
 def log(phase: str, msg: str) -> None:
@@ -1286,6 +1321,246 @@ def phase_chain(torch, np, gk, seed, root, res, data) -> dict:
             for name in counted}
 
 
+def model_subject(torch, model: str, seed: int, n: int):
+    """A subject for ``model`` at N=n, M=2, on the CPU in float64: x, y
+    (numpy) and the truth packed as the model's parameter vector.
+    ``sim_mnts`` for LMC (the truth's mean log-lengthscale and task factor,
+    unit scale) and SNMGP, ``sim_mnts_hetero`` for the heteroscedastic GNMGP
+    (its noise varies across inputs and tasks)."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.data import sim
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import transforms
+
+    if model == "gnmgp_hetero":
+        d = sim.sim_mnts_hetero(torch.Generator().manual_seed(seed), n=n, device="cpu", dtype=torch.float64)
+        ul = transforms.lvec_to_ulvec(d.l_vecs.reshape(n, 3), 2).reshape(-1)
+        return d.x.numpy(), d.y.numpy(), torch.cat([torch.log(d.l), ul, d.tilde_sigma2_err])
+    x, y, _, svec = training_subject(torch, seed, n)
+    if model == "snmgp":
+        return x, y, svec
+    return x, y, torch.cat([svec[:n].mean().reshape(1), torch.zeros(1, dtype=torch.float64), svec[2 * n:]])
+
+
+def sample_noise(torch, model: str, gen, s: int, g: int):
+    """The standard normals of ``predict_sample``'s ``noise=`` for ``model``
+    over s draws at g points (M=2, T=3)."""
+    f64 = torch.float64
+    z = lambda *shape: torch.randn((s,) + shape, generator=gen, dtype=f64)
+    return {"lmc": lambda: z(g, 2), "snmgp": lambda: (z(g), z(g), z(g, 2)),
+            "gnmgp_hetero": lambda: (z(g), z(3, g), z(2, g), z(g, 2))}[model]()
+
+
+def phase_models(torch, np, gk, seed) -> dict:
+    """The other model families' paths: for each of LMC, SNMGP and the heteroscedastic GNMGP
+    at N=TRAIN_N, M=2, f64, with no device named: the objective card vs CPU
+    and its gradient rate; run_subject(do_hmc=True, do_loo=True) into a store
+    with the launches of its chain, DIC and LOO stages counted exactly;
+    mode="map" and mode="sample" over HTTP from that store; run_subject at
+    N=CHECK_N card vs CPU.  Then the CLI with --model gnmgp_hetero.  Returns
+    each kernel's launches by model and stage."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.serving import serve
+    from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
+
+    f64 = torch.float64
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    counts: dict = {}
+    for i, model in enumerate(MODEL_FAMILIES):
+        t_model = time.perf_counter()
+        mod, pred = workflows._MODELS[model], workflows._PREDICT[model]
+        want = MODEL_LAUNCHES[model]
+        expect = lambda per, times: {k: per.get(k, 0) * times for k in gk.launches()}
+        x, y, vec = model_subject(torch, model, seed + 20 + i, TRAIN_N)
+        as_t = lambda a, dev: torch.as_tensor(a, dtype=f64, device=dev)
+
+        # (a) the objective, card against CPU, and its gradient rate
+        objs = {dev: mod.make_objective(FullData(as_t(x, dev), as_t(y, dev))) for dev in (DEVICE, "cpu")}
+        gk.reset_launches()
+        v_card, g_card = value_and_grad(objs[DEVICE], vec.to(DEVICE))
+        torch.cuda.synchronize()
+        if gk.launches() != expect(want["gradient"], 1):
+            raise AssertionError(f"{model}: one gradient launched {gk.launches()}, expected {want['gradient']}")
+        v_cpu, g_cpu = value_and_grad(objs["cpu"], vec)
+        if not (torch.isfinite(v_cpu) and torch.isfinite(g_cpu).all()):
+            raise AssertionError(f"{model}: non-finite objective or gradient on the CPU")
+        rel_v, _ = held(np, [v_card.item()], [v_cpu.item()], OBJECTIVE_RTOL)
+        rel_g, frac_g = held(np, g_card.cpu().numpy(), g_cpu.numpy(), OBJECTIVE_RTOL)
+        per_s = []
+        v = vec.to(DEVICE)
+        for _ in range(RATE_BATCHES):
+            t0 = time.perf_counter()
+            for _ in range(RATE_EVALS):
+                value_and_grad(objs[DEVICE], v)
+            torch.cuda.synchronize()
+            per_s.append(RATE_EVALS / (time.perf_counter() - t0))
+        log("models", f"{model} N={TRAIN_N} M=2 f64 (P={vec.shape[0]}) objective card vs CPU: value "
+            f"{v_card.item():.10e} (rel {rel_v:.3e}); gradient max rel err {rel_g:.3e}, max err {frac_g:.3e} of "
+            f"max |grad| {g_cpu.abs().max().item():.3e}: ok at rtol {OBJECTIVE_RTOL}; one gradient launched "
+            f"{want['gradient']}; {statistics.median(per_s):.3f} gradient evaluations/s (median of {RATE_BATCHES} "
+            f"batches of {RATE_EVALS}; min {min(per_s):.3f}, max {max(per_s):.3f})")
+        wall_ms, device_ms, kinds, top = device_profile(torch, lambda: value_and_grad(objs[DEVICE], v))
+        log("profile", f"one {model} gradient N={TRAIN_N} M=2 f64: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms "
+            f"(busy share {device_ms / wall_ms:.3f}), {kinds} kernel kinds")
+        for ms, count, key in top:
+            log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+
+        # (b) run_subject(do_hmc=True, do_loo=True), no device named, into a store
+        cfg = workflows.PipelineConfig(model=model, n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True)
+        n_grads = 1 + (cfg.n_hmc + cfg.hmc_warmup) * cfg.hmc_leapfrog
+        stages: dict = {}
+
+        def counted(name, fn):
+            def wrapped(*args, **kwargs):
+                before = gk.launches()
+                t0 = time.perf_counter()
+                res = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                stages[name] = ({k: v - before[k] for k, v in gk.launches().items()}, time.perf_counter() - t0)
+                return res
+            return wrapped
+
+        originals = (workflows._run_chain, evaluate.get_dic, evaluate.chain_conditional_loglik)
+        workflows._run_chain = counted("chain", originals[0])
+        evaluate.get_dic = counted("dic", originals[1])
+        evaluate.chain_conditional_loglik = counted("loo", originals[2])
+        with tempfile.TemporaryDirectory(dir=out_dir, prefix=f"smoke_{model}_") as root:
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                gk.reset_launches()  # the main path starts here
+                t0 = time.perf_counter()
+                res = workflows.run_subject(x, y, cfg, store=ArtifactStore(root), dataset="sim")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                run_launches = gk.launches()  # the main path ends here
+            finally:
+                workflows._run_chain, evaluate.get_dic, evaluate.chain_conditional_loglik = originals
+            samples = res["hmc_samples"]
+            s = samples.shape[0]
+            t_hmc = res["timings"]["hmc"]
+            loo = {k: v for k, v in res["loo"].items() if k != "pointwise"}
+            log("models", f"{model} run_subject N={TRAIN_N} M=2 f64 n_opt={TRAIN_N_OPT} do_hmc do_loo on "
+                f"{samples.device} (no device named): {wall:.3f} s; stages (s): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items())
+                + f", DIC {stages['dic'][1]:.3f}, LOO {stages['loo'][1]:.3f}; best start {res['map_init']!r}; "
+                f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            log("models", f"{model} chain: {cfg.n_hmc} draws x {cfg.hmc_leapfrog} leapfrog steps at "
+                f"{cfg.hmc_step_size}: {cfg.n_hmc / t_hmc:.3f} draws/s, {n_grads / t_hmc:.3f} gradients/s; "
+                f"mean acceptance {res['hmc_accept']:.6f}; DIC {res['dic']:.6e} (deviance at the MAP "
+                f"{res['deviance']:.6e}); loo " + ", ".join(f"{k} {v:.6g}" for k, v in loo.items()))
+            log("models", f"{model} launches: chain {stages['chain'][0]}, DIC {stages['dic'][0]}, LOO "
+                f"{stages['loo'][0]}; the whole run {run_launches}")
+            if tuple(samples.shape) != (cfg.n_hmc, vec.shape[0]) or samples.device.type != torch.device(DEVICE).type:
+                raise AssertionError(f"{model}: hmc_samples on {samples.device} with shape {tuple(samples.shape)}")
+            finite = [res["dic"], res["deviance"], *loo.values()]
+            if not (torch.isfinite(samples).all() and np.isfinite(finite).all() and 0.0 < res["hmc_accept"] <= 1.0):
+                raise AssertionError(f"{model}: non-finite draws, DIC or LOO, or no draw accepted")
+            for stage, per, times in (("chain", "gradient", n_grads), ("dic", "dic", s + 1), ("loo", "loo", s)):
+                if stages[stage][0] != expect(want[per], times):
+                    raise AssertionError(f"{model}: the {stage} stage launched {stages[stage][0]}, "
+                                         f"expected {expect(want[per], times)}")
+            if tuple(res["pred_grid"].percentiles.shape) != (cfg.n_grid, 3, 2):
+                raise AssertionError(f"{model}: pred_grid has shape {tuple(res['pred_grid'].percentiles.shape)}")
+
+            # (c) mode="map" and mode="sample" over HTTP from that store
+            httpd = serve(root, port=0, model=model)  # warms mode="map" at the 64- and 256-point buckets
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            xs = np.linspace(float(x.min()), float(x.max()), 201)
+
+            def post(mode):
+                body = json.dumps({"subject": "0", "x": list(map(float, xs)), "mode": mode,
+                                   "n_sample": CHAIN_N_SAMPLE}).encode()
+                req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_port}/predict", data=body,
+                                             method="POST")
+                return json.load(urllib.request.urlopen(req, timeout=300))
+
+            latency, answers, per_request = {}, {}, {}
+            try:
+                for mode, check, per, times in (("map", check_answer, "map_request", 1),
+                                                ("sample", check_sample_answer, "sample_draw", s)):
+                    answers[mode] = check(np, post(mode), 201)  # first request at this bucket
+                    times_ms = []
+                    for _ in range(TIMED_REQUESTS):
+                        gk.reset_launches()  # a request starts here
+                        t0 = time.perf_counter()
+                        check(np, post(mode), 201)
+                        times_ms.append((time.perf_counter() - t0) * 1e3)
+                        per_request[mode] = gk.launches()  # a request ends here
+                        if per_request[mode] != expect(want[per], times):
+                            raise AssertionError(f"{model}: a {mode} request launched {per_request[mode]}, "
+                                                 f"expected {expect(want[per], times)}")
+                    latency[mode] = statistics.median(times_ms)
+                    log("models", f"{model} POST /predict mode={mode} 201 points: ok, warm latency median "
+                        f"{latency[mode]:.3f} ms (min {min(times_ms):.3f}, max {max(times_ms):.3f}, "
+                        f"{TIMED_REQUESTS} requests); launches per request {want[per]} x {times}")
+                wall_ms, device_ms, kinds, top = device_profile(
+                    torch, lambda: httpd.engine.predict("0", xs, mode="sample", n_sample=CHAIN_N_SAMPLE), reps=2)
+                log("profile", f"{model} engine.predict mode=sample 201 points, {s} draws: wall {wall_ms:.3f} ms, "
+                    f"device {device_ms:.3f} ms per request (busy share {device_ms / wall_ms:.3f}), {kinds} kernel "
+                    f"kinds")
+                for ms, count, key in top:
+                    log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=30)
+            if thread.is_alive():
+                raise AssertionError("server thread did not stop")
+        map_vec = res["map_vec"].cpu()
+        ref = pred.predict_map(map_vec, FullData(x, y), xs, device="cpu", dtype=f64)
+        for k, w in (("mean", ref.mean), ("std", ref.std), ("lower", ref.percentiles[:, 0]),
+                     ("upper", ref.percentiles[:, 2])):
+            rel, frac = held(np, answers["map"][k], w.numpy(), SERVED_RTOL)
+            log("models", f"{model} served 201-point map {k} vs CPU predict_map: ok, max rel err {rel:.3e}, "
+                f"max err {frac:.3e} of max |CPU|")
+        gen = torch.Generator().manual_seed(seed + 30 + i)
+        noise = sample_noise(torch, model, gen, MODELS_CHECK_DRAWS, 201)
+        hist = samples[-MODELS_CHECK_DRAWS:]
+        draws = {dev: pred.predict_sample(None, hist.to(dev), FullData(x, y), xs, device=dev, dtype=f64,
+                                          noise=noise).cpu().numpy() for dev in (DEVICE, "cpu")}
+        rel, frac = held(np, draws[DEVICE], draws["cpu"], SERVED_RTOL)
+        log("models", f"{model} predict_sample N={TRAIN_N} 201 points, {MODELS_CHECK_DRAWS} draws, the same "
+            f"noise: card vs CPU ok, max rel err {rel:.3e}, max err {frac:.3e} of the scale")
+
+        # (d) run_subject at N=CHECK_N on the card and on the CPU
+        x2, y2, _ = model_subject(torch, model, seed + 40 + i, CHECK_N)
+        cfg2 = workflows.PipelineConfig(model=model, n_opt=CHECK_N_OPT)
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            runs[dev] = workflows.run_subject(x2, y2, cfg2, device=dev, dtype=f64)
+            log("models", f"{model} run_subject N={CHECK_N} n_opt={CHECK_N_OPT} on {dev}: "
+                f"{time.perf_counter() - t0:.3f} s, best start {runs[dev]['map_init']!r}")
+        f = mod.make_objective(FullData(as_t(x2, "cpu"), as_t(y2, "cpu")))
+        with torch.no_grad():
+            final = {dev: f(r["map_vec"].cpu()).item() for dev, r in runs.items()}
+        rel_f, _ = held(np, [final[DEVICE]], [final["cpu"]], OBJECTIVE_RTOL)
+        rel_m, frac_m = held(np, runs[DEVICE]["map_vec"].cpu().numpy(), runs["cpu"]["map_vec"].numpy(),
+                             OBJECTIVE_RTOL)
+        log("models", f"{model} N={CHECK_N} card vs CPU: final objective {final[DEVICE]:.10e} vs "
+            f"{final['cpu']:.10e} (rel {rel_f:.3e}); map_vec max rel err {rel_m:.3e}, max err {frac_m:.3e} of its "
+            f"scale: ok at rtol {OBJECTIVE_RTOL}; the model's phase took {time.perf_counter() - t_model:.3f} s")
+        counts[model] = {name: {"chain": stages["chain"][0][name], "dic": stages["dic"][0][name],
+                                "loo": stages["loo"][0][name], "map_request": per_request["map"][name],
+                                "sample_request": per_request["sample"][name]} for name in gk.launches()}
+
+    cli_out = os.path.join(out_dir, "cli_hetero")
+    t0 = time.perf_counter()
+    summary = run_sim_pipeline.main(["--model", "gnmgp_hetero", "--n", str(CHECK_N), "--n-opt", str(CHECK_N_OPT),
+                                     "--n-hmc", str(CHAIN_CLI_HMC), "--out", cli_out])
+    log("models", f"CLI --model gnmgp_hetero --n {CHECK_N} --n-opt {CHECK_N_OPT} --n-hmc {CHAIN_CLI_HMC} on "
+        f"the card: {time.perf_counter() - t0:.3f} s; summary {summary}")
+    for name in ("posterior.png", "target_trace.png", "manifest.json"):
+        if not os.path.getsize(os.path.join(cli_out, name)) > 0:
+            raise AssertionError(f"the CLI did not write {name}")
+    if not {"deviance", "aic", "bic", "dic", "hmc_accept"} <= set(summary):
+        raise AssertionError(f"the CLI's summary lacks finite scores: {summary}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1323,6 +1598,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=out_dir, prefix="smoke_hmc_") as root:
         hmc_launches, hmc_res, hmc_data = phase_hmc(torch, np, gk, args.seed, root)
         chain_launches = phase_chain(torch, np, gk, args.seed, root, hmc_res, hmc_data)
+    t0 = time.perf_counter()
+    model_launches = phase_models(torch, np, gk, args.seed)
+    log("models", f"phase took {time.perf_counter() - t0:.3f} s")
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -1348,11 +1626,16 @@ def main() -> int:
         if name in HMC_KERNELS:
             row["launches_hmc"] = hmc_launches[name]  # the sampling stage of slice 3's path
         row.update(chain_launches.get(name, {}))  # the LOO stage and a sample request
+        # the other model families: in each chain, DIC, LOO stage and per request
+        row["launches_models"] = {model: c[name] for model, c in model_launches.items()}
         kernels.append(row)
     log("summary", "warm /predict latency ms by size: "
         + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
     log("summary", "launches in the LOO stage and per sample request: "
         + ", ".join(f"{k}: {v}" for k, v in chain_launches.items()))
+    log("summary", "launches by model (chain, DIC, LOO stage, per map and sample request): " + "; ".join(
+        f"{model}: " + ", ".join(f"{k} {v}" for k, v in c.items() if any(v.values()))
+        for model, c in model_launches.items()))
     log("summary", "gradient evaluations/s at N=1000, M=2: "
         + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
     print(json.dumps({"kernels": kernels}), flush=True)

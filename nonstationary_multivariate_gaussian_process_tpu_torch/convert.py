@@ -3,7 +3,10 @@
 The port keeps the JAX package's packed parameter vectors (reference
 ``vec2pars_SVC``: ``[tilde_l (N), uL_vecs (N·T), tilde_sigma2_err]``;
 ``vec2pars``: ``[tilde_l (N), tilde_sigma (N), uL_vec (T),
-tilde_sigma2_err]``), its empirical estimate and its artifact-store format,
+tilde_sigma2_err]``; ``vec2pars_S``: ``[tilde_l, tilde_sigma, uL_vec (T),
+tilde_sigma2_err]``; the heteroscedastic GNMGP's ``[tilde_l (N), uL_vecs
+(N·T), tilde_sigma2_err (N·M)]``), its empirical estimate and its
+artifact-store format,
 so carrying a fit across is a matter of moving arrays into tensors on a
 device.  :func:`result_to_numpy` turns a ``run_subject`` result of either
 package into plain numpy so the two compare key by key; it reads JAX arrays
@@ -19,7 +22,7 @@ import torch
 
 from . import settings
 from .inference.empirical import EmpiricalEstimate
-from .models import gnmgp, snmgp
+from .models import gnmgp, gnmgp_hetero, lmc, snmgp
 from .models.base import FullData
 from .utils.artifacts import ArtifactStore
 
@@ -29,20 +32,29 @@ class Subject(NamedTuple):
     vec: torch.Tensor  # packed MAP vector
 
 
+def _tensor(vec, device, dtype) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(vec), dtype=dtype or settings.dtype, device=settings.resolve_device(device))
+
+
 def params_from_jax(vec: np.ndarray, n: int, m: int, device=None, dtype=None) -> gnmgp.Params:
     """The JAX package's packed GNMGP vector as the port's ``Params``."""
-    t = torch.as_tensor(
-        np.asarray(vec), dtype=dtype or settings.dtype, device=settings.resolve_device(device)
-    )
-    return gnmgp.unpack(t, n, m)
+    return gnmgp.unpack(_tensor(vec, device, dtype), n, m)
 
 
 def snmgp_params_from_jax(vec: np.ndarray, n: int, m: int, device=None, dtype=None) -> snmgp.Params:
     """The JAX package's packed SNMGP vector as the port's ``Params``."""
-    t = torch.as_tensor(
-        np.asarray(vec), dtype=dtype or settings.dtype, device=settings.resolve_device(device)
-    )
-    return snmgp.unpack(t, n, m)
+    return snmgp.unpack(_tensor(vec, device, dtype), n, m)
+
+
+def lmc_params_from_jax(vec: np.ndarray, m: int, device=None, dtype=None) -> lmc.Params:
+    """The JAX package's packed LMC vector as the port's ``Params``."""
+    return lmc.unpack(_tensor(vec, device, dtype), m)
+
+
+def hetero_params_from_jax(vec: np.ndarray, n: int, m: int, device=None, dtype=None) -> gnmgp_hetero.Params:
+    """The JAX package's packed heteroscedastic GNMGP vector (task-major
+    noise) as the port's ``Params``."""
+    return gnmgp_hetero.unpack(_tensor(vec, device, dtype), n, m)
 
 
 def empirical_from_jax(emp) -> EmpiricalEstimate:
@@ -78,7 +90,8 @@ def subject_from_store(
     root: str, sid, model: str = "gnmgp", dataset: str = "sim", device=None, dtype=None
 ) -> Subject:
     """Read a subject's ``data`` and ``map`` stages from an artifact store
-    (written by either package) into the port's tensors."""
+    (written by either package) into the port's tensors, for any of the
+    dense models."""
     device = settings.resolve_device(device)
     dtype = dtype or settings.dtype
     store = ArtifactStore(root)

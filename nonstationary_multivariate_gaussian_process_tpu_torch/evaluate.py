@@ -6,9 +6,10 @@ code, apart from DIC's deviances and the LOO conditionals, which run on the
 chain's device.  WAIC and PSIS-LOO take their non-factorized form: the GP
 likelihood is one joint MVN, so the pointwise terms are the exact
 leave-one-out conditionals ``p(y_i | y_{−i}, θ)`` from one precision matrix
-per draw.  The dense LOO conditionals cover ``gnmgp``; the G/P/D scores,
-``loo_compare``, ``stacking_weights`` and the Hadamard and sparse
-conditionals are not ported yet.
+per draw.  The dense LOO conditionals cover ``lmc``, ``snmgp``, ``gnmgp``
+and ``gnmgp_hetero``; the G/P/D scores, ``loo_compare``,
+``stacking_weights`` and the Hadamard and sparse conditionals are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,13 +20,13 @@ import numpy as np
 import torch
 
 from . import settings
-from .models import gnmgp
+from .models import gnmgp, gnmgp_hetero, lmc, snmgp
 from .models.base import task_major
 from .ops import chol
 
 #: Models whose observation covariance the JAX package builds and this port
 #: does not yet.
-_NOT_PORTED = ("gnmgp_hetero", "snmgp", "lmc")
+_NOT_PORTED = ("gnmgp_sparse", "gnmgp_hetero_sparse", "snmgp_sparse", "lmc_sparse")
 
 def mse(a, b, axis=None):
     """Mean squared error (utils.py:165-172)."""
@@ -92,16 +93,28 @@ def _logsumexp(a, axis=None):
 def observation_cov(model: str, vec: torch.Tensor, x: torch.Tensor, n: int, m: int) -> torch.Tensor:
     """Dense task-major (MN×MN) observation covariance for one packed vector:
     the marginal covariance of ``y = Y.T.reshape(-1)`` under the model's
-    likelihood (Gram + noise).  For ``gnmgp`` the Gram is kernel K2 on CUDA
-    (``models.gnmgp.gram``, with its self-nugget)."""
+    likelihood (Gram + noise).  On CUDA the ``gnmgp`` and ``gnmgp_hetero``
+    Gram is kernel K2 (``models.gnmgp.gram``, with its self-nugget), and
+    the ``lmc`` and ``snmgp`` input covariance ``K_x`` kernel K1's self form,
+    expanded as ``B_f ⊗ K_x``."""
     if model in _NOT_PORTED:
         raise ValueError(f"observation_cov for model {model!r} is not yet ported to the torch package")
-    if model != "gnmgp":
+    if model in ("gnmgp", "gnmgp_hetero"):
+        mod = gnmgp if model == "gnmgp" else gnmgp_hetero
+        p = mod.unpack(vec, n, m)
+        cov = gnmgp.gram(x, torch.exp(p.tilde_l), gnmgp.chol_process(p.ul_vecs, n, m))
+        # in place: the Gram is this function's own; a scalar or task-major noise
+        cov.diagonal().add_(torch.exp(p.tilde_sigma2_err))
+        return cov
+    if model == "snmgp":
+        b_f, k_x, sigma2_err = snmgp._covs(snmgp.unpack(vec, n, m), x, m)
+    elif model == "lmc":
+        p = lmc.unpack(vec, m)
+        b_f, k_x, sigma2_err = lmc.task_cov(p.ul_vec, m), lmc.input_cov(p, x), torch.exp(p.tilde_sigma2_err)
+    else:
         raise ValueError(f"unknown model {model!r}")
-    p = gnmgp.unpack(vec, n, m)
-    ls = gnmgp.chol_process(p.ul_vecs, n, m)
-    cov = gnmgp.gram(x, torch.exp(p.tilde_l), ls)
-    cov.diagonal().add_(torch.exp(p.tilde_sigma2_err))  # in place: the Gram is this function's own
+    cov = torch.kron(b_f, k_x)
+    cov.diagonal().add_(sigma2_err)
     return cov
 
 

@@ -1,15 +1,16 @@
 """Single-subject synthetic pipeline driver.
 
-Counterpart of the JAX package's ``examples/run_sim_pipeline.py`` for
-``--model gnmgp``: generate (or load) one synthetic subject, run empirical
-init → MAP (→ HMC) → grid/test prediction → scores, and write figures,
-artifacts and a JSON summary on stdout.
+Counterpart of the JAX package's ``examples/run_sim_pipeline.py`` for the
+dense models (``--model lmc|snmgp|gnmgp|gnmgp_hetero``): generate (or load)
+one synthetic subject (``sim_mnts``, or ``sim_mnts_hetero`` for
+``gnmgp_hetero``), run empirical init → MAP (→ HMC) → grid/test prediction
+→ scores, and write figures, artifacts and a JSON summary on stdout.
 
     python -m nonstationary_multivariate_gaussian_process_tpu_torch.examples.run_sim_pipeline \\
         --model gnmgp --n 200 --n-opt 1000 --out res/sim_nonseparable
 
 It runs on ``cuda``.  The arguments are the JAX driver's; the choices this
-package does not have yet (other models, samplers other than ``hmc``,
+package does not have yet (the sparse models, samplers other than ``hmc``,
 ``--whiten`` other than ``off``) exit with an error that says so.
 """
 
@@ -62,10 +63,10 @@ def main(argv=None, device=None) -> dict:
     none); print and return the JSON summary."""
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, value, ported in (("--model", args.model, "gnmgp"), ("--sampler", args.sampler, "hmc"),
-                                ("--whiten", args.whiten, "off")):
-        if value != ported:
-            ap.error(f"{flag} {value} is not yet ported to the torch package (it runs {ported})")
+    for flag, value, ported in (("--model", args.model, workflows.MODELS), ("--sampler", args.sampler, ("hmc",)),
+                                ("--whiten", args.whiten, ("off",))):
+        if value not in ported:
+            ap.error(f"{flag} {value} is not yet ported to the torch package (it runs {', '.join(ported)})")
     device = settings.resolve_device(device)
 
     os.makedirs(args.out, exist_ok=True)
@@ -73,10 +74,12 @@ def main(argv=None, device=None) -> dict:
         loaded = data_io.load_sim_pickle(args.data)
         x, y = loaded["x"], loaded["y"]
     else:
-        d = sim.sim_mnts(torch.Generator().manual_seed(args.seed), n=args.n, device=device)
+        gen = sim.sim_mnts_hetero if args.model == "gnmgp_hetero" else sim.sim_mnts
+        d = gen(torch.Generator().manual_seed(args.seed), n=args.n, device=device)
         x, y = d.x.cpu().numpy(), d.y.cpu().numpy()
 
-    hyper = {"alpha_tilde_l": 10.0, "beta_tilde_l": 1.0, "alpha_L": 10.0, "beta_L": 1.0}
+    hyper = ({"alpha_tilde_l": 10.0, "beta_tilde_l": 1.0, "alpha_L": 10.0, "beta_L": 1.0}
+             if args.model == "gnmgp" else {})
     cfg = workflows.PipelineConfig(
         model=args.model, n_opt=args.n_opt, do_hmc=args.n_hmc > 0,
         map_method=args.map_method,

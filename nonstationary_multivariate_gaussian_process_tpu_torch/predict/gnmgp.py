@@ -35,16 +35,11 @@ import torch
 
 from .. import settings
 from ..models import gnmgp as model
-from ..models.base import FullData, check_full_data, task_major
+from ..models.base import FullData, task_major
 from ..ops import chol as chol_ops
 from ..ops import kernels, transforms
 from .latent import LatentConditional, krige_proj, krige_rbf
-
-
-class SampledPrediction(NamedTuple):
-    quantiles: torch.Tensor  # (G, 2, M): 2.5 / 97.5 percentiles over draws
-    mean: torch.Tensor  # (G, M)
-    std: torch.Tensor  # (G, M)
+from .snmgp import SampledPrediction, band, normals, setup, summarize
 
 
 class GridPredictionSVC(NamedTuple):
@@ -67,13 +62,17 @@ def _factorize(p: model.Params, data: FullData):
     return ls, ell, sigma2_err, r, c
 
 
-def _moments(data: FullData, grid, l_star, ls_star, factors):
+def _moments(data: FullData, grid, l_star, ls_star, factors, noise_var=None):
     """Predictive mean/variance at all grid points given latent values there.
 
     ``l_star``: (G,) lengthscales at the grid; ``ls_star``: (G, M, M)
-    Cholesky factors of B_f(x*).
+    Cholesky factors of B_f(x*).  ``noise_var`` ((G, M) or scalar) replaces
+    the training noise in the predictive variance and its floor: the
+    heteroscedastic model passes its kriged noise process here.
     """
     ls, ell, sigma2_err, r, c = factors
+    if noise_var is not None:
+        sigma2_err = noise_var
     n, m, _ = ls.shape
     g = grid.shape[0]
     k_cross = kernels.nonstationary_rbf_cov(
@@ -117,19 +116,6 @@ def _latent_conds(p: model.Params, data: FullData, grid, hp, n: int, m: int, pro
     return cond_l, cond_ul  # cond_ul.mean: (T, G)
 
 
-def _setup(data: FullData, grid, device, dtype):
-    device = settings.resolve_device(device)
-    dtype = dtype or settings.dtype
-    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
-    data = FullData(as_t(data.x), as_t(data.y))
-    check_full_data(data, "gnmgp")
-    return data, as_t(grid), as_t
-
-
-def _normals(generator: torch.Generator, shape, device, dtype) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device).to(device)
-
-
 def _l_star(cond_ul: LatentConditional, z_ul: torch.Tensor, m: int) -> torch.Tensor:
     """Cholesky factors of B_f at the grid (..., G, M, M) from normals
     (..., T, G) around the kriged L-entry processes."""
@@ -146,6 +132,7 @@ def _y_draw(data, grid, cond_l, cond_ul, factors, z, m: int) -> torch.Tensor:
     return mu + torch.sqrt(s2) * z_y
 
 
+@torch.no_grad()
 def predict_map(vec, data: FullData, grid, device=None, dtype=None, hyper=None) -> GridPredictionSVC:
     """Plug-in MAP prediction (reference point_predmap_inhomogeneous).
 
@@ -154,7 +141,7 @@ def predict_map(vec, data: FullData, grid, device=None, dtype=None, hyper=None) 
     there is none) in ``dtype`` (default: ``settings.dtype``).  ``hyper``
     overrides the latent priors' defaults (``models.gnmgp.DEFAULT_HYPERS``).
     """
-    data, grid, as_t = _setup(data, grid, device, dtype)
+    data, grid, as_t = setup(data, grid, device, dtype, "gnmgp")
     n, m = data.y.shape
     p = model.unpack(as_t(vec), n, m)
     cond_l, cond_ul = _latent_conds(p, data, grid, _hp(hyper), n, m)
@@ -162,11 +149,11 @@ def predict_map(vec, data: FullData, grid, device=None, dtype=None, hyper=None) 
     ls_star = transforms.vec_to_tril(l_vec_star, m)  # (G, M, M)
     factors = _factorize(p, data)
     mu, s2 = _moments(data, grid, torch.exp(cond_l.mean), ls_star, factors)
-    sd = torch.sqrt(s2)
-    pct = torch.stack([mu - 1.96 * sd, mu, mu + 1.96 * sd], dim=1)
+    pct, sd = band(mu, s2)
     return GridPredictionSVC(percentiles=pct, mean=mu, std=sd, l_vecs=l_vec_star)
 
 
+@torch.no_grad()
 def predict_map_sampling(
     generator: torch.Generator | None,
     n_sample: int,
@@ -191,10 +178,10 @@ def predict_map_sampling(
     ``(z_l (S, G), z_ul (S, T, G), z_y (S, G, M))``.  Device and dtype as
     in :func:`predict_map`.
     """
-    data, grid, as_t = _setup(data, grid, device, dtype)
+    data, grid, as_t = setup(data, grid, device, dtype, "gnmgp")
     n, m = data.y.shape
     g, t = grid.shape[0], transforms.tri_size(m)
-    draw = lambda *shape: _normals(generator, (n_sample,) + shape, grid.device, grid.dtype)
+    draw = lambda *shape: normals(generator, (n_sample,) + shape, grid.device, grid.dtype)
     p = model.unpack(as_t(vec), n, m)
     cond_l, cond_ul = _latent_conds(p, data, grid, _hp(hyper), n, m)
 
@@ -208,10 +195,10 @@ def predict_map_sampling(
     z = (draw(g), draw(t, g), draw(g, m)) if noise is None else tuple(as_t(a) for a in noise)
     factors = _factorize(p, data)
     ys = torch.stack([_y_draw(data, grid, cond_l, cond_ul, factors, zs, m) for zs in zip(*z)])
-    q = torch.quantile(ys, torch.tensor([0.025, 0.975], dtype=ys.dtype, device=ys.device), dim=0)
-    return SampledPrediction(quantiles=q.movedim(0, 1), mean=ys.mean(dim=0), std=ys.std(dim=0, correction=0))
+    return summarize(ys)
 
 
+@torch.no_grad()
 def predict_sample(
     generator: torch.Generator | None,
     hist_vecs,
@@ -233,7 +220,7 @@ def predict_sample(
     ``noise = (z_l (S, G), z_ul (S, T, G), z_y (S, G, M))``.  Device and
     dtype as in :func:`predict_map`.
     """
-    data, grid, as_t = _setup(data, grid, device, dtype)
+    data, grid, as_t = setup(data, grid, device, dtype, "gnmgp")
     hp = _hp(hyper)
     n, m = data.y.shape
     hist = as_t(hist_vecs)
@@ -241,7 +228,7 @@ def predict_sample(
         hist = hist[-n_sample:]
     s, g, t = hist.shape[0], grid.shape[0], transforms.tri_size(m)
     if noise is None:
-        draw = lambda *shape: _normals(generator, (s,) + shape, grid.device, grid.dtype)
+        draw = lambda *shape: normals(generator, (s,) + shape, grid.device, grid.dtype)
         noise = (draw(g), draw(t, g), draw(g, m))
     z = tuple(as_t(a) for a in noise)
     projs = _krige_projs(data.x, grid, hp)

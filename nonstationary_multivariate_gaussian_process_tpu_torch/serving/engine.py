@@ -1,16 +1,17 @@
 """Serving layer: predict endpoints over the artifact store.
 
-Counterpart of the JAX package's ``serving/engine.py`` for the GNMGP model,
-with its two modes: ``mode="map"`` (plug-in prediction) and
-``mode="sample"`` (prediction over the stored HMC chain).
+Counterpart of the JAX package's ``serving/engine.py`` for the dense models
+``lmc``, ``snmgp``, ``gnmgp`` and ``gnmgp_hetero``, with its two modes:
+``mode="map"`` (plug-in prediction) and ``mode="sample"`` (prediction over
+the stored HMC chain).
 ``PredictEngine(root)`` stands up from an artifact root alone: the
 conditioning data (``data`` stage) next to the MAP vector (``map``) and the
 chain (``hmc``), as ``workflows.run_subject`` of either package writes them.
 
 Requests are padded to a small set of grid buckets (repeating the last point)
 and cropped, as in the JAX engine, so that a request sees the same shapes
-there and here.  The port runs eagerly: there is nothing to compile.  Other
-models are not ported yet and raise ``ValueError``.
+there and here.  The port runs eagerly: there is nothing to compile.  The
+sparse models are not ported yet and raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -23,9 +24,13 @@ import torch
 from .. import settings
 from ..convert import subject_from_store
 from ..predict import gnmgp as pred_gnmgp
+from ..predict import gnmgp_hetero as pred_gnmgp_hetero
+from ..predict import lmc as pred_lmc
+from ..predict import snmgp as pred_snmgp
 from ..utils.artifacts import ArtifactStore
 
-MODELS = ("gnmgp",)
+_PRED = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero}
+MODELS = tuple(_PRED)
 MODES = ("map", "sample")
 
 GRID_BUCKETS = (32, 64, 128, 256, 512, 1024)
@@ -66,6 +71,7 @@ class PredictEngine:
         self.dtype = dtype or settings.dtype
         self.store = ArtifactStore(root)
         self.model = model
+        self._pred = _PRED[model]
         self.dataset = dataset
         self._subjects: dict[str, dict] = {}
         self._generator = torch.Generator(self.device).manual_seed(seed)
@@ -127,10 +133,13 @@ class PredictEngine:
             if mode == "sample":
                 if "chain" not in rec:
                     raise KeyError(f"subject {sid!r} has no stored HMC chain")
-                draws = pred_gnmgp.predict_sample(
+                draws = self._pred.predict_sample(
                     self._generator, rec["chain"][-int(n_sample):], rec["data"], grid,
                     device=self.device, dtype=self.dtype,
-                )[:g]  # (G, S, M)
+                )
+                if self.model == "lmc":  # the LMC predictor returns (S, G, M)
+                    draws = draws.movedim(0, 1)
+                draws = draws[:g]  # (G, S, M)
                 q = torch.tensor([0.025, 0.975], dtype=draws.dtype, device=draws.device)
                 lower, upper = torch.quantile(draws, q, dim=1).cpu().numpy()
                 return {
@@ -139,7 +148,7 @@ class PredictEngine:
                     "lower": lower,
                     "upper": upper,
                 }
-            gp = pred_gnmgp.predict_map(
+            gp = self._pred.predict_map(
                 rec["vec"], rec["data"], grid, device=self.device, dtype=self.dtype
             )
             pct = gp.percentiles[:g].cpu().numpy()

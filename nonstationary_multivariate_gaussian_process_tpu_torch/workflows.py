@@ -2,14 +2,15 @@
 analysis → grid/test prediction → scoring.
 
 Counterpart of ``PipelineConfig`` and ``run_subject`` of the JAX package's
-``workflows.py`` for ``model="gnmgp"`` on fully observed data, with the
-reference-contract HMC sampler (``sampler="hmc"``, any ``hmc_mass``) and,
-with ``do_loo``, WAIC and PSIS-LOO from the chain.  The stages, their order,
-the result dict and the artifacts written (``data``, ``map``, ``map_ckpt``,
-``hmc``, ``pred_grid``, ``scores``, ``loo``) are the JAX package's, so a
-store written here serves from either package's engine.
+``workflows.py`` for the dense models on fully observed data: ``lmc``,
+``snmgp``, ``gnmgp`` and ``gnmgp_hetero``, with the reference-contract HMC
+sampler (``sampler="hmc"``, any ``hmc_mass``) and, with ``do_loo``, WAIC and
+PSIS-LOO from the chain.  The stages, their order, the result dict and the
+artifacts written (``data``, ``map``, ``map_ckpt``, ``hmc``, ``pred_grid``,
+``scores``, ``loo``) are the JAX package's, so a store written here serves
+from either package's engine.
 
-Not ported yet, and refused with ``ValueError``: other models, samplers
+Not ported yet, and refused with ``ValueError``: the sparse models, samplers
 other than ``"hmc"`` and ``whiten``.
 """
 
@@ -29,13 +30,18 @@ from .inference import empirical
 from .inference import hmc
 from .inference import init as init_mod
 from .inference import map as map_mod
-from .models import gnmgp, snmgp
+from .models import gnmgp, gnmgp_hetero, lmc, snmgp
 from .models.base import FullData
 from .postprocess import analysis
 from .predict import gnmgp as pred_gnmgp
+from .predict import gnmgp_hetero as pred_gnmgp_hetero
+from .predict import lmc as pred_lmc
+from .predict import snmgp as pred_snmgp
 from .utils.artifacts import ArtifactStore
 
-MODELS = ("gnmgp",)
+_MODELS = {"lmc": lmc, "snmgp": snmgp, "gnmgp": gnmgp, "gnmgp_hetero": gnmgp_hetero}
+_PREDICT = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero}
+MODELS = tuple(_MODELS)
 HMC_MASSES = ("none", "pilot", "window")
 
 
@@ -106,19 +112,52 @@ def _validate_subject(x, y):
         raise ValueError("x/Y contain non-finite values")
 
 
+def n_params(model: str, n: int, m: int) -> int:
+    """Length of ``model``'s packed vector for N inputs and M tasks (LMC's
+    does not depend on N)."""
+    return lmc.n_params(m) if model == "lmc" else _MODELS[model].n_params(n, m)
+
+
 def _build_inits(cfg: PipelineConfig, emp, data: FullData) -> dict:
-    """The GNMGP starts: a short SNMGP Adam fit as the separable warm start,
-    and the empirical init (JAX ``workflows._build_inits``)."""
+    """The model's MAP starts, in JAX's order (JAX ``workflows._build_inits``):
+    LMC from the empirical estimates; SNMGP from a short LMC Adam fit
+    (stationary, combined) and the empirical estimates; GNMGP from a short
+    SNMGP Adam fit (separable) and the empirical estimates, and the
+    heteroscedastic GNMGP from those two with the noise broadcast."""
     n, m = data.y.shape
     dev, dt = data.x.device, data.x.dtype
+    if cfg.model == "lmc":
+        return {"empirical": init_mod.lmc_from_empirical(emp, n, m, dev, dt)}
+    if cfg.model == "snmgp":
+        lmc_res = map_mod.fit_map(
+            lmc.make_objective(data), init_mod.lmc_from_empirical(emp, n, m, dev, dt),
+            n_iters=min(cfg.n_opt, 500), lr=0.1,
+        )
+        return {
+            "stationary": init_mod.snmgp_from_stationary(lmc_res.vec, n, dev, dt),
+            "empirical": init_mod.snmgp_from_empirical(emp, n, m, dev, dt),
+            "combined": init_mod.snmgp_combined(lmc_res.vec, emp, n, m, dev, dt),
+        }
     sn_nlp = snmgp.make_objective(data)
     sn_res = map_mod.fit_map(
         sn_nlp, init_mod.snmgp_from_empirical(emp, n, m, dev, dt), n_iters=min(cfg.n_opt, 500), lr=0.2
     )
-    return {
+    inits = {
         "separable": init_mod.gnmgp_from_separable(sn_res.vec, n, m, dev, dt),
         "empirical": init_mod.gnmgp_from_empirical(emp, n, m, device=dev, dtype=dt),
     }
+    if cfg.model == "gnmgp_hetero":
+        # the homoscedastic noise broadcast over the (input × task) process
+        # (Nonseparable_model_mpiKAISER_extended.py:317-328)
+        inits = {name: gnmgp_hetero.init_from_gnmgp(v, n, m) for name, v in inits.items()}
+    return inits
+
+
+def _predict_map(cfg: PipelineConfig, map_vec, data: FullData, xs, device, dtype):
+    """The model's plug-in prediction at ``xs`` (LMC's takes no ``hyper``)."""
+    if cfg.model == "lmc":
+        return pred_lmc.predict_map(map_vec, data, xs, device=device, dtype=dtype)
+    return _PREDICT[cfg.model].predict_map(map_vec, data, xs, device=device, dtype=dtype, hyper=cfg.hyper)
 
 
 def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch.Generator):
@@ -196,13 +235,14 @@ def run_subject(
     result["timings"]["empirical"] = time.time() - t0
     result["empirical"] = emp
 
-    nlp = gnmgp.make_objective(data, hyper=cfg.hyper)
+    model = _MODELS[cfg.model]
+    nlp = model.make_objective(data, hyper=cfg.hyper)
     map_vec = None
     if cfg.do_map:
         stored = None
         if store is not None and store.exists(_key("map")):
             stored = store.load(_key("map"))["vec"]
-            expected = (gnmgp.n_params(n, m),)
+            expected = (n_params(cfg.model, n, m),)
             if stored.shape != expected:
                 # a stale artifact from other data or another split: refit
                 warnings.warn(
@@ -237,7 +277,7 @@ def run_subject(
         if store is not None:
             store.save(_key("hmc"), samples=samples.cpu().numpy())
 
-    if cfg.do_map_analysis and map_vec is not None:
+    if cfg.do_map_analysis and map_vec is not None and cfg.model == "gnmgp":
         tilde_l, b_proc, cor_proc, std_proc = analysis.gnmgp_map_latents(map_vec.cpu().numpy(), n, m)
         result["map_latents"] = {"tilde_l": tilde_l, "B": b_proc, "R": cor_proc,
                                  "stds": std_proc, "inputs": x}
@@ -249,7 +289,7 @@ def run_subject(
     grid = torch.linspace(float(x.min()), float(x.max()), cfg.n_grid, dtype=dtype, device=device)
     if cfg.do_pred_grid and map_vec is not None:
         t0 = time.time()
-        gp = pred_gnmgp.predict_map(map_vec, data, grid, device=device, dtype=dtype, hyper=cfg.hyper)
+        gp = _predict_map(cfg, map_vec, data, grid, device, dtype)
         result["timings"]["pred_grid"] = time.time() - t0
         result["pred_grid"] = gp
         result["grid"] = grid.cpu().numpy()
@@ -257,8 +297,7 @@ def run_subject(
             store.save(_key("pred_grid"), percentiles=gp.percentiles.cpu().numpy(), grid=result["grid"])
 
     if cfg.do_pred_test and map_vec is not None and x_test is not None:
-        tp = pred_gnmgp.predict_map(map_vec, data, as_t(x_test), device=device, dtype=dtype,
-                                    hyper=cfg.hyper)
+        tp = _predict_map(cfg, map_vec, data, as_t(x_test), device, dtype)
         result["pred_test"] = tp
         if cfg.do_evaluation:
             mean, std = tp.mean.cpu().numpy(), tp.std.cpu().numpy()
@@ -271,7 +310,7 @@ def run_subject(
     if cfg.do_evaluation and map_vec is not None:
         def dev(v):
             with torch.no_grad():
-                return gnmgp.deviance(v, yd, xd)
+                return model.deviance(v, yd, xd)
 
         result["deviance"] = float(dev(map_vec))
         result["aic"] = evaluate.get_aic(map_vec, dev)

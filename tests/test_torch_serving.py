@@ -89,8 +89,8 @@ def test_engine_errors_name_what_is_not_ported(store_root):
     eng = PredictEngine(store_root, device="cpu")
     with pytest.raises(KeyError, match="no stored HMC chain"):
         eng.predict("0", [0.5], mode="sample")
-    with pytest.raises(ValueError, match="model 'lmc' is not yet ported"):
-        PredictEngine(store_root, model="lmc", device="cpu")
+    with pytest.raises(ValueError, match="model 'lmc_sparse' is not yet ported"):
+        PredictEngine(store_root, model="lmc_sparse", device="cpu")
     with pytest.raises(KeyError):
         eng.predict("nope", [0.5])
     with pytest.raises(ValueError, match="1-D"):
