@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer and other-model paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model and whitened-NUTS paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
@@ -91,7 +91,25 @@ Phases, each printing its lines:
                draws and noise, and a profile of one sample request; then ``run_subject`` at N=200 on the card and
                on the CPU; and the CLI with ``--model gnmgp_hetero`` at N=200
                into ``chiprun_out/cli_hetero``.
-10. summary  — one JSON line listing every kernel, the card's name and power
+10. nuts     — (whitened NUTS, no device named) (a) at N=200, M=2, f64 a
+               prior-whitened and a retuned eig-mode (pncp-shaped) GNMGP
+               chain of 6 draws at max_depth 5 on the card and on the CPU
+               with the same injected noise: equal tree depths, leaf counts
+               and divergence flags, draws at rtol 1e-6; then the CLI with
+               ``--sampler nuts --whiten prior`` at N=48 into
+               ``chiprun_out/cli_nuts``.  (b) at N=1000, M=2, f64 from a MAP
+               at ``n_opt=30``: GNMGP through ``run_subject(sampler="nuts",
+               whiten="prior", do_loo=True)`` with 10 warmup and 10 kept
+               draws (max_depth 8), and LMC, SNMGP and the hetero GNMGP
+               through ``nuts_sample`` on their prior-whitened potentials
+               with 10 + 10 draws at max_depth 6 (the hetero model also
+               with run_subject's default 100 warmup draws), all at the
+               default step (1e-4) and target: draws/s, gradients/s, tree depths,
+               divergences, acceptance, the adapted step and the distinct
+               kept draws; K3 and its backward (GNMGP, hetero) or K1 and its
+               backward (LMC, SNMGP) must launch exactly 1 + Σ n_leapfrog
+               times in each chain.
+11. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -226,6 +244,21 @@ MODEL_LAUNCHES = {
                      "sample_draw": {"svc_gram": 1, "gibbs_gram": 1}},
 }
 MODELS_CHECK_DRAWS = 4
+
+#: Whitened NUTS: the card-vs-CPU chains at N=NUTS_CHECK_N (warmup and kept
+#: draws, max_depth); the CLI at N=NUTS_CLI_N with NUTS_CLI_HMC draws (and
+#: the CLI's max(100, n_hmc) warmup draws, most of them at 255 leaves: the
+#: largest part of the phase); at N=TRAIN_N each model's chain takes
+#: NUTS_WARMUP + NUTS_DRAWS draws, the models sampled through nuts_sample at
+#: max_depth NUTS_MODEL_DEPTH (GNMGP through run_subject keeps the default
+#: 8), and the hetero model once more with NUTS_HETERO_WARMUP warmup draws
+#: (run_subject's default).  Each leaf is one gradient, so each chain
+#: launches the kernels of its model's gradient 1 + Σ n_leapfrog times.
+NUTS_CHECK_N, NUTS_CHECK_WARMUP, NUTS_CHECK_DRAWS, NUTS_CHECK_DEPTH = 200, 3, 3, 5
+NUTS_CLI_N, NUTS_CLI_HMC = 48, 4
+NUTS_WARMUP, NUTS_DRAWS, NUTS_MODEL_DEPTH, NUTS_HETERO_WARMUP = 10, 10, 6, 100
+NUTS_KERNELS = {"gnmgp": HMC_KERNELS, "gnmgp_hetero": HMC_KERNELS,
+                "lmc": ("gibbs_gram", "gibbs_gram_backward"), "snmgp": ("gibbs_gram", "gibbs_gram_backward")}
 
 
 def log(phase: str, msg: str) -> None:
@@ -1356,7 +1389,8 @@ def phase_models(torch, np, gk, seed) -> dict:
     with the launches of its chain, DIC and LOO stages counted exactly;
     mode="map" and mode="sample" over HTTP from that store; run_subject at
     N=CHECK_N card vs CPU.  Then the CLI with --model gnmgp_hetero.  Returns
-    each kernel's launches by model and stage."""
+    each kernel's launches by model and stage, and each model's subject (x,
+    y), its MAP vector on the CPU and its chain's mean acceptance."""
     from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, workflows
     from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline
     from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
@@ -1368,6 +1402,7 @@ def phase_models(torch, np, gk, seed) -> dict:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     counts: dict = {}
+    subjects: dict = {}
     for i, model in enumerate(MODEL_FAMILIES):
         t_model = time.perf_counter()
         mod, pred = workflows._MODELS[model], workflows._PREDICT[model]
@@ -1510,6 +1545,7 @@ def phase_models(torch, np, gk, seed) -> dict:
             if thread.is_alive():
                 raise AssertionError("server thread did not stop")
         map_vec = res["map_vec"].cpu()
+        subjects[model] = (x, y, map_vec, res["hmc_accept"])
         ref = pred.predict_map(map_vec, FullData(x, y), xs, device="cpu", dtype=f64)
         for k, w in (("mean", ref.mean), ("std", ref.std), ("lower", ref.percentiles[:, 0]),
                      ("upper", ref.percentiles[:, 2])):
@@ -1558,6 +1594,177 @@ def phase_models(torch, np, gk, seed) -> dict:
             raise AssertionError(f"the CLI did not write {name}")
     if not {"deviance", "aic", "bic", "dic", "hmc_accept"} <= set(summary):
         raise AssertionError(f"the CLI's summary lacks finite scores: {summary}")
+    return counts, subjects
+
+
+def nuts_stats(torch, res, n_warmup: int, max_depth: int) -> str:
+    """A NUTS chain's tree depths, divergences, acceptance after warmup,
+    adapted step and distinct kept draws, as one log fragment."""
+    depth = res.tree_depth.cpu()
+    kept = torch.unique(res.samples, dim=0).shape[0]
+    return (f"tree depth mean {depth.double().mean().item():.3f}, max {int(depth.max())}, "
+            f"{int((depth == max_depth).sum())} of {depth.numel()} draws at max_depth {max_depth}; "
+            f"{int(res.diverging.sum())} divergent; mean accept_stat after warmup "
+            f"{res.accept_stat[n_warmup:].mean().item():.6f}; adapted step {res.step_size.item():.6e}; "
+            f"{kept} distinct of {res.samples.shape[0]} kept draws")
+
+
+def check_nuts_launches(model, launched: dict, res) -> dict:
+    """The kernels of ``model``'s gradient launched exactly 1 + Σ n_leapfrog
+    times in its NUTS chain, and no other kernel; returns the launches."""
+    n_grads = 1 + int(res.n_leapfrog.sum())
+    want = {k: n_grads if k in NUTS_KERNELS[model] else 0 for k in launched}
+    if launched != want:
+        raise AssertionError(f"{model}: the NUTS chain launched {launched}, expected {want} (1 + Σ n_leapfrog)")
+    return launched
+
+
+def phase_nuts(torch, np, gk, seed, subjects) -> dict:
+    """The whitened NUTS path: (a) the card against the CPU at
+    N=NUTS_CHECK_N with the same injected noise, and the CLI at
+    N=NUTS_CLI_N; (b) each model's chain at N=TRAIN_N from a MAP at
+    ``n_opt=TRAIN_N_OPT`` (GNMGP through run_subject, the others, from the
+    models phase's MAPs in ``subjects``, through nuts_sample) with the launch
+    counts checked exactly.  Returns each kernel's launches by model."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import nuts, whiten
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    f64 = torch.float64
+    step = workflows.PipelineConfig().hmc_step_size
+    out_dir = os.path.join(ROOT, "chiprun_out")
+
+    # (a) the card against the CPU: a prior-whitened chain and one on an
+    # eig-mode map retuned (whiten.retune) from seeded draws around the truth
+    x, y, vec, _ = training_subject(torch, seed + 50, NUTS_CHECK_N)
+    p = vec.shape[0]
+    gen = torch.Generator().manual_seed(seed + 51)
+    pilot = vec + 0.01 * torch.randn(20, p, generator=gen, dtype=f64)
+    n_total = NUTS_CHECK_WARMUP + NUTS_CHECK_DRAWS
+    noise = (torch.randn(n_total, p, generator=gen, dtype=f64),
+             torch.rand(n_total, NUTS_CHECK_DEPTH, generator=gen, dtype=f64) < 0.5,
+             torch.rand(n_total, NUTS_CHECK_DEPTH, 2 ** (NUTS_CHECK_DEPTH - 1), generator=gen, dtype=f64),
+             torch.rand(n_total, NUTS_CHECK_DEPTH, generator=gen, dtype=f64))
+    for name in ("prior", "pncp"):
+        chains = {}
+        for dev in (DEVICE, "cpu"):
+            xd = torch.as_tensor(x, dtype=f64, device=dev)
+            nlp = gnmgp.make_objective(FullData(xd, torch.as_tensor(y, dtype=f64, device=dev)))
+            if name == "prior":
+                w = whiten.make_whitener("gnmgp", xd, NUTS_CHECK_N, 2)
+            else:
+                w = whiten.retune(whiten.make_whitener("gnmgp", xd, NUTS_CHECK_N, 2, mode="eig"), pilot.to(dev))
+            t0 = time.perf_counter()
+            chains[dev] = nuts.nuts_sample(w.wrap(nlp), w.to_white(vec.to(dev)), NUTS_CHECK_DRAWS, noise=noise,
+                                           step_size=step, n_warmup=NUTS_CHECK_WARMUP, max_depth=NUTS_CHECK_DEPTH)
+            log("nuts", f"N={NUTS_CHECK_N} {name}-whitened chain on {dev}: {time.perf_counter() - t0:.3f} s, "
+                f"leaves {chains[dev].n_leapfrog.tolist()}")
+        card, cpu = chains[DEVICE], chains["cpu"]
+        for f in ("tree_depth", "n_leapfrog", "diverging"):
+            if not torch.equal(getattr(card, f).cpu(), getattr(cpu, f)):
+                raise AssertionError(f"{name}: {f} differs, card {getattr(card, f).tolist()} vs CPU "
+                                     f"{getattr(cpu, f).tolist()}")
+        rel_s, frac_s = held(np, card.samples.cpu().numpy(), cpu.samples.numpy(), OBJECTIVE_RTOL)
+        rel_e, _ = held(np, [card.step_size.item()], [cpu.step_size.item()], OBJECTIVE_RTOL)
+        log("nuts", f"N={NUTS_CHECK_N} {name}-whitened, card vs CPU: tree depths, leaf counts and divergence "
+            f"flags equal ({int(cpu.n_leapfrog.sum())} leaves in {n_total} draws); draws max rel err {rel_s:.3e}, "
+            f"max err {frac_s:.3e} of their scale; step size rel {rel_e:.3e}: ok at rtol {OBJECTIVE_RTOL}")
+
+    cli_out = os.path.join(out_dir, "cli_nuts")
+    t0 = time.perf_counter()
+    summary = run_sim_pipeline.main(["--sampler", "nuts", "--whiten", "prior", "--n", str(NUTS_CLI_N),
+                                     "--n-opt", str(CHECK_N_OPT), "--n-hmc", str(NUTS_CLI_HMC), "--out", cli_out])
+    log("nuts", f"CLI --sampler nuts --whiten prior --n {NUTS_CLI_N} --n-opt {CHECK_N_OPT} --n-hmc {NUTS_CLI_HMC} "
+        f"(warmup max(100, n_hmc)) on the card: {time.perf_counter() - t0:.3f} s; summary {summary}")
+    for name in ("posterior.png", "target_trace.png", "manifest.json"):
+        if not os.path.getsize(os.path.join(cli_out, name)) > 0:
+            raise AssertionError(f"the CLI did not write {name}")
+    if not {"deviance", "dic", "hmc_accept"} <= set(summary):
+        raise AssertionError(f"the CLI's summary lacks finite scores: {summary}")
+
+    # (b) each model at N=TRAIN_N from a MAP at n_opt=TRAIN_N_OPT
+    counts: dict = {}
+    x, y, _, _ = training_subject(torch, seed + 1, TRAIN_N)
+    cfg = workflows.PipelineConfig(n_opt=TRAIN_N_OPT, do_hmc=True, sampler="nuts", whiten="prior",
+                                   n_hmc=NUTS_DRAWS, hmc_warmup=NUTS_WARMUP, do_loo=True)
+    chain: dict = {}
+    run_chain, nuts_sample = workflows._run_chain, nuts.nuts_sample
+
+    def counted_chain(*args, **kwargs):
+        # the launches around the sampling stage (the whitened call recurses:
+        # the outer call, which ends last, covers the inner one)
+        before = gk.launches()
+        out = run_chain(*args, **kwargs)
+        chain["launches"] = {k: v - before[k] for k, v in gk.launches().items()}
+        return out
+
+    def kept_result(*args, **kwargs):
+        chain["res"] = nuts_sample(*args, **kwargs)
+        return chain["res"]
+
+    workflows._run_chain, nuts.nuts_sample = counted_chain, kept_result
+    try:
+        gk.reset_launches()  # the main path starts here
+        t0 = time.perf_counter()
+        res = workflows.run_subject(x, y, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = gk.launches()  # the main path ends here
+    finally:
+        workflows._run_chain, nuts.nuts_sample = run_chain, nuts_sample
+    nres, t_chain = chain["res"], res["timings"]["hmc"]
+    n_draws, n_grads = NUTS_WARMUP + NUTS_DRAWS, 1 + int(nres.n_leapfrog.sum())
+    loo = {k: v for k, v in res["loo"].items() if k != "pointwise"}
+    log("nuts", f"gnmgp run_subject N={TRAIN_N} M=2 f64 n_opt={TRAIN_N_OPT} sampler=nuts whiten=prior do_loo on "
+        f"{res['hmc_samples'].device} (no device named): {wall:.3f} s; stages (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items()))
+    log("nuts", f"gnmgp chain: {NUTS_WARMUP} warmup + {NUTS_DRAWS} draws at step {step} (max_depth 8): "
+        f"{n_draws / t_chain:.3f} draws/s, {n_grads / t_chain:.3f} gradients/s ({n_grads} gradients in "
+        f"{t_chain:.3f} s); " + nuts_stats(torch, nres, NUTS_WARMUP, 8) + f"; hmc_accept {res['hmc_accept']:.6f}; "
+        f"DIC {res['dic']:.6e}; loo " + ", ".join(f"{k} {v:.6g}" for k, v in loo.items()))
+    launched = check_nuts_launches("gnmgp", chain["launches"], nres)
+    log("nuts", f"gnmgp launches: chain {launched} = 1 + Σ n_leapfrog; the whole run {run_launches}")
+    samples = res["hmc_samples"]
+    if (tuple(samples.shape) != (NUTS_DRAWS, gnmgp.n_params(TRAIN_N, 2))
+            or samples.device.type != torch.device(DEVICE).type or not torch.isfinite(samples).all()):
+        raise AssertionError(f"gnmgp: hmc_samples on {samples.device} with shape {tuple(samples.shape)}")
+    # k̂ may be inf over NUTS_DRAWS draws (PSIS's tail fit has too few); the criteria may not
+    if not np.isfinite([res["dic"], loo["elpd_loo"], loo["looic"], loo["elpd_waic"], loo["waic"]]).all():
+        raise AssertionError("gnmgp: non-finite DIC or LOO after the NUTS chain")
+    counts["gnmgp"] = launched
+
+    # the other models from the models phase's MAPs; the hetero model also at
+    # run_subject's default warmup, max(100, n_hmc)
+    runs = [(model, NUTS_WARMUP) for model in MODEL_FAMILIES] + [("gnmgp_hetero", NUTS_HETERO_WARMUP)]
+    for i, (model, n_warmup) in enumerate(runs):
+        mx, my, map_vec, hmc_accept = subjects[model]
+        xd = torch.as_tensor(mx, dtype=f64, device=DEVICE)
+        nlp = workflows._MODELS[model].make_objective(FullData(xd, torch.as_tensor(my, dtype=f64, device=DEVICE)))
+        w = whiten.make_whitener(model, xd, TRAIN_N, 2)
+        gen = torch.Generator(DEVICE).manual_seed(seed + 60 + i)
+        gk.reset_launches()  # the main path starts here
+        t0 = time.perf_counter()
+        nres = nuts.nuts_sample(w.wrap(nlp), w.to_white(map_vec.to(DEVICE)), NUTS_DRAWS, gen, step_size=step,
+                                n_warmup=n_warmup, max_depth=NUTS_MODEL_DEPTH)
+        samples = w.from_white_batch(nres.samples)
+        torch.cuda.synchronize()
+        t_chain = time.perf_counter() - t0
+        key = model if n_warmup == NUTS_WARMUP else f"{model}_warmup{n_warmup}"
+        counts[key] = check_nuts_launches(model, gk.launches(), nres)  # the main path ends here
+        n_grads = 1 + int(nres.n_leapfrog.sum())
+        if not torch.isfinite(samples).all():
+            raise AssertionError(f"{model}: non-finite NUTS draws")
+        log("nuts", f"{model} N={TRAIN_N} M=2 f64 prior-whitened NUTS ({len(w.blocks)} whitened blocks) from the "
+            f"n_opt={TRAIN_N_OPT} MAP, {n_warmup} warmup + {NUTS_DRAWS} draws at step {step}: {t_chain:.3f} s, "
+            f"{(n_warmup + NUTS_DRAWS) / t_chain:.3f} draws/s, {n_grads / t_chain:.3f} gradients/s; "
+            + nuts_stats(torch, nres, n_warmup, NUTS_MODEL_DEPTH)
+            + f"; launches {counts[key]} = 1 + Σ n_leapfrog")
+        if model == "gnmgp_hetero":
+            log("nuts", f"gnmgp_hetero, {n_warmup} warmup draws: NUTS mean accept_stat after warmup "
+                f"{nres.accept_stat[n_warmup:].mean().item():.6f} against fixed HMC's acceptance "
+                f"{hmc_accept:.6f} at the same step (the models phase's chain from the same MAP)")
     return counts
 
 
@@ -1578,6 +1785,7 @@ def main() -> int:
     from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels as gk
     from nonstationary_multivariate_gaussian_process_tpu_torch.serving import engine
 
+    t_smoke = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     log("env", f"{kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
@@ -1599,8 +1807,11 @@ def main() -> int:
         hmc_launches, hmc_res, hmc_data = phase_hmc(torch, np, gk, args.seed, root)
         chain_launches = phase_chain(torch, np, gk, args.seed, root, hmc_res, hmc_data)
     t0 = time.perf_counter()
-    model_launches = phase_models(torch, np, gk, args.seed)
+    model_launches, model_subjects = phase_models(torch, np, gk, args.seed)
     log("models", f"phase took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    nuts_launches = phase_nuts(torch, np, gk, args.seed, model_subjects)
+    log("nuts", f"phase took {time.perf_counter() - t0:.3f} s")
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -1628,6 +1839,8 @@ def main() -> int:
         row.update(chain_launches.get(name, {}))  # the LOO stage and a sample request
         # the other model families: in each chain, DIC, LOO stage and per request
         row["launches_models"] = {model: c[name] for model, c in model_launches.items()}
+        # the whitened NUTS chains at N=1000, by model
+        row["launches_nuts"] = {model: c[name] for model, c in nuts_launches.items()}
         kernels.append(row)
     log("summary", "warm /predict latency ms by size: "
         + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
@@ -1636,8 +1849,11 @@ def main() -> int:
     log("summary", "launches by model (chain, DIC, LOO stage, per map and sample request): " + "; ".join(
         f"{model}: " + ", ".join(f"{k} {v}" for k, v in c.items() if any(v.values()))
         for model, c in model_launches.items()))
+    log("summary", "launches in the whitened NUTS chains by model: " + "; ".join(
+        f"{model}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for model, c in nuts_launches.items()))
     log("summary", "gradient evaluations/s at N=1000, M=2: "
         + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
+    log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

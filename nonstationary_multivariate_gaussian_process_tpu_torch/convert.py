@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import settings
+from .inference import whiten
 from .inference.empirical import EmpiricalEstimate
 from .models import gnmgp, gnmgp_hetero, lmc, snmgp
 from .models.base import FullData
@@ -63,6 +64,18 @@ def empirical_from_jax(emp) -> EmpiricalEstimate:
         float(v) if name == "est_tilde_sigma2_err" else np.asarray(v, np.float64)
         for name, v in zip(EmpiricalEstimate._fields, emp)
     ))
+
+
+def whitener_from_jax(w, device=None, dtype=None) -> whiten.Whitener:
+    """A JAX ``Whitener`` as the port's: its blocks' ``l``, ``basis`` and
+    ``scale`` and its ``raw_scale`` as tensors, the rest as they are (a
+    retuned map depends on its pilot chain, so it is carried, not rebuilt)."""
+    t = lambda a: None if a is None else _tensor(np.array(a), device, dtype)
+    blocks = tuple(
+        whiten._Block(int(b.start), int(b.stop), int(b.k), bool(b.rows), t(b.l), float(b.mu), t(b.basis), t(b.scale))
+        for b in w.blocks
+    )
+    return whiten.Whitener(blocks, int(w.n_params), t(w.raw_scale))
 
 
 def _to_numpy(v):

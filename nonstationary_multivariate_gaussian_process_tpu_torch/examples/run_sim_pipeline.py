@@ -10,8 +10,8 @@ one synthetic subject (``sim_mnts``, or ``sim_mnts_hetero`` for
         --model gnmgp --n 200 --n-opt 1000 --out res/sim_nonseparable
 
 It runs on ``cuda``.  The arguments are the JAX driver's; the choices this
-package does not have yet (the sparse models, samplers other than ``hmc``,
-``--whiten`` other than ``off``) exit with an error that says so.
+package does not have yet (the sparse models, samplers other than ``hmc``
+and ``nuts``) exit with an error that says so.
 """
 
 from __future__ import annotations
@@ -63,8 +63,8 @@ def main(argv=None, device=None) -> dict:
     none); print and return the JSON summary."""
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, value, ported in (("--model", args.model, workflows.MODELS), ("--sampler", args.sampler, ("hmc",)),
-                                ("--whiten", args.whiten, ("off",))):
+    for flag, value, ported in (("--model", args.model, workflows.MODELS),
+                                ("--sampler", args.sampler, workflows.SAMPLERS)):
         if value not in ported:
             ap.error(f"{flag} {value} is not yet ported to the torch package (it runs {', '.join(ported)})")
     device = settings.resolve_device(device)
@@ -84,7 +84,7 @@ def main(argv=None, device=None) -> dict:
         model=args.model, n_opt=args.n_opt, do_hmc=args.n_hmc > 0,
         map_method=args.map_method,
         n_hmc=max(args.n_hmc, 1), test_size=args.test_size, hyper=hyper,
-        seed=args.seed, sampler=args.sampler, whiten=False,
+        seed=args.seed, sampler=args.sampler, whiten=False if args.whiten == "off" else args.whiten,
         hmc_step_size=args.hmc_step_size,
     )
     store = ArtifactStore(args.out)

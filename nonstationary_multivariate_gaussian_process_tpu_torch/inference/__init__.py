@@ -1,1 +1,2 @@
-"""Training and sampling: the empirical initializer, the MAP inits, the MAP engine and the HMC sampler with its warmup and diagnostics."""
+"""Training and sampling: the empirical initializer, the MAP inits, the MAP engine, the HMC and NUTS samplers with their warmup and diagnostics, and the whitened parameterizations."""
+from .nuts import NUTSResult, nuts_sample, nuts_sample_chains  # noqa: F401

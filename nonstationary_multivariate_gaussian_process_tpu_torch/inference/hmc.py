@@ -317,6 +317,16 @@ def hmc_sample(
     )
 
 
+def chain_generators(generator: torch.Generator | None, n_chains: int, caller: str) -> list[torch.Generator]:
+    """One generator per chain on ``generator``'s device, each seeded with
+    one of ``n_chains`` integers drawn from ``generator`` (as JAX splits its
+    key per chain)."""
+    if generator is None:
+        raise ValueError(f"{caller} needs a torch.Generator (generator=) or noise=")
+    seeds = torch.randint(0, 2**62, (n_chains,), generator=generator, device=generator.device)
+    return [torch.Generator(generator.device).manual_seed(int(s)) for s in seeds.tolist()]
+
+
 def hmc_sample_chains(
     potential_fn: Callable,
     init_positions: torch.Tensor,
@@ -338,11 +348,7 @@ def hmc_sample_chains(
     if noise is not None:
         per_chain = [dict(noise=(noise[0][c], noise[1][c])) for c in range(n_chains)]
     else:
-        if generator is None:
-            raise ValueError("hmc_sample_chains needs a torch.Generator (generator=) or noise=")
-        seeds = torch.randint(0, 2**62, (n_chains,), generator=generator, device=generator.device)
-        per_chain = [dict(generator=torch.Generator(generator.device).manual_seed(int(s)))
-                     for s in seeds.tolist()]
+        per_chain = [dict(generator=g) for g in chain_generators(generator, n_chains, "hmc_sample_chains")]
     runs = [hmc_sample(potential_fn, init_positions[c], n_samples, **per_chain[c], **kwargs)
             for c in range(n_chains)]
     return HMCResult(*(

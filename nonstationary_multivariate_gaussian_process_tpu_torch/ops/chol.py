@@ -139,6 +139,20 @@ def prior_rbf_cholesky(x: torch.Tensor, alpha, beta) -> torch.Tensor:
     return torch.as_tensor(c, dtype=x.dtype, device=x.device)
 
 
+def prior_rbf_eig(x: torch.Tensor, alpha, beta):
+    """Eigendecomposition ``(U, s)`` of the RBF prior Gram of ``x``: the
+    orthogonal basis and the per-direction prior standard deviations, the
+    eigenvalues floored at the jitter before the square root.  Built and
+    decomposed with numpy's ``eigh`` on the host in float64, as the JAX
+    package does: the spectrum has a large cluster at the floor whose basis
+    is arbitrary, and only the same LAPACK call on the same Gram gives the
+    same basis.  Returned on ``x``'s device in ``x``'s dtype."""
+    eigs, u = np.linalg.eigh(_host_rbf_gram(x, alpha, beta))
+    s = np.sqrt(np.maximum(eigs, settings.jitter))
+    as_t = lambda v: torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    return as_t(u), as_t(s)
+
+
 def prior_rbf_inv(x: torch.Tensor, alpha, beta):
     """The RBF prior Gram of ``x`` as a hoisted ``dists.TriInv``: the inverse
     of its lower factor and its logdet, computed on the host in float64 and

@@ -4,14 +4,16 @@ analysis → grid/test prediction → scoring.
 Counterpart of ``PipelineConfig`` and ``run_subject`` of the JAX package's
 ``workflows.py`` for the dense models on fully observed data: ``lmc``,
 ``snmgp``, ``gnmgp`` and ``gnmgp_hetero``, with the reference-contract HMC
-sampler (``sampler="hmc"``, any ``hmc_mass``) and, with ``do_loo``, WAIC and
-PSIS-LOO from the chain.  The stages, their order, the result dict and the
-artifacts written (``data``, ``map``, ``map_ckpt``, ``hmc``, ``pred_grid``,
-``scores``, ``loo``) are the JAX package's, so a store written here serves
-from either package's engine.
+sampler (``sampler="hmc"``, any ``hmc_mass``) or adaptive NUTS
+(``sampler="nuts"``), either of them in the natural space or whitened
+(``whiten=True``/``"prior"``, or ``"pncp"`` retuned from a pilot chain),
+and, with ``do_loo``, WAIC and PSIS-LOO from the chain.  The stages, their
+order, the result dict and the artifacts written (``data``, ``map``,
+``map_ckpt``, ``hmc``, ``pred_grid``, ``scores``, ``loo``) are the JAX
+package's, so a store written here serves from either package's engine.
 
-Not ported yet, and refused with ``ValueError``: the sparse models, samplers
-other than ``"hmc"`` and ``whiten``.
+Not ported yet, and refused with ``ValueError``: the sparse models and the
+samplers other than ``"hmc"`` and ``"nuts"``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from .inference import empirical
 from .inference import hmc
 from .inference import init as init_mod
 from .inference import map as map_mod
+from .inference import nuts
+from .inference import whiten as whiten_mod
 from .models import gnmgp, gnmgp_hetero, lmc, snmgp
 from .models.base import FullData
 from .postprocess import analysis
@@ -43,6 +47,7 @@ _MODELS = {"lmc": lmc, "snmgp": snmgp, "gnmgp": gnmgp, "gnmgp_hetero": gnmgp_het
 _PREDICT = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero}
 MODELS = tuple(_MODELS)
 HMC_MASSES = ("none", "pilot", "window")
+SAMPLERS = ("hmc", "nuts")
 
 
 @dataclasses.dataclass
@@ -67,15 +72,25 @@ class PipelineConfig:
     map_method: str = "lbfgs"  # "lbfgs" (optax's, with the zoom linesearch) | "adam"
     err_opt: float | None = None
     n_hmc: int = 100
-    sampler: str = "hmc"  # the reference contract (inference/hmc.py)
+    sampler: str = "hmc"  # "hmc" (the reference contract, inference/hmc.py)
+    #                        | "nuts" (adaptive trajectories and windowed
+    #                        warmup, inference/nuts.py)
     hmc_step_size: float = 1e-4
     hmc_leapfrog: int = 20
     hmc_adapt: bool = False  # dual-averaging step-size adaptation
-    hmc_warmup: int = 0
+    hmc_warmup: int = 0  # for "nuts": 0 means max(100, n_hmc)
     hmc_mass: str = "none"  # "none" | "pilot" (mass matrix from a pilot run,
     #                          the reference's preconditioning recipe)
     #                          | "window" (Stan-style windowed warmup)
-    whiten: bool | str = False
+    whiten: bool | str = False  # False | True/"prior": sample the prior-
+    #                       whitened latent-GP blocks (inference/whiten.py)
+    #                       | "pncp": partially non-centered, every
+    #                       eigendirection retuned to its posterior scale by
+    #                       a pilot chain.  The same posterior either way;
+    #                       samples come back in the natural space.
+    pncp_pilot: int = 200  # pilot-chain draws for whiten="pncp"
+    pncp_interp: float = 1.0  # 0 keeps prior whitening, 1 is fully
+    #                           posterior-scaled (whiten.retune's interp)
     n_grid: int = 201
     window_size: int = 30
     test_size: float = 0.0
@@ -86,10 +101,8 @@ class PipelineConfig:
             raise ValueError(
                 f"model {self.model!r} is not yet ported to the torch package (it runs {MODELS})"
             )
-        if self.sampler != "hmc":
-            raise ValueError(f"sampler {self.sampler!r} is not yet ported to the torch package")
-        if self.whiten:
-            raise ValueError(f"whiten={self.whiten!r} is not yet ported to the torch package")
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"sampler {self.sampler!r} is not yet ported to the torch package (it runs {SAMPLERS})")
         if self.hmc_mass not in HMC_MASSES:
             raise ValueError(f"hmc_mass must be one of {HMC_MASSES}, got {self.hmc_mass!r}")
         if self.map_method not in map_mod.METHODS:
@@ -160,22 +173,39 @@ def _predict_map(cfg: PipelineConfig, map_vec, data: FullData, xs, device, dtype
     return _PREDICT[cfg.model].predict_map(map_vec, data, xs, device=device, dtype=dtype, hyper=cfg.hyper)
 
 
-def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch.Generator):
-    """Posterior sampling stage, the reference-contract HMC (JAX
-    ``_run_chain``, ``sampler="hmc"``).  Returns ``(samples (n_hmc, P) on the
-    chain's device, mean acceptance over every draw, warmup included)``.
-    ``cfg.hmc_mass`` picks the preconditioning: "pilot" is the reference's
-    pilot-covariance recipe, "window" Stan-style windowed warmup."""
+def _pilot_generator(seed: int, tag: int, device) -> torch.Generator:
+    """The generator of a pilot chain: where JAX derives the pilot's key as
+    ``fold_in(key, tag)``, a stream of its own seeded from
+    ``SeedSequence([seed, tag])``, fixed by the config's seed."""
+    state = np.random.SeedSequence([seed, tag]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device).manual_seed(int(state))
+
+
+def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch.Generator, whitener=None):
+    """Posterior sampling stage (JAX ``_run_chain``): the reference-contract
+    HMC or adaptive NUTS.  Returns ``(samples (n_hmc, P) on the chain's
+    device, mean acceptance)``: HMC's over every draw, warmup included,
+    NUTS's mean leaf acceptance statistic over the kept draws.
+    ``cfg.hmc_mass`` picks HMC's preconditioning: "pilot" is the reference's
+    pilot-covariance recipe, "window" Stan-style windowed warmup.  With a
+    ``whitener`` the chain runs in the whitened space and its samples are
+    mapped back."""
+    if whitener is not None:
+        samples, accept = _run_chain(
+            whitener.wrap(nlp), whitener.to_white(map_vec), dataclasses.replace(cfg, whiten=False), generator
+        )
+        return whitener.from_white_batch(samples), accept
+    if cfg.sampler == "nuts":
+        n_warm = cfg.hmc_warmup if cfg.hmc_warmup > 0 else max(100, cfg.n_hmc)
+        chain = nuts.nuts_sample(nlp, map_vec, cfg.n_hmc, generator, step_size=cfg.hmc_step_size, n_warmup=n_warm)
+        return chain.samples, float(torch.mean(chain.accept_stat[n_warm:]))
     mass = None
     if cfg.hmc_mass == "pilot":
         # mass matrix from a short pilot chain's sample covariance
-        # (Nonseparable_model_mpiKAISER_extended.py:542-570 recipe).  Where
-        # JAX derives the pilot's key as fold_in(key, 7), the pilot's
-        # generator is seeded from SeedSequence([seed, 7]): a stream of its
-        # own, fixed by cfg.seed
-        seed = int(np.random.SeedSequence([cfg.seed, 7]).generate_state(1, np.uint64)[0])
+        # (Nonseparable_model_mpiKAISER_extended.py:542-570 recipe), drawn
+        # from the stream JAX derives as fold_in(key, 7)
         pilot = hmc.hmc_sample(
-            nlp, map_vec, max(20, cfg.n_hmc // 10), torch.Generator(map_vec.device).manual_seed(seed),
+            nlp, map_vec, max(20, cfg.n_hmc // 10), _pilot_generator(cfg.seed, 7, map_vec.device),
             step_size=cfg.hmc_step_size, n_leapfrog=cfg.hmc_leapfrog,
         )
         mass = hmc.estimate_mass_matrix(pilot.samples)
@@ -186,6 +216,28 @@ def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch
         adapt_mass=(cfg.hmc_mass == "window"),
     )
     return chain.samples, float(torch.mean(chain.accept_prob))
+
+
+def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: torch.Tensor, n: int, m: int):
+    """The sampling stage's whitener for ``cfg.whiten`` (JAX
+    ``_make_sampling_whitener``), or None.
+
+    ``True``/``"prior"``: prior-factor whitening.  ``"pncp"``: partially
+    non-centered, a prior-whitened eigen-mode pilot chain of
+    ``cfg.pncp_pilot`` draws estimates every eigendirection's posterior
+    scale and ``whiten.retune`` rebuilds the map around it; the pilot draws
+    from the stream JAX derives as ``fold_in(key, 11)``.
+    """
+    if not cfg.whiten:
+        return None
+    if cfg.whiten == "pncp":
+        w = whiten_mod.make_whitener(cfg.model, x, n, m, cfg.hyper, mode="eig")
+        pilot, _ = _run_chain(nlp, map_vec, dataclasses.replace(cfg, n_hmc=cfg.pncp_pilot, whiten=False),
+                              _pilot_generator(cfg.seed, 11, map_vec.device), whitener=w)
+        return whiten_mod.retune(w, pilot, interp=cfg.pncp_interp)
+    if cfg.whiten in (True, "prior"):
+        return whiten_mod.make_whitener(cfg.model, x, n, m, cfg.hyper)
+    raise ValueError(f"unknown whiten setting {cfg.whiten!r} (want False, True, 'prior' or 'pncp')")
 
 
 def run_subject(
@@ -270,7 +322,9 @@ def run_subject(
 
     if cfg.do_hmc and map_vec is not None:
         t0 = time.time()
-        samples, accept = _run_chain(nlp, map_vec, cfg, torch.Generator(device).manual_seed(cfg.seed))
+        whitener = _make_sampling_whitener(nlp, map_vec, cfg, xd, n, m)
+        samples, accept = _run_chain(nlp, map_vec, cfg, torch.Generator(device).manual_seed(cfg.seed),
+                                     whitener=whitener)
         result["timings"]["hmc"] = time.time() - t0
         result["hmc_samples"] = samples
         result["hmc_accept"] = accept

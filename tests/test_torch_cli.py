@@ -6,6 +6,7 @@ the port's ``run_subject`` on the same data and config (which
 ``test_torch_train.py`` holds against JAX).
 """
 
+import dataclasses
 import json
 import pickle
 import zlib
@@ -74,12 +75,35 @@ def test_cli_on_a_sim_pickle_matches_run_subject(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,value", [("--model", "snmgp_sparse"), ("--model", "gnmgp_sparse"),
-                                        ("--sampler", "nuts"), ("--whiten", "pncp")])
+                                        ("--sampler", "drhmc"), ("--sampler", "smc")])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flag, value):
     with pytest.raises(SystemExit) as ei:
         cli.main(ARGS + [flag, value, "--out", str(tmp_path)], device="cpu")
     assert ei.value.code != 0
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_runs_whitened_nuts(tmp_path, capsys, monkeypatch):
+    """``--sampler nuts --whiten prior`` reach ``run_subject`` as JAX's CLI
+    passes them: warmup 0, which ``run_subject`` takes as max(100, n_hmc)
+    (the CLI has no warmup flag).  The run itself takes 2 warmup draws, to
+    stay short."""
+    seen = []
+    real = workflows.run_subject
+
+    def spy(x, y, cfg, **kw):
+        seen.append(cfg)
+        return real(x, y, dataclasses.replace(cfg, hmc_warmup=2), **kw)
+
+    monkeypatch.setattr(workflows, "run_subject", spy)
+    out = tmp_path / "nuts"
+    summary = cli.main(["--n", "16", "--n-opt", "2", "--n-hmc", "1", "--hmc-step-size", "1.0", "--sampler", "nuts",
+                        "--whiten", "prior", "--out", str(out)], device="cpu")
+    (cfg,) = seen
+    assert (cfg.sampler, cfg.whiten, cfg.hmc_warmup, cfg.n_hmc) == ("nuts", "prior", 0, 1)
+    assert 0.0 < summary["hmc_accept"] <= 1.0 and "dic" in summary
+    assert json.loads(capsys.readouterr().out) == summary
+    assert (out / "posterior.png").read_bytes()[:8] == PNG
 
 
 def test_cli_without_device_raises_when_cuda_is_absent(tmp_path, monkeypatch):

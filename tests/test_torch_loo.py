@@ -225,7 +225,7 @@ def loo_runs(tmp_path_factory):
     want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**LOO_CFG), store=JaxStore(jroot))
     chain = np.array(want["hmc_samples"])
 
-    def jax_chain(nlp, map_vec, cfg, generator):
+    def jax_chain(nlp, map_vec, cfg, generator, whitener=None):
         return torch.as_tensor(chain, dtype=map_vec.dtype, device=map_vec.device), want["hmc_accept"]
 
     root = str(tmp_path_factory.mktemp("port_loo"))
@@ -271,7 +271,7 @@ def test_loo_thins_the_chain_as_jax_does(loo_runs, monkeypatch):
 
     monkeypatch.setattr(evaluate, "chain_conditional_loglik", spy)
     chain = torch.tensor(np.asarray(want["hmc_samples"]), dtype=T64)
-    monkeypatch.setattr(workflows, "_run_chain", lambda *a: (chain, 1.0))
+    monkeypatch.setattr(workflows, "_run_chain", lambda *a, whitener=None: (chain, 1.0))
     d = jsim.sim_mnts(jax.random.PRNGKey(3), n=16)
     cfg = workflows.PipelineConfig(**{**LOO_CFG, "n_opt": 2})
     workflows.run_subject(np.asarray(d.x), np.asarray(d.y), cfg, device="cpu")

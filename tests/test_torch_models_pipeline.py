@@ -58,7 +58,8 @@ def runs(request, tmp_path_factory):
     chain = np.array(want["hmc_samples"])
     mp = pytest.MonkeyPatch()
     mp.setattr(workflows, "_run_chain",
-               lambda nlp, v, cfg, gen: (torch.as_tensor(chain, dtype=v.dtype, device=v.device), want["hmc_accept"]))
+               lambda nlp, v, cfg, gen, whitener=None: (torch.as_tensor(chain, dtype=v.dtype, device=v.device),
+                                                        want["hmc_accept"]))
     try:
         got = workflows.run_subject(x, y, workflows.PipelineConfig(model=model, **CFG), dataset="sim", device="cpu")
     finally:
