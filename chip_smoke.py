@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model and whitened-NUTS paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS and Hadamard-layout paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
@@ -96,7 +96,7 @@ Phases, each printing its lines:
                chain of 6 draws at max_depth 5 on the card and on the CPU
                with the same injected noise: equal tree depths, leaf counts
                and divergence flags, draws at rtol 1e-6; then the CLI with
-               ``--sampler nuts --whiten prior`` at N=48 into
+               ``--sampler nuts --whiten prior`` at N=48, max_depth 5, into
                ``chiprun_out/cli_nuts``.  (b) at N=1000, M=2, f64 from a MAP
                at ``n_opt=30``: GNMGP through ``run_subject(sampler="nuts",
                whiten="prior", do_loo=True)`` with 10 warmup and 10 kept
@@ -109,7 +109,27 @@ Phases, each printing its lines:
                kept draws; K3 and its backward (GNMGP, hetero) or K1 and its
                backward (LMC, SNMGP) must launch exactly 1 + Σ n_leapfrog
                times in each chain.
-11. summary  — one JSON line listing every kernel, the card's name and power
+11. hadamard — (the Hadamard layout, no device named) the ``sim_mnts``
+               subject at N=1000, M=2 with each (time, channel) cell
+               dropped with probability 0.25 (about 1,500 observations,
+               both channels at about 560 times): K1's self form and
+               backward on its tied training inputs (N_obs ≈ 1,125) and its
+               cross form against the grid and the test points, each equal
+               to its plain version; each Hadamard objective's launches per
+               gradient and gradient evaluations per second, and a profile
+               of one GNMGP gradient; for LMC, SNMGP and GNMGP
+               ``run_subject_hadamard(do_hmc=True, do_loo=True,
+               n_opt=30)`` with the default chain, and GNMGP once more with
+               ``sampler="nuts", whiten="prior"`` and 10 + 10 draws: stage
+               times, gradients/s, acceptance, LOO, the test scores by the
+               MAP and by the chain, and K1's launches counted exactly in
+               each stage (K2 and K3 never launch); then the card against
+               the CPU at about 200 observations: each objective's value
+               and gradient and ``run_subject_hadamard``'s MAP vector at
+               rtol 1e-6, the grid, test and sample predictions at rtol
+               1e-6 with a floor of 1e-6 of the scale, the LOO conditionals
+               at rtol 1e-8.
+12. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -247,18 +267,37 @@ MODELS_CHECK_DRAWS = 4
 
 #: Whitened NUTS: the card-vs-CPU chains at N=NUTS_CHECK_N (warmup and kept
 #: draws, max_depth); the CLI at N=NUTS_CLI_N with NUTS_CLI_HMC draws (and
-#: the CLI's max(100, n_hmc) warmup draws, most of them at 255 leaves: the
-#: largest part of the phase); at N=TRAIN_N each model's chain takes
+#: the CLI's max(100, n_hmc) warmup draws, which at the default max_depth 8
+#: ran most of their trees to 255 leaves and took 115-170 s: the CLI has no
+#: depth flag, so its sampler's max_depth is cut to NUTS_CLI_DEPTH); at N=TRAIN_N each model's chain takes
 #: NUTS_WARMUP + NUTS_DRAWS draws, the models sampled through nuts_sample at
 #: max_depth NUTS_MODEL_DEPTH (GNMGP through run_subject keeps the default
 #: 8), and the hetero model once more with NUTS_HETERO_WARMUP warmup draws
 #: (run_subject's default).  Each leaf is one gradient, so each chain
 #: launches the kernels of its model's gradient 1 + Σ n_leapfrog times.
 NUTS_CHECK_N, NUTS_CHECK_WARMUP, NUTS_CHECK_DRAWS, NUTS_CHECK_DEPTH = 200, 3, 3, 5
-NUTS_CLI_N, NUTS_CLI_HMC = 48, 4
+NUTS_CLI_N, NUTS_CLI_HMC, NUTS_CLI_DEPTH = 48, 4, 5
 NUTS_WARMUP, NUTS_DRAWS, NUTS_MODEL_DEPTH, NUTS_HETERO_WARMUP = 10, 10, 6, 100
 NUTS_KERNELS = {"gnmgp": HMC_KERNELS, "gnmgp_hetero": HMC_KERNELS,
                 "lmc": ("gibbs_gram", "gibbs_gram_backward"), "snmgp": ("gibbs_gram", "gibbs_gram_backward")}
+
+
+#: The Hadamard layout: the headline ``sim_mnts`` subject at N=TRAIN_N, M=2
+#: with each (time, channel) cell dropped with probability HADAMARD_DROP
+#: (``np.random.default_rng(seed)``), so about 1,500 observations at about
+#: 1,000 times, both channels at about 560 of them; ``run_subject_hadamard``
+#: holds out HADAMARD_TEST_SIZE of them.  K1's launches (self and cross form
+#: both count as gibbs_gram) per gradient, per LOO draw, per MAP prediction
+#: (one self form and one cross form) and per draw of the chain-sample
+#: prediction; every other kernel must launch 0 times on this path.  The
+#: card-vs-CPU checks run on HADAMARD_CHECK_TIMES times (about 200
+#: observations) with HADAMARD_CHECK_DRAWS draws.
+HADAMARD_MODELS = ("lmc", "snmgp", "gnmgp")
+HADAMARD_DROP, HADAMARD_TEST_SIZE = 0.25, 0.25
+HADAMARD_CHECK_TIMES, HADAMARD_CHECK_DRAWS = 134, 4
+_K1_HADAMARD = {"gradient": {"gibbs_gram": 1, "gibbs_gram_backward": 1}, "loo": {"gibbs_gram": 1},
+                "prediction": {"gibbs_gram": 2}, "sample_draw": {"gibbs_gram": 2}}
+HADAMARD_LAUNCHES = {"lmc": dict.fromkeys(_K1_HADAMARD, {}), "snmgp": _K1_HADAMARD, "gnmgp": _K1_HADAMARD}
 
 
 def log(phase: str, msg: str) -> None:
@@ -1673,11 +1712,17 @@ def phase_nuts(torch, np, gk, seed, subjects) -> dict:
             f"max err {frac_s:.3e} of their scale; step size rel {rel_e:.3e}: ok at rtol {OBJECTIVE_RTOL}")
 
     cli_out = os.path.join(out_dir, "cli_nuts")
+    nuts_sample = nuts.nuts_sample
+    nuts.nuts_sample = lambda *args, **kwargs: nuts_sample(*args, **kwargs, max_depth=NUTS_CLI_DEPTH)
     t0 = time.perf_counter()
-    summary = run_sim_pipeline.main(["--sampler", "nuts", "--whiten", "prior", "--n", str(NUTS_CLI_N),
-                                     "--n-opt", str(CHECK_N_OPT), "--n-hmc", str(NUTS_CLI_HMC), "--out", cli_out])
+    try:
+        summary = run_sim_pipeline.main(["--sampler", "nuts", "--whiten", "prior", "--n", str(NUTS_CLI_N), "--n-opt",
+                                         str(CHECK_N_OPT), "--n-hmc", str(NUTS_CLI_HMC), "--out", cli_out])
+    finally:
+        nuts.nuts_sample = nuts_sample
     log("nuts", f"CLI --sampler nuts --whiten prior --n {NUTS_CLI_N} --n-opt {CHECK_N_OPT} --n-hmc {NUTS_CLI_HMC} "
-        f"(warmup max(100, n_hmc)) on the card: {time.perf_counter() - t0:.3f} s; summary {summary}")
+        f"(warmup max(100, n_hmc), max_depth {NUTS_CLI_DEPTH}) on the card: {time.perf_counter() - t0:.3f} s; "
+        f"summary {summary}")
     for name in ("posterior.png", "target_trace.png", "manifest.json"):
         if not os.path.getsize(os.path.join(cli_out, name)) > 0:
             raise AssertionError(f"the CLI did not write {name}")
@@ -1768,6 +1813,267 @@ def phase_nuts(torch, np, gk, seed, subjects) -> dict:
     return counts
 
 
+def hadamard_subject(torch, np, seed: int, n: int):
+    """The ``sim_mnts`` subject at N=n, M=2 in the Hadamard layout, each
+    (time, channel) cell kept with probability 1 − HADAMARD_DROP: x, indx, y
+    (numpy, time-major, so times observed in both channels repeat), and the
+    truth as each model's packed vector at the observations of
+    ``run_subject_hadamard``'s training half, sorted as it sorts them (the
+    Hadamard objectives take raw L-vectors).  Also the training and test
+    halves."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.data import preprocess, sim
+
+    f64 = torch.float64
+    d = sim.sim_mnts(torch.Generator().manual_seed(seed), n=n, m=2, device="cpu", dtype=f64)
+    keep = np.random.default_rng(seed).random((n, 2)) >= HADAMARD_DROP
+    ti, indx = np.nonzero(keep)
+    x, y = d.x.numpy()[ti], d.y.numpy()[ti, indx]
+    ids = np.arange(x.shape[0])
+    x_tr, x_te, i_tr, i_te, id_tr, id_te = preprocess.data_split_non(x, indx, ids, test_size=HADAMARD_TEST_SIZE)
+    id_tr = id_tr[np.argsort(x_tr)]
+    t_tr = torch.as_tensor(ti[id_tr])
+    log_l, l_vecs = torch.log(d.l), d.l_vecs.reshape(n, 3)
+    log_s2 = torch.log(torch.tensor([d.sigma2_err], dtype=f64))
+    vecs = {"gnmgp": torch.cat([log_l[t_tr], l_vecs[t_tr].reshape(-1), log_s2]),
+            "snmgp": torch.cat([log_l[t_tr], torch.zeros(len(id_tr), dtype=f64), l_vecs.mean(dim=0), log_s2]),
+            "lmc": torch.cat([log_l.mean().reshape(1), torch.zeros(1, dtype=f64), l_vecs.mean(dim=0), log_s2])}
+    train = (x[id_tr], indx[id_tr], y[id_tr])
+    test = (x[id_te], indx[id_te], y[id_te])
+    return (x, indx, y), vecs, train, test
+
+
+def check_k1_hadamard(torch, np, gk, settings, x, ell, grids) -> None:
+    """K1 on the Hadamard path's shapes, against its plain version on the
+    card: the self form and its backward on tied inputs at N_obs (not a
+    multiple of a tile), the cross form against each of ``grids``.  These
+    launches come before the path's counts are reset."""
+    gen = torch.Generator().manual_seed(5)
+    as_d = lambda a: torch.as_tensor(a, dtype=torch.float64).to(DEVICE)
+    x, ell = as_d(x), as_d(ell)
+    n = x.shape[0]
+    sigma = as_d(0.5 + torch.rand(n, generator=gen, dtype=torch.float64))
+    k = gk.gibbs_gram(x, sigma, ell, jitter=settings.jitter)
+    plain = gk.gibbs_gram_plain(x, sigma, ell, x, sigma, ell, settings.jitter)
+    sched = gk.k1_forward_schedule(n, n, True, torch.float64, gk.sm_count(x.device))
+    if not (torch.equal(k, plain) and torch.equal(k, k.T)):
+        raise AssertionError(f"K1 self form at N={n} with tied x: differs from its plain version or is not "
+                             f"symmetric (max err {(k - plain).abs().max().item():.3e})")
+    kbar = as_d(torch.randn(n, n, generator=gen, dtype=torch.float64))
+    bwd = gk.gibbs_gram_backward(x, sigma, ell, kbar, settings.jitter)
+    err = check_grad(torch, f"K1 backward N={n}", bwd, gk.gibbs_gram_backward_plain(x, sigma, ell, settings.jitter,
+                                                                                  kbar), "float64")
+    ms = time_ms(torch, lambda: gk.gibbs_gram(x, sigma, ell, jitter=settings.jitter))
+    plain_ms = time_ms(torch, lambda: gk.gibbs_gram_plain(x, sigma, ell, x, sigma, ell, settings.jitter))
+    bwd_ms = time_ms(torch, lambda: gk.gibbs_gram_backward(x, sigma, ell, kbar, settings.jitter))
+    ties = n - torch.unique(x).shape[0]
+    log("hadamard", f"K1 self form N={n} ({ties} tied inputs, {sched.route} route): equal to its plain version, "
+        f"exactly symmetric; {ms:.5f} ms (plain {plain_ms:.5f} ms); backward max err {err:.3e} against autograd "
+        f"of the plain version, {bwd_ms:.5f} ms")
+    for g in grids:
+        g = as_d(g)
+        s2, l2 = (as_d(0.5 + torch.rand(g.shape[0], generator=gen, dtype=torch.float64)) for _ in range(2))
+        kc = gk.gibbs_gram(x, sigma, ell, g, s2, l2)
+        if not torch.equal(kc, gk.gibbs_gram_plain(x, sigma, ell, g, s2, l2)):
+            raise AssertionError(f"K1 cross form {n} x {g.shape[0]} differs from its plain version")
+        log("hadamard", f"K1 cross form {n} x {g.shape[0]}: equal to its plain version")
+
+
+def phase_hadamard(torch, np, gk, seed) -> dict:
+    """The Hadamard layout's path: (a) K1 on the path's shapes against its
+    plain version; (b) each Hadamard objective at N_obs ≈ 1,125 (launches
+    per gradient, gradient evaluations per second); (c) for each model
+    ``run_subject_hadamard(do_hmc=True, do_loo=True)`` with no device named,
+    each stage's launches counted exactly, and GNMGP once more with
+    whitened NUTS; (d) the card against the CPU at about 200 observations.
+    Returns each kernel's launches by model and stage."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, settings, workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import map as map_mod
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import nuts
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import as_hadamard_data
+    from nonstationary_multivariate_gaussian_process_tpu_torch.predict import hadamard as pred_h
+
+    f64 = torch.float64
+    (x, indx, y), vecs, (x_tr, i_tr, y_tr), (x_te, i_te, _) = hadamard_subject(torch, np, seed + 70, TRAIN_N)
+    both = len(x) - len(np.unique(x))
+    log("hadamard", f"sim_mnts N={TRAIN_N} M=2, each cell dropped with probability {HADAMARD_DROP}: {len(x)} "
+        f"observations at {len(np.unique(x))} times, both channels at {both}; {len(x_tr)} train "
+        f"({len(x_tr) - len(np.unique(x_tr))} tied), {len(x_te)} test")
+    grid = np.linspace(float(x_tr.min()), float(x_tr.max()), workflows.PipelineConfig().n_grid)
+    check_k1_hadamard(torch, np, gk, settings, x_tr, torch.exp(vecs["gnmgp"][: len(x_tr)]), (grid, x_te))
+
+    # (b) each objective at the training half: launches per gradient, rate
+    expect = lambda model, per, times: {k: HADAMARD_LAUNCHES[model][per].get(k, 0) * times for k in gk.launches()}
+    data = as_hadamard_data(x_tr, i_tr, y_tr, device=DEVICE, dtype=f64)
+    rates = {}
+    for model in HADAMARD_MODELS:
+        f = workflows._MODELS[model].make_objective_hadamard(data, 2)
+        v = vecs[model].to(DEVICE)
+        gk.reset_launches()
+        val, grad = map_mod.value_and_grad(f, v)
+        torch.cuda.synchronize()
+        if gk.launches() != expect(model, "gradient", 1):
+            raise AssertionError(f"{model}: one Hadamard gradient launched {gk.launches()}")
+        if not (torch.isfinite(val) and torch.isfinite(grad).all()):
+            raise AssertionError(f"{model}: non-finite Hadamard objective or gradient")
+        per_s = []
+        for _ in range(RATE_BATCHES):
+            t0 = time.perf_counter()
+            for _ in range(RATE_EVALS):
+                map_mod.value_and_grad(f, v)
+            torch.cuda.synchronize()
+            per_s.append(RATE_EVALS / (time.perf_counter() - t0))
+        rates[model] = statistics.median(per_s)
+        log("hadamard", f"{model} Hadamard objective N_obs={len(x_tr)} f64 (P={v.shape[0]}): {rates[model]:.3f} "
+            f"gradient evaluations/s (median of {RATE_BATCHES} batches of {RATE_EVALS}; min {min(per_s):.3f}, "
+            f"max {max(per_s):.3f}); one gradient launched {HADAMARD_LAUNCHES[model]['gradient']}")
+    f = workflows._MODELS["gnmgp"].make_objective_hadamard(data, 2)
+    v = vecs["gnmgp"].to(DEVICE)
+    wall_ms, device_ms, kinds, top = device_profile(torch, lambda: map_mod.value_and_grad(f, v))
+    log("profile", f"one gnmgp Hadamard gradient N_obs={len(x_tr)} f64: wall {wall_ms:.3f} ms, device "
+        f"{device_ms:.3f} ms (busy share {device_ms / wall_ms:.3f}), {kinds} kernel kinds")
+    for ms, count, key in top:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+
+    # (c) run_subject_hadamard on the card, no device named, stage by stage
+    counts: dict = {}
+    stages: dict = {}
+
+    def counted(name, fn):
+        def wrapped(*args, **kwargs):
+            before = gk.launches()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[name] = {k: v - before[k] for k, v in gk.launches().items()}
+            return res
+        return wrapped
+
+    predictors, nuts_sample = workflows._hadamard_predictors, nuts.nuts_sample
+    originals = (map_mod.fit_map, workflows._run_chain, evaluate.chain_conditional_loglik_hadamard, predictors)
+    chain: dict = {}
+
+    def kept_result(*args, **kwargs):
+        chain["res"] = nuts_sample(*args, **kwargs)
+        return chain["res"]
+
+    map_mod.fit_map = counted("map", originals[0])
+    workflows._run_chain = counted("chain", originals[1])
+    evaluate.chain_conditional_loglik_hadamard = counted("loo", originals[2])
+    workflows._hadamard_predictors = lambda cfg: [counted(k, p) for k, p in
+                                                 zip(("pred_grid", "pred_test", "pred_test_sample"), predictors(cfg))]
+    nuts.nuts_sample = kept_result
+    runs = [(model, {}) for model in HADAMARD_MODELS]
+    runs.append(("gnmgp", dict(sampler="nuts", whiten="prior", n_hmc=NUTS_DRAWS, hmc_warmup=NUTS_WARMUP)))
+    try:
+        for model, extra in runs:
+            cfg = workflows.PipelineConfig(model=model, n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True,
+                                           test_size=HADAMARD_TEST_SIZE, **extra)
+            label = model if not extra else f"{model}_nuts"
+            stages.clear()
+            chain.clear()
+            torch.cuda.reset_peak_memory_stats()
+            gk.reset_launches()  # the main path starts here
+            t0 = time.perf_counter()
+            res = workflows.run_subject_hadamard(x, indx, y, 2, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_launches = gk.launches()  # the main path ends here
+            s = res["hmc_samples"].shape[0]
+            n_grads = (1 + int(chain["res"].n_leapfrog.sum()) if extra
+                       else 1 + (cfg.n_hmc + cfg.hmc_warmup) * cfg.hmc_leapfrog)
+            t_chain = res["timings"]["hmc"]
+            loo = res["loo"]
+            log("hadamard", f"{label} run_subject_hadamard N_obs={len(x)} (train {res['n']}) M=2 f64 n_opt="
+                f"{TRAIN_N_OPT} do_hmc do_loo on {res['hmc_samples'].device} (no device named): {wall:.3f} s; stages "
+                f"(s): " + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items())
+                + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            sampler = (f"NUTS, whiten=prior, {cfg.hmc_warmup} warmup + {cfg.n_hmc} draws (max_depth 8): "
+                       + nuts_stats(torch, chain["res"], cfg.hmc_warmup, 8) if extra else
+                       f"{cfg.n_hmc} draws x {cfg.hmc_leapfrog} leapfrog steps at {cfg.hmc_step_size}")
+            log("hadamard", f"{label} chain: {sampler}; {(cfg.n_hmc + cfg.hmc_warmup) / t_chain:.3f} draws/s, "
+                f"{n_grads / t_chain:.3f} gradients/s ({n_grads} gradients in {t_chain:.3f} s); mean acceptance "
+                f"{res['hmc_accept']:.6f}; loo " + ", ".join(f"{k} {v:.6g}" for k, v in loo.items())
+                + "; " + ", ".join(f"{k} {res[k]:.6f}" for k in ("test_rmse", "test_lpd", "test_sample_rmse",
+                                                                "test_sample_lpd")))
+            nonzero = lambda c: {k: v for k, v in c.items() if v}
+            log("hadamard", f"{label} launches by stage: " + "; ".join(
+                f"{k} {nonzero(v)}" for k, v in stages.items()) + f"; the whole run {nonzero(run_launches)}")
+            want = {"chain": expect(model, "gradient", n_grads), "loo": expect(model, "loo", min(s, cfg.loo_draws)),
+                    "pred_grid": expect(model, "prediction", 1), "pred_test": expect(model, "prediction", 1),
+                    "pred_test_sample": expect(model, "sample_draw", s)}
+            for stage, w in want.items():
+                if stages[stage] != w:
+                    raise AssertionError(f"{label}: the {stage} stage launched {stages[stage]}, expected {w}")
+            m_l = stages["map"]
+            grads_map = m_l["gibbs_gram_backward"]
+            if model != "lmc" and (grads_map < 1 or m_l["gibbs_gram"] != grads_map + 1):
+                raise AssertionError(f"{label}: the MAP stage launched {m_l}: want K1's self form once per "
+                                     f"gradient and once for the final value")
+            if any(v for k, v in run_launches.items() if not k.startswith("gibbs_gram")) or (
+                    model == "lmc" and any(run_launches.values())):
+                raise AssertionError(f"{label}: a kernel off the Hadamard path launched: {run_launches}")
+            samples = res["hmc_samples"]
+            finite = [loo["elpd_loo"], loo["looic"], loo["elpd_waic"], res["test_rmse"], res["test_lpd"],
+                      res["test_sample_rmse"], res["test_sample_lpd"]]
+            if not (torch.isfinite(samples).all() and np.isfinite(finite).all()
+                    and samples.device.type == torch.device(DEVICE).type):
+                raise AssertionError(f"{label}: non-finite draws, LOO or scores, or draws off the card")
+            if tuple(res["pred_grid"].percentiles.shape) != (cfg.n_grid, 3, 2):
+                raise AssertionError(f"{label}: pred_grid has shape {tuple(res['pred_grid'].percentiles.shape)}")
+            counts[label] = {name: {stage: v[name] for stage, v in stages.items()} for name in gk.launches()}
+    finally:
+        map_mod.fit_map, workflows._run_chain, evaluate.chain_conditional_loglik_hadamard = originals[:3]
+        workflows._hadamard_predictors, nuts.nuts_sample = predictors, nuts_sample
+
+    # (d) the card against the CPU at about 200 observations
+    (xc, ic, yc), cvecs, (xc_tr, ic_tr, yc_tr), (xc_te, ic_te, _) = hadamard_subject(
+        torch, np, seed + 71, HADAMARD_CHECK_TIMES)
+    gen = torch.Generator().manual_seed(seed + 72)
+    datas = {dev: as_hadamard_data(xc_tr, ic_tr, yc_tr, device=dev, dtype=f64) for dev in (DEVICE, "cpu")}
+    for model in HADAMARD_MODELS:
+        name = {"lmc": "lmc", "snmgp": "snmgp", "gnmgp": "svc"}[model]
+        vg = {}
+        for dev in (DEVICE, "cpu"):
+            f = workflows._MODELS[model].make_objective_hadamard(datas[dev], 2)
+            vg[dev] = map_mod.value_and_grad(f, cvecs[model].to(dev))
+        rel_v, _ = held(np, [vg[DEVICE][0].item()], [vg["cpu"][0].item()], OBJECTIVE_RTOL)
+        rel_g, frac_g = held(np, vg[DEVICE][1].cpu().numpy(), vg["cpu"][1].numpy(), OBJECTIVE_RTOL)
+        cfg = workflows.PipelineConfig(model=model, n_opt=CHECK_N_OPT, test_size=HADAMARD_TEST_SIZE)
+        out = {dev: workflows.run_subject_hadamard(xc, ic, yc, 2, cfg, device=dev, dtype=f64) for dev in (DEVICE, "cpu")}
+        rel_m, frac_m = held(np, out[DEVICE]["map_vec"].cpu().numpy(), out["cpu"]["map_vec"].numpy(), OBJECTIVE_RTOL)
+        worst = []
+        for k in ("percentiles", "mean", "std"):
+            worst.append(held(np, getattr(out[DEVICE]["pred_grid"], k).cpu().numpy(),
+                              getattr(out["cpu"]["pred_grid"], k).numpy(), SERVED_RTOL))
+        for k in ("test_rmse", "test_lpd"):
+            worst.append(held(np, [out[DEVICE][k]], [out["cpu"][k]], OBJECTIVE_RTOL))
+        vec = out["cpu"]["map_vec"]
+        hist = vec + 0.01 * torch.randn(HADAMARD_CHECK_DRAWS, vec.shape[0], generator=gen, dtype=f64)
+        noise = sample_noise(torch, "lmc" if model == "lmc" else "snmgp", gen, HADAMARD_CHECK_DRAWS, len(xc_te))
+        if model == "gnmgp":  # the L-entry processes' normals are (S, T, G)
+            noise = (noise[0], torch.randn(HADAMARD_CHECK_DRAWS, 3, len(xc_te), generator=gen, dtype=f64), noise[2])
+        preds = {}
+        for dev in (DEVICE, "cpu"):
+            mean, std = getattr(pred_h, f"{name}_predict_test")(vec, datas[dev], xc_te, ic_te, 2, device=dev)
+            draws = getattr(pred_h, f"{name}_predict_test_sample")(None, hist, datas[dev], xc_te, ic_te, 2,
+                                                                  device=dev, noise=noise)
+            cond = evaluate.chain_conditional_loglik_hadamard(model, hist, xc_tr, ic_tr, yc_tr, 2, device=dev)
+            preds[dev] = [t.cpu().numpy() for t in (mean, std, draws)] + [cond]
+        for got, want in zip(preds[DEVICE][:3], preds["cpu"][:3]):
+            worst.append(held(np, got, want, SERVED_RTOL))
+        rel_c, frac_c = held(np, preds[DEVICE][3], preds["cpu"][3], CHAIN_LOO_RTOL)
+        rel_p = max(r for r, _ in worst)
+        frac_p = max(fr for _, fr in worst)
+        log("hadamard", f"{model} N_obs={len(xc)} (train {len(xc_tr)}) card vs CPU: objective value rel {rel_v:.3e}, "
+            f"gradient max rel err {rel_g:.3e} (max err {frac_g:.3e} of its scale); run_subject_hadamard n_opt="
+            f"{CHECK_N_OPT} map_vec max rel err {rel_m:.3e} (max err {frac_m:.3e} of its scale): ok at rtol "
+            f"{OBJECTIVE_RTOL}; grid and test predictions, test scores and {HADAMARD_CHECK_DRAWS}-draw sample "
+            f"predictions with the same noise max rel err {rel_p:.3e}, max err {frac_p:.3e} of their scale: ok at "
+            f"rtol {SERVED_RTOL}; LOO conditionals max rel err {rel_c:.3e}: ok at rtol {CHAIN_LOO_RTOL}")
+    log("summary", "Hadamard gradient evaluations/s at N_obs=" + str(len(x_tr)) + ": "
+        + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1812,6 +2118,9 @@ def main() -> int:
     t0 = time.perf_counter()
     nuts_launches = phase_nuts(torch, np, gk, args.seed, model_subjects)
     log("nuts", f"phase took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    hadamard_launches = phase_hadamard(torch, np, gk, args.seed)
+    log("hadamard", f"phase took {time.perf_counter() - t0:.3f} s")
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -1841,6 +2150,8 @@ def main() -> int:
         row["launches_models"] = {model: c[name] for model, c in model_launches.items()}
         # the whitened NUTS chains at N=1000, by model
         row["launches_nuts"] = {model: c[name] for model, c in nuts_launches.items()}
+        # the Hadamard layout by model and stage (run_subject_hadamard at N_obs ≈ 1,500)
+        row["launches_hadamard"] = {model: c[name] for model, c in hadamard_launches.items()}
         kernels.append(row)
     log("summary", "warm /predict latency ms by size: "
         + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
@@ -1851,6 +2162,9 @@ def main() -> int:
         for model, c in model_launches.items()))
     log("summary", "launches in the whitened NUTS chains by model: " + "; ".join(
         f"{model}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for model, c in nuts_launches.items()))
+    log("summary", "launches in run_subject_hadamard by model and stage: " + "; ".join(
+        f"{model}: " + ", ".join(f"{k} {v}" for k, v in c.items() if any(v.values()))
+        for model, c in hadamard_launches.items()))
     log("summary", "gradient evaluations/s at N=1000, M=2: "
         + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
     log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")

@@ -24,7 +24,14 @@ Ported so far:
   ``evaluate``, ``inference.pathfinder``'s PSIS), ``mode="sample"``
   prediction and serving (``predict.gnmgp``, ``serving``), and the
   single-subject CLI (``examples.run_sim_pipeline`` with ``viz`` and
-  ``data.io``).
+  ``data.io``);
+* the other dense model families (``models.lmc``, ``models.gnmgp_hetero``
+  and their predictors) and whitened NUTS (``inference.whiten``,
+  ``inference.nuts``);
+* the Hadamard layout (``workflows.run_subject_hadamard``): the models'
+  Hadamard objectives, ``models.HadamardData``, ``predict.hadamard``, the
+  Hadamard LOO conditionals in ``evaluate``, the splits of
+  ``data.preprocess`` and ``data.io.hadamard_to_full``.
 """
 
 from . import settings  # noqa: F401

@@ -8,9 +8,13 @@ tilde_sigma2_err]``; the heteroscedastic GNMGP's ``[tilde_l (N), uL_vecs
 (N·T), tilde_sigma2_err (N·M)]``), its empirical estimate and its
 artifact-store format,
 so carrying a fit across is a matter of moving arrays into tensors on a
-device.  :func:`result_to_numpy` turns a ``run_subject`` result of either
-package into plain numpy so the two compare key by key; it reads JAX arrays
-through ``numpy.asarray`` and imports nothing of JAX.
+device.  A Hadamard-layout subject's GNMGP and SNMGP vectors are the dense
+layouts with N the number of observations (``params_from_jax(vec, n_obs,
+m)``), its data ``models.as_hadamard_data`` of the arrays.
+:func:`result_to_numpy` turns a ``run_subject`` (or
+``run_subject_hadamard``) result of either package into plain numpy so the
+two compare key by key; it reads JAX arrays through ``numpy.asarray`` and
+imports nothing of JAX.
 """
 
 from __future__ import annotations

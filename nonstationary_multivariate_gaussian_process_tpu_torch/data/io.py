@@ -2,9 +2,11 @@
 
 Counterpart of ``_np`` and ``load_sim_pickle`` in the JAX package's
 ``data/io.py``: a simulation pickle ``[x, l, L_vecs, sigma2_err, Y]``
-(written by the reference's ``SIM_code/sim.py:273-274``) as numpy arrays.
-The other loaders (empirical pickles, ``MAP.dat``, HMC pickles, the
-per-ID clinical dicts, CSV) are not ported yet.
+(written by the reference's ``SIM_code/sim.py:273-274``) as numpy arrays,
+and ``hadamard_to_full``, which turns a complete Hadamard-layout subject
+into the dense (N, M) layout.  The other loaders (empirical pickles,
+``MAP.dat``, HMC pickles, the per-ID clinical dicts, CSV) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -32,3 +34,24 @@ def load_sim_pickle(path: str) -> dict:
         "sigma2_err": float(sigma2_err),
         "y": _np(y),
     }
+
+
+def hadamard_to_full(x, indx, y, m: int):
+    """Recover the dense layout ``(times (N,), Y (N, M))`` from a *complete*
+    Hadamard triple.
+
+    Raises if any (time, task) cell is missing: incomplete subjects stay in
+    the Hadamard layout (``workflows.run_subject_hadamard`` takes them).
+    """
+    x = np.asarray(x, float)
+    indx = np.asarray(indx, int)
+    y = np.asarray(y, float)
+    times = np.unique(x)
+    n = times.shape[0]
+    if x.shape[0] != n * m:
+        raise ValueError(f"incomplete layout: {x.shape[0]} obs != {n} times x {m} tasks")
+    yy = np.full((n, m), np.nan)
+    yy[np.searchsorted(times, x), indx] = y
+    if np.any(np.isnan(yy)):
+        raise ValueError("incomplete layout: some (time, task) cells missing")
+    return times, yy

@@ -7,9 +7,9 @@ chain's device.  WAIC and PSIS-LOO take their non-factorized form: the GP
 likelihood is one joint MVN, so the pointwise terms are the exact
 leave-one-out conditionals ``p(y_i | y_{−i}, θ)`` from one precision matrix
 per draw.  The dense LOO conditionals cover ``lmc``, ``snmgp``, ``gnmgp``
-and ``gnmgp_hetero``; the G/P/D scores, ``loo_compare``,
-``stacking_weights`` and the Hadamard and sparse conditionals are not
-ported yet.
+and ``gnmgp_hetero``, and in the Hadamard layout ``lmc``, ``snmgp`` and
+``gnmgp``; the G/P/D scores, ``loo_compare``, ``stacking_weights`` and the
+sparse conditionals are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch
 from . import settings
 from .models import gnmgp, gnmgp_hetero, lmc, snmgp
 from .models.base import task_major
-from .ops import chol
+from .ops import chol, kernels
 
 #: Models whose observation covariance the JAX package builds and this port
 #: does not yet.
@@ -167,6 +167,57 @@ def chain_conditional_loglik(
     with torch.no_grad():
         for start in range(0, hist.shape[0], chunk):
             rows = [pointwise_conditional_loglik(observation_cov(model, v, x, n, m), y_tm, mask_tm)
+                    for v in hist[start : start + chunk]]
+            out[start : start + len(rows)] = torch.stack(rows).cpu().numpy()
+    return out
+
+
+def observation_cov_hadamard(model: str, vec: torch.Tensor, x: torch.Tensor, indx: torch.Tensor,
+                             m: int) -> torch.Tensor:
+    """Dense (N×N) observation covariance for Hadamard-layout data (one
+    observation per (input, task) pair): the covariance each
+    ``log_posterior_hadamard`` builds, ``K_x ∘ K_indx + σ²I``.  On CUDA the
+    ``gnmgp`` and ``snmgp`` ``K_x`` is kernel K1's self form; ``lmc`` takes
+    the stationary ``rbf_cov``."""
+    n = x.shape[0]
+    if model == "gnmgp":
+        p = gnmgp.unpack(vec, n, m)
+        k_x = kernels.nonstationary_rbf_cov(x, ell1=torch.exp(p.tilde_l))
+        cov = gnmgp.hadamard_gram(p.ul_vecs.reshape(n, -1), indx, k_x, m)
+    elif model == "snmgp":
+        p = snmgp.unpack(vec, n, m)
+        cov = snmgp.hadamard_gram(p, x, indx, m)
+    elif model == "lmc":
+        p = lmc.unpack(vec, m)
+        cov = lmc.hadamard_gram(p, x, indx, m)
+    else:
+        raise ValueError(f"unknown hadamard model {model!r}")
+    cov.diagonal().add_(torch.exp(p.tilde_sigma2_err))  # in place: the Gram is this function's own
+    return cov
+
+
+def chain_conditional_loglik_hadamard(
+    model: str, hist_vecs, x, indx, y, m: int, mask=None, chunk: int = 8, device=None, dtype=None
+) -> np.ndarray:
+    """(S, N) exact LOO-conditional log densities for Hadamard-layout chains,
+    as numpy float64.
+
+    As :func:`chain_conditional_loglik`: the draws run one at a time on
+    ``device`` (default ``cuda``, raising when there is none) in ``dtype``
+    (default ``settings.dtype``), ``chunk`` draws' rows are copied to the
+    host together, and the result does not depend on ``chunk``.  ``mask``
+    (N,) projects padded observations out and zeroes their terms.
+    """
+    device = settings.resolve_device(device)
+    dtype = dtype or settings.dtype
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    hist, x, y = as_t(hist_vecs), as_t(x), as_t(y)
+    indx = torch.as_tensor(indx, dtype=torch.long, device=device)
+    mask = None if mask is None else torch.as_tensor(mask, dtype=torch.bool, device=device)
+    out = np.empty((hist.shape[0], y.shape[0]))
+    with torch.no_grad():
+        for start in range(0, hist.shape[0], chunk):
+            rows = [pointwise_conditional_loglik(observation_cov_hadamard(model, v, x, indx, m), y, mask)
                     for v in hist[start : start + chunk]]
             out[start : start + len(rows)] = torch.stack(rows).cpu().numpy()
     return out

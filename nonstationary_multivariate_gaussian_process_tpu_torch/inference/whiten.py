@@ -155,13 +155,6 @@ class Whitener(NamedTuple):
         return total
 
 
-#: Hadamard-layout GNMGP prior defaults (the JAX ``gnmgp.nlogpos_hadamard``).
-_GNMGP_HADAMARD_HYPERS = {
-    "mu_tilde_l": 0.0, "alpha_tilde_l": 1.0, "beta_tilde_l": 1.0,
-    "mu_L": 0.0, "alpha_L": 1.0, "beta_L": 1.0,
-}
-
-
 def _make_block(start, stop, k, rows, x, alpha, beta, mu, mode) -> _Block:
     if mode == "chol":
         return _Block(start, stop, k, rows, chol.prior_rbf_cholesky(x, alpha, beta), mu)
@@ -196,7 +189,7 @@ def make_whitener(
     t = transforms.tri_size(m)
     blocks: list[_Block] = []
     if model_name == "gnmgp":
-        base_hp = _GNMGP_HADAMARD_HYPERS if hadamard else gnmgp.DEFAULT_HYPERS
+        base_hp = gnmgp.HADAMARD_HYPERS if hadamard else gnmgp.DEFAULT_HYPERS
         hp = {**gnmgp.DEFAULT_HYPERS, **base_hp, **(hyper or {})}
         blocks = [
             _make_block(0, n, 1, False, x, hp["alpha_tilde_l"], hp["beta_tilde_l"], hp["mu_tilde_l"], mode),

@@ -17,7 +17,11 @@ with K_x the σ≡1 Gibbs kernel of (x, ℓ).  Two layouts of it serve two paths
   and the Gaussian log-likelihood is invariant under it, so both layouts give
   the same value.
 
-The Hadamard variant is not ported yet.
+The Hadamard variant (:func:`log_posterior_hadamard`, one observation per
+(input, task) pair; reference ``logpos_hadamard_SVC``) gathers each
+observation's task row of its L_n: its Gram ``K_x ∘ (R Rᵀ)`` is N_obs ×
+N_obs, with ``K_x`` kernel K1's self form (σ ≡ 1), whose backward kernel
+carries the gradient in ℓ.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 from .. import dists, settings
 from ..ops import chol, gram_kernels, kernels, transforms
-from .base import FullData, check_full_data, check_vec
+from .base import FullData, HadamardData, check_full_data, check_vec, mask_dense_gram
 
 #: Reference default hyper-parameters (logpos.py:299 signature defaults).
 DEFAULT_HYPERS = {
@@ -107,10 +111,7 @@ def log_lik(p: Params, data: FullData, mask: torch.Tensor | None = None) -> torc
     if mask is None:
         cov = torch.diagonal_scatter(cov, torch.diagonal(cov) + sigma2_err)
     else:
-        mv = torch.as_tensor(mask, device=y.device).to(y.dtype).repeat_interleave(m)
-        cov = cov * (mv[:, None] * mv[None, :])
-        cov = cov + torch.diag(torch.where(mv > 0, sigma2_err, 1.0))
-        y = y * mv
+        cov, y = mask_dense_gram(cov, sigma2_err, y, torch.as_tensor(mask, device=y.device).repeat_interleave(m))
     return dists.mvn_logpdf_dense_unnorm(y, 0.0, cov)
 
 
@@ -194,6 +195,124 @@ def make_objective(data: FullData, hyper: dict | None = None, prior: bool = True
             unpack(vec, n, m), data, prior=prior, prior_chol_l=pc_l, prior_chol_L=pc_L,
             mask=mask, **hp,
         )
+        return -res
+
+    return nlp
+
+
+# ---------------------------------------------------------------------------
+# Hadamard variant: one observation per (input, task) pair.
+# ---------------------------------------------------------------------------
+
+#: The Hadamard objective's own defaults (reference ``nlogpos_obj_hadamard_SVC``
+#: signature, logpos.py:566), which are not :data:`DEFAULT_HYPERS`.
+HADAMARD_HYPERS = {
+    "mu_tilde_l": 0.0,
+    "alpha_tilde_l": 1.0,
+    "beta_tilde_l": 1.0,
+    "mu_L": 0.0,
+    "alpha_L": 1.0,
+    "beta_L": 1.0,
+    "a": 1.0,
+    "b": 1.0,
+}
+
+
+def hadamard_rows(l_vecs_mat: torch.Tensor, indx: torch.Tensor, m: int):
+    """``(ls (N, M, M), rows (N, M))``: the raw (N, T) L-vectors as factors,
+    and each observation's own task row ``L_i[indx_i, :]``, gathered on the
+    device."""
+    ls = transforms.vec_to_tril(l_vecs_mat, m)
+    return ls, ls[torch.arange(ls.shape[0], device=ls.device), indx]
+
+
+def hadamard_gram(l_vecs_mat: torch.Tensor, indx: torch.Tensor, k_x: torch.Tensor, m: int) -> torch.Tensor:
+    """N×N Gram ``K = K_x ∘ K_i`` with ``K_i[i,j] = ⟨L_i[indx_i,:], L_j[indx_j,:]⟩``
+    (reference ``generate_K_index_SVC_hadamard0``, logpos.py:121-124): the
+    task rows of :func:`hadamard_rows`, one matrix product."""
+    _, rows = hadamard_rows(l_vecs_mat, indx, m)
+    return k_x * (rows @ rows.T)
+
+
+def log_posterior_hadamard(
+    p: Params,
+    data: HadamardData,
+    m: int,
+    mu_tilde_l=0.0,
+    alpha_tilde_l=1.0,
+    beta_tilde_l=1.0,
+    mu_L=0.0,
+    alpha_L=1.0,
+    beta_L=1.0,
+    a=1.0,
+    b=1.0,
+    prior: bool = True,
+    prior_chol_l=None,
+    prior_chol_L=None,
+    mask=None,
+):
+    """Mirrors reference ``logpos_hadamard_SVC`` (logpos.py:588-659).  Returns
+    ``(logpos, components)``.
+
+    As in the reference the per-input Cholesky vectors enter raw, with no
+    exp on their diagonals (logpos.py:603-604), and the GP prior applies to
+    them directly: ``p.ul_vecs`` holds plain L-vectors here.  ``mask`` (N,)
+    excludes padded observations exactly (:func:`base.mask_dense_gram`).
+    """
+    x, indx, y = data
+    n = y.shape[0]
+    t = transforms.tri_size(m)
+    ell = torch.exp(p.tilde_l)
+    sigma2_err = torch.exp(p.tilde_sigma2_err)
+    k_x = kernels.nonstationary_rbf_cov(x, ell1=ell)  # kernel K1, self form
+    gram_h = hadamard_gram(p.ul_vecs.reshape(n, t), indx, k_x, m)
+    if mask is None:
+        cov = torch.diagonal_scatter(gram_h, torch.diagonal(gram_h) + sigma2_err)
+    else:
+        cov, y = mask_dense_gram(gram_h, sigma2_err, y, mask)
+    loglik = dists.mvn_logpdf_dense_unnorm(y, 0.0, cov)
+    if prior_chol_l is None:
+        prior_chol_l = chol.safe_cholesky(kernels.rbf_cov(x, alpha=alpha_tilde_l, beta=beta_tilde_l))
+    if prior_chol_L is None:
+        prior_chol_L = chol.safe_cholesky(kernels.rbf_cov(x, alpha=alpha_L, beta=beta_L))
+    lp_l = dists.mvn_logpdf_chol(p.tilde_l, mu_tilde_l, prior_chol_l)
+    lp_L = _l_process_prior(p.ul_vecs.reshape(n, t), mu_L, prior_chol_L)
+    lp_s2 = dists.inverse_gamma_logpdf_u(sigma2_err, alpha=a, beta=b)
+    res = loglik
+    if prior:
+        res = res + lp_l + lp_L + lp_s2 + p.tilde_sigma2_err
+    comps = {
+        "loglik": loglik,
+        "log_prior_tilde_l": lp_l,
+        "log_prior_L_vecs": lp_L,
+        "log_prior_sigma2_err": lp_s2,
+    }
+    return res, comps
+
+
+def nlogpos_hadamard(vec, x, indx, y, m: int, verbose=False, prior=True, **hyper):
+    """Parity API, mirrors ``nlogpos_obj_hadamard_SVC`` (logpos.py:566-585)."""
+    hp = {**HADAMARD_HYPERS, **hyper}
+    p = unpack(vec, y.shape[0], m)
+    res, comps = log_posterior_hadamard(p, HadamardData(x, indx, y), m, prior=prior, **hp)
+    if verbose:
+        return (-res,) + tuple(comps.values())
+    return -res
+
+
+def make_objective_hadamard(data: HadamardData, m: int, hyper: dict | None = None, prior: bool = True,
+                            mask=None):
+    """:func:`nlogpos_hadamard` as a closure ``vec -> scalar`` with the prior
+    factors hoisted: factored once on the data's device by the same robust
+    Cholesky that the JAX objective runs at every call."""
+    hp = {**HADAMARD_HYPERS, **(hyper or {})}
+    n = data.y.shape[0]
+    pc_l = chol.safe_cholesky(kernels.rbf_cov(data.x, alpha=hp["alpha_tilde_l"], beta=hp["beta_tilde_l"]))
+    pc_L = chol.safe_cholesky(kernels.rbf_cov(data.x, alpha=hp["alpha_L"], beta=hp["beta_L"]))
+
+    def nlp(vec: torch.Tensor) -> torch.Tensor:
+        res, _ = log_posterior_hadamard(unpack(vec, n, m), data, m, prior=prior, prior_chol_l=pc_l,
+                                        prior_chol_L=pc_L, mask=mask, **hp)
         return -res
 
     return nlp

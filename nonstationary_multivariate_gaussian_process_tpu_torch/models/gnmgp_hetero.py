@@ -27,7 +27,7 @@ import torch
 from .. import dists, settings
 from ..ops import chol, gram_kernels, kernels, transforms
 from . import gnmgp as base
-from .base import FullData, check_full_data, check_vec
+from .base import FullData, check_full_data, check_vec, mask_dense_gram
 
 DEFAULT_HYPERS = {
     **{k: v for k, v in base.DEFAULT_HYPERS.items() if k not in ("a", "b")},
@@ -76,10 +76,7 @@ def log_lik(p: Params, data: FullData, mask: torch.Tensor | None = None) -> torc
     if mask is None:
         cov = torch.diagonal_scatter(cov, torch.diagonal(cov) + noise)
     else:
-        mv = torch.as_tensor(mask, device=y.device).to(y.dtype).repeat_interleave(m)
-        cov = cov * (mv[:, None] * mv[None, :])
-        cov = cov + torch.diag(torch.where(mv > 0, noise, 1.0))
-        y = y * mv
+        cov, y = mask_dense_gram(cov, noise, y, torch.as_tensor(mask, device=y.device).repeat_interleave(m))
     return dists.mvn_logpdf_dense_unnorm(y, 0.0, cov)
 
 

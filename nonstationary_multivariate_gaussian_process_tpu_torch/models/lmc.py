@@ -9,7 +9,10 @@ broadcast to constant (N,) processes: on CUDA that is kernel K1's self form
 (``ops.gram_kernels.gibbs_gram``), whose backward kernel returns per-input
 gradients that autograd sums through the broadcast.  The likelihood runs
 through the rotated batched-Cholesky Kronecker solver (``ops.kron``).  The
-Hadamard variant is not ported yet.
+Hadamard variant (:func:`log_posterior_hadamard`, one observation per
+(input, task) pair; reference ``logpos_hadamard_S``) takes the stationary
+``rbf_cov`` for ``K_x``, as the reference's does, so it launches no
+hand-written kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 
 from .. import dists
 from ..ops import kernels, transforms
-from .base import FullData, check_full_data, check_vec, task_major
+from . import snmgp
+from .base import FullData, HadamardData, check_full_data, check_vec, mask_dense_gram, task_major
 
 #: Reference default hyper-parameters (Stationary_model.py:80).
 DEFAULT_HYPERS = {
@@ -132,6 +136,84 @@ def make_objective(data: FullData, hyper: dict | None = None, prior: bool = True
 
     def nlp(vec: torch.Tensor) -> torch.Tensor:
         res, _ = log_posterior(unpack(vec, m), data, prior=prior, **hp)
+        return -res
+
+    return nlp
+
+
+# ---------------------------------------------------------------------------
+# Hadamard variant: one observation per (input, task) pair.
+# ---------------------------------------------------------------------------
+
+
+def hadamard_gram(p: Params, x: torch.Tensor, indx: torch.Tensor, m: int) -> torch.Tensor:
+    """Dense N×N Gram ``K = K_x ∘ B_f[indx, indx']`` (no noise): the raw
+    task-Cholesky vector (logpos.py:679), the stationary ``rbf_cov`` with
+    its nugget (logpos.py:685), and the task term of
+    ``snmgp.hadamard_task_cov``."""
+    k_x = kernels.rbf_cov(x, alpha=torch.exp(p.tilde_sigma), beta=torch.exp(p.tilde_l))
+    return k_x * snmgp.hadamard_task_cov(transforms.vec_to_tril(p.ul_vec, m), indx)
+
+
+def log_posterior_hadamard(
+    p: Params,
+    data: HadamardData,
+    m: int,
+    mu_tilde_l=0.0,
+    sigma_tilde_l=1.0,
+    a=1.0,
+    b=1.0,
+    c=10.0,
+    prior: bool = True,
+    mask=None,
+):
+    """Mirrors reference ``logpos_hadamard_S`` (logpos.py:676-716).  Returns
+    ``(logpos, components)``.
+
+    The Gram is :func:`hadamard_gram`'s.  ``mask`` (N,) excludes padded
+    observations exactly (:func:`base.mask_dense_gram`).
+    """
+    x, indx, y = data
+    sigma2_err = torch.exp(p.tilde_sigma2_err)
+    gram_h = hadamard_gram(p, x, indx, m)
+    if mask is None:
+        cov = torch.diagonal_scatter(gram_h, torch.diagonal(gram_h) + sigma2_err)
+    else:
+        cov, y = mask_dense_gram(gram_h, sigma2_err, y, mask)
+    loglik = dists.mvn_logpdf_dense_unnorm(y, 0.0, cov)
+    lp_l = dists.normal_logpdf(p.tilde_l, mu_tilde_l, sigma_tilde_l)
+    lp_lvec = torch.sum(dists.normal_logpdf(p.ul_vec, 0.0, c))
+    lp_s2 = dists.inverse_gamma_logpdf_u(sigma2_err, alpha=a, beta=b)
+    res = loglik
+    if prior:
+        res = res + lp_l + lp_lvec + lp_s2 + p.tilde_sigma2_err
+    comps = {
+        "loglik": loglik,
+        "log_prior_tilde_l": lp_l,
+        "log_prior_L_vec": lp_lvec,
+        "log_prior_sigma2_err": lp_s2,
+    }
+    return res, comps
+
+
+def nlogpos_hadamard(vec, x, indx, y, m: int, mu_tilde_l=0.0, sigma_tilde_l=1.0, verbose=False, prior=True,
+                     **hyper):
+    """Parity API, mirrors ``nlogpos_obj_hadamard_S`` (logpos.py:662-673)."""
+    hp = {**DEFAULT_HYPERS, **hyper, "mu_tilde_l": mu_tilde_l, "sigma_tilde_l": sigma_tilde_l}
+    res, comps = log_posterior_hadamard(unpack(vec, m), HadamardData(x, indx, y), m, prior=prior, **hp)
+    if verbose:
+        return (-res,) + tuple(comps.values())
+    return -res
+
+
+def make_objective_hadamard(data: HadamardData, m: int, hyper: dict | None = None, prior: bool = True,
+                            mask=None):
+    """:func:`nlogpos_hadamard` as a closure ``vec -> scalar`` (no GP prior to
+    hoist)."""
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+
+    def nlp(vec: torch.Tensor) -> torch.Tensor:
+        res, _ = log_posterior_hadamard(unpack(vec, m), data, m, prior=prior, mask=mask, **hp)
         return -res
 
     return nlp

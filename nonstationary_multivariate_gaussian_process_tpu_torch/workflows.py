@@ -12,13 +12,23 @@ order, the result dict and the artifacts written (``data``, ``map``,
 ``map_ckpt``, ``hmc``, ``pred_grid``, ``scores``, ``loo``) are the JAX
 package's, so a store written here serves from either package's engine.
 
-Not ported yet, and refused with ``ValueError``: the sparse models and the
-samplers other than ``"hmc"`` and ``"nuts"``.
+``run_subject_hadamard`` is the JAX function's counterpart for subjects in
+the Hadamard layout (one observation per (input, task) pair, so a channel
+may be missing at any time): MAP on the model's Hadamard objective, grid
+prediction, the chain (either sampler, any ``whiten``), LOO, and held-out
+test scoring by the MAP and by the chain, for ``lmc``, ``snmgp`` and
+``gnmgp``.
+
+Not ported yet, and refused with ``ValueError``: the sparse models, the
+heteroscedastic GNMGP in the Hadamard layout (the JAX package has no
+Hadamard objective for it), and the samplers other than ``"hmc"`` and
+``"nuts"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from typing import Any
@@ -35,10 +45,11 @@ from .inference import map as map_mod
 from .inference import nuts
 from .inference import whiten as whiten_mod
 from .models import gnmgp, gnmgp_hetero, lmc, snmgp
-from .models.base import FullData
+from .models.base import FullData, as_hadamard_data
 from .postprocess import analysis
 from .predict import gnmgp as pred_gnmgp
 from .predict import gnmgp_hetero as pred_gnmgp_hetero
+from .predict import hadamard as pred_h
 from .predict import lmc as pred_lmc
 from .predict import snmgp as pred_snmgp
 from .utils.artifacts import ArtifactStore
@@ -46,6 +57,8 @@ from .utils.artifacts import ArtifactStore
 _MODELS = {"lmc": lmc, "snmgp": snmgp, "gnmgp": gnmgp, "gnmgp_hetero": gnmgp_hetero}
 _PREDICT = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero}
 MODELS = tuple(_MODELS)
+#: The models with a Hadamard-layout objective.
+HADAMARD_MODELS = ("lmc", "snmgp", "gnmgp")
 HMC_MASSES = ("none", "pilot", "window")
 SAMPLERS = ("hmc", "nuts")
 
@@ -123,6 +136,20 @@ def _validate_subject(x, y):
         raise ValueError("Y must have at least one task column")
     if not np.all(np.isfinite(x)) or not np.all(np.isfinite(y)):
         raise ValueError("x/Y contain non-finite values")
+
+
+def _validate_hadamard(x, indx, y, m):
+    """Named validation errors for a degenerate Hadamard-layout subject."""
+    if x.ndim != 1 or indx.ndim != 1 or y.ndim != 1:
+        raise ValueError(f"Hadamard layout needs 1-D x/indx/y, got {x.shape}/{indx.shape}/{y.shape}")
+    if not (x.shape[0] == indx.shape[0] == y.shape[0]):
+        raise ValueError(f"x/indx/y lengths differ: {x.shape[0]}/{indx.shape[0]}/{y.shape[0]}")
+    if x.shape[0] < 4:
+        raise ValueError(f"need at least 4 observations, got {x.shape[0]}")
+    if indx.min() < 0 or indx.max() >= m:
+        raise ValueError(f"task indices must lie in [0, {m}), got [{indx.min()}, {indx.max()}]")
+    if not np.all(np.isfinite(x)) or not np.all(np.isfinite(y)):
+        raise ValueError("x/y contain non-finite values")
 
 
 def n_params(model: str, n: int, m: int) -> int:
@@ -218,9 +245,11 @@ def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch
     return chain.samples, float(torch.mean(chain.accept_prob))
 
 
-def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: torch.Tensor, n: int, m: int):
+def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: torch.Tensor, n: int, m: int,
+                            hadamard: bool = False):
     """The sampling stage's whitener for ``cfg.whiten`` (JAX
-    ``_make_sampling_whitener``), or None.
+    ``_make_sampling_whitener``), or None; ``hadamard`` takes the Hadamard
+    objective's prior defaults (``whiten.make_whitener``).
 
     ``True``/``"prior"``: prior-factor whitening.  ``"pncp"``: partially
     non-centered, a prior-whitened eigen-mode pilot chain of
@@ -231,12 +260,12 @@ def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: 
     if not cfg.whiten:
         return None
     if cfg.whiten == "pncp":
-        w = whiten_mod.make_whitener(cfg.model, x, n, m, cfg.hyper, mode="eig")
+        w = whiten_mod.make_whitener(cfg.model, x, n, m, cfg.hyper, hadamard=hadamard, mode="eig")
         pilot, _ = _run_chain(nlp, map_vec, dataclasses.replace(cfg, n_hmc=cfg.pncp_pilot, whiten=False),
                               _pilot_generator(cfg.seed, 11, map_vec.device), whitener=w)
         return whiten_mod.retune(w, pilot, interp=cfg.pncp_interp)
     if cfg.whiten in (True, "prior"):
-        return whiten_mod.make_whitener(cfg.model, x, n, m, cfg.hyper)
+        return whiten_mod.make_whitener(cfg.model, x, n, m, cfg.hyper, hadamard=hadamard)
     raise ValueError(f"unknown whiten setting {cfg.whiten!r} (want False, True, 'prior' or 'pncp')")
 
 
@@ -393,3 +422,125 @@ def run_subject(
             # the pointwise elpd vector, kept out of the scalar artifact
             result["loo"]["pointwise"] = loo["pointwise"]
     return result
+
+
+def _hadamard_start(seed: int, dim: int, device, dtype) -> torch.Tensor:
+    """The MAP start of :func:`run_subject_hadamard`, ``v0 = 0.1·N(0, I)``
+    with ``v0[-1] = −2`` (log noise variance), drawn from a CPU
+    ``torch.Generator`` seeded by ``seed``, so that every device starts from
+    the same point."""
+    v0 = 0.1 * torch.randn(dim, generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+    v0[-1] = -2.0
+    return v0.to(device=device, dtype=dtype)
+
+
+def _hadamard_predictors(cfg: PipelineConfig):
+    """The model's ``predict_map``, ``predict_test`` and ``predict_test_sample``
+    from ``predict.hadamard``, with ``cfg.hyper`` bound where the JAX
+    workflow passes it (not to LMC's)."""
+    name = {"lmc": "lmc", "snmgp": "snmgp", "gnmgp": "svc"}[cfg.model]
+    fns = [getattr(pred_h, f"{name}_{kind}") for kind in ("predict_map", "predict_test", "predict_test_sample")]
+    if cfg.model == "lmc":
+        return fns
+    return [functools.partial(f, hyper=cfg.hyper) for f in fns]
+
+
+def run_subject_hadamard(x, indx, y, m: int, cfg: PipelineConfig | None = None, device=None, dtype=None) -> dict:
+    """Single-subject pipeline for Hadamard-layout data (one observation per
+    (input, task) pair): the reference's ``*_non``/mimic data path
+    (``utils.data_split_non``, ``logpos.nlogpos_obj_hadamard*``), on
+    ``device`` (default ``cuda``, raising when there is none) in ``dtype``
+    (default ``settings.dtype``).
+
+    The training half is sorted by ``x`` with ``np.argsort``, as in JAX, so
+    tied times keep one order.  MAP runs on the model's Hadamard objective
+    from :func:`_hadamard_start`; then grid prediction, with ``do_hmc`` the
+    chain (drawn from the stream JAX derives as ``fold_in(key, 3)``, seeded
+    from ``SeedSequence([seed, 3])``) and with ``do_loo`` WAIC and PSIS-LOO
+    from it, and with ``test_size`` > 0 the held-out scores by the MAP and,
+    given a chain, by its draws (stream 9).  Returns the JAX function's
+    result dict (tensors where it has arrays) and the stage ``timings``.
+    """
+    cfg = cfg or PipelineConfig()
+    if cfg.model not in HADAMARD_MODELS:
+        raise ValueError(
+            f"model {cfg.model!r} has no Hadamard-layout objective in the torch package "
+            f"(run_subject_hadamard runs {HADAMARD_MODELS})"
+        )
+    device = settings.resolve_device(device)
+    dtype = dtype or settings.dtype
+    x = np.asarray(x, float)
+    indx = np.asarray(indx, int)
+    y = np.asarray(y, float)
+    _validate_hadamard(x, indx, y, m)
+    if cfg.test_size > 0:
+        x, x_te, indx, indx_te, y, y_te = preprocess.data_split_non(x, indx, y, test_size=cfg.test_size)
+    else:
+        x_te = indx_te = y_te = None
+    order = np.argsort(x)
+    x, indx, y = x[order], indx[order], y[order]
+    n = x.shape[0]
+    data = as_hadamard_data(x, indx, y, device, dtype)
+    predict_map, predict_test, predict_test_sample = _hadamard_predictors(cfg)
+    out: dict = {"n": n, "m": m, "timings": {}}
+
+    t0 = time.time()
+    nlp = _MODELS[cfg.model].make_objective_hadamard(data, m, hyper=cfg.hyper)
+    res = map_mod.fit_map(nlp, _hadamard_start(cfg.seed, n_params(cfg.model, n, m), device, dtype),
+                          n_iters=cfg.n_opt, lr=cfg.lr, err_opt=cfg.err_opt, method=cfg.map_method)
+    out["timings"]["map"] = time.time() - t0
+    out["map_vec"] = res.vec
+    out["target_hist"] = res.target_hist.cpu().numpy()
+
+    if cfg.do_pred_grid:
+        t0 = time.time()
+        grid = torch.linspace(float(x.min()), float(x.max()), cfg.n_grid, dtype=dtype, device=device)
+        out["pred_grid"] = predict_map(res.vec, data, grid, m, device=device, dtype=dtype)
+        out["grid"] = grid.cpu().numpy()
+        out["timings"]["pred_grid"] = time.time() - t0
+
+    if cfg.do_hmc:
+        t0 = time.time()
+        whitener = _make_sampling_whitener(nlp, res.vec, cfg, data.x, n, m, hadamard=True)
+        samples, accept = _run_chain(nlp, res.vec, cfg, _pilot_generator(cfg.seed, 3, device), whitener=whitener)
+        out["timings"]["hmc"] = time.time() - t0
+        out["hmc_samples"] = samples
+        out["hmc_accept"] = accept
+        if cfg.do_loo:
+            t0 = time.time()
+            hist = samples
+            if hist.shape[0] > cfg.loo_draws:
+                idx = np.linspace(0, hist.shape[0] - 1, cfg.loo_draws).astype(int)
+                hist = hist[torch.as_tensor(idx, device=hist.device)]
+            cond_ll = evaluate.chain_conditional_loglik_hadamard(
+                cfg.model, hist, data.x, data.indx, data.y, m, device=device, dtype=dtype
+            )
+            loo = evaluate.psis_loo(cond_ll)
+            wa = evaluate.waic(cond_ll)
+            out["loo"] = {
+                "elpd_loo": loo["elpd_loo"], "p_loo": loo["p_loo"],
+                "looic": loo["looic"], "n_bad_k": loo["n_bad_k"],
+                "k_hat_max": float(np.max(loo["k_hat"])),
+                "elpd_waic": wa["elpd_waic"], "p_waic": wa["p_waic"],
+                "waic": wa["waic"],
+            }
+            out["timings"]["loo"] = time.time() - t0
+
+    if x_te is not None and cfg.do_pred_test:
+        t0 = time.time()
+        xt = torch.as_tensor(x_te, dtype=dtype, device=device)
+        it = torch.as_tensor(indx_te, dtype=torch.long, device=device)
+        mean, std = predict_test(res.vec, data, xt, it, m, device=device, dtype=dtype)
+        out["test_rmse"] = evaluate.rmse(mean.cpu().numpy(), y_te)
+        out["test_lpd"] = evaluate.lpd(mean.cpu().numpy(), std.cpu().numpy(), y_te)
+        out["timings"]["pred_test"] = time.time() - t0
+        if "hmc_samples" in out:
+            # sample-based indexed scoring over the chain, the KAISER path
+            # (reference test_predsample_hadamard, prediction.py:678-708)
+            t0 = time.time()
+            d = predict_test_sample(_pilot_generator(cfg.seed, 9, device), out["hmc_samples"], data, xt, it, m,
+                                    device=device, dtype=dtype).cpu().numpy()  # (G_test, S)
+            out["test_sample_rmse"] = evaluate.rmse(d.mean(axis=1), y_te)
+            out["test_sample_lpd"] = evaluate.lpd(d.mean(axis=1), np.maximum(d.std(axis=1), 1e-8), y_te)
+            out["timings"]["pred_test_sample"] = time.time() - t0
+    return out

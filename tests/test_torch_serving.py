@@ -195,7 +195,8 @@ def test_port_and_chip_smoke_import_no_jax():
     for d, _, names in os.walk(PORT_PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
-    for new in ("inference/pathfinder.py", "viz.py", "data/io.py", "examples/run_sim_pipeline.py"):
+    for new in ("inference/pathfinder.py", "viz.py", "data/io.py", "examples/run_sim_pipeline.py",
+                "predict/hadamard.py", "data/preprocess.py"):
         assert os.path.join(PORT_PKG, new) in files, new
     bad = {f: sorted({n for n in _imports(f) if _forbidden(n)}) for f in files}
     assert {f: n for f, n in bad.items() if n} == {}
