@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS and Hadamard-layout paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS, Hadamard-layout and mixed-precision paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
@@ -129,7 +129,26 @@ Phases, each printing its lines:
                rtol 1e-6, the grid, test and sample predictions at rtol
                1e-6 with a floor of 1e-6 of the scale, the LOO conditionals
                at rtol 1e-8.
-12. summary  — one JSON line listing every kernel, the card's name and power
+12. precision — (``NMGP_PRECISION=mixed``, switched in the process through
+               ``settings.mixed_solves``) for GNMGP, LMC, SNMGP, the hetero
+               GNMGP at N=1000, M=2 and the Hadamard GNMGP (about 1,130
+               observations): launches per gradient, the mixed value
+               against f64 at rtol 1e-8 and the gradient within 5e-3 of its
+               scale, the refinement's sweeps, gradient evaluations per
+               second under mixed against f64 in turns, and GNMGP's rate by
+               the spacing of the refinement's host exit check; a profile
+               of one mixed GNMGP gradient and K3's backward under the mixed
+               cotangent against autograd of its plain version;
+               ``run_subject(do_hmc=True, do_loo=True, n_opt=30)`` for
+               GNMGP under mixed (stages, chain rate, acceptance, elpd_loo,
+               K3's launches exactly 1 + draws × leapfrog in the chain);
+               the card against the CPU at N=200 under mixed for each
+               model; the CLI in a subprocess with NMGP_PRECISION=mixed
+               into ``chiprun_out/cli_mixed``; A/B tables of the blocked
+               Cholesky and triangular solve against cuSOLVER and cuBLAS at
+               n = 512, 1000, 2000 and of the loop-free small factor and
+               solve at n = 32..512, device and wall ms.
+13. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -298,6 +317,28 @@ HADAMARD_CHECK_TIMES, HADAMARD_CHECK_DRAWS = 134, 4
 _K1_HADAMARD = {"gradient": {"gibbs_gram": 1, "gibbs_gram_backward": 1}, "loo": {"gibbs_gram": 1},
                 "prediction": {"gibbs_gram": 2}, "sample_draw": {"gibbs_gram": 2}}
 HADAMARD_LAUNCHES = {"lmc": dict.fromkeys(_K1_HADAMARD, {}), "snmgp": _K1_HADAMARD, "gnmgp": _K1_HADAMARD}
+
+#: The precision tier (NMGP_PRECISION=mixed, switched in the process through
+#: ``settings.mixed_solves``): each model's objective at N=TRAIN_N under
+#: mixed against f64, its value within MIXED_VALUE_RTOL and its gradient
+#: within MIXED_GRAD_TOL of the f64 gradient's largest |entry| (float32-class
+#: by design); the refinement's host exit check every k sweeps for k in
+#: PRECISION_CHECK_EVERY (IR_MAX_SWEEPS: never); the card against the CPU at
+#: N=PRECISION_CHECK_N (the Hadamard subject at PRECISION_CHECK_TIMES times,
+#: about 225 training observations, past the mixed gate); the blocked routes
+#: against cuSOLVER and cuBLAS at BLOCKED_AB_N and the loop-free small
+#: factors at UNROLLED_AB_N, their solves against UNROLLED_AB_COLS columns
+#: (the sparse tier's K_mn at N=1000, M=2).
+MIXED_VALUE_RTOL, MIXED_GRAD_TOL = 1e-8, 5e-3
+#: The blocked routes do the default routes' float64 arithmetic in another
+#: order: values, gradients and predictions against them at this rtol (with
+#: a floor of it times the largest |entry|).
+BLOCKED_RTOL = 1e-8
+PRECISION_CHECK_EVERY = (1, 4, 20)
+PRECISION_CHECK_N, PRECISION_CHECK_TIMES = 200, 200
+BLOCKED_AB_N = (512, 1000, 2000)
+UNROLLED_AB_N = (32, 64, 128, 256, 512)
+UNROLLED_AB_COLS = 2000
 
 
 def log(phase: str, msg: str) -> None:
@@ -2074,6 +2115,359 @@ def phase_hadamard(torch, np, gk, seed) -> dict:
     return counts
 
 
+def wall_ms(torch, fn, reps: int = 5) -> float:
+    """Median host-clock ms of one call to ``fn`` ending in a synchronize,
+    after one warm call: what a caller waits, launches included."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def event_ms(torch, fn, reps: int = 3) -> float:
+    """Device ms of one call to ``fn``: CUDA events around ``reps`` calls
+    behind a sleep kernel, for routes too slow on the host for ``time_ms``."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gradient_rate(torch, value_and_grad, f, v) -> list:
+    """Gradient evaluations per second of ``f`` at ``v``: RATE_BATCHES
+    batches of RATE_EVALS, each ending in a synchronize."""
+    per_s = []
+    for _ in range(RATE_BATCHES):
+        t0 = time.perf_counter()
+        for _ in range(RATE_EVALS):
+            value_and_grad(f, v)
+        torch.cuda.synchronize()
+        per_s.append(RATE_EVALS / (time.perf_counter() - t0))
+    return per_s
+
+
+def precision_objectives(torch, np, seed: int, n: int, hadamard_times: int, device):
+    """Each model's objective for the precision phase on ``device``: the
+    GNMGP (``training_subject``), LMC, SNMGP and hetero GNMGP subjects
+    (``model_subject``) at N=n, and the Hadamard GNMGP objective on the
+    training half of ``hadamard_subject`` at ``hadamard_times`` times.
+    Returns {model: (objective, vec on device)}; the subjects are those of
+    the objective, models and hadamard phases at N=TRAIN_N."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import as_hadamard_data
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    f64 = torch.float64
+    as_t = lambda a: torch.as_tensor(a, dtype=f64, device=device)
+    big = n == TRAIN_N
+    x, y, gvec, _ = training_subject(torch, seed + (1 if big else 2), n)
+    out = {"gnmgp": (workflows._MODELS["gnmgp"].make_objective(FullData(as_t(x), as_t(y))), gvec.to(device))}
+    for i, model in enumerate(MODEL_FAMILIES):
+        x, y, vec = model_subject(torch, model, seed + (20 if big else 40) + i, n)
+        out[model] = (workflows._MODELS[model].make_objective(FullData(as_t(x), as_t(y))), vec.to(device))
+    _, vecs, (x_tr, i_tr, y_tr), _ = hadamard_subject(torch, np, seed + (70 if big else 71), hadamard_times)
+    data = as_hadamard_data(x_tr, i_tr, y_tr, device=device, dtype=f64)
+    out["gnmgp_hadamard"] = (workflows._MODELS["gnmgp"].make_objective_hadamard(data, 2), vecs["gnmgp"].to(device))
+    return out
+
+
+def phase_precision(torch, np, gk, seed, hmc_res) -> dict:
+    """The precision tier (``NMGP_PRECISION=mixed``, switched in this process
+    through ``settings.mixed_solves``): (a) each model's objective at
+    N=TRAIN_N under mixed against f64 in turns — launches per gradient,
+    values, gradients, gradient evaluations per second, the refinement's
+    sweeps — and the spacing of the refinement's exit check; (b) a profile
+    of one mixed GNMGP gradient and K3's backward under the mixed cotangent
+    against autograd of its plain version; (c) ``run_subject(do_hmc=True,
+    do_loo=True)`` for GNMGP under mixed; (d) the card against the CPU at
+    N=PRECISION_CHECK_N under mixed; (e) the CLI under
+    ``NMGP_PRECISION=mixed`` in a subprocess; (f) the GNMGP gradient,
+    ``predict_map`` and ``run_subject`` with ``NMGP_BLOCKED_CHOL`` on
+    against the default routes; (g) the blocked and loop-free routes
+    against cuSOLVER and cuBLAS.  Returns each kernel's launches under
+    mixed."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import settings, workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import blocked, chol, mixed
+    from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp as pred
+
+    f64 = torch.float64
+    grad_kernels = {"gnmgp": dict.fromkeys(HMC_KERNELS, 1), "gnmgp_hadamard": HADAMARD_LAUNCHES["gnmgp"]["gradient"],
+                    **{m: MODEL_LAUNCHES[m]["gradient"] for m in MODEL_FAMILIES}}
+    launches: dict = {name: {} for name in TRAINING_KERNELS}
+
+    def frac_err(got, want) -> float:
+        return (got - want).abs().max().item() / want.abs().max().item()
+
+    # (a) each objective under mixed against f64 at N=TRAIN_N
+    objectives = precision_objectives(torch, np, seed, TRAIN_N, TRAIN_N, DEVICE)
+    refine = mixed._refine
+    sweeps: list = []
+
+    def counted_refine(*args):
+        # records each refinement's sweeps per batch member; the values are untouched
+        z, s = refine(*args)
+        sweeps.append(s.tolist())
+        return z, s
+
+    rates: dict = {}
+    for model, (f, v) in objectives.items():
+        sweeps.clear()
+        res = {}
+        for on in (False, True):
+            settings.mixed_solves = on
+            mixed._refine = counted_refine
+            try:
+                gk.reset_launches()
+                res[on] = value_and_grad(f, v)
+                torch.cuda.synchronize()
+                counts = gk.launches()
+            finally:
+                mixed._refine = refine
+            want = {k: grad_kernels[model].get(k, 0) for k in counts}
+            if counts != want:
+                raise AssertionError(f"{model}: one {'mixed' if on else 'f64'} gradient launched {counts}, "
+                                     f"expected {want}")
+            if not (torch.isfinite(res[on][0]) and torch.isfinite(res[on][1]).all()):
+                raise AssertionError(f"{model}: non-finite objective or gradient")
+        for name in TRAINING_KERNELS:
+            launches[name][f"mixed gradient {model}"] = counts[name]
+        if not sweeps:
+            raise AssertionError(f"{model}: the mixed objective did not take the mixed route")
+        rel_v, _ = held(np, [res[True][0].item()], [res[False][0].item()], MIXED_VALUE_RTOL)
+        g_err = frac_err(res[True][1], res[False][1])
+        if not g_err <= MIXED_GRAD_TOL:
+            raise AssertionError(f"{model}: mixed gradient off by {g_err:.3e} of the f64 gradient's scale")
+        per_s = {False: [], True: []}
+        for on in (False, True, True, False):  # in turns
+            settings.mixed_solves = on
+            per_s[on] += gradient_rate(torch, value_and_grad, f, v)
+        settings.mixed_solves = False
+        rates[model] = {mode: statistics.median(per_s[on]) for mode, on in (("f64", False), ("mixed", True))}
+        log("precision", f"{model} N={TRAIN_N} M=2 (P={v.shape[0]}): mixed vs f64 value {res[True][0].item():.12e} vs "
+            f"{res[False][0].item():.12e} (rel {rel_v:.3e}), gradient off by {g_err:.3e} of its scale; "
+            f"refinement sweeps {sweeps[0]}; gradient evaluations/s mixed {rates[model]['mixed']:.3f} "
+            f"(min {min(per_s[True]):.3f}, max {max(per_s[True]):.3f}) vs f64 {rates[model]['f64']:.3f} "
+            f"(min {min(per_s[False]):.3f}, max {max(per_s[False]):.3f}), ratio "
+            f"{rates[model]['mixed'] / rates[model]['f64']:.3f}; one gradient launched {grad_kernels[model]}")
+
+    # the spacing of the refinement's host exit check, in turns
+    f, v = objectives["gnmgp"]
+    settings.mixed_solves = True
+    per_check = {k: [] for k in PRECISION_CHECK_EVERY}
+    default_check = mixed.IR_CHECK_EVERY
+    try:
+        for k in PRECISION_CHECK_EVERY + PRECISION_CHECK_EVERY[::-1]:
+            mixed.IR_CHECK_EVERY = k
+            per_check[k] += gradient_rate(torch, value_and_grad, f, v)
+    finally:
+        mixed.IR_CHECK_EVERY = default_check
+    check_rates = {k: statistics.median(r) for k, r in per_check.items()}
+    log("precision", "gnmgp mixed gradient evaluations/s by the refinement's exit-check spacing (sweeps between "
+        "host reads): " + ", ".join(f"{k}: {r:.3f} (min {min(per_check[k]):.3f}, max {max(per_check[k]):.3f})"
+                                    for k, r in check_rates.items())
+        + f"; fastest {max(check_rates, key=check_rates.get)}, the code's {default_check}")
+
+    # (b) one mixed GNMGP gradient by device op, and K3's backward under the mixed cotangent
+    wall, device_ms, kinds, top = device_profile(torch, lambda: value_and_grad(f, v))
+    log("profile", f"one gnmgp gradient N={TRAIN_N} M=2 mixed: wall {wall:.3f} ms, device {device_ms:.3f} ms "
+        f"(busy share {device_ms / wall:.3f}), {kinds} kernel kinds")
+    for ms, count, key in top:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+    p = gnmgp.unpack(v, TRAIN_N, 2)
+    x, y, _, _ = training_subject(torch, seed + 1, TRAIN_N)
+    xd, yd = (torch.as_tensor(a, dtype=f64, device=DEVICE) for a in (x, y))
+    ell0, ls0 = torch.exp(p.tilde_l), gnmgp.chol_process(p.ul_vecs, TRAIN_N, 2)
+
+    def mixed_grad(gram):
+        ell, ls = ell0.clone().requires_grad_(True), ls0.clone().requires_grad_(True)
+        cov = gram(xd, ell, ls.contiguous(), settings.jitter)
+        cov = torch.diagonal_scatter(cov, torch.diagonal(cov) + torch.exp(p.tilde_sigma2_err))
+        ld, q = mixed.mixed_logdet_quad(cov, yd.reshape(-1))
+        return torch.autograd.grad(-0.5 * (ld + q), (ell, ls))
+
+    err = check_grad(torch, "K3 backward under mixed", mixed_grad(gk.svc_gram_tiled),
+                     mixed_grad(gk.svc_gram_tiled_plain), "float64")
+    settings.mixed_solves = False
+    log("precision", f"K3's backward under the mixed cotangent (ld̄·sym(G) − q̄·zzᵀ) vs autograd of its plain "
+        f"version, N={TRAIN_N} M=2: max abs err {err:.3e}, ok within {GRAD_TOL['float64']} of the scale")
+
+    # (c) run_subject(do_hmc=True, do_loo=True) for GNMGP under mixed
+    cfg = workflows.PipelineConfig(n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True)
+    n_grads = 1 + cfg.n_hmc * cfg.hmc_leapfrog
+    stage: dict = {}
+    run_chain = workflows._run_chain
+
+    def counted_chain(*args, **kwargs):
+        before = gk.launches()
+        out = run_chain(*args, **kwargs)
+        torch.cuda.synchronize()
+        stage.update({k: v_ - before[k] for k, v_ in gk.launches().items()})
+        return out
+
+    settings.mixed_solves = True
+    workflows._run_chain = counted_chain
+    try:
+        gk.reset_launches()  # the main path starts here
+        t0 = time.perf_counter()
+        res = workflows.run_subject(x, y, cfg, dataset="sim")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        run_launches = gk.launches()  # the main path ends here
+    finally:
+        workflows._run_chain = run_chain
+        settings.mixed_solves = False
+    want = {k: (n_grads if k in HMC_KERNELS else 0) for k in stage}
+    if stage != want:
+        raise AssertionError(f"the mixed chain launched {stage}, expected {want}")
+    for name in TRAINING_KERNELS:
+        launches[name]["mixed run_subject"] = run_launches[name]
+        launches[name]["mixed chain"] = stage[name]
+    loo = res["loo"]
+    if not (torch.isfinite(res["hmc_samples"]).all() and np.isfinite(loo["elpd_loo"]) and np.isfinite(res["dic"])):
+        raise AssertionError("the mixed run_subject gave non-finite draws, DIC or elpd_loo")
+    map_f64, map_mixed = hmc_res["target_hist"][-1], res["target_hist"][-1]
+    log("precision", f"run_subject gnmgp N={TRAIN_N} M=2 mixed n_opt={TRAIN_N_OPT} do_hmc=True do_loo=True: "
+        f"{wall_s:.3f} s; stages (s): " + ", ".join(f"{k} {v_:.3f}" for k, v_ in res["timings"].items()))
+    log("precision", f"mixed chain: {n_grads} gradients in {res['timings']['hmc']:.3f} s "
+        f"({n_grads / res['timings']['hmc']:.3f} gradients/s), acceptance {res['hmc_accept']:.6f}, DIC "
+        f"{res['dic']:.6e}, elpd_loo {loo['elpd_loo']:.6f} (p_loo {loo['p_loo']:.4f}, n_bad_k {loo['n_bad_k']}); "
+        f"launches in the chain {stage}, in the run {run_launches}; final MAP objective mixed {map_mixed:.10e} "
+        f"vs the hmc phase's f64 {map_f64:.10e} (rel {abs(map_mixed / map_f64 - 1):.3e})")
+
+    # (d) the card against the CPU under mixed
+    settings.mixed_solves = True
+    try:
+        checks = {dev: precision_objectives(torch, np, seed, PRECISION_CHECK_N, PRECISION_CHECK_TIMES, dev)
+                  for dev in (DEVICE, "cpu")}
+        for model, (f_card, v_card) in checks[DEVICE].items():
+            f_cpu, v_cpu = checks["cpu"][model]
+            sweeps.clear()
+            mixed._refine = counted_refine
+            try:
+                val_c, g_c = value_and_grad(f_card, v_card)
+            finally:
+                mixed._refine = refine
+            if not sweeps:
+                raise AssertionError(f"{model} at N={PRECISION_CHECK_N}: the mixed route was not taken")
+            val_h, g_h = value_and_grad(f_cpu, v_cpu)
+            rel_v, _ = held(np, [val_c.item()], [val_h.item()], MIXED_VALUE_RTOL)
+            g_err = frac_err(g_c.cpu(), g_h)
+            if not g_err <= MIXED_GRAD_TOL:
+                raise AssertionError(f"{model}: card gradient off by {g_err:.3e} of the CPU gradient's scale")
+            log("precision", f"{model} N={PRECISION_CHECK_N} (P={v_cpu.shape[0]}) mixed, card vs CPU: value "
+                f"{val_c.item():.12e} vs {val_h.item():.12e} (rel {rel_v:.3e}), gradient off by {g_err:.3e} of "
+                f"its scale: ok at rtol {MIXED_VALUE_RTOL} and {MIXED_GRAD_TOL}")
+    finally:
+        settings.mixed_solves = False
+
+    # (e) the CLI with NMGP_PRECISION=mixed in its environment
+    cli_out = os.path.join(ROOT, "chiprun_out", "cli_mixed")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nonstationary_multivariate_gaussian_process_tpu_torch.examples.run_sim_pipeline",
+         "--n", str(CHAIN_CHECK_N), "--n-opt", str(CHECK_N_OPT), "--n-hmc", str(CHAIN_CLI_HMC), "--out", cli_out],
+        cwd=ROOT, env={**os.environ, "NMGP_PRECISION": "mixed"}, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"the mixed CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    summary = json.loads("\n".join(lines[next(i for i, s in enumerate(lines) if s.startswith("{")):]))
+    if not all(np.isfinite(summary[k]) for k in ("deviance", "aic", "bic", "dic", "hmc_accept")):
+        raise AssertionError(f"the mixed CLI's summary lacks finite scores: {summary}")
+    for name in ("posterior.png", "target_trace.png", "manifest.json"):
+        if not os.path.getsize(os.path.join(cli_out, name)) > 0:
+            raise AssertionError(f"the mixed CLI did not write {name}")
+    log("precision", f"CLI NMGP_PRECISION=mixed --n {CHAIN_CHECK_N} --n-opt {CHECK_N_OPT} --n-hmc {CHAIN_CLI_HMC} "
+        f"in a subprocess: {time.perf_counter() - t0:.3f} s; summary {summary}")
+
+    # (f) the GNMGP paths with NMGP_BLOCKED_CHOL on (MN = 2000 >= BLOCKED_MIN_N) against the default routes
+    grid = np.linspace(float(x.min()), float(x.max()), cfg.n_grid)
+    cfg_map = workflows.PipelineConfig(n_opt=TRAIN_N_OPT)
+    routes = {}
+    for on in (False, True):
+        chol._BLOCKED_ENABLED = on
+        try:
+            val, grad = value_and_grad(f, v)
+            per_s = gradient_rate(torch, value_and_grad, f, v)
+            mean = pred.predict_map(v, FullData(xd, yd), grid).mean
+            run = workflows.run_subject(x, y, cfg_map, dataset="sim")
+            torch.cuda.synchronize()
+        finally:
+            chol._BLOCKED_ENABLED = False
+        routes[on] = (val, grad, statistics.median(per_s), mean, run)
+    (val0, grad0, rate0, mean0, run0), (val1, grad1, rate1, mean1, run1) = routes[False], routes[True]
+    rel_v, _ = held(np, [val1.item()], [val0.item()], BLOCKED_RTOL)
+    rel_g, frac_g = held(np, grad1.cpu().numpy(), grad0.cpu().numpy(), BLOCKED_RTOL)
+    rel_p, frac_p = held(np, mean1.cpu().numpy(), mean0.cpu().numpy(), SERVED_RTOL)
+    rel_m, frac_m = held(np, run1["map_vec"].cpu().numpy(), run0["map_vec"].cpu().numpy(), OBJECTIVE_RTOL)
+    log("precision", f"NMGP_BLOCKED_CHOL=1 gnmgp N={TRAIN_N} M=2 f64 against the default routes: value rel "
+        f"{rel_v:.3e}, gradient max err {frac_g:.3e} of its scale, {rate1:.3f} vs {rate0:.3f} gradient "
+        f"evaluations/s; predict_map mean at {len(grid)} points max err {frac_p:.3e} of its scale; run_subject "
+        f"n_opt={TRAIN_N_OPT} {sum(run1['timings'].values()):.3f} vs {sum(run0['timings'].values()):.3f} s, "
+        f"map_vec max rel err {rel_m:.3e}: ok at rtol {BLOCKED_RTOL} ({SERVED_RTOL} with its floor for the "
+        f"prediction, whose kriging is conditioned ~1e10; {OBJECTIVE_RTOL} for the MAP)")
+
+    # (g) the blocked and loop-free routes against cuSOLVER and cuBLAS (f64)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 90)
+
+    def spd(n):
+        a = torch.randn(n, n, generator=gen, dtype=f64, device=DEVICE)
+        return a @ a.T / n + 2.0 * torch.eye(n, dtype=f64, device=DEVICE)
+
+    def row(label, n, pairs):
+        cells = []
+        for name, fn in pairs:
+            cells.append(f"{name} {event_ms(torch, fn):.4f} ms device, {wall_ms(torch, fn):.4f} ms wall")
+        log("precision", f"A/B {label} n={n}: " + "; ".join(cells))
+
+    for n in BLOCKED_AB_N:
+        a = spd(n)
+        l = torch.linalg.cholesky(a)
+        b_vec = torch.randn(n, generator=gen, dtype=f64, device=DEVICE)
+        b_mat = torch.randn(n, n, generator=gen, dtype=f64, device=DEVICE)
+        err = frac_err(blocked.blocked_cholesky(a), l)
+        err = max(err, frac_err(blocked.blocked_trsm(l, b_mat), torch.linalg.solve_triangular(l, b_mat, upper=False)))
+        if not err <= 1e-10:
+            raise AssertionError(f"blocked routes at n={n} off by {err:.3e} of the scale")
+        row("cholesky", n, (("blocked_cholesky", lambda: blocked.blocked_cholesky(a)),
+                            ("cuSOLVER cholesky_ex", lambda: torch.linalg.cholesky_ex(a))))
+        for label, b in (("(n,)", b_vec), ("(n, n)", b_mat)):
+            row(f"triangular solve {label}", n, (
+                ("blocked_trsm", lambda: blocked.blocked_trsm(l, b)),
+                ("cuBLAS trsm", lambda: torch.linalg.solve_triangular(l, b if b.dim() == 2 else b[:, None],
+                                                                      upper=False))))
+    for n in UNROLLED_AB_N:
+        a = spd(n)
+        l = torch.linalg.cholesky(a)
+        b = torch.randn(n, UNROLLED_AB_COLS, generator=gen, dtype=f64, device=DEVICE)
+        err = max(frac_err(chol.safe_cholesky_unrolled(a), l),
+                  frac_err(blocked.unrolled_tri_inv(l) @ b, torch.linalg.solve_triangular(l, b, upper=False)))
+        if not err <= 1e-10:
+            raise AssertionError(f"loop-free routes at n={n} off by {err:.3e} of the scale")
+        row("small factor", n, (("safe_cholesky_unrolled", lambda: chol.safe_cholesky_unrolled(a)),
+                                ("cuSOLVER safe_cholesky", lambda: chol.safe_cholesky(a, force_robust=True))))
+        row(f"small solve (n, {UNROLLED_AB_COLS})", n, (
+            ("unrolled_tri_inv @ b", lambda: blocked.unrolled_tri_inv(l) @ b),
+            ("cuBLAS trsm", lambda: chol.tri_solve(l, b))))
+    log("precision", "NMGP_UNROLLED_CHOL=auto on cuda: "
+        + ("the loop-free kernels" if chol.use_unrolled(spd(32)) else "cuSOLVER and cuBLAS"))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2121,6 +2515,9 @@ def main() -> int:
     t0 = time.perf_counter()
     hadamard_launches = phase_hadamard(torch, np, gk, args.seed)
     log("hadamard", f"phase took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    precision_launches = phase_precision(torch, np, gk, args.seed, hmc_res)
+    log("precision", f"phase took {time.perf_counter() - t0:.3f} s")
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -2152,6 +2549,8 @@ def main() -> int:
         row["launches_nuts"] = {model: c[name] for model, c in nuts_launches.items()}
         # the Hadamard layout by model and stage (run_subject_hadamard at N_obs ≈ 1,500)
         row["launches_hadamard"] = {model: c[name] for model, c in hadamard_launches.items()}
+        # under NMGP_PRECISION=mixed: per gradient by model, the GNMGP run_subject and its chain
+        row["launches_precision"] = precision_launches[name]
         kernels.append(row)
     log("summary", "warm /predict latency ms by size: "
         + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
@@ -2165,6 +2564,8 @@ def main() -> int:
     log("summary", "launches in run_subject_hadamard by model and stage: " + "; ".join(
         f"{model}: " + ", ".join(f"{k} {v}" for k, v in c.items() if any(v.values()))
         for model, c in hadamard_launches.items()))
+    log("summary", "launches under mixed: " + "; ".join(
+        f"{name}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for name, c in precision_launches.items()))
     log("summary", "gradient evaluations/s at N=1000, M=2: "
         + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
     log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")

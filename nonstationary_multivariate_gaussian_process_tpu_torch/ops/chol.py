@@ -2,36 +2,119 @@
 
 Counterpart of the JAX package's ``ops/chol.py`` (``safe_cholesky``,
 ``tri_solve``, ``chol_solve``, ``chol_logdet``, ``psd_logdet_quad``,
-``psd_solve`` and the host-side prior factors ``prior_cholesky``,
-``prior_rbf_cholesky``, ``prior_rbf_inv``).  Only the float64/float32 routes
-are ported; the blocked, unrolled and mixed routes (off by default in the
-JAX package) are not.  The reference's stochastic
-retry loop (``Utility/logpos.py:267-268``) becomes a two-rung ladder: the
-plain factor, then — only when it failed — one retry with jitter
+``psd_solve``, the host-side prior factors ``prior_cholesky``,
+``prior_rbf_cholesky``, ``prior_rbf_inv``, and the precision tier's routes:
+the blocked product-based factor and solves behind ``NMGP_BLOCKED_CHOL=1``,
+the loop-free small factors behind ``NMGP_UNROLLED_CHOL``, and the mixed
+logdet/quadratic form behind ``NMGP_PRECISION=mixed``).  The reference's
+stochastic retry loop (``Utility/logpos.py:267-268``) becomes a two-rung
+ladder: the plain factor, then — only when it failed — one retry with jitter
 ``fallback · mean(diag)``.
 
 JAX signals a failed factorization with NaNs; ``torch.linalg.cholesky_ex``
 returns an ``info`` code and a partly filled factor instead, so the ladder is
-driven from ``info != 0``.  A factor that fails even after the retry comes
-back as NaNs, as in JAX, so the caller sees it rather than a partial matrix.
+driven from ``info != 0`` (from non-finite entries on the blocked and
+unrolled routes, whose failed tiles are NaNs).  A factor that fails even
+after the retry comes back as NaNs, as in JAX, so the caller sees it rather
+than a partial matrix.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from .. import settings
+from . import blocked, mixed
 
 #: Relative fallback jitter (fraction of the mean diagonal) when the plain
 #: Cholesky fails: f64 keeps the reference-scale 1e-4; f32 needs ~1e-3.
 FALLBACK_REL_F64 = 1e-4
 FALLBACK_REL_F32 = 1e-3
 
+#: float64 factorizations and solves of at least this size take the blocked
+#: routes (ops/blocked.py) when NMGP_BLOCKED_CHOL=1 (off by default, as in
+#: the JAX package; on the H100 cuSOLVER's factor is faster, PERF.md).
+BLOCKED_MIN_N = 512
+_BLOCKED_ENABLED = os.environ.get("NMGP_BLOCKED_CHOL", "0") not in ("0", "false")
+
+#: Minimum size for the mixed-precision logdet + quadratic form.
+MIXED_MIN_N = 192
+
+#: Small float64 factors (n <= UNROLLED_MAX_N) take the loop-free recursive
+#: kernels of ops/blocked.py when NMGP_UNROLLED_CHOL=1; "0" never.  "auto"
+#: (default) decides by the tensor's device from the measured A/B
+#: (``PERF.md``): LAPACK wins on the CPU, and on the H100 cuSOLVER's factor
+#: and cuBLAS's ``trsm`` beat the eager recursion at every n <= 512.
+UNROLLED_MAX_N = 512
+_UNROLLED = os.environ.get("NMGP_UNROLLED_CHOL", "auto").lower()
+_UNROLLED_AUTO = {"cpu": False, "cuda": False}
+
+
+def use_unrolled(a: torch.Tensor) -> bool:
+    """True when the loop-free small-factor kernels should serve ``a``."""
+    if a.dtype != torch.float64 or a.dim() != 2 or a.shape[-1] > UNROLLED_MAX_N:
+        return False
+    if _UNROLLED == "auto":
+        return _UNROLLED_AUTO.get(a.device.type, False)
+    return _UNROLLED not in ("0", "false")
+
+
+def _use_blocked(a: torch.Tensor) -> bool:
+    return _BLOCKED_ENABLED and a.dtype == torch.float64 and a.shape[-1] >= BLOCKED_MIN_N
+
+
+def _fallback(a: torch.Tensor) -> float:
+    return FALLBACK_REL_F32 if a.dtype == torch.float32 else FALLBACK_REL_F64
+
+
+def _jittered(a: torch.Tensor, fallback: float) -> torch.Tensor:
+    scale = torch.mean(torch.diagonal(a, dim1=-2, dim2=-1))
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    return a + (fallback * scale) * eye
+
 
 def _cholesky(a: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    if _use_blocked(a):
+        chol = blocked.blocked_cholesky(a)
+        return chol, bool(torch.isfinite(chol).all())
     chol, info = torch.linalg.cholesky_ex(a)
     return chol, bool((info == 0).all())
+
+
+def best_cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Cholesky factor by the route for the dtype and size (the blocked one
+    when enabled); NaNs when it fails."""
+    chol, ok = _cholesky(a)
+    return chol if ok else a * float("nan")
+
+
+def safe_cholesky_unrolled(a: torch.Tensor, fallback: float | None = None) -> torch.Tensor:
+    """:func:`safe_cholesky`'s jitter ladder over ``blocked.unrolled_cholesky``:
+    the retry runs only when the plain factor is not finite."""
+    chol = blocked.unrolled_cholesky(a)
+    if bool(torch.isfinite(chol).all()):
+        return chol
+    return blocked.unrolled_cholesky(_jittered(a, _fallback(a) if fallback is None else fallback))
+
+
+def robust_cholesky_small(a: torch.Tensor) -> torch.Tensor:
+    """Jitter-ladder factor of a small Gram: the loop-free kernel where
+    :func:`use_unrolled` says so, else :func:`safe_cholesky` with the ladder
+    forced on."""
+    if use_unrolled(a):
+        return safe_cholesky_unrolled(a)
+    return safe_cholesky(a, force_robust=True)
+
+
+def tri_solve_small(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``L⁻¹ b`` by the explicit loop-free inverse where :func:`use_unrolled`
+    says so (one product), else :func:`tri_solve`."""
+    if use_unrolled(l):
+        return blocked.unrolled_tri_inv(l) @ b
+    return tri_solve(l, b)
 
 
 def safe_cholesky(a: torch.Tensor, force_robust: bool = False) -> torch.Tensor:
@@ -45,10 +128,7 @@ def safe_cholesky(a: torch.Tensor, force_robust: bool = False) -> torch.Tensor:
     """
     chol, ok = _cholesky(a)
     if not ok and (settings.robust_cholesky or force_robust):
-        fallback = FALLBACK_REL_F32 if a.dtype == torch.float32 else FALLBACK_REL_F64
-        scale = torch.mean(torch.diagonal(a, dim1=-2, dim2=-1))
-        eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
-        chol, ok = _cholesky(a + (fallback * scale) * eye)
+        chol, ok = _cholesky(_jittered(a, _fallback(a)))
     if not ok:
         # NaNs that keep a's autograd link, so the gradient through a failed
         # factor is NaN too, as JAX's is: a sampler's trajectory that leaves
@@ -60,8 +140,10 @@ def safe_cholesky(a: torch.Tensor, force_robust: bool = False) -> torch.Tensor:
 def tri_solve(l: torch.Tensor, b: torch.Tensor, trans: bool = False) -> torch.Tensor:
     """``L⁻¹ b`` (or ``L⁻ᵀ b`` with ``trans``) for lower-triangular ``L``.
 
-    ``b`` may be (n,) or (n, k).
+    ``b`` may be (n,) or (n, k).  Blocked substitution where enabled.
     """
+    if _use_blocked(l):
+        return blocked.blocked_trsm(l, b, trans)
     vec = b.dim() == 1
     rhs = b[:, None] if vec else b
     if trans:
@@ -73,6 +155,8 @@ def tri_solve(l: torch.Tensor, b: torch.Tensor, trans: bool = False) -> torch.Te
 
 def chol_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``A x = b`` given the lower factor ``chol`` of ``A``; b (n,) or (n, k)."""
+    if _use_blocked(chol):
+        return blocked.blocked_chol_solve(chol, b)
     vec = b.dim() == 1
     out = torch.cholesky_solve(b[:, None] if vec else b, chol, upper=False)
     return out[:, 0] if vec else out
@@ -85,7 +169,13 @@ def chol_logdet(chol: torch.Tensor) -> torch.Tensor:
 
 def psd_logdet_quad(a: torch.Tensor, y: torch.Tensor):
     """``(logdet A, yᵀ A⁻¹ y)`` via one robust Cholesky (the reference's dense
-    ``torch.inverse`` + ``torch.logdet`` pair, ``Utility/logpos.py:352-353``)."""
+    ``torch.inverse`` + ``torch.logdet`` pair, ``Utility/logpos.py:352-353``).
+
+    With ``settings.mixed_solves``, a float64 ``a`` of at least
+    :data:`MIXED_MIN_N` and a 1-D ``y`` take ``mixed.mixed_logdet_quad``.
+    """
+    if settings.mixed_solves and a.dtype == torch.float64 and a.shape[-1] >= MIXED_MIN_N and y.dim() == 1:
+        return mixed.mixed_logdet_quad(a, y)
     c = safe_cholesky(a)
     sol = tri_solve(c, y)
     return chol_logdet(c), torch.sum(sol * sol, dim=-1)

@@ -10,12 +10,18 @@ so the solve and the logdet reduce to M independent N×N Cholesky
 factorizations, here one batched ``torch.linalg.cholesky_ex`` call.  A block
 that fails to factor comes back as NaNs, as ``jnp.linalg.cholesky`` does, so
 the value turns non-finite and the optimizer's guard sees it; the check needs
-no host synchronization.
+no host synchronization.  With ``settings.mixed_solves`` and float64 blocks
+of at least ``chol.MIXED_MIN_N``, the M blocks go through one batched
+``mixed.mixed_logdet_quad`` instead.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import settings
+from . import chol as _chol
+from . import mixed as _mixed
 
 
 def kron_mv(b: torch.Tensor, k: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -55,11 +61,18 @@ def kron_chol_logdet_quad(b, k, sigma2, y, mask=None):
         mv = torch.as_tensor(mask, device=k.device).to(k.dtype)
         k = k * (mv[:, None] * mv[None, :]) + torch.diag(1.0 - mv)
         y = y * mv.repeat(m)
-    w_b, v_b, chols = kron_chol_factors(b, k, sigma2)
-    z = v_b.T @ y.reshape(m, n)  # rotate the task axis: (M, N)
-    sol = torch.linalg.solve_triangular(chols, z[:, :, None], upper=False)[:, :, 0]
-    quad = torch.sum(sol * sol)
-    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)))
+    if settings.mixed_solves and k.dtype == torch.float64 and n >= _chol.MIXED_MIN_N:
+        w_b, v_b = torch.linalg.eigh(b)
+        eye = torch.eye(n, dtype=k.dtype, device=k.device)
+        blocks = w_b[:, None, None] * k[None] + sigma2 * eye[None]
+        lds, quads = _mixed.mixed_logdet_quad(blocks, v_b.T @ y.reshape(m, n))
+        logdet, quad = torch.sum(lds), torch.sum(quads)
+    else:
+        w_b, v_b, chols = kron_chol_factors(b, k, sigma2)
+        z = v_b.T @ y.reshape(m, n)  # rotate the task axis: (M, N)
+        sol = torch.linalg.solve_triangular(chols, z[:, :, None], upper=False)[:, :, 0]
+        quad = torch.sum(sol * sol)
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)))
     if mask is not None:
         n_pad = n - torch.sum(mv)
         logdet = logdet - n_pad * torch.sum(torch.log(w_b + sigma2))

@@ -6,7 +6,9 @@ Counterpart of ``nonstationary_multivariate_gaussian_process_tpu.settings``
 
 * ``NMGP_X64=1`` (default) or ``NMGP_PRECISION=f64``: float64 everywhere.
 * ``NMGP_X64=0`` or ``NMGP_PRECISION=f32``: float32 compute.
-* ``NMGP_PRECISION=mixed`` is not ported yet and raises on import.
+* ``NMGP_PRECISION=mixed``: float64 arrays and values, with the large PSD
+  logdet and quadratic forms done by the f32-preconditioned corrected kernel
+  (``ops/mixed.py``); gradients through it are f32-class.
 
 The port runs eagerly, so there is no compile cache.  Every entry point takes
 an explicit ``device``; with none given it runs on ``cuda`` and raises when no
@@ -24,19 +26,29 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def dtype_from_env(environ) -> torch.dtype:
-    """Working dtype from ``NMGP_X64`` / ``NMGP_PRECISION`` (as the JAX package)."""
+def precision_from_env(environ) -> str:
+    """Precision mode from ``NMGP_X64`` / ``NMGP_PRECISION`` (as the JAX
+    package): ``"f64"``, ``"f32"`` or ``"mixed"``."""
     x64 = environ.get("NMGP_X64", "1") not in ("0", "false", "False")
     mode = environ.get("NMGP_PRECISION", "f64" if x64 else "f32").lower()
-    if mode == "mixed":
-        raise ValueError(
-            "NMGP_PRECISION=mixed is not yet ported to the torch package "
-            "(use f64 or f32)"
-        )
-    if mode not in ("f64", "f32"):
+    if mode not in ("f64", "f32", "mixed"):
         raise ValueError(f"NMGP_PRECISION must be f64|f32|mixed, got {mode}")
-    return torch.float64 if mode == "f64" else torch.float32
+    return mode
 
+
+def dtype_from_env(environ) -> torch.dtype:
+    """Working dtype from ``NMGP_X64`` / ``NMGP_PRECISION``: float64 for
+    ``f64`` and ``mixed``, float32 for ``f32``."""
+    return torch.float32 if precision_from_env(environ) == "f32" else torch.float64
+
+
+#: "f64" (default), "f32" or "mixed".
+precision_mode = precision_from_env(os.environ)
+
+#: True in the "mixed" mode: large float64 PSD logdet/quadratic forms route
+#: through ``ops.mixed.mixed_logdet_quad``.  Callers read it at call time
+#: (``settings.mixed_solves``), so it can be switched in a running process.
+mixed_solves = precision_mode == "mixed"
 
 #: Default floating dtype for all covariance/posterior computations.
 dtype = dtype_from_env(os.environ)

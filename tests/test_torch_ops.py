@@ -41,8 +41,13 @@ def test_settings_dtype_and_precision_env():
     assert settings.precision == jsettings.precision
     assert settings.dtype_from_env({"NMGP_X64": "0"}) == torch.float32
     assert settings.dtype_from_env({"NMGP_PRECISION": "F32"}) == torch.float32
-    with pytest.raises(ValueError, match="not yet ported"):
-        settings.dtype_from_env({"NMGP_PRECISION": "mixed"})
+    # mixed: float64 arrays, the large PSD solves through ops/mixed.py
+    assert settings.dtype_from_env({"NMGP_PRECISION": "mixed"}) == T64
+    assert settings.precision_from_env({"NMGP_PRECISION": "MIXED", "NMGP_X64": "0"}) == "mixed"
+    assert settings.precision_from_env({"NMGP_X64": "false"}) == "f32"
+    assert settings.mixed_solves is (settings.precision_mode == "mixed") is jsettings.mixed_solves
+    with pytest.raises(ValueError, match="f64|f32|mixed"):
+        settings.dtype_from_env({"NMGP_PRECISION": "bf16"})
     assert settings.default_device() == torch.device("cuda")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

@@ -196,7 +196,7 @@ def test_port_and_chip_smoke_import_no_jax():
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     for new in ("inference/pathfinder.py", "viz.py", "data/io.py", "examples/run_sim_pipeline.py",
-                "predict/hadamard.py", "data/preprocess.py"):
+                "predict/hadamard.py", "data/preprocess.py", "ops/mixed.py", "ops/blocked.py"):
         assert os.path.join(PORT_PKG, new) in files, new
     bad = {f: sorted({n for n in _imports(f) if _forbidden(n)}) for f in files}
     assert {f: n for f, n in bad.items() if n} == {}
