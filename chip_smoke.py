@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS, Hadamard-layout and mixed-precision paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS, Hadamard-layout, mixed-precision and other-sampler paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
@@ -148,7 +148,26 @@ Phases, each printing its lines:
                Cholesky and triangular solve against cuSOLVER and cuBLAS at
                n = 512, 1000, 2000 and of the loop-free small factor and
                solve at n = 32..512, device and wall ms.
-13. summary  — one JSON line listing every kernel, the card's name and power
+13. samplers — (DRHMC, ChEES and replica exchange, no device named) at
+               N=1000, M=2, f64 from a MAP at ``n_opt=30``, 10 warmup + 10
+               kept draws: ``run_subject(sampler="drhmc", do_loo=True)`` for
+               GNMGP and LMC, ``run_subject(sampler="chees", whiten=True,
+               do_loo=True)`` for GNMGP and ``run_subject_hadamard(sampler=
+               "chees", do_loo=True)`` for the Hadamard phase's GNMGP
+               subject: stage times, gradients/s against the objective's
+               rate and fixed HMC's chain, DRHMC's accepting-stage
+               histogram, stage-1 rate and step, ChEES's T, leapfrog counts,
+               min-ESS and max R-hat, and the sampling stage's launches
+               checked exactly against its gradients (DRHMC 1 + Σ(2^t −
+               1)(L + 1); ChEES the K − 1 start descents, the start
+               sanitizer and K a leapfrog step); ``tempered_hmc_sample`` on
+               the whitened GNMGP potential with 4 replicas of 10 steps
+               (swap and replica acceptance, launches); each sampler on the
+               card against the CPU at N=200 with the same injected noise
+               (equal accepting stages and leapfrog counts, draws at rtol
+               1e-8, the whitened tempering chain's at 1e-6); the CLI with ``--sampler chees`` at N=48 into
+               ``chiprun_out/cli_chees``.
+14. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -339,6 +358,24 @@ PRECISION_CHECK_N, PRECISION_CHECK_TIMES = 200, 200
 BLOCKED_AB_N = (512, 1000, 2000)
 UNROLLED_AB_N = (32, 64, 128, 256, 512)
 UNROLLED_AB_COLS = 2000
+
+
+#: The samplers (DRHMC, ChEES, replica exchange): at N=TRAIN_N each chain
+#: takes SAMPLER_WARMUP warmup and SAMPLER_DRAWS kept draws (cut from
+#: run_subject's max(100, n_hmc) + 100), tempering SAMPLER_REPLICAS replicas
+#: of SAMPLER_TEMPER_LEAPFROG steps (cut from 20); the card against the CPU
+#: at N=SAMPLER_CHECK_N with injected noise, draws at SAMPLER_CHECK_RTOL
+#: (the whitened tempering chain at OBJECTIVE_RTOL);
+#: the CLI with --sampler chees at N=SAMPLER_CLI_N (its run_subject's 100
+#: warmup draws: the CLI has no warmup flag).
+SAMPLER_WARMUP, SAMPLER_DRAWS, SAMPLER_REPLICAS, SAMPLER_TEMPER_LEAPFROG = 10, 10, 4, 10
+SAMPLER_CHECK_N, SAMPLER_CHECK_RTOL, SAMPLER_CLI_N, SAMPLER_CLI_HMC = 200, 1e-8, 48, 4
+#: The card-vs-CPU chains: DRHMC's first step (its draws then accept at
+#: every stage: 1, 3, 2, 1, 1, 1 on the CPU), and ChEES's initial trajectory
+#: time in steps, not a multiple of a Halton point's inverse, so that the
+#: first draws' ceil(tau / eps) is not a tie that the last bit could flip.
+DRHMC_CHECK_STEP, CHEES_CHECK_T = 1e-3, 17.3
+K1_KERNELS = ("gibbs_gram", "gibbs_gram_backward")
 
 
 def log(phase: str, msg: str) -> None:
@@ -1470,7 +1507,7 @@ def phase_models(torch, np, gk, seed) -> dict:
     mode="map" and mode="sample" over HTTP from that store; run_subject at
     N=CHECK_N card vs CPU.  Then the CLI with --model gnmgp_hetero.  Returns
     each kernel's launches by model and stage, and each model's subject (x,
-    y), its MAP vector on the CPU and its chain's mean acceptance."""
+    y), its MAP vector on the CPU, its chain's mean acceptance and seconds."""
     from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, workflows
     from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline
     from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
@@ -1625,7 +1662,7 @@ def phase_models(torch, np, gk, seed) -> dict:
             if thread.is_alive():
                 raise AssertionError("server thread did not stop")
         map_vec = res["map_vec"].cpu()
-        subjects[model] = (x, y, map_vec, res["hmc_accept"])
+        subjects[model] = (x, y, map_vec, res["hmc_accept"], res["timings"]["hmc"])
         ref = pred.predict_map(map_vec, FullData(x, y), xs, device="cpu", dtype=f64)
         for k, w in (("mean", ref.mean), ("std", ref.std), ("lower", ref.percentiles[:, 0]),
                      ("upper", ref.percentiles[:, 2])):
@@ -1825,7 +1862,7 @@ def phase_nuts(torch, np, gk, seed, subjects) -> dict:
     # run_subject's default warmup, max(100, n_hmc)
     runs = [(model, NUTS_WARMUP) for model in MODEL_FAMILIES] + [("gnmgp_hetero", NUTS_HETERO_WARMUP)]
     for i, (model, n_warmup) in enumerate(runs):
-        mx, my, map_vec, hmc_accept = subjects[model]
+        mx, my, map_vec, hmc_accept, _ = subjects[model]
         xd = torch.as_tensor(mx, dtype=f64, device=DEVICE)
         nlp = workflows._MODELS[model].make_objective(FullData(xd, torch.as_tensor(my, dtype=f64, device=DEVICE)))
         w = whiten.make_whitener(model, xd, TRAIN_N, 2)
@@ -2468,6 +2505,290 @@ def phase_precision(torch, np, gk, seed, hmc_res) -> dict:
     return launches
 
 
+def drhmc_gradients(res, n_leapfrog: int, n_stages: int) -> int:
+    """The gradients a DRHMC chain took: a draw that tried t stages (all of
+    them when none accepted) ran 2**t − 1 trajectories of n_leapfrog + 1
+    gradients."""
+    tried = [s if s > 0 else n_stages for s in res.accept_stage.tolist()]
+    return sum(2 ** t - 1 for t in tried) * (n_leapfrog + 1)
+
+
+def drhmc_stats(torch, res, n_warmup: int, n_stages: int) -> str:
+    """A DRHMC chain's accepting-stage histogram (warmup and kept draws),
+    stage-1 acceptance after warmup and final step, as one log fragment."""
+    stages = res.accept_stage.cpu()
+    hist = lambda s: ", ".join(f"{k}: {int((s == k).sum())}" for k in range(n_stages + 1))
+    kept = stages[n_warmup:]
+    return (f"accepting stage (0 = none) in warmup {{{hist(stages[:n_warmup])}}}, after {{{hist(kept)}}}; "
+            f"stage-1 accepted {(kept == 1).double().mean().item():.3f} of kept draws, mean stage-1 accept prob "
+            f"{res.accept_prob1[n_warmup:].mean().item():.6f}; final step {res.step_size.item():.6e}")
+
+
+def multichain_launches(k: int, n_descent: int, n_leapfrog_sum: int) -> tuple[int, int]:
+    """The forward and backward launches of a model's Gram kernel in
+    ``_run_chain_chees``: the K − 1 descents of ``n_descent`` gradients and a
+    value each, the start sanitizer's K values and K gradients, then K
+    gradients per leapfrog step."""
+    bwd = (k - 1) * n_descent + k + k * n_leapfrog_sum
+    return bwd + (k - 1) + k, bwd
+
+
+def check_stage_launches(label, launched: dict, kernels, fwd: int, bwd: int) -> dict:
+    """The stage launched the model's forward ``fwd`` and backward ``bwd``
+    times and no other kernel; returns the launches."""
+    want = {k: 0 for k in launched}
+    want[kernels[0]], want[kernels[1]] = fwd, bwd
+    if launched != want:
+        raise AssertionError(f"{label}: the sampling stage launched {launched}, expected {want}")
+    return launched
+
+
+def phase_samplers(torch, np, gk, seed, hmc_res, subjects) -> dict:
+    """DRHMC, ChEES and replica exchange: (a) ``run_subject(sampler="drhmc",
+    do_loo=True)`` for GNMGP and LMC at N=TRAIN_N, (b) ``run_subject(
+    sampler="chees", whiten=True, do_loo=True)`` for GNMGP and (c)
+    ``run_subject_hadamard(sampler="chees")`` on the Hadamard phase's
+    subject, each from a MAP at ``n_opt=TRAIN_N_OPT`` with SAMPLER_WARMUP +
+    SAMPLER_DRAWS draws, with the sampling stage's launches checked exactly
+    against its gradients; (d) ``tempered_hmc_sample`` on the whitened GNMGP
+    potential; (e) each sampler on the card against the CPU at
+    N=SAMPLER_CHECK_N with the same injected noise; (f) the CLI with
+    ``--sampler chees``.  Returns each run's stage launches."""
+    import inspect
+
+    from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import chees, drhmc, tempering, whiten
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import init as init_mod
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import as_hadamard_data, gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    f64 = torch.float64
+    as_t = lambda a, dev=DEVICE: torch.as_tensor(a, dtype=f64, device=dev)
+    n_descent = inspect.signature(init_mod.multichain_starts).parameters["descent_iters"].default
+    default = workflows.PipelineConfig()
+    fixed_grads = 1 + (default.n_hmc + default.hmc_warmup) * default.hmc_leapfrog
+    fixed_rate = {"gnmgp": fixed_grads / hmc_res["timings"]["hmc"], "lmc": fixed_grads / subjects["lmc"][4]}
+    n_total = SAMPLER_WARMUP + SAMPLER_DRAWS
+    counts: dict = {}
+    kept: dict = {}
+    originals = (workflows._run_chain, workflows._run_chain_chees, drhmc.drhmc_sample, chees.chees_sample,
+                 init_mod.multichain_starts)
+
+    def counted(fn):
+        # the launches around the sampling stage (an outer call, which ends
+        # last, covers the calls it makes)
+        def wrapped(*args, **kwargs):
+            before = gk.launches()
+            out = fn(*args, **kwargs)
+            kept["stage"] = {k: v - before[k] for k, v in gk.launches().items()}
+            return out
+        return wrapped
+
+    def keep(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            kept[name] = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            kept[f"{name}_s"] = time.perf_counter() - t0
+            return kept[name]
+        return wrapped
+
+    def run(label, fn):
+        kept.clear()
+        gk.reset_launches()  # the main path starts here
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        whole = gk.launches()  # the main path ends here
+        log("samplers", f"{label}: {wall:.3f} s; stages (s): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items()) + f"; the whole run launched {whole}")
+        samples = res["hmc_samples"]
+        if samples.device.type != torch.device(DEVICE).type or not torch.isfinite(samples).all():
+            raise AssertionError(f"{label}: hmc_samples on {samples.device} or non-finite")
+        if not np.isfinite(res["loo"]["elpd_loo"]):
+            raise AssertionError(f"{label}: non-finite elpd_loo")
+        return res
+
+    workflows._run_chain = counted(originals[0])
+    workflows._run_chain_chees = counted(originals[1])
+    drhmc.drhmc_sample = keep("drhmc", originals[2])
+    chees.chees_sample = keep("chees", originals[3])
+    init_mod.multichain_starts = keep("starts", originals[4])
+    try:
+        # (a) DRHMC through run_subject, GNMGP (the hmc phase's subject) and LMC (the models phase's)
+        x, y, _, _ = training_subject(torch, seed + 1, TRAIN_N)
+        for model, (mx, my) in (("gnmgp", (x, y)), ("lmc", subjects["lmc"][:2])):
+            cfg = workflows.PipelineConfig(model=model, n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True, sampler="drhmc",
+                                           n_hmc=SAMPLER_DRAWS, hmc_warmup=SAMPLER_WARMUP)
+            res = run(f"{model} run_subject N={TRAIN_N} M=2 f64 n_opt={TRAIN_N_OPT} sampler=drhmc do_loo",
+                      lambda: workflows.run_subject(mx, my, cfg))
+            dres, t_chain = kept["drhmc"], res["timings"]["hmc"]
+            n_grads = drhmc_gradients(dres, cfg.hmc_leapfrog, cfg.dr_stages)
+            nlp = workflows._MODELS[model].make_objective(FullData(as_t(mx), as_t(my)))
+            rate = statistics.median(gradient_rate(torch, value_and_grad, nlp, res["map_vec"]))
+            counts[f"drhmc_{model}"] = check_stage_launches(f"{model} drhmc", kept["stage"], NUTS_KERNELS[model],
+                                                            1 + n_grads, n_grads)
+            log("samplers", f"{model} drhmc chain: {SAMPLER_WARMUP} warmup + {SAMPLER_DRAWS} draws, "
+                f"{cfg.dr_stages} stages, reduction {cfg.dr_reduction}, {cfg.hmc_leapfrog} leapfrog steps from "
+                f"{cfg.hmc_step_size}: {t_chain:.3f} s, {n_total / t_chain:.3f} draws/s, {n_grads / t_chain:.3f} "
+                f"gradients/s ({n_grads} gradients) against the objective's {rate:.3f}/s here and fixed HMC's "
+                f"{fixed_rate[model]:.3f}/s in its chain; " + drhmc_stats(torch, dres, SAMPLER_WARMUP, cfg.dr_stages)
+                + f"; hmc_accept {res['hmc_accept']:.6f}; DIC {res['dic']:.6e}; elpd_loo "
+                f"{res['loo']['elpd_loo']:.6g}; launches {counts[f'drhmc_{model}']} = 1 + gradients")
+            if model == "gnmgp":
+                gnmgp_map = res["map_vec"]
+
+        # (b) ChEES through run_subject, GNMGP whitened
+        cfg = workflows.PipelineConfig(n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True, sampler="chees", whiten=True,
+                                       n_hmc=SAMPLER_DRAWS, hmc_warmup=SAMPLER_WARMUP)
+        res = run(f"gnmgp run_subject N={TRAIN_N} M=2 f64 n_opt={TRAIN_N_OPT} sampler=chees whiten=True do_loo",
+                  lambda: workflows.run_subject(x, y, cfg))
+        cres, rec, t_chain = kept["chees"], res["sampling"], res["timings"]["hmc"]
+        k, sum_n = cres.samples.shape[0], int(cres.n_leapfrog.sum())
+        fwd, bwd = multichain_launches(k, n_descent, sum_n)
+        counts["chees_gnmgp"] = check_stage_launches("gnmgp chees", kept["stage"], HMC_KERNELS, fwd, bwd)
+        t_run = kept["chees_s"]
+        step_ms = t_run / sum_n * 1e3
+        log("samplers", f"gnmgp chees (whitened): starts (K − 1 = {k - 1} descents of {n_descent} gradients) "
+            f"{kept['starts_s']:.3f} s; {k} chains x ({SAMPLER_WARMUP} warmup + {SAMPLER_DRAWS} draws) "
+            f"{t_run:.3f} s, {k * sum_n / t_run:.3f} gradients/s ({k * sum_n + k} gradients); a leapfrog step of "
+            f"the {k} chains {step_ms:.3f} ms against fixed HMC's {1e3 / fixed_rate['gnmgp']:.3f} ms (ratio "
+            f"{step_ms * fixed_rate['gnmgp'] / 1e3:.3f}); mean leapfrog {rec['mean_leapfrog']:.3f}, T "
+            f"{rec['trajectory_length']:.6e}, step {rec['step_size']:.6e}, leapfrog counts "
+            f"{cres.n_leapfrog.tolist()}; accept {rec['accept']:.6f}, min-ESS {rec['min_ess']:.3f}, max R-hat "
+            f"{rec['max_rhat']:.4g}; elpd_loo {res['loo']['elpd_loo']:.6g}; launches {counts['chees_gnmgp']}")
+        if tuple(res["hmc_samples"].shape) != (k * SAMPLER_DRAWS, gnmgp.n_params(TRAIN_N, 2)):
+            raise AssertionError(f"chees: hmc_samples shape {tuple(res['hmc_samples'].shape)}")
+
+        # (c) ChEES through run_subject_hadamard, GNMGP on the hadamard phase's subject
+        (hx, hi, hy), _, _, _ = hadamard_subject(torch, np, seed + 70, TRAIN_N)
+        cfg = workflows.PipelineConfig(model="gnmgp", n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True, sampler="chees",
+                                       n_hmc=SAMPLER_DRAWS, hmc_warmup=SAMPLER_WARMUP, test_size=HADAMARD_TEST_SIZE)
+        workflows._run_chain_chees = originals[1]  # the stage is _run_chain, which calls it
+        res = run(f"gnmgp run_subject_hadamard N_obs={hx.shape[0]} sampler=chees do_loo",
+                  lambda: workflows.run_subject_hadamard(hx, hi, hy, 2, cfg))
+        cres = kept["chees"]
+        k, sum_n = cres.samples.shape[0], int(cres.n_leapfrog.sum())
+        fwd, bwd = multichain_launches(k, n_descent, sum_n)
+        counts["chees_hadamard"] = check_stage_launches("hadamard chees", kept["stage"], K1_KERNELS, fwd, bwd)
+        log("samplers", f"hadamard gnmgp chees: {k} chains, {res['timings']['hmc']:.3f} s (starts "
+            f"{kept['starts_s']:.3f} s), {k * sum_n / kept['chees_s']:.3f} gradients/s in the chains; mean "
+            f"leapfrog {cres.n_leapfrog.double().mean().item():.3f}, T {cres.trajectory_length.item():.6e}, step "
+            f"{cres.step_size.item():.6e}, accept {res['hmc_accept']:.6f}; test_sample_lpd "
+            f"{res['test_sample_lpd']:.6g}; launches {counts['chees_hadamard']}")
+    finally:
+        (workflows._run_chain, workflows._run_chain_chees, drhmc.drhmc_sample, chees.chees_sample,
+         init_mod.multichain_starts) = originals
+
+    # (d) replica exchange on the whitened GNMGP potential from the drhmc run's MAP
+    xd = as_t(x)
+    nlp = gnmgp.make_objective(FullData(xd, as_t(y)))
+    w = whiten.make_whitener("gnmgp", xd, TRAIN_N, 2)
+    gen = torch.Generator(DEVICE).manual_seed(seed + 81)
+    gk.reset_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    tres = tempering.tempered_hmc_sample(w.wrap(nlp), w.to_white(gnmgp_map), SAMPLER_DRAWS, gen,
+                                         n_replicas=SAMPLER_REPLICAS, n_leapfrog=SAMPLER_TEMPER_LEAPFROG,
+                                         n_warmup=SAMPLER_WARMUP)
+    torch.cuda.synchronize()
+    t_temper = time.perf_counter() - t0
+    n_grads = n_total * SAMPLER_REPLICAS * (SAMPLER_TEMPER_LEAPFROG + 1)
+    counts["tempering"] = check_stage_launches("tempering", gk.launches(), HMC_KERNELS,
+                                               n_grads + n_total * SAMPLER_REPLICAS, n_grads)  # the main path ends here
+    if not torch.isfinite(tres.samples).all():
+        raise AssertionError("tempering: non-finite draws")
+    log("samplers", f"tempered_hmc_sample gnmgp N={TRAIN_N} whitened, {SAMPLER_REPLICAS} replicas (betas "
+        f"{[round(b, 4) for b in tres.betas.tolist()]}), {SAMPLER_WARMUP} warmup + {SAMPLER_DRAWS} draws of "
+        f"{SAMPLER_TEMPER_LEAPFROG} leapfrog steps: {t_temper:.3f} s, {n_grads / t_temper:.3f} gradients/s "
+        f"({n_grads} gradients, {n_total * SAMPLER_REPLICAS} swap values); swap acceptance "
+        f"{[round(a, 4) for a in tres.swap_accept.tolist()]}, replica acceptance "
+        f"{[round(a, 4) for a in tres.accept_stat.tolist()]}, steps "
+        f"{[f'{e:.3e}' for e in tres.step_sizes.tolist()]}; launches {counts['tempering']}")
+
+    # (e) the card against the CPU at N=SAMPLER_CHECK_N with the same injected noise
+    xc, yc, vec, _ = training_subject(torch, seed + 82, SAMPLER_CHECK_N)
+    p = vec.shape[0]
+    gen = torch.Generator().manual_seed(seed + 83)
+    objectives = {dev: gnmgp.make_objective(FullData(as_t(xc, dev), as_t(yc, dev))) for dev in (DEVICE, "cpu")}
+    whiteners = {dev: whiten.make_whitener("gnmgp", as_t(xc, dev), SAMPLER_CHECK_N, 2) for dev in (DEVICE, "cpu")}
+
+    def both(label, fn):
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            out[dev] = fn(dev)
+            log("samplers", f"N={SAMPLER_CHECK_N} {label} on {dev}: {time.perf_counter() - t0:.3f} s")
+        return out[DEVICE], out["cpu"]
+
+    def close(label, pairs, rtol=SAMPLER_CHECK_RTOL):
+        errs = []
+        for name, g, w_ in pairs:
+            rel, frac = held(np, g, w_, rtol)
+            errs.append(f"{name} max rel err {rel:.3e} ({frac:.3e} of the scale)")
+        log("samplers", f"N={SAMPLER_CHECK_N} {label}, card vs CPU: " + "; ".join(errs) + f": ok at rtol {rtol}")
+
+    dr_kw = dict(step_size=DRHMC_CHECK_STEP, n_leapfrog=5, n_stages=3, n_warmup=3)
+    noise = (torch.randn(6, p, generator=gen, dtype=f64), torch.rand(6, 3, generator=gen, dtype=f64))
+    card, cpu = both("drhmc", lambda dev: drhmc.drhmc_sample(objectives[dev], vec.to(dev), 3, noise=noise, **dr_kw))
+    if not torch.equal(card.accept_stage.cpu(), cpu.accept_stage):
+        raise AssertionError(f"drhmc: accepting stages differ, card {card.accept_stage.tolist()} vs CPU "
+                             f"{cpu.accept_stage.tolist()}")
+    close(f"drhmc (accepting stages {cpu.accept_stage.tolist()}, equal)",
+          [("draws", card.samples.cpu().numpy(), cpu.samples.numpy()),
+           ("stage-1 accept prob", card.accept_prob1.cpu().numpy(), cpu.accept_prob1.numpy()),
+           ("step", [card.step_size.item()], [cpu.step_size.item()])])
+
+    starts = vec[None] + 1e-3 * torch.randn(2, p, generator=gen, dtype=f64)
+    ch_kw = dict(step_size=1e-4, trajectory_length=CHEES_CHECK_T * 1e-4, n_warmup=3, max_leapfrog=8)
+    noise = (None, torch.randn(6, 2, p, generator=gen, dtype=f64), torch.rand(6, 2, generator=gen, dtype=f64))
+    card, cpu = both("chees", lambda dev: chees.chees_sample(objectives[dev], starts.to(dev), 3, noise=noise, **ch_kw))
+    same = (card.n_leapfrog.cpu() == cpu.n_leapfrog).tolist()
+    upto = same.index(False) if False in same else len(same)
+    kept_upto = max(0, upto - ch_kw["n_warmup"])
+    if kept_upto == 0:
+        raise AssertionError(f"chees: leapfrog counts differ from draw {upto} on, card {card.n_leapfrog.tolist()} "
+                             f"vs CPU {cpu.n_leapfrog.tolist()}: nothing to compare")
+    close(f"chees (leapfrog counts {cpu.n_leapfrog.tolist()}, equal through draw {upto - 1} of {len(same)}; "
+          f"the {kept_upto} kept draws before any difference compared)",
+          [("draws", card.samples[:, :kept_upto].cpu().numpy(), cpu.samples[:, :kept_upto].numpy()),
+           ("accept prob", card.accept_prob[:upto].cpu().numpy(), cpu.accept_prob[:upto].numpy())])
+
+    tp_kw = dict(n_replicas=3, beta_min=0.3, step_size=1e-3, n_leapfrog=3, n_warmup=2)
+    noise = (torch.randn(4, 3, p, generator=gen, dtype=f64), torch.rand(4, 3, generator=gen, dtype=f64),
+             torch.rand(4, 2, generator=gen, dtype=f64))
+    card, cpu = both("tempering", lambda dev: tempering.tempered_hmc_sample(
+        whiteners[dev].wrap(objectives[dev]), whiteners[dev].to_white(vec.to(dev)), 2, noise=noise, **tp_kw))
+    # the whitening map's prior factor takes card and CPU ~1e-7 apart (the
+    # nuts phase's whitened chains are held at OBJECTIVE_RTOL too)
+    close("tempering (whitened)", [("draws", card.samples.cpu().numpy(), cpu.samples.numpy()),
+                                   ("swap acceptance", card.swap_accept.cpu().numpy(), cpu.swap_accept.numpy()),
+                                   ("steps", card.step_sizes.cpu().numpy(), cpu.step_sizes.numpy())], OBJECTIVE_RTOL)
+
+    # (f) the CLI with --sampler chees
+    cli_out = os.path.join(ROOT, "chiprun_out", "cli_chees")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nonstationary_multivariate_gaussian_process_tpu_torch.examples.run_sim_pipeline",
+         "--sampler", "chees", "--n", str(SAMPLER_CLI_N), "--n-opt", str(CHECK_N_OPT), "--n-hmc",
+         str(SAMPLER_CLI_HMC), "--out", cli_out],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"the chees CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    summary = json.loads("\n".join(lines[next(i for i, s in enumerate(lines) if s.startswith("{")):]))
+    if not all(np.isfinite(summary[k]) for k in ("deviance", "dic", "hmc_accept")):
+        raise AssertionError(f"the chees CLI's summary lacks finite scores: {summary}")
+    with open(os.path.join(cli_out, "manifest.json")) as f:
+        if not any(key.endswith("__sampling") for key in json.load(f)):
+            raise AssertionError("the chees CLI wrote no sampling artifact")
+    log("samplers", f"CLI --sampler chees --n {SAMPLER_CLI_N} --n-opt {CHECK_N_OPT} --n-hmc {SAMPLER_CLI_HMC} "
+        f"(warmup max(100, n_hmc), 2 chains) on the card: {time.perf_counter() - t0:.3f} s; summary {summary}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2518,6 +2839,9 @@ def main() -> int:
     t0 = time.perf_counter()
     precision_launches = phase_precision(torch, np, gk, args.seed, hmc_res)
     log("precision", f"phase took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    sampler_launches = phase_samplers(torch, np, gk, args.seed, hmc_res, model_subjects)
+    log("samplers", f"phase took {time.perf_counter() - t0:.3f} s")
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -2551,6 +2875,8 @@ def main() -> int:
         row["launches_hadamard"] = {model: c[name] for model, c in hadamard_launches.items()}
         # under NMGP_PRECISION=mixed: per gradient by model, the GNMGP run_subject and its chain
         row["launches_precision"] = precision_launches[name]
+        # the sampling stages of DRHMC (GNMGP, LMC), ChEES (GNMGP whitened, Hadamard GNMGP) and tempering
+        row["launches_samplers"] = {run: c[name] for run, c in sampler_launches.items()}
         kernels.append(row)
     log("summary", "warm /predict latency ms by size: "
         + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
@@ -2566,6 +2892,8 @@ def main() -> int:
         for model, c in hadamard_launches.items()))
     log("summary", "launches under mixed: " + "; ".join(
         f"{name}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for name, c in precision_launches.items()))
+    log("summary", "launches in the samplers' stages: " + "; ".join(
+        f"{run}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for run, c in sampler_launches.items()))
     log("summary", "gradient evaluations/s at N=1000, M=2: "
         + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
     log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")

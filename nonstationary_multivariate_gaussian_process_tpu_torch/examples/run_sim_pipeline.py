@@ -9,9 +9,10 @@ one synthetic subject (``sim_mnts``, or ``sim_mnts_hetero`` for
     python -m nonstationary_multivariate_gaussian_process_tpu_torch.examples.run_sim_pipeline \\
         --model gnmgp --n 200 --n-opt 1000 --out res/sim_nonseparable
 
-It runs on ``cuda``.  The arguments are the JAX driver's; the choices this
-package does not have yet (the sparse models, samplers other than ``hmc``
-and ``nuts``) exit with an error that says so.
+It runs on ``cuda``.  The arguments are the JAX CLI's, and ``--sampler``
+takes ``hmc``, ``nuts``, ``drhmc`` and ``chees``; the choices this package
+does not have yet (the sparse models, the samplers ``rmhmc``, ``smc`` and
+``pathfinder``) exit with an error that says so.
 """
 
 from __future__ import annotations
@@ -63,10 +64,11 @@ def main(argv=None, device=None) -> dict:
     none); print and return the JSON summary."""
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, value, ported in (("--model", args.model, workflows.MODELS),
-                                ("--sampler", args.sampler, workflows.SAMPLERS)):
-        if value not in ported:
-            ap.error(f"{flag} {value} is not yet ported to the torch package (it runs {', '.join(ported)})")
+    if args.model not in workflows.MODELS:
+        ap.error(f"--model {args.model} is not yet ported to the torch package (it runs "
+                 f"{', '.join(workflows.MODELS)})")
+    if args.sampler in workflows.UNPORTED_SAMPLERS:
+        ap.error(f"--sampler {args.sampler} {workflows.UNPORTED_SAMPLERS[args.sampler]}")
     device = settings.resolve_device(device)
 
     os.makedirs(args.out, exist_ok=True)

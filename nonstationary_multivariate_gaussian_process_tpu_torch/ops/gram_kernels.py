@@ -414,8 +414,30 @@ def gibbs_gram_backward(x, s, l, kbar, jitter: float = 0.0):
 gibbs_gram_backward.launches = 0
 
 
+def first_order_only(backward):
+    """Mark an ``autograd.Function``'s backward whose result is not part of a
+    graph (a kernel's output, or a product of tensors saved without one): a
+    backward pass that builds a graph (``create_graph=True``, as a Hessian
+    takes) raises, where it would leave this function's terms out of the
+    higher derivative without a word.  ``torch.autograd.function.
+    once_differentiable`` does not catch that when the incoming cotangent is
+    a constant, as it is for ``Σ(K ∘ W)``."""
+
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{type(ctx).__name__}: no second derivative through this backward (its result is not part of a "
+                "graph), so create_graph=True is refused"
+            )
+        return backward(ctx, *grads)
+
+    return wrapper
+
+
 class _GibbsGramSelf(torch.autograd.Function):
-    """K1's self form with its backward kernel."""
+    """K1's self form with its backward kernel (on the CPU, autograd of the
+    plain version), first order only."""
 
     @staticmethod
     def forward(ctx, x, s, l, jitter):
@@ -424,6 +446,7 @@ class _GibbsGramSelf(torch.autograd.Function):
         return _gibbs_gram_forward(x, s, l, None, None, None, jitter)
 
     @staticmethod
+    @first_order_only
     def backward(ctx, kbar):
         x, s, l = ctx.saved_tensors
         s_bar, l_bar = gibbs_gram_backward(x, s, l, kbar.contiguous(), ctx.jitter)
@@ -748,7 +771,7 @@ svc_gram_tiled_backward.launches = 0
 
 
 class _SvcGramTiled(torch.autograd.Function):
-    """K3 with its backward kernel."""
+    """K3 with its backward kernel, first order only."""
 
     @staticmethod
     def forward(ctx, x, ell, ls, jitter):
@@ -757,6 +780,7 @@ class _SvcGramTiled(torch.autograd.Function):
         return _svc_gram_tiled_forward(x, ell, ls, jitter)
 
     @staticmethod
+    @first_order_only
     def backward(ctx, kbar):
         x, ell, ls = ctx.saved_tensors
         ell_bar, ls_bar = svc_gram_tiled_backward(x, ell, ls, kbar.contiguous(), ctx.jitter)

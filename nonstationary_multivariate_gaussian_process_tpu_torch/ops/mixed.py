@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from .. import settings
+from .gram_kernels import first_order_only
 
 #: Iterative-refinement cap for the quadratic form.
 IR_MAX_SWEEPS = 20
@@ -128,6 +129,9 @@ def _forward(a64: torch.Tensor, y64: torch.Tensor):
 
 
 class _MixedLogdetQuad(torch.autograd.Function):
+    """The backward reads the forward's solution and float32 inverse, which
+    are not part of a graph: first order only."""
+
     @staticmethod
     def forward(ctx, a64, y64):
         logdet, quad, z, g32, _ = _forward(a64, y64)
@@ -135,6 +139,7 @@ class _MixedLogdetQuad(torch.autograd.Function):
         return logdet, quad
 
     @staticmethod
+    @first_order_only
     def backward(ctx, ld_bar, q_bar):
         z, g32 = ctx.saved_tensors
         ginv = g32.to(torch.float64)

@@ -4,13 +4,15 @@ analysis → grid/test prediction → scoring.
 Counterpart of ``PipelineConfig`` and ``run_subject`` of the JAX package's
 ``workflows.py`` for the dense models on fully observed data: ``lmc``,
 ``snmgp``, ``gnmgp`` and ``gnmgp_hetero``, with the reference-contract HMC
-sampler (``sampler="hmc"``, any ``hmc_mass``) or adaptive NUTS
-(``sampler="nuts"``), either of them in the natural space or whitened
-(``whiten=True``/``"prior"``, or ``"pncp"`` retuned from a pilot chain),
-and, with ``do_loo``, WAIC and PSIS-LOO from the chain.  The stages, their
-order, the result dict and the artifacts written (``data``, ``map``,
-``map_ckpt``, ``hmc``, ``pred_grid``, ``scores``, ``loo``) are the JAX
-package's, so a store written here serves from either package's engine.
+sampler (``sampler="hmc"``, any ``hmc_mass``), adaptive NUTS
+(``sampler="nuts"``), delayed-rejection HMC (``sampler="drhmc"``) or
+many-chain ChEES-HMC (``sampler="chees"``), any of them in the natural
+space or whitened (``whiten=True``/``"prior"``, or ``"pncp"`` retuned from a
+pilot chain), and, with ``do_loo``, WAIC and PSIS-LOO from the chain.  The
+stages, their order, the result dict and the artifacts written (``data``,
+``map``, ``map_ckpt``, ``hmc``, ``sampling`` for ChEES, ``pred_grid``,
+``scores``, ``loo``) are the JAX package's, so a store written here serves
+from either package's engine.
 
 ``run_subject_hadamard`` is the JAX function's counterpart for subjects in
 the Hadamard layout (one observation per (input, task) pair, so a channel
@@ -21,8 +23,9 @@ test scoring by the MAP and by the chain, for ``lmc``, ``snmgp`` and
 
 Not ported yet, and refused with ``ValueError``: the sparse models, the
 heteroscedastic GNMGP in the Hadamard layout (the JAX package has no
-Hadamard objective for it), and the samplers other than ``"hmc"`` and
-``"nuts"``.
+Hadamard objective for it), and the samplers ``"rmhmc"`` (it needs second-
+and third-order derivatives of the Gram kernels K1 and K3), ``"smc"`` and
+``"pathfinder"``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ import torch
 
 from . import evaluate, settings
 from .data import preprocess
+from .inference import chees
+from .inference import diagnostics
+from .inference import drhmc
 from .inference import empirical
 from .inference import hmc
 from .inference import init as init_mod
@@ -60,7 +66,15 @@ MODELS = tuple(_MODELS)
 #: The models with a Hadamard-layout objective.
 HADAMARD_MODELS = ("lmc", "snmgp", "gnmgp")
 HMC_MASSES = ("none", "pilot", "window")
-SAMPLERS = ("hmc", "nuts")
+SAMPLERS = ("hmc", "nuts", "drhmc", "chees")
+#: The JAX package's samplers that the port refuses, and why.
+UNPORTED_SAMPLERS = {
+    "rmhmc": "needs second- and third-order derivatives of K1 and K3 (not yet ported)",
+    "smc": "is not yet ported to the torch package",
+    "pathfinder": "is not yet ported to the torch package",
+}
+#: The stream of ChEES's multichain starts (``_pilot_generator``'s tag).
+CHEES_START_TAG = 13
 
 
 @dataclasses.dataclass
@@ -87,7 +101,12 @@ class PipelineConfig:
     n_hmc: int = 100
     sampler: str = "hmc"  # "hmc" (the reference contract, inference/hmc.py)
     #                        | "nuts" (adaptive trajectories and windowed
-    #                        warmup, inference/nuts.py)
+    #                        warmup, inference/nuts.py) | "drhmc" (delayed
+    #                        rejection, inference/drhmc.py) | "chees"
+    #                        (lockstep chains with cross-chain adaptive
+    #                        trajectory lengths, inference/chees.py)
+    dr_stages: int = 3  # drhmc proposal stages (1 = plain HMC)
+    dr_reduction: float = 4.0  # drhmc per-stage step-size reduction
     hmc_step_size: float = 1e-4
     hmc_leapfrog: int = 20
     hmc_adapt: bool = False  # dual-averaging step-size adaptation
@@ -104,6 +123,7 @@ class PipelineConfig:
     pncp_pilot: int = 200  # pilot-chain draws for whiten="pncp"
     pncp_interp: float = 1.0  # 0 keeps prior whitening, 1 is fully
     #                           posterior-scaled (whiten.retune's interp)
+    n_chains: int = 2  # chees: chains (at least 2; chain 0 starts at the MAP)
     n_grid: int = 201
     window_size: int = 30
     test_size: float = 0.0
@@ -114,6 +134,9 @@ class PipelineConfig:
             raise ValueError(
                 f"model {self.model!r} is not yet ported to the torch package (it runs {MODELS})"
             )
+        if self.sampler in UNPORTED_SAMPLERS:
+            raise ValueError(f"sampler {self.sampler!r} {UNPORTED_SAMPLERS[self.sampler]} (the torch package "
+                             f"runs {SAMPLERS})")
         if self.sampler not in SAMPLERS:
             raise ValueError(f"sampler {self.sampler!r} is not yet ported to the torch package (it runs {SAMPLERS})")
         if self.hmc_mass not in HMC_MASSES:
@@ -210,9 +233,12 @@ def _pilot_generator(seed: int, tag: int, device) -> torch.Generator:
 
 def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch.Generator, whitener=None):
     """Posterior sampling stage (JAX ``_run_chain``): the reference-contract
-    HMC or adaptive NUTS.  Returns ``(samples (n_hmc, P) on the chain's
-    device, mean acceptance)``: HMC's over every draw, warmup included,
-    NUTS's mean leaf acceptance statistic over the kept draws.
+    HMC, adaptive NUTS, delayed-rejection HMC or ChEES.  Returns ``(samples
+    on the chain's device, mean acceptance)``: (n_hmc, P), or ChEES's
+    chain-major (K·n_hmc, P).  The acceptance is HMC's mean over every draw,
+    warmup included, NUTS's mean leaf acceptance statistic over the kept
+    draws, DRHMC's share of kept draws accepted at any stage, ChEES's mean
+    accept probability over the kept draws of every chain.
     ``cfg.hmc_mass`` picks HMC's preconditioning: "pilot" is the reference's
     pilot-covariance recipe, "window" Stan-style windowed warmup.  With a
     ``whitener`` the chain runs in the whitened space and its samples are
@@ -226,6 +252,16 @@ def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch
         n_warm = cfg.hmc_warmup if cfg.hmc_warmup > 0 else max(100, cfg.n_hmc)
         chain = nuts.nuts_sample(nlp, map_vec, cfg.n_hmc, generator, step_size=cfg.hmc_step_size, n_warmup=n_warm)
         return chain.samples, float(torch.mean(chain.accept_stat[n_warm:]))
+    if cfg.sampler == "drhmc":
+        n_warm = cfg.hmc_warmup if cfg.hmc_warmup > 0 else max(100, cfg.n_hmc)
+        chain = drhmc.drhmc_sample(
+            nlp, map_vec, cfg.n_hmc, generator, step_size=cfg.hmc_step_size, n_leapfrog=cfg.hmc_leapfrog,
+            n_warmup=n_warm, n_stages=cfg.dr_stages, reduction=cfg.dr_reduction,
+        )
+        return chain.samples, float(torch.mean((chain.accept_stage[n_warm:] > 0).double()))
+    if cfg.sampler == "chees":
+        samples, accept, _ = _run_chain_chees(nlp, map_vec, cfg, generator)
+        return samples, accept
     mass = None
     if cfg.hmc_mass == "pilot":
         # mass matrix from a short pilot chain's sample covariance
@@ -243,6 +279,46 @@ def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch
         adapt_mass=(cfg.hmc_mass == "window"),
     )
     return chain.samples, float(torch.mean(chain.accept_prob))
+
+
+def _run_chain_chees(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch.Generator, whitener=None):
+    """ChEES sampling stage (JAX ``_run_chain_chees``): ``max(2,
+    cfg.n_chains)`` lockstep chains from ``init.multichain_starts`` (chain 0
+    at the MAP, the others jittered and descended).  Returns ``(samples, accept, sampling)``: the pooled
+    chain-major (K·n_hmc, P) draws in the natural space on the chain's
+    device, the mean accept probability over the kept draws, and the
+    sampler's record: the pooled min-ESS over every 7th coordinate
+    (``diagnostics.ess_multichain``) and the max split-R̂, both on
+    natural-space draws, the acceptance, the tuned step size and trajectory
+    length and the mean leapfrog count.
+
+    Where JAX splits the stage's key into a start and a run key, the starts
+    draw from a stream of their own, ``_pilot_generator(cfg.seed,
+    CHEES_START_TAG)`` (tag 13), and the chains from ``generator``."""
+    pot = nlp if whitener is None else whitener.wrap(nlp)
+    q0 = map_vec if whitener is None else whitener.to_white(map_vec)
+    n_warm = cfg.hmc_warmup if cfg.hmc_warmup > 0 else max(100, cfg.n_hmc)
+    starts = init_mod.multichain_starts(pot, q0, max(2, cfg.n_chains),
+                                        _pilot_generator(cfg.seed, CHEES_START_TAG, q0.device))
+    r = chees.chees_sample(pot, starts, cfg.n_hmc, generator, step_size=cfg.hmc_step_size, n_warmup=n_warm)
+    k, s, p = r.samples.shape
+    flat = r.samples.reshape(k * s, p)
+    if whitener is not None:
+        flat = whitener.from_white_batch(flat)
+    nat = flat.cpu().numpy().reshape(k, s, p)
+    accept = float(torch.mean(r.accept_prob[n_warm:]))
+    sampling = {
+        "sampler": "chees",
+        "chains": int(k),
+        # the sampler bench's column subsample convention
+        "min_ess": float(min(diagnostics.ess_multichain(nat[:, :, j]) for j in range(0, p, 7))),
+        "max_rhat": float(np.max(diagnostics.rhat(nat))),
+        "accept": accept,
+        "step_size": float(r.step_size),
+        "trajectory_length": float(r.trajectory_length),
+        "mean_leapfrog": float(torch.mean(r.n_leapfrog.double())),
+    }
+    return flat, accept, sampling
 
 
 def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: torch.Tensor, n: int, m: int,
@@ -352,13 +428,19 @@ def run_subject(
     if cfg.do_hmc and map_vec is not None:
         t0 = time.time()
         whitener = _make_sampling_whitener(nlp, map_vec, cfg, xd, n, m)
-        samples, accept = _run_chain(nlp, map_vec, cfg, torch.Generator(device).manual_seed(cfg.seed),
-                                     whitener=whitener)
+        generator = torch.Generator(device).manual_seed(cfg.seed)
+        if cfg.sampler == "chees":
+            samples, accept, result["sampling"] = _run_chain_chees(nlp, map_vec, cfg, generator, whitener=whitener)
+        else:
+            samples, accept = _run_chain(nlp, map_vec, cfg, generator, whitener=whitener)
         result["timings"]["hmc"] = time.time() - t0
         result["hmc_samples"] = samples
         result["hmc_accept"] = accept
         if store is not None:
             store.save(_key("hmc"), samples=samples.cpu().numpy())
+            if "sampling" in result:
+                # the sampler's own record, for the serving info endpoint
+                store.save(_key("sampling"), **{k: v for k, v in result["sampling"].items() if np.isscalar(v)})
 
     if cfg.do_map_analysis and map_vec is not None and cfg.model == "gnmgp":
         tilde_l, b_proc, cor_proc, std_proc = analysis.gnmgp_map_latents(map_vec.cpu().numpy(), n, m)

@@ -33,6 +33,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp 
 
 from test_torch_predict import KRIGE_ATOL, make_subject
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 
 

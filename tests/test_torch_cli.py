@@ -20,6 +20,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.data import io as dat
 from nonstationary_multivariate_gaussian_process_tpu_torch.data import sim
 from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline as cli
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 N, N_OPT, N_HMC = 24, 4, 4
 ARGS = ["--n", str(N), "--n-opt", str(N_OPT), "--n-hmc", str(N_HMC)]
 PNG = b"\x89PNG\r\n\x1a\n"
@@ -75,7 +77,7 @@ def test_cli_on_a_sim_pickle_matches_run_subject(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,value", [("--model", "snmgp_sparse"), ("--model", "gnmgp_sparse"),
-                                        ("--sampler", "drhmc"), ("--sampler", "smc")])
+                                        ("--sampler", "rmhmc"), ("--sampler", "smc")])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flag, value):
     with pytest.raises(SystemExit) as ei:
         cli.main(ARGS + [flag, value, "--out", str(tmp_path)], device="cpu")
@@ -104,6 +106,28 @@ def test_cli_runs_whitened_nuts(tmp_path, capsys, monkeypatch):
     assert 0.0 < summary["hmc_accept"] <= 1.0 and "dic" in summary
     assert json.loads(capsys.readouterr().out) == summary
     assert (out / "posterior.png").read_bytes()[:8] == PNG
+
+
+@pytest.mark.parametrize("sampler", ["drhmc", "chees"])
+def test_cli_runs_the_other_samplers(tmp_path, capsys, monkeypatch, sampler):
+    """``--sampler drhmc|chees`` reach ``run_subject`` (2 warmup draws here);
+    ChEES's pooled record lands in the store as the ``sampling`` artifact."""
+    seen = []
+    real = workflows.run_subject
+
+    def spy(x, y, cfg, **kw):
+        seen.append(cfg)
+        return real(x, y, dataclasses.replace(cfg, hmc_warmup=2), **kw)
+
+    monkeypatch.setattr(workflows, "run_subject", spy)
+    out = tmp_path / sampler
+    summary = cli.main(["--n", "16", "--n-opt", "2", "--n-hmc", "2", "--hmc-step-size", "0.01", "--sampler", sampler,
+                        "--out", str(out)], device="cpu")
+    (cfg,) = seen
+    assert cfg.sampler == sampler and 0.0 <= summary["hmc_accept"] <= 1.0 and "dic" in summary
+    assert json.loads(capsys.readouterr().out) == summary
+    manifest = json.loads((out / "manifest.json").read_text())
+    assert any(k.endswith("__sampling") for k in manifest) == (sampler == "chees")
 
 
 def test_cli_without_device_raises_when_cuda_is_absent(tmp_path, monkeypatch):

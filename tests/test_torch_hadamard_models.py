@@ -34,6 +34,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models import base, g
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import transforms
 from nonstationary_multivariate_gaussian_process_tpu_torch.predict import hadamard as pred_h
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 MODELS = ("lmc", "snmgp", "gnmgp")
 PORT = {"lmc": lmc, "snmgp": snmgp, "gnmgp": gnmgp}

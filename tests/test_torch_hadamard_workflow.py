@@ -34,6 +34,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.predict import hadama
 from test_torch_hadamard_models import hadamard_subject
 from test_torch_hadamard_predict import NAME, close, jax_noise
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 M = 2
 CFG = dict(n_opt=10, test_size=0.25, do_hmc=True, n_hmc=4, hmc_leapfrog=2, do_loo=True, loo_draws=3, n_grid=21)
 SCORES = ("test_rmse", "test_lpd", "test_sample_rmse", "test_sample_lpd")

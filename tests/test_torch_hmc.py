@@ -50,6 +50,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import Fu
 from nonstationary_multivariate_gaussian_process_tpu_torch.postprocess import analysis
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 FIELDS = ("samples", "potentials", "accept_prob", "step_size")
 

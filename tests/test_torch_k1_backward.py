@@ -37,6 +37,8 @@ from nonstationary_multivariate_gaussian_process_tpu.ops import kernels as jkern
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import cuda_build
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels as gk
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 THREADS, WARPS = 256, 8
 SHAPES = (1, 17, 40, 64, 257, 600)

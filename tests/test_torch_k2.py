@@ -33,6 +33,8 @@ from nonstationary_multivariate_gaussian_process_tpu.ops import kernels as jkern
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import cuda_build
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels as gk
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 JITTER = 1e-6
 DTYPES = [torch.float64, torch.float32]
 

@@ -34,6 +34,8 @@ from nonstationary_multivariate_gaussian_process_tpu.ops import kernels as jkern
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import cuda_build
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels as gk
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 JITTER = 1e-6
 SHAPES = [(40, 2), (37, 3), (23, 5), (17, 8), (16, 1), (32, 2), (600, 1)]

@@ -31,6 +31,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import Fu
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels
 from nonstationary_multivariate_gaussian_process_tpu_torch.predict import lmc as pred
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 
 

@@ -32,6 +32,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 LOO_KEYS = ("elpd_loo", "p_loo", "looic", "n_bad_k", "k_hat_max", "elpd_waic", "p_waic", "waic")
 

@@ -40,6 +40,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.ops import chol, kron
 
 from test_torch_hadamard_models import hadamard_subject, model_vec
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 
 

@@ -34,6 +34,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp, 
 from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import chol, gram_kernels, kron
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 JITTER = 1e-6
 

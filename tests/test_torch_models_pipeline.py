@@ -32,6 +32,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.data import sim
 from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline as cli
 from nonstationary_multivariate_gaussian_process_tpu_torch.serving import PredictEngine
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 MODELS = ("lmc", "snmgp", "gnmgp_hetero")
 N = 24
 CFG = dict(n_opt=10, test_size=0.25, do_hmc=True, n_hmc=4, hmc_leapfrog=2, do_loo=True, loo_draws=3)

@@ -21,6 +21,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import chol, gram_kernels, kernels
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import transforms as tr
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 
 
@@ -226,3 +228,46 @@ def test_wrappers_refuse_unsupported_devices(rng):
         gram_kernels.gibbs_gram(x, x, x)
     with pytest.raises(ValueError, match="layout"):
         gram_kernels.svc_gram(_t(np.zeros(2)), _t(np.ones(2)), _t(np.ones((2, 1, 1))), 0.0, layout="bad")
+
+
+def _k3_terms(x, ell, ls, w):
+    return lambda e: torch.sum(gram_kernels.svc_gram_tiled(x, e, ls, 1e-6) * w)
+
+
+def _k3_plain_terms(x, ell, ls, w):
+    return lambda e: torch.sum(gram_kernels.svc_gram_tiled_plain(x, e, ls, 1e-6) * w)
+
+
+def _k1_terms(x, ell, ls, w):
+    s = torch.ones_like(ell)
+    return lambda e: torch.sum(gram_kernels.gibbs_gram(x, s, e, jitter=1e-6) * w[: len(x), : len(x)])
+
+
+def _mixed_terms(x, ell, ls, w):
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import mixed
+
+    def f(e):
+        a = gram_kernels.svc_gram_tiled_plain(x, e, ls, 1e-2)
+        return mixed.mixed_logdet_quad(a, torch.ones(a.shape[0], dtype=T64))[0]
+
+    return f
+
+
+@pytest.mark.parametrize("terms", [_k3_terms, _k1_terms, _mixed_terms], ids=["svc_gram_tiled", "gibbs_gram",
+                                                                            "mixed_logdet_quad"])
+def test_second_derivative_through_a_kernel_backward_raises(rng, terms):
+    """``f = Σ(Gram ∘ W) + Σℓ³``: the kernels' backward (and the mixed
+    solve's) is not part of a graph, so a Hessian with ``create_graph=True``
+    must raise rather than return only the ℓ³ term; through the plain
+    version the Gram's terms are there."""
+    n, m = 6, 2
+    x = _t(np.sort(rng.uniform(size=n)))
+    ell = _t(0.3 + rng.uniform(size=n))
+    ls = _t(np.tril(rng.normal(size=(n, m, m))) + 2.0 * np.eye(m))
+    w = _t(rng.normal(size=(n * m, n * m)))
+    f = lambda g: lambda e: g(e) + torch.sum(e ** 3)
+    with pytest.raises(RuntimeError, match="no second derivative"):
+        torch.autograd.functional.hessian(f(terms(x, ell, ls, w)), ell, create_graph=True)
+    h_plain = torch.autograd.functional.hessian(f(_k3_plain_terms(x, ell, ls, w)), ell, create_graph=True)
+    h_cubic = torch.diag(6.0 * ell)
+    assert torch.isfinite(h_plain).all() and not torch.allclose(h_plain, h_cubic)

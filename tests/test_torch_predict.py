@@ -23,6 +23,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kerne
 from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp as pred
 from nonstationary_multivariate_gaussian_process_tpu_torch.predict import latent
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 KRIGE_ATOL = 5e-7
 
 

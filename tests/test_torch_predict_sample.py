@@ -36,6 +36,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts impor
 
 from test_torch_predict import KRIGE_ATOL, make_subject
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 N, M, S, G = 20, 2, 5, 9
 T = M * (M + 1) // 2
 HYPER = {"alpha_tilde_l": 10.0, "beta_tilde_l": 1.0, "alpha_L": 10.0, "beta_L": 1.0}

@@ -29,6 +29,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts impor
 
 from test_torch_predict import make_subject
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_PKG = os.path.join(REPO, "nonstationary_multivariate_gaussian_process_tpu_torch")
 

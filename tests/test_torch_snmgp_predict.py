@@ -29,6 +29,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import Fu
 from nonstationary_multivariate_gaussian_process_tpu_torch.predict import latent
 from nonstationary_multivariate_gaussian_process_tpu_torch.predict import snmgp as pred
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 N, M, S, G = 24, 2, 4, 9
 T = M * (M + 1) // 2

@@ -43,6 +43,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.postprocess import an
 from nonstationary_multivariate_gaussian_process_tpu_torch.serving import PredictEngine
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 
 
@@ -360,9 +362,19 @@ def test_run_subject_without_device_raises_when_cuda_is_absent(subject, monkeypa
         workflows.run_subject(*subject, workflows.PipelineConfig(n_opt=1))
 
 
-@pytest.mark.parametrize("field,value", [("model", "gnmgp_sparse"), ("sampler", "drhmc"), ("sampler", "rmhmc"),
-                                         ("sampler", "chees"), ("sampler", "smc"), ("sampler", "pathfinder"),
-                                         ("map_method", "sgd")])
+@pytest.mark.parametrize("field,value", [("model", "gnmgp_sparse"), ("sampler", "rmhmc"), ("sampler", "smc"),
+                                         ("sampler", "pathfinder"), ("map_method", "sgd")])
 def test_pipeline_config_refuses_what_is_not_ported(field, value):
     with pytest.raises(ValueError, match="not yet ported|map_method"):
         workflows.PipelineConfig(**{field: value})
+
+
+def test_pipeline_config_says_why_rmhmc_is_refused():
+    with pytest.raises(ValueError, match="second- and third-order derivatives of K1 and K3"):
+        workflows.PipelineConfig(sampler="rmhmc")
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "nuts", "drhmc", "chees"])
+def test_pipeline_config_takes_the_ported_samplers(sampler):
+    cfg = workflows.PipelineConfig(sampler=sampler)
+    assert (cfg.dr_stages, cfg.dr_reduction, cfg.n_chains) == (3, 4.0, 2)

@@ -40,6 +40,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp, 
 from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import chol
 
+torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 T64 = torch.float64
 N, M, S = 10, 2, 6
 MODELS = {"gnmgp": (gnmgp, jgnmgp), "snmgp": (snmgp, jsnmgp), "gnmgp_hetero": (gnmgp_hetero, jhetero),
