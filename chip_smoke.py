@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS, Hadamard-layout, mixed-precision and other-sampler paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS, Hadamard-layout, mixed-precision, other-sampler and sparse-tier paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
@@ -103,7 +103,7 @@ Phases, each printing its lines:
                draws (max_depth 8), and LMC, SNMGP and the hetero GNMGP
                through ``nuts_sample`` on their prior-whitened potentials
                with 10 + 10 draws at max_depth 6 (the hetero model also
-               with run_subject's default 100 warmup draws), all at the
+               with 50 warmup draws, cut from run_subject's default 100), all at the
                default step (1e-4) and target: draws/s, gradients/s, tree depths,
                divergences, acceptance, the adapted step and the distinct
                kept draws; K3 and its backward (GNMGP, hetero) or K1 and its
@@ -167,7 +167,26 @@ Phases, each printing its lines:
                (equal accepting stages and leapfrog counts, draws at rtol
                1e-8, the whitened tempering chain's at 1e-6); the CLI with ``--sampler chees`` at N=48 into
                ``chiprun_out/cli_chees``.
-14. summary  — one JSON line listing every kernel, the card's name and power
+14. sparse   — (the sparse GNMGP tier, no device named) at N=2000, m_z=64
+               inducing inputs, M=2, f64: FITC and VFE gradient evaluations
+               per second, launches per gradient (K1's cross form and its
+               backward, K3 and its backward, once each) and a profile of one
+               gradient; ``run_subject(model="gnmgp_sparse", do_hmc=True,
+               do_loo=True, n_opt=30)`` with the default chain into a store,
+               its stages, acceptance, elpd_loo and the launches of its
+               chain, DIC and LOO stages counted exactly; prior-whitened NUTS
+               from that MAP (10 + 10 draws, max_depth 6); ``mode="map"`` and
+               ``mode="sample"`` over HTTP at 201 points (warm latencies,
+               exact launches, the map answer against the CPU); one gradient
+               under NMGP_PRECISION=mixed against f64; the card against the
+               CPU at N=200, m_z=16 (objectives, gradients, run_subject's MAP
+               at rtol 1e-6); the CLI with ``--model gnmgp_sparse`` at N=200
+               into ``chiprun_out/cli_sparse``; one gradient rate at
+               N=20,000, m_z=64.  The kernels phase also holds K1's
+               cross-form backward against autograd of its plain version at
+               2000 × 64 and 1000 × 256 (timed) and at the other strip
+               heights and ragged edges (untimed).
+15. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -257,6 +276,14 @@ K2_OTHER_SHAPES = ((64, 1), (37, 1), (38, 2), (37, 2), (36, 3), (37, 3), (40, 4)
 #: than a warp has lanes (N = 1100: 35), each checked once.
 K1_BWD_OTHER_SIZES = (1, 16, 17, 31, 32, 33, 600, 1024, 1100)
 
+#: K1's cross-form backward (the sparse tier's K_xz) is timed at the sparse
+#: path's N × m_z = 2000 × 64 and at 1000 × 256; these (N1, N2) cover a
+#: single input, ragged strips and column chunks, more blocks than a warp
+#: has lanes, taller strips, and the N = 20,000 rate's shape, each checked
+#: once.
+K1_CROSS_BWD_TIMED = ((2000, 64), (1000, 256))
+K1_CROSS_BWD_OTHER_SHAPES = ((1, 1), (37, 45), (600, 33), (3000, 20), (9000, 40), (20000, 64))
+
 #: The training path: the objective phase's shape, the run_subject subject
 #: and budget, and the card-vs-CPU run.
 TRAIN_N, TRAIN_N_OPT = 1000, 30
@@ -311,11 +338,12 @@ MODELS_CHECK_DRAWS = 4
 #: NUTS_WARMUP + NUTS_DRAWS draws, the models sampled through nuts_sample at
 #: max_depth NUTS_MODEL_DEPTH (GNMGP through run_subject keeps the default
 #: 8), and the hetero model once more with NUTS_HETERO_WARMUP warmup draws
-#: (run_subject's default).  Each leaf is one gradient, so each chain
+#: (cut from run_subject's default 100 when the sparse phase joined the
+#: smoke: at 100 its chain took 27.7-37.7 s).  Each leaf is one gradient, so each chain
 #: launches the kernels of its model's gradient 1 + Σ n_leapfrog times.
 NUTS_CHECK_N, NUTS_CHECK_WARMUP, NUTS_CHECK_DRAWS, NUTS_CHECK_DEPTH = 200, 3, 3, 5
 NUTS_CLI_N, NUTS_CLI_HMC, NUTS_CLI_DEPTH = 48, 4, 5
-NUTS_WARMUP, NUTS_DRAWS, NUTS_MODEL_DEPTH, NUTS_HETERO_WARMUP = 10, 10, 6, 100
+NUTS_WARMUP, NUTS_DRAWS, NUTS_MODEL_DEPTH, NUTS_HETERO_WARMUP = 10, 10, 6, 50
 NUTS_KERNELS = {"gnmgp": HMC_KERNELS, "gnmgp_hetero": HMC_KERNELS,
                 "lmc": ("gibbs_gram", "gibbs_gram_backward"), "snmgp": ("gibbs_gram", "gibbs_gram_backward")}
 
@@ -376,6 +404,19 @@ SAMPLER_CHECK_N, SAMPLER_CHECK_RTOL, SAMPLER_CLI_N, SAMPLER_CLI_HMC = 200, 1e-8,
 #: first draws' ceil(tau / eps) is not a tie that the last bit could flip.
 DRHMC_CHECK_STEP, CHEES_CHECK_T = 1e-3, 17.3
 K1_KERNELS = ("gibbs_gram", "gibbs_gram_backward")
+
+#: The sparse tier (``gnmgp_sparse``): the path at N=SPARSE_N, m_z=SPARSE_M_Z
+#: inducing inputs, M=2, f64 (the JAX tier's own headline shape and its
+#: default n_inducing); the card against the CPU at N=SPARSE_CHECK_N,
+#: m_z=SPARSE_CHECK_M_Z; one gradient rate at N=SPARSE_BIG_N, where the dense
+#: path's (2N)² Gram would take 12.8 GB.  One sparse gradient launches each
+#: kernel of SPARSE_GRADIENT once (K1's cross form builds K_xz, K3 K_mm); a
+#: value (a DIC or LOO draw) each of SPARSE_VALUE once; a mode="map" request
+#: (and each draw of a mode="sample" one) also K1's cross form for K_gz.
+SPARSE_N, SPARSE_M_Z, SPARSE_CHECK_N, SPARSE_CHECK_M_Z, SPARSE_BIG_N = 2000, 64, 200, 16, 20000
+SPARSE_GRADIENT = {"gibbs_gram": 1, "gibbs_gram_cross_backward": 1, "svc_gram_tiled": 1, "svc_gram_tiled_backward": 1}
+SPARSE_VALUE = {"gibbs_gram": 1, "svc_gram_tiled": 1}
+SPARSE_REQUEST = {"gibbs_gram": 2, "svc_gram_tiled": 1}
 
 
 def log(phase: str, msg: str) -> None:
@@ -561,9 +602,25 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 lambda x=x, s=s, l=l, kb=kbar1: gk.gibbs_gram_backward_plain(x, s, l, settings.jitter, kb),
                 n * n * size + 5 * n * size, n * n * 30,
             ))
+        # K1's cross-form backward (the sparse tier's K_xz, both sides' σ̄ and ℓ̄)
+        k1x_shapes = {}
+        for n1, n2 in K1_CROSS_BWD_TIMED:
+            x1, s1, l1 = kernel_inputs(torch, gen, n1, dtype, dev)
+            x2, s2, l2 = kernel_inputs(torch, gen, n2, dtype, dev)
+            kbar = torch.randn(n1, n2, generator=gen, dtype=torch.float64).to(dev, dtype)
+            label = f"gibbs_gram_cross_backward {n1}x{n2}"
+            k1x_shapes[label] = (n1, n2)
+            args = (x1, s1, l1, x2, s2, l2, kbar)
+            grads.append((
+                label, "gibbs_gram_cross_backward",
+                lambda args=args: gk.gibbs_gram_cross_backward(*args),
+                lambda args=args: gk.gibbs_gram_cross_backward_plain(*args),
+                # K̄ and the six input vectors read once, the four gradients written once
+                n1 * n2 * size + 5 * (n1 + n2) * size, n1 * n2 * 32,
+            ))
         main_labels = (f"gibbs_gram cross {SERVED_N}x256", "svc_gram task N=1000 M=2",
                        "svc_gram_tiled N=1000 M=2", "svc_gram_tiled_backward N=1000 M=2",
-                       "gibbs_gram_backward N=1000")
+                       "gibbs_gram_backward N=1000", "gibbs_gram_cross_backward 2000x64")
         rows = {}
         for label, kname, kern, plain, nbytes, ops in cases + grads:
             if kname.endswith("_backward"):
@@ -581,7 +638,7 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             }
             log("kernels", f"{label} {dn}: ok, max_abs_err={err:.3e} ms={ms:.5f} "
                 f"plain_ms={plain_ms:.5f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
-            if label in k3_shapes or label in k1_sizes:
+            if label in k3_shapes or label in k1_sizes or label in k1x_shapes:
                 # a backward: bit-equal on a repeat, a cold-L2 time (K̄'s 32
                 # MB at N=1000, M=2, f64 fits in the 50 MB L2), its scratch
                 first, again = kern(), kern()
@@ -591,11 +648,15 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                     sched = gk.k3_backward_schedule(*k3_shapes[label], gk.sm_count(dev))
                     walk = (f"{sched.route} route, " + ("one block per row input" if sched.route == "generic"
                             else f"{sched.n_pairs} tile pairs of {sched.tile} inputs") + f", grid {sched.grid}")
+                elif label in k1x_shapes:
+                    sched = gk.k1_cross_backward_schedule(*k1x_shapes[label], gk.sm_count(dev))
+                    walk = f"row strips of {sched.rows}, grid {sched.grid}"
                 else:
                     sched = gk.k1_backward_schedule(k1_sizes[label], gk.sm_count(dev))
                     walk = f"{sched.n_pairs} tile pairs of {sched.tile} inputs, grid {sched.grid}"
+                route = "strips" if label in k1x_shapes else getattr(sched, "route", "tiled")
                 row.update(cold_ms=time_cold_ms(torch, kern), scratch_bytes=sched.partial_numel * size,
-                           kernel_route=getattr(sched, "route", "tiled"), repeat_bit_equal=True)
+                           kernel_route=route, repeat_bit_equal=True)
                 log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
                     f"(warm {ms:.5f}); scratch {row['scratch_bytes']} B; {walk}")
             if label in fwd:
@@ -623,8 +684,10 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             if dn == "float64" and label in main_labels:
                 main[kname] = row
         if dn == "float64":
-            # K1's self form (the training path's) beside the served cross form
+            # K1's self form (the training path's) beside the served cross form,
+            # and its cross-form backward at the second timed shape
             main["gibbs_gram"]["self_form_n1000"] = rows["gibbs_gram self N=1000"]
+            main["gibbs_gram_cross_backward"]["at_1000x256"] = rows["gibbs_gram_cross_backward 1000x256"]
         # K1's forward at other N, untimed: bit-equal to the plain version and
         # on a repeat, the self form exactly symmetric
         for n in K1_FWD_OTHER_SIZES:
@@ -710,6 +773,18 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 raise AssertionError(f"{label}: two launches on the same inputs differ")
             sched = gk.k1_backward_schedule(n, gk.sm_count(dev))
             log("kernels", f"{label} (tile {sched.tile}, {sched.n_tiles} slots): ok, max_abs_err={err:.3e}, "
+                "two launches bit-equal (untimed)")
+        # K1's cross-form backward at other shapes, untimed: each strip height, ragged edges
+        for n1, n2 in K1_CROSS_BWD_OTHER_SHAPES:
+            args = (*kernel_inputs(torch, gen, n1, dtype, dev), *kernel_inputs(torch, gen, n2, dtype, dev),
+                    torch.randn(n1, n2, generator=gen, dtype=torch.float64).to(dev, dtype))
+            label = f"gibbs_gram_cross_backward {n1}x{n2} {dn}"
+            kern = lambda: gk.gibbs_gram_cross_backward(*args)
+            err = check_grad(torch, label, kern(), gk.gibbs_gram_cross_backward_plain(*args), dn)
+            if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
+                raise AssertionError(f"{label}: two launches on the same inputs differ")
+            sched = gk.k1_cross_backward_schedule(n1, n2, gk.sm_count(dev))
+            log("kernels", f"{label} (strips of {sched.rows} rows, grid {sched.grid}): ok, max_abs_err={err:.3e}, "
                 "two launches bit-equal (untimed)")
     return main
 
@@ -2789,6 +2864,300 @@ def phase_samplers(torch, np, gk, seed, hmc_res, subjects) -> dict:
     return counts
 
 
+def sparse_subject(torch, np, seed: int, n: int):
+    """x, y (numpy) for the sparse tier: a ``sim_mnts`` draw (the GNMGP prior)
+    and its truth subsampled to Z later, up to N = SPARSE_N; above it, where
+    the prior's dense factor is the very cost this tier avoids, two smooth
+    tasks with noise and no truth vector."""
+    if n <= SPARSE_N:
+        x, y, gvec, _ = training_subject(torch, seed, n)
+        return x, y, gvec
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(size=n))
+    y = np.stack([np.sin(8 * x), np.cos(5 * x) * (1 + x)], axis=1) + 0.1 * rng.normal(size=(n, 2))
+    return x, y, None
+
+
+def sparse_start(torch, gnmgp_sparse, gvec, n, z, x, m_z):
+    """A sparse vector on the card: the dense truth subsampled to Z (as
+    ``init_from_empirical`` subsamples the empirical init), or, with no
+    truth, short smooth latents and noise variance e^-4."""
+    if gvec is not None:
+        return gnmgp_sparse.init_from_empirical(gvec.to(DEVICE), n, m_z, 2, x, z)
+    return torch.cat([torch.full((m_z,), -2.5), torch.zeros(m_z * 3), torch.tensor([-4.0])]).to(
+        device=DEVICE, dtype=torch.float64)
+
+
+def phase_sparse(torch, np, gk, seed) -> dict:
+    """The sparse GNMGP tier at N=SPARSE_N, m_z=SPARSE_M_Z, M=2, f64, no
+    device named: (a) FITC and VFE gradient evaluations per second, launches
+    per gradient and a profile of one gradient; (b) ``run_subject(
+    model="gnmgp_sparse", do_hmc=True, do_loo=True)`` with the default chain
+    into a store, with the launches of its chain, DIC and LOO stages counted
+    exactly; (c) whitened NUTS from that MAP; (d) ``mode="map"`` and
+    ``mode="sample"`` over HTTP from that store at 201 points; (e) one
+    gradient under ``NMGP_PRECISION=mixed`` against float64; (f) the card
+    against the CPU at N=SPARSE_CHECK_N; (g) the CLI with ``--model
+    gnmgp_sparse``; (h) the gradient rate at N=SPARSE_BIG_N.  Returns each
+    kernel's launches by stage."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, settings, workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import nuts
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp_sparse
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import mixed
+    from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp_sparse as pred
+    from nonstationary_multivariate_gaussian_process_tpu_torch.serving import serve
+    from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
+
+    f64 = torch.float64
+    as_t = lambda a, dev=DEVICE: torch.as_tensor(a, dtype=f64, device=dev)
+    expect = lambda per, times: {k: per.get(k, 0) * times for k in gk.launches()}
+    counts: dict = {}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    x, y, gvec = sparse_subject(torch, np, seed + 95, SPARSE_N)
+    data = FullData(as_t(x), as_t(y))
+
+    # (a) FITC and VFE: launches per gradient, gradient evaluations/s, a profile
+    objectives = {}
+    for approx in ("fitc", "vfe"):
+        nlp, ops = gnmgp_sparse.make_objective(data, n_inducing=SPARSE_M_Z, approx=approx)
+        v = sparse_start(torch, gnmgp_sparse, gvec, SPARSE_N, ops.z, data.x, SPARSE_M_Z)
+        objectives[approx] = (nlp, ops, v)
+        gk.reset_launches()
+        val, grad = value_and_grad(nlp, v)
+        torch.cuda.synchronize()
+        counts[f"gradient_{approx}"] = gk.launches()
+        if counts[f"gradient_{approx}"] != expect(SPARSE_GRADIENT, 1):
+            raise AssertionError(f"sparse {approx}: one gradient launched {gk.launches()}, expected {SPARSE_GRADIENT}")
+        if not (torch.isfinite(val) and torch.isfinite(grad).all()):
+            raise AssertionError(f"sparse {approx}: non-finite objective or gradient")
+        per_s = gradient_rate(torch, value_and_grad, nlp, v)
+        wall, device_ms, kinds, top = device_profile(torch, lambda: value_and_grad(nlp, v))
+        log("sparse", f"gnmgp_sparse {approx} N={SPARSE_N} m_z={SPARSE_M_Z} M=2 f64 (P={v.shape[0]}): objective "
+            f"{val.item():.10e}; {statistics.median(per_s):.3f} gradient evaluations/s (median of {RATE_BATCHES} "
+            f"batches of {RATE_EVALS}; min {min(per_s):.3f}, max {max(per_s):.3f}); one gradient launched "
+            f"{SPARSE_GRADIENT}")
+        log("profile", f"one gnmgp_sparse {approx} gradient N={SPARSE_N} m_z={SPARSE_M_Z}: wall {wall:.3f} ms, device "
+            f"{device_ms:.3f} ms (busy share {device_ms / wall:.3f}), {kinds} kernel kinds")
+        for ms, count, key in top:
+            log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+
+    # (b) run_subject(model="gnmgp_sparse", do_hmc=True, do_loo=True) with the default chain
+    cfg = workflows.PipelineConfig(model="gnmgp_sparse", n_inducing=SPARSE_M_Z, n_opt=TRAIN_N_OPT, do_hmc=True,
+                                   do_loo=True)
+    n_grads = 1 + (cfg.n_hmc + cfg.hmc_warmup) * cfg.hmc_leapfrog
+    stages: dict = {}
+
+    def counted(name, fn):
+        def wrapped(*args, **kwargs):
+            before = gk.launches()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[name] = ({k: v_ - before[k] for k, v_ in gk.launches().items()}, time.perf_counter() - t0)
+            return res
+        return wrapped
+
+    originals = (workflows._run_chain, evaluate.get_dic, evaluate.chain_conditional_loglik_sparse)
+    workflows._run_chain = counted("chain", originals[0])
+    evaluate.get_dic = counted("dic", originals[1])
+    evaluate.chain_conditional_loglik_sparse = counted("loo", originals[2])
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="smoke_sparse_") as root:
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            gk.reset_launches()  # the main path starts here
+            t0 = time.perf_counter()
+            res = workflows.run_subject(x, y, cfg, store=ArtifactStore(root), dataset="sim")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts["run_subject"] = gk.launches()  # the main path ends here
+        finally:
+            workflows._run_chain, evaluate.get_dic, evaluate.chain_conditional_loglik_sparse = originals
+        samples, t_hmc = res["hmc_samples"], res["timings"]["hmc"]
+        s = samples.shape[0]
+        loo = {k: v_ for k, v_ in res["loo"].items() if k != "pointwise"}
+        log("sparse", f"run_subject gnmgp_sparse N={SPARSE_N} m_z={res['n_inducing']} M=2 f64 n_opt={TRAIN_N_OPT} "
+            f"do_hmc do_loo on {samples.device} (no device named): {wall:.3f} s; stages (s): "
+            + ", ".join(f"{k} {v_:.3f}" for k, v_ in res["timings"].items())
+            + f", DIC {stages['dic'][1]:.3f}, LOO {stages['loo'][1]:.3f}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        log("sparse", f"sparse chain: {cfg.n_hmc} draws x {cfg.hmc_leapfrog} leapfrog steps at {cfg.hmc_step_size}: "
+            f"{cfg.n_hmc / t_hmc:.3f} draws/s, {n_grads / t_hmc:.3f} gradients/s ({n_grads} gradients); mean "
+            f"acceptance {res['hmc_accept']:.6f}; DIC {res['dic']:.6e} (deviance at the MAP {res['deviance']:.6e}); "
+            "loo " + ", ".join(f"{k} {v_:.6g}" for k, v_ in loo.items()))
+        for stage, per, times in (("chain", SPARSE_GRADIENT, n_grads), ("dic", SPARSE_VALUE, s + 1),
+                                  ("loo", SPARSE_VALUE, s)):
+            counts[stage] = stages[stage][0]
+            if counts[stage] != expect(per, times):
+                raise AssertionError(f"sparse: the {stage} stage launched {counts[stage]}, expected "
+                                     f"{expect(per, times)}")
+        log("sparse", f"sparse launches: chain {counts['chain']} = {n_grads} gradients x {SPARSE_GRADIENT}; DIC "
+            f"{counts['dic']}; LOO {counts['loo']}; the whole run {counts['run_subject']}")
+        if (tuple(samples.shape) != (cfg.n_hmc, gnmgp_sparse.n_params(SPARSE_M_Z, 2))
+                or samples.device.type != torch.device(DEVICE).type or not torch.isfinite(samples).all()):
+            raise AssertionError(f"sparse: hmc_samples on {samples.device} with shape {tuple(samples.shape)}")
+        if not (np.isfinite([res["dic"], loo["elpd_loo"], loo["looic"]]).all() and 0.0 < res["hmc_accept"] <= 1.0):
+            raise AssertionError("sparse: non-finite DIC or LOO, or no draw accepted")
+        map_vec = res["map_vec"]
+
+        # (c) whitened NUTS from that MAP (the sparse layout's whitener is the dense one at Z)
+        nlp, ops = gnmgp_sparse.make_objective(data, n_inducing=SPARSE_M_Z)
+        ncfg = workflows.PipelineConfig(model="gnmgp_sparse", sampler="nuts", whiten="prior")
+        w = workflows._make_sampling_whitener(nlp, map_vec, ncfg, ops.z, SPARSE_M_Z, 2)
+        gen = torch.Generator(DEVICE).manual_seed(seed + 96)
+        gk.reset_launches()  # the main path starts here
+        t0 = time.perf_counter()
+        nres = nuts.nuts_sample(w.wrap(nlp), w.to_white(map_vec), NUTS_DRAWS, gen, step_size=ncfg.hmc_step_size,
+                                n_warmup=NUTS_WARMUP, max_depth=NUTS_MODEL_DEPTH)
+        torch.cuda.synchronize()
+        t_chain = time.perf_counter() - t0
+        counts["nuts"] = gk.launches()  # the main path ends here
+        nuts_grads = 1 + int(nres.n_leapfrog.sum())
+        if counts["nuts"] != expect(SPARSE_GRADIENT, nuts_grads):
+            raise AssertionError(f"sparse nuts: launched {counts['nuts']}, expected 1 + Σ n_leapfrog = {nuts_grads}")
+        if not torch.isfinite(w.from_white_batch(nres.samples)).all():
+            raise AssertionError("sparse nuts: non-finite draws")
+        log("sparse", f"gnmgp_sparse prior-whitened NUTS ({len(w.blocks)} whitened blocks at Z) from the "
+            f"n_opt={TRAIN_N_OPT} MAP, {NUTS_WARMUP} warmup + {NUTS_DRAWS} draws at step {ncfg.hmc_step_size}: "
+            f"{t_chain:.3f} s, {(NUTS_WARMUP + NUTS_DRAWS) / t_chain:.3f} draws/s, {nuts_grads / t_chain:.3f} "
+            f"gradients/s; " + nuts_stats(torch, nres, NUTS_WARMUP, NUTS_MODEL_DEPTH)
+            + f"; launches {counts['nuts']} = 1 + Σ n_leapfrog")
+
+        # (d) mode="map" and mode="sample" over HTTP from that store
+        httpd = serve(root, port=0, model="gnmgp_sparse")  # warms mode="map" at the 64- and 256-point buckets
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        xs = np.linspace(float(x.min()), float(x.max()), 201)
+
+        def post(mode):
+            body = json.dumps({"subject": "0", "x": list(map(float, xs)), "mode": mode,
+                               "n_sample": CHAIN_N_SAMPLE}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_port}/predict", data=body, method="POST")
+            return json.load(urllib.request.urlopen(req, timeout=300))
+
+        answers = {}
+        try:
+            for mode, check, times in (("map", check_answer, 1), ("sample", check_sample_answer, s)):
+                answers[mode] = check(np, post(mode), 201)  # first request at this bucket
+                times_ms = []
+                for _ in range(TIMED_REQUESTS):
+                    gk.reset_launches()  # a request starts here
+                    t0 = time.perf_counter()
+                    check(np, post(mode), 201)
+                    times_ms.append((time.perf_counter() - t0) * 1e3)
+                    counts[f"{mode}_request"] = gk.launches()  # a request ends here
+                    if counts[f"{mode}_request"] != expect(SPARSE_REQUEST, times):
+                        raise AssertionError(f"sparse: a {mode} request launched {counts[f'{mode}_request']}, "
+                                             f"expected {expect(SPARSE_REQUEST, times)}")
+                log("sparse", f"gnmgp_sparse POST /predict mode={mode} 201 points: ok, warm latency median "
+                    f"{statistics.median(times_ms):.3f} ms (min {min(times_ms):.3f}, max {max(times_ms):.3f}, "
+                    f"{TIMED_REQUESTS} requests); launches per request {SPARSE_REQUEST} x {times}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError("server thread did not stop")
+        stored = ArtifactStore(root).load(ArtifactStore.key("gnmgp_sparse", "sim", 0, "map"))
+        cpu_ops = gnmgp_sparse.make_ops(as_t(x, "cpu"), as_t(stored["z"], "cpu"))
+        ref = pred.predict_map(map_vec.cpu(), FullData(x, y), cpu_ops, xs, device="cpu")
+        for k, w_ in (("mean", ref.mean), ("std", ref.std), ("upper", ref.percentiles[:, 2])):
+            rel, frac = held(np, answers["map"][k], w_.numpy(), SERVED_RTOL)
+            log("sparse", f"served 201-point map {k} vs CPU predict_map: ok, max rel err {rel:.3e}, max err "
+                f"{frac:.3e} of max |CPU|")
+
+    # (e) one FITC gradient under NMGP_PRECISION=mixed against float64
+    nlp, _, v = objectives["fitc"]
+    calls = []
+    real = mixed.mixed_logdet_quad
+    mixed.mixed_logdet_quad = lambda *a: calls.append(1) or real(*a)
+    settings.mixed_solves = True
+    try:
+        val_m, grad_m = value_and_grad(nlp, v)
+    finally:
+        settings.mixed_solves = False
+        mixed.mixed_logdet_quad = real
+    val_f, grad_f = value_and_grad(nlp, v)
+    if not calls:
+        raise AssertionError("sparse: the mixed objective did not take the mixed route")
+    rel_v, _ = held(np, [val_m.item()], [val_f.item()], MIXED_VALUE_RTOL)
+    g_err = (grad_m - grad_f).abs().max().item() / grad_f.abs().max().item()
+    if not g_err <= MIXED_GRAD_TOL:
+        raise AssertionError(f"sparse: the mixed gradient is off by {g_err:.3e} of the f64 gradient's scale")
+    log("sparse", f"gnmgp_sparse fitc N={SPARSE_N} NMGP_PRECISION=mixed vs f64: value {val_m.item():.12e} vs "
+        f"{val_f.item():.12e} (rel {rel_v:.3e}), gradient off by {g_err:.3e} of its scale: ok at "
+        f"{MIXED_VALUE_RTOL} and {MIXED_GRAD_TOL}")
+
+    # (f) the card against the CPU at N=SPARSE_CHECK_N, m_z=SPARSE_CHECK_M_Z
+    xc, yc, gc = sparse_subject(torch, np, seed + 97, SPARSE_CHECK_N)
+    for approx in ("fitc", "vfe"):
+        vals = {}
+        for dev in (DEVICE, "cpu"):
+            nlp_c, ops_c = gnmgp_sparse.make_objective(FullData(as_t(xc, dev), as_t(yc, dev)),
+                                                       n_inducing=SPARSE_CHECK_M_Z, approx=approx)
+            v_c = gnmgp_sparse.init_from_empirical(gc.to(dev), SPARSE_CHECK_N, SPARSE_CHECK_M_Z, 2, xc, ops_c.z)
+            vals[dev] = [t.cpu() for t in value_and_grad(nlp_c, v_c)]
+        rel_v, _ = held(np, [vals[DEVICE][0].item()], [vals["cpu"][0].item()], OBJECTIVE_RTOL)
+        rel_g, frac_g = held(np, vals[DEVICE][1].numpy(), vals["cpu"][1].numpy(), OBJECTIVE_RTOL)
+        log("sparse", f"gnmgp_sparse {approx} N={SPARSE_CHECK_N} m_z={SPARSE_CHECK_M_Z} card vs CPU: value rel "
+            f"{rel_v:.3e}, gradient max rel err {rel_g:.3e}, max err {frac_g:.3e} of its scale: ok at rtol "
+            f"{OBJECTIVE_RTOL}")
+    cfg_c = workflows.PipelineConfig(model="gnmgp_sparse", n_inducing=SPARSE_CHECK_M_Z, n_opt=CHECK_N_OPT)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = workflows.run_subject(xc, yc, cfg_c, device=dev, dtype=f64)
+        log("sparse", f"run_subject gnmgp_sparse N={SPARSE_CHECK_N} m_z={SPARSE_CHECK_M_Z} n_opt={CHECK_N_OPT} on "
+            f"{dev}: {time.perf_counter() - t0:.3f} s")
+    nlp_c, _ = gnmgp_sparse.make_objective(FullData(as_t(xc, "cpu"), as_t(yc, "cpu")), n_inducing=SPARSE_CHECK_M_Z)
+    with torch.no_grad():
+        final = {dev: nlp_c(r["map_vec"].cpu()).item() for dev, r in runs.items()}
+    rel_f, _ = held(np, [final[DEVICE]], [final["cpu"]], OBJECTIVE_RTOL)
+    rel_m, frac_m = held(np, runs[DEVICE]["map_vec"].cpu().numpy(), runs["cpu"]["map_vec"].numpy(), OBJECTIVE_RTOL)
+    rel_p, frac_p = held(np, runs[DEVICE]["pred_grid"].mean.cpu().numpy(), runs["cpu"]["pred_grid"].mean.numpy(),
+                         SERVED_RTOL)
+    log("sparse", f"run_subject N={SPARSE_CHECK_N} card vs CPU: final objective {final[DEVICE]:.10e} vs "
+        f"{final['cpu']:.10e} (rel {rel_f:.3e}); map_vec max rel err {rel_m:.3e}, max err {frac_m:.3e} of its scale; "
+        f"pred_grid mean max err {frac_p:.3e} of its scale: ok at rtol {OBJECTIVE_RTOL}")
+
+    # (g) the CLI with --model gnmgp_sparse
+    cli_out = os.path.join(out_dir, "cli_sparse")
+    t0 = time.perf_counter()
+    summary = run_sim_pipeline.main(["--model", "gnmgp_sparse", "--n", str(CHAIN_CHECK_N), "--n-opt", str(CHECK_N_OPT),
+                                     "--n-hmc", str(CHAIN_CLI_HMC), "--out", cli_out])
+    for name in ("posterior.png", "target_trace.png", "manifest.json"):
+        if not os.path.getsize(os.path.join(cli_out, name)) > 0:
+            raise AssertionError(f"the sparse CLI did not write {name}")
+    if not all(np.isfinite(summary.get(k, np.nan)) for k in ("deviance", "aic", "bic", "dic", "hmc_accept")):
+        raise AssertionError(f"the sparse CLI's summary lacks finite scores: {summary}")
+    log("sparse", f"CLI --model gnmgp_sparse --n {CHAIN_CHECK_N} --n-opt {CHECK_N_OPT} --n-hmc {CHAIN_CLI_HMC} on the "
+        f"card: {time.perf_counter() - t0:.3f} s; summary {summary}")
+
+    # (h) the gradient rate at N=SPARSE_BIG_N, the objective alone
+    xb, yb, _ = sparse_subject(torch, np, seed + 98, SPARSE_BIG_N)
+    t0 = time.perf_counter()
+    nlp_b, ops_b = gnmgp_sparse.make_objective(FullData(as_t(xb), as_t(yb)), n_inducing=SPARSE_M_Z)
+    torch.cuda.synchronize()
+    t_ops = time.perf_counter() - t0
+    v_b = sparse_start(torch, gnmgp_sparse, None, SPARSE_BIG_N, ops_b.z, None, SPARSE_M_Z)
+    gk.reset_launches()
+    val_b, grad_b = value_and_grad(nlp_b, v_b)
+    torch.cuda.synchronize()
+    counts["gradient_big"] = gk.launches()
+    if counts["gradient_big"] != expect(SPARSE_GRADIENT, 1) or not torch.isfinite(grad_b).all():
+        raise AssertionError(f"sparse N={SPARSE_BIG_N}: one gradient launched {counts['gradient_big']} or is "
+                             "not finite")
+    per_s = gradient_rate(torch, value_and_grad, nlp_b, v_b)
+    wall, device_ms, _, _ = device_profile(torch, lambda: value_and_grad(nlp_b, v_b))
+    log("sparse", f"gnmgp_sparse fitc N={SPARSE_BIG_N} m_z={SPARSE_M_Z} M=2 f64: SparseOps {t_ops:.3f} s; "
+        f"{statistics.median(per_s):.3f} gradient evaluations/s (min {min(per_s):.3f}, max {max(per_s):.3f}); one "
+        f"gradient wall {wall:.3f} ms, device {device_ms:.3f} ms (busy share {device_ms / wall:.3f}); peak device "
+        f"memory of the phase {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2842,23 +3211,33 @@ def main() -> int:
     t0 = time.perf_counter()
     sampler_launches = phase_samplers(torch, np, gk, args.seed, hmc_res, model_subjects)
     log("samplers", f"phase took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    sparse_launches = phase_sparse(torch, np, gk, args.seed)
+    log("sparse", f"phase took {time.perf_counter() - t0:.3f} s")
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
     # TPU had no backward kernel: XLA differentiated the jnp Gram)
     replaces = {"gibbs_gram": f"{pallas}:55", "gibbs_gram_backward": f"{pallas}:55",
-                "svc_gram": f"{pallas}:228", "svc_gram_tiled": f"{pallas}:122",
-                "svc_gram_tiled_backward": f"{pallas}:122"}
+                "gibbs_gram_cross_backward": f"{pallas}:55", "svc_gram": f"{pallas}:228",
+                "svc_gram_tiled": f"{pallas}:122", "svc_gram_tiled_backward": f"{pallas}:122"}
     kernels = []
-    for name in TRAINING_KERNELS:
-        # the served kernels count on slice 1's path, the training kernels on slice 2's
+    for name in TRAINING_KERNELS + ("gibbs_gram_cross_backward",):
+        # the served kernels count on slice 1's path, the training kernels on
+        # slice 2's, K1's cross-form backward on the sparse tier's
         served = name in SERVED_KERNELS
+        if served:
+            main_launches = launches[name]
+        elif name in TRAINING_KERNELS:
+            main_launches = train_launches[name]
+        else:
+            main_launches = sparse_launches["run_subject"][name]
         row = {
             "name": name,
             "route": "cuda",  # the contract's: CUDA C++ (kernel_route: the schedule's route)
             "source": f"nonstationary_multivariate_gaussian_process_tpu_torch/csrc/{gk.SOURCES[name]}.cu",
             "replaces": replaces[name],
-            "launches": launches[name] if served else train_launches[name],
+            "launches": main_launches,
             **main_rows[name],  # max_abs_err, ms, plain_ms, bound_ms, bound_by
             "library_ms": None,  # no single PyTorch call computes these Grams or their gradients
         }
@@ -2874,9 +3253,11 @@ def main() -> int:
         # the Hadamard layout by model and stage (run_subject_hadamard at N_obs ≈ 1,500)
         row["launches_hadamard"] = {model: c[name] for model, c in hadamard_launches.items()}
         # under NMGP_PRECISION=mixed: per gradient by model, the GNMGP run_subject and its chain
-        row["launches_precision"] = precision_launches[name]
+        row["launches_precision"] = precision_launches.get(name, {})
         # the sampling stages of DRHMC (GNMGP, LMC), ChEES (GNMGP whitened, Hadamard GNMGP) and tempering
         row["launches_samplers"] = {run: c[name] for run, c in sampler_launches.items()}
+        # the sparse tier: per gradient, its run_subject and stages, NUTS, per request
+        row["launches_sparse"] = {stage: c[name] for stage, c in sparse_launches.items()}
         kernels.append(row)
     log("summary", "warm /predict latency ms by size: "
         + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
@@ -2894,6 +3275,8 @@ def main() -> int:
         f"{name}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for name, c in precision_launches.items()))
     log("summary", "launches in the samplers' stages: " + "; ".join(
         f"{run}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for run, c in sampler_launches.items()))
+    log("summary", "launches on the sparse path: " + "; ".join(
+        f"{stage}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for stage, c in sparse_launches.items()))
     log("summary", "gradient evaluations/s at N=1000, M=2: "
         + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
     log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")

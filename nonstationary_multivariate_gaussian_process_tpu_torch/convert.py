@@ -5,8 +5,9 @@ The port keeps the JAX package's packed parameter vectors (reference
 ``vec2pars``: ``[tilde_l (N), tilde_sigma (N), uL_vec (T),
 tilde_sigma2_err]``; ``vec2pars_S``: ``[tilde_l, tilde_sigma, uL_vec (T),
 tilde_sigma2_err]``; the heteroscedastic GNMGP's ``[tilde_l (N), uL_vecs
-(N·T), tilde_sigma2_err (N·M)]``), its empirical estimate and its
-artifact-store format,
+(N·T), tilde_sigma2_err (N·M)]``; the sparse GNMGP's ``[tilde_l_z (m_z),
+uL_vecs_z (m_z·T), tilde_sigma2_err]`` with its ``SparseOps``), its
+empirical estimate and its artifact-store format,
 so carrying a fit across is a matter of moving arrays into tensors on a
 device.  A Hadamard-layout subject's GNMGP and SNMGP vectors are the dense
 layouts with N the number of observations (``params_from_jax(vec, n_obs,
@@ -24,10 +25,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import settings
+from . import dists, settings
 from .inference import whiten
 from .inference.empirical import EmpiricalEstimate
-from .models import gnmgp, gnmgp_hetero, lmc, snmgp
+from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, snmgp
 from .models.base import FullData
 from .utils.artifacts import ArtifactStore
 
@@ -60,6 +61,20 @@ def hetero_params_from_jax(vec: np.ndarray, n: int, m: int, device=None, dtype=N
     """The JAX package's packed heteroscedastic GNMGP vector (task-major
     noise) as the port's ``Params``."""
     return gnmgp_hetero.unpack(_tensor(vec, device, dtype), n, m)
+
+
+def sparse_params_from_jax(vec: np.ndarray, m_z: int, m: int, device=None, dtype=None) -> gnmgp_sparse.SparseParams:
+    """The JAX package's packed sparse GNMGP vector as the port's ``SparseParams``."""
+    return gnmgp_sparse.unpack(_tensor(vec, device, dtype), m_z, m)
+
+
+def sparse_ops_from_jax(ops, device=None, dtype=None) -> gnmgp_sparse.SparseOps:
+    """A JAX ``SparseOps`` (its inducing inputs, kriging projections and the
+    prior factors at Z as ``TriInv``s) as the port's, so that both packages
+    evaluate the sparse objective with the same float64 islands."""
+    t = lambda a: _tensor(np.array(a), device, dtype)
+    tri = lambda pc: dists.TriInv(t(pc.w), t(pc.logdet))
+    return gnmgp_sparse.SparseOps(t(ops.z), t(ops.proj_l), t(ops.proj_ul), tri(ops.pc_l_z), tri(ops.pc_ul_z))
 
 
 def empirical_from_jax(emp) -> EmpiricalEstimate:

@@ -92,6 +92,28 @@
 //   Kbar = 0 past N, so anything it adds is exactly 0.
 // No tensor cores: wgmma has no float64 form and nothing here is a matrix
 // product.  The backward is held to a tolerance and uses explicit fma().
+//
+// Backward of the cross form (a third entry point; the TPU had none): the
+// sparse tier differentiates K_xz = K(x, l_x; z, l_z) in l on both sides
+// (and the separable sparse models in s too), so it returns the four
+// sums, with g_ij the Gibbs term (s = 1), f as above with A = l1_i^2 +
+// l2_j^2:
+//
+//   s1bar_i = sum_j Kbar_ij s2_j g_ij     l1bar_i = sum_j Kbar_ij K_ij f1_ij
+//   s2bar_j = sum_i Kbar_ij s1_i g_ij     l2bar_j = sum_i Kbar_ij K_ij f2_ij
+//
+// What bounds it: the bytes of Kbar, read once, n1 n2 sizeof(T) (1 MB at the
+// sparse path's 2000 x 64 float64, 0.31 us at 3.35 TB/s); each term's exp
+// and rsqrt cost less than that in float64 at these shapes, so at the
+// path's size it is bound by its launches.  A simple design: each block
+// takes a strip of 8, 16 or 32 rows (as many as still give every SM a
+// block, gram_kernels.k1_cross_backward_schedule) and all the columns, in
+// chunks of 32 along the lanes, so Kbar is read once, coalesced along its
+// rows; a row is reduced in full inside its warp, a column's shares of the
+// strip go to per-block partials that the self form's second launch
+// (gibbs_gram_bwd_reduce, a programmatic dependent launch) sums over the
+// blocks in one fixed order.  No atomics: the result does not depend on
+// scheduling.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -504,14 +526,11 @@ __global__ void gibbs_gram_bwd_reduce(const T* __restrict__ partial, int n_slots
   }
 }
 
-template <typename T, int TILE>
-int launch_backward_tile(const T* x, const T* s, const T* l, int n, const T* kbar, int grid,
-                         T* partial, T* s_bar, T* l_bar, cudaStream_t st) {
-  gibbs_gram_bwd_kernel<T, TILE><<<grid, kBwdThreads, 0, st>>>(x, s, l, n, kbar, partial);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // programmatic stream serialization: the sum's launch overlaps the pair
-  // kernel's tail instead of following its end
+// Launches gibbs_gram_bwd_reduce over n rows of n_slots slots as a
+// programmatic dependent of the kernel just launched on st: its launch
+// overlaps that kernel's tail instead of following its end.
+template <typename T>
+int launch_reduce(const T* partial, int n_slots, int n, T* s_bar, T* l_bar, cudaStream_t st) {
   constexpr int rows_per_block = 256 / 32;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -522,10 +541,18 @@ int launch_backward_tile(const T* x, const T* s, const T* l, int n, const T* kba
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err2 = cudaLaunchKernelEx(&cfg, gibbs_gram_bwd_reduce<T>, static_cast<const T*>(partial),
-                                              (n + TILE - 1) / TILE, n, s_bar, l_bar);
-  if (err2 != cudaSuccess) return static_cast<int>(err2);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gibbs_gram_bwd_reduce<T>, partial, n_slots, n, s_bar, l_bar);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int TILE>
+int launch_backward_tile(const T* x, const T* s, const T* l, int n, const T* kbar, int grid,
+                         T* partial, T* s_bar, T* l_bar, cudaStream_t st) {
+  gibbs_gram_bwd_kernel<T, TILE><<<grid, kBwdThreads, 0, st>>>(x, s, l, n, kbar, partial);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_reduce<T>(partial, (n + TILE - 1) / TILE, n, s_bar, l_bar, st);
 }
 
 // tile is 16 or 32, and 1 <= grid <= the number of tile pairs, which must
@@ -547,6 +574,135 @@ int launch_backward(const void* x, const void* s, const void* l, int n, const vo
   const cudaStream_t strm = static_cast<cudaStream_t>(stream);
   if (tile == 16) return launch_backward_tile<T, 16>(xt, st, lt, n, kt, grid, pt, sb, lb, strm);
   return launch_backward_tile<T, 32>(xt, st, lt, n, kt, grid, pt, sb, lb, strm);
+}
+
+// ---------------------------------------------------------------------------
+// Backward of the cross form
+// ---------------------------------------------------------------------------
+
+// Block b takes the row strip b ROWS .. + ROWS - 1, ROWS = RPW kBwdWarps:
+// warp w its rows b ROWS + w + k kBwdWarps, k < RPW, in registers (past n1:
+// x = 0, s = 0, l = 1, so their shares are exactly 0).  The block walks the
+// columns in chunks of 32, lane l taking column c0 + l; each term adds its
+// shares to its row's accumulators (in registers, across the chunks) and to
+// its column's (over the warp's rows in order, then over the warps in order
+// through shared memory).  A row is whole inside one warp, so after the
+// last chunk a shuffle tree over the lanes gives sbar1 and lbar1 directly;
+// a column's sums are the block's partials, partial[b][column][2], which
+// gibbs_gram_bwd_reduce sums over the blocks in one fixed order.
+template <typename T, int RPW>
+__global__ void __launch_bounds__(kBwdThreads)
+gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, const T* __restrict__ l1, int n1,
+                            const T* __restrict__ x2, const T* __restrict__ s2, const T* __restrict__ l2, int n2,
+                            const T* __restrict__ kbar, T* __restrict__ s1_bar, T* __restrict__ l1_bar,
+                            T* __restrict__ partial) {
+  constexpr int ROWS = RPW * kBwdWarps;
+  __shared__ T red[kBwdWarps][32][2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T xi[RPW], si[RPW], li[RPW], hi[RPW], ui[RPW], acc_s[RPW], acc_l[RPW];
+#pragma unroll
+  for (int k = 0; k < RPW; ++k) {
+    const int i = blockIdx.x * ROWS + warp + k * kBwdWarps;
+    const bool in = i < n1;
+    xi[k] = in ? x1[i] : T(0);
+    si[k] = in ? s1[i] : T(0);
+    li[k] = in ? l1[i] : T(1);
+    hi[k] = T(1) / (T(2) * li[k]);
+    ui[k] = gsqrt(T(1.4142135623730951) * li[k]);  // u_i u_j = sqrt(2 l_i l_j)
+    acc_s[k] = T(0);
+    acc_l[k] = T(0);
+  }
+  for (int c0 = 0; c0 < n2; c0 += 32) {
+    const int j = c0 + lane;
+    const bool col_in = j < n2;
+    const T xj = col_in ? x2[j] : T(0), sj = col_in ? s2[j] : T(0), lj = col_in ? l2[j] : T(1);
+    const T hj = T(1) / (T(2) * lj), uj = gsqrt(T(1.4142135623730951) * lj);
+    T col_s = T(0), col_l = T(0);
+#pragma unroll
+    for (int k = 0; k < RPW; ++k) {
+      const int i = blockIdx.x * ROWS + warp + k * kBwdWarps;
+      const T kb = col_in && i < n1 ? kbar[static_cast<size_t>(i) * n2 + j] : T(0);
+      const T dx = xi[k] - xj;
+      const T d = dx * dx;
+      const T rs = grsqrt(fma(li[k], li[k], lj * lj));  // the term's one root, and no division
+      const T ra = rs * rs;
+      const T w = kb * ((ui[k] * uj) * rs * gexp(-d * ra));  // Kbar_ij g_ij
+      const T e = fma(T(2) * d, ra, T(-1)) * ra;            // f = 1/(2 l) + l e
+      const T wss = w * (si[k] * sj);
+      acc_s[k] = fma(w, sj, acc_s[k]);
+      acc_l[k] = fma(wss, fma(li[k], e, hi[k]), acc_l[k]);
+      col_s = fma(w, si[k], col_s);
+      col_l = fma(wss, fma(lj, e, hj), col_l);
+    }
+    red[warp][lane][0] = col_s;
+    red[warp][lane][1] = col_l;
+    __syncthreads();
+    if (warp == 0 && col_in) {
+      T cs = red[0][lane][0], cl = red[0][lane][1];
+#pragma unroll
+      for (int w = 1; w < kBwdWarps; ++w) {
+        cs += red[w][lane][0];
+        cl += red[w][lane][1];
+      }
+      partial[(static_cast<size_t>(blockIdx.x) * n2 + j) * 2] = cs;
+      partial[(static_cast<size_t>(blockIdx.x) * n2 + j) * 2 + 1] = cl;
+    }
+    __syncthreads();  // red is free for the next chunk
+  }
+#pragma unroll
+  for (int k = 0; k < RPW; ++k) {
+    T vs = acc_s[k], vl = acc_l[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      vs += __shfl_xor_sync(0xffffffffu, vs, off);
+      vl += __shfl_xor_sync(0xffffffffu, vl, off);
+    }
+    const int i = blockIdx.x * ROWS + warp + k * kBwdWarps;
+    if (lane == 0 && i < n1) {
+      s1_bar[i] = vs;
+      l1_bar[i] = vl;
+    }
+  }
+}
+
+template <typename T, int RPW>
+int launch_cross_backward_rpw(const T* x1, const T* s1, const T* l1, int n1, const T* x2, const T* s2, const T* l2,
+                              int n2, const T* kbar, int grid, T* partial, T* s1_bar, T* l1_bar, T* s2_bar,
+                              T* l2_bar, cudaStream_t st) {
+  gibbs_gram_cross_bwd_kernel<T, RPW><<<grid, kBwdThreads, 0, st>>>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, s1_bar,
+                                                                     l1_bar, partial);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_reduce<T>(partial, grid, n2, s2_bar, l2_bar, st);
+}
+
+// rows_per_warp is 1, 2 or 4, and grid must be ceil(n1 / (8 rows_per_warp)).
+template <typename T>
+int launch_cross_backward(const void* x1, const void* s1, const void* l1, int n1, const void* x2, const void* s2,
+                          const void* l2, int n2, const void* kbar, int rows_per_warp, int grid, void* partial,
+                          void* s1_bar, void* l1_bar, void* s2_bar, void* l2_bar, void* stream) {
+  const int rows = rows_per_warp * kBwdWarps;
+  if (n1 < 1 || n2 < 1 || (rows_per_warp != 1 && rows_per_warp != 2 && rows_per_warp != 4) ||
+      grid != (n1 + rows - 1) / rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* a = static_cast<const T*>(x1);
+  const auto* b = static_cast<const T*>(s1);
+  const auto* c = static_cast<const T*>(l1);
+  const auto* d = static_cast<const T*>(x2);
+  const auto* e = static_cast<const T*>(s2);
+  const auto* f = static_cast<const T*>(l2);
+  const auto* kb = static_cast<const T*>(kbar);
+  auto* pt = static_cast<T*>(partial);
+  auto* sb1 = static_cast<T*>(s1_bar);
+  auto* lb1 = static_cast<T*>(l1_bar);
+  auto* sb2 = static_cast<T*>(s2_bar);
+  auto* lb2 = static_cast<T*>(l2_bar);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows_per_warp == 4)
+    return launch_cross_backward_rpw<T, 4>(a, b, c, n1, d, e, f, n2, kb, grid, pt, sb1, lb1, sb2, lb2, st);
+  if (rows_per_warp == 2)
+    return launch_cross_backward_rpw<T, 2>(a, b, c, n1, d, e, f, n2, kb, grid, pt, sb1, lb1, sb2, lb2, st);
+  return launch_cross_backward_rpw<T, 1>(a, b, c, n1, d, e, f, n2, kb, grid, pt, sb1, lb1, sb2, lb2, st);
 }
 
 }  // namespace
@@ -592,6 +748,25 @@ int gibbs_gram_backward_f64(const void* x, const void* s, const void* l, int n,
                             const void* kbar, int tile, int grid, void* partial, void* s_bar,
                             void* l_bar, void* stream) {
   return launch_backward<double>(x, s, l, n, kbar, tile, grid, partial, s_bar, l_bar, stream);
+}
+
+// Cross-form backward.  partial: grid * n2 * 2 scratch values; s1_bar,
+// l1_bar (n1,), s2_bar, l2_bar (n2,).  rows_per_warp, grid:
+// gram_kernels.k1_cross_backward_schedule(n1, n2).
+int gibbs_gram_cross_backward_f32(const void* x1, const void* s1, const void* l1, int n1, const void* x2,
+                                  const void* s2, const void* l2, int n2, const void* kbar, int rows_per_warp,
+                                  int grid, void* partial, void* s1_bar, void* l1_bar, void* s2_bar, void* l2_bar,
+                                  void* stream) {
+  return launch_cross_backward<float>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, rows_per_warp, grid, partial, s1_bar,
+                                      l1_bar, s2_bar, l2_bar, stream);
+}
+
+int gibbs_gram_cross_backward_f64(const void* x1, const void* s1, const void* l1, int n1, const void* x2,
+                                  const void* s2, const void* l2, int n2, const void* kbar, int rows_per_warp,
+                                  int grid, void* partial, void* s1_bar, void* l1_bar, void* s2_bar, void* l2_bar,
+                                  void* stream) {
+  return launch_cross_backward<double>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, rows_per_warp, grid, partial, s1_bar,
+                                       l1_bar, s2_bar, l2_bar, stream);
 }
 
 }  // extern "C"

@@ -7,9 +7,11 @@ chain's device.  WAIC and PSIS-LOO take their non-factorized form: the GP
 likelihood is one joint MVN, so the pointwise terms are the exact
 leave-one-out conditionals ``p(y_i | y_{−i}, θ)`` from one precision matrix
 per draw.  The dense LOO conditionals cover ``lmc``, ``snmgp``, ``gnmgp``
-and ``gnmgp_hetero``, and in the Hadamard layout ``lmc``, ``snmgp`` and
-``gnmgp``; the G/P/D scores, ``loo_compare``, ``stacking_weights`` and the
-sparse conditionals are not ported yet.
+and ``gnmgp_hetero``, in the Hadamard layout ``lmc``, ``snmgp`` and
+``gnmgp``, and the sparse ones ``gnmgp_sparse`` (from its Woodbury factors,
+never the dense precision); the G/P/D scores, ``loo_compare``,
+``stacking_weights`` and the other sparse models' conditionals are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,13 +22,13 @@ import numpy as np
 import torch
 
 from . import settings
-from .models import gnmgp, gnmgp_hetero, lmc, snmgp
+from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, snmgp
 from .models.base import task_major
 from .ops import chol, kernels
 
-#: Models whose observation covariance the JAX package builds and this port
+#: Sparse models whose Woodbury factors the JAX package builds and this port
 #: does not yet.
-_NOT_PORTED = ("gnmgp_sparse", "gnmgp_hetero_sparse", "snmgp_sparse", "lmc_sparse")
+_NOT_PORTED = ("gnmgp_hetero_sparse", "snmgp_sparse", "lmc_sparse")
 
 def mse(a, b, axis=None):
     """Mean squared error (utils.py:165-172)."""
@@ -170,6 +172,59 @@ def chain_conditional_loglik(
                     for v in hist[start : start + chunk]]
             out[start : start + len(rows)] = torch.stack(rows).cpu().numpy()
     return out
+
+
+def chain_conditional_loglik_sparse(
+    hist_vecs, data, ops, approx: str = "fitc", hyper=None, mask=None, chunk: int = 8, hetero: bool = False,
+    model: str = "gnmgp_sparse", device=None, dtype=None,
+) -> np.ndarray:
+    """(S, MN) exact LOO-conditional log densities under a sparse model, as
+    numpy float64, task-major slots.
+
+    The sparse observation covariance is ``Σ = diag(Λ) + BᵀB``, so the LOO
+    identity's two ingredients come from the Woodbury factors the likelihood
+    builds (``models.gnmgp_sparse._woodbury``), never the dense MN × MN
+    precision:
+
+        diag(Σ⁻¹) = (1 − colnorms²(L_in⁻¹ A)) / Λ
+        Σ⁻¹ y     = (d − Aᵀ inner⁻¹ (A d)) / sqrt(Λ)
+
+    The draws run one at a time on ``device`` (default ``cuda``, raising when
+    there is none) in ``dtype`` (default ``settings.dtype``), ``data`` and
+    ``ops`` already there; ``chunk`` draws' rows are copied to the host
+    together, and the result does not depend on ``chunk``.  ``model`` is
+    ``"gnmgp_sparse"``; the heteroscedastic (``hetero=True``), separable and
+    LMC sparse builders are not ported yet and raise.
+    """
+    if hetero or model != "gnmgp_sparse":
+        raise ValueError(f"chain_conditional_loglik_sparse for model={model!r}, hetero={hetero} is not yet ported "
+                         "to the torch package (it runs model='gnmgp_sparse')")
+    device = settings.resolve_device(device)
+    dtype = dtype or settings.dtype
+    hist = torch.as_tensor(hist_vecs, dtype=dtype, device=device)
+    n, m = data.y.shape
+    m_z = ops.z.shape[0]
+    mask_tm = None if mask is None else torch.as_tensor(mask, dtype=torch.bool, device=device).repeat(m)
+    out = np.empty((hist.shape[0], n * m))
+    with torch.no_grad():
+        for start in range(0, hist.shape[0], chunk):
+            rows = [_loo_from_woodbury(gnmgp_sparse._woodbury(gnmgp_sparse.unpack(v, m_z, m), data, ops, m, approx,
+                                                              hyper, mask), mask_tm)
+                    for v in hist[start : start + chunk]]
+            out[start : start + len(rows)] = torch.stack(rows).cpu().numpy()
+    return out
+
+
+def _loo_from_woodbury(w, mask_flat=None) -> torch.Tensor:
+    """Per-slot LOO conditional log densities from sparse Woodbury factors."""
+    u = chol.tri_solve(w.c_in, w.a)  # L_in⁻¹ A
+    prec_diag = (1.0 - torch.sum(u * u, dim=0)) / w.lam
+    prec_y = (w.d - w.a.T @ chol.chol_solve(w.c_in, w.a @ w.d)) / torch.sqrt(w.lam)
+    d = torch.clamp(prec_diag, min=1e-300)
+    ll = 0.5 * torch.log(d) - 0.5 * math.log(2.0 * math.pi) - 0.5 * prec_y**2 / d
+    if mask_flat is not None:
+        ll = torch.where(mask_flat, ll, 0.0)
+    return ll
 
 
 def observation_cov_hadamard(model: str, vec: torch.Tensor, x: torch.Tensor, indx: torch.Tensor,

@@ -1,7 +1,9 @@
 """Single-subject synthetic pipeline driver.
 
 Counterpart of the JAX package's ``examples/run_sim_pipeline.py`` for the
-dense models (``--model lmc|snmgp|gnmgp|gnmgp_hetero``): generate (or load)
+dense models and the sparse GNMGP (``--model
+lmc|snmgp|gnmgp|gnmgp_hetero|gnmgp_sparse``, the last with
+``--n-inducing`` and ``--sparse-approx fitc|vfe``): generate (or load)
 one synthetic subject (``sim_mnts``, or ``sim_mnts_hetero`` for
 ``gnmgp_hetero``), run empirical init → MAP (→ HMC) → grid/test prediction
 → scores, and write figures, artifacts and a JSON summary on stdout.
@@ -11,8 +13,9 @@ one synthetic subject (``sim_mnts``, or ``sim_mnts_hetero`` for
 
 It runs on ``cuda``.  The arguments are the JAX CLI's, and ``--sampler``
 takes ``hmc``, ``nuts``, ``drhmc`` and ``chees``; the choices this package
-does not have yet (the sparse models, the samplers ``rmhmc``, ``smc`` and
-``pathfinder``) exit with an error that says so.
+does not have yet (the models ``gnmgp_hetero_sparse``, ``snmgp_sparse`` and
+``lmc_sparse``, the samplers ``rmhmc``, ``smc`` and ``pathfinder``) exit with
+an error that says so.
 """
 
 from __future__ import annotations
@@ -81,13 +84,13 @@ def main(argv=None, device=None) -> dict:
         x, y = d.x.cpu().numpy(), d.y.cpu().numpy()
 
     hyper = ({"alpha_tilde_l": 10.0, "beta_tilde_l": 1.0, "alpha_L": 10.0, "beta_L": 1.0}
-             if args.model == "gnmgp" else {})
+             if args.model in ("gnmgp", "gnmgp_sparse") else {})
     cfg = workflows.PipelineConfig(
         model=args.model, n_opt=args.n_opt, do_hmc=args.n_hmc > 0,
         map_method=args.map_method,
         n_hmc=max(args.n_hmc, 1), test_size=args.test_size, hyper=hyper,
         seed=args.seed, sampler=args.sampler, whiten=False if args.whiten == "off" else args.whiten,
-        hmc_step_size=args.hmc_step_size,
+        hmc_step_size=args.hmc_step_size, n_inducing=args.n_inducing, sparse_approx=args.sparse_approx,
     )
     store = ArtifactStore(args.out)
     res = workflows.run_subject(x, y, cfg, store=store, dataset="sim", subject=args.seed, device=device)

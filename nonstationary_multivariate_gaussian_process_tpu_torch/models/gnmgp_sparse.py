@@ -1,0 +1,346 @@
+"""Sparse (inducing-point) GNMGP — the large-N tier.
+
+Counterpart of the JAX package's ``models/gnmgp_sparse.py`` for the full
+layout (FITC and VFE, the ``mixed`` tier, ``mask=``).  The latent processes
+live at m_z inducing inputs Z: their values at the data are the prior
+conditional mean (kriging) under the exact model's RBF priors, a fixed (m_z,
+N) projection built once in float64 (``predict/latent.krige_proj``).  The
+f-process takes the Nyström approximation ``Q = K_nm K_mm⁻¹ K_mn`` over the
+same set, with the FITC diagonal correction (``approx="fitc"``: Λ = diag(K −
+Q) + σ²) or Titsias' VFE bound (``approx="vfe"``: Λ = σ² and the penalty
+``−tr(K − Q)/(2σ²)``), so the likelihood is one Woodbury solve over an
+(m_z·M)² inner system and never factors the dense MN × MN Gram.
+
+Kernels, on the card:
+
+* ``K_mm``, the self-form SVC Gram of (Z, ℓ_z, L_z) with its nugget, is
+  differentiated, so it is kernel K3 (``gram_kernels.svc_gram_tiled``, with
+  its backward kernel).  K3 builds it input-major (row ``j·M + a``); the
+  rows and columns are permuted to JAX's task-major layout (row ``a·m_z +
+  j``) so that every later piece — ``K_nm``, the factors, the LOO's slots —
+  is JAX's matrix.
+* ``K_xz``, the Gibbs cross-covariance of (x, ℓ_x) against (Z, ℓ_z), is
+  kernel K1's cross form; ℓ_x is kriged from ``tilde_l_z``, so both sides
+  carry a gradient, through K1's cross-form backward kernel.
+* ``cross_gram`` stays a ``torch.einsum``, as JAX leaves it to XLA.
+* The factors take ``chol.robust_cholesky_small`` and ``tri_solve_small``.
+
+The Hadamard, heteroscedastic, separable and inducing-refinement parts of
+the JAX module are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import dists, settings
+from ..ops import chol, gram_kernels, kernels, transforms
+from .base import FullData, check_full_data, check_vec, task_major
+from .gnmgp import DEFAULT_HYPERS
+
+
+class SparseParams(NamedTuple):
+    tilde_l_z: torch.Tensor  # (m_z,) log lengthscale process at Z
+    ul_vecs_z: torch.Tensor  # (m_z*T,) unconstrained Cholesky vectors at Z
+    tilde_sigma2_err: torch.Tensor  # () log noise variance
+
+
+def n_params(m_z: int, m: int) -> int:
+    return m_z + m_z * transforms.tri_size(m) + 1
+
+
+def unpack(vec: torch.Tensor, m_z: int, m: int) -> SparseParams:
+    """Packed layout ``[tilde_l_z(m_z), uL_vecs_z(m_z*T), tilde_sigma2_err]``
+    — the exact model's layout (logpos.py:32-43) with N replaced by m_z."""
+    t = transforms.tri_size(m)
+    check_vec(vec, m_z + m_z * t + 1, "gnmgp_sparse",
+              f"[tilde_l_z({m_z}), uL_vecs_z({m_z}*{t}), tilde_sigma2_err] for m_z={m_z}, M={m}")
+    return SparseParams(tilde_l_z=vec[:m_z], ul_vecs_z=vec[m_z : m_z + m_z * t], tilde_sigma2_err=vec[-1])
+
+
+def pack(p: SparseParams) -> torch.Tensor:
+    return torch.cat([p.tilde_l_z, p.ul_vecs_z, p.tilde_sigma2_err.reshape(1)])
+
+
+def choose_inducing(x, m_z: int) -> torch.Tensor:
+    """Evenly spaced quantile subset of the sorted inputs as inducing inputs,
+    chosen on the host; on ``x``'s device in its dtype (a tensor ``x``), else
+    on the CPU in ``settings.dtype``."""
+    x64 = np.sort(np.asarray(x.detach().cpu() if torch.is_tensor(x) else x, np.float64))
+    n = x64.shape[0]
+    if not 2 <= m_z <= n:
+        raise ValueError(f"choose_inducing: need 2 <= m_z <= N, got m_z={m_z}, N={n}")
+    idx = np.unique(np.round(np.linspace(0, n - 1, m_z)).astype(int))
+    z = np.unique(x64[idx])
+    if torch.is_tensor(x):
+        return torch.as_tensor(z, dtype=x.dtype, device=x.device)
+    return torch.as_tensor(z, dtype=settings.dtype)
+
+
+class SparseOps(NamedTuple):
+    """Loop-invariant pieces, built once per objective (float64 islands)."""
+
+    z: torch.Tensor  # (m_z,) inducing inputs
+    proj_l: torch.Tensor  # (m_z, N) prior-conditional projection, tilde_l kernel
+    proj_ul: torch.Tensor  # (m_z, N) projection under the L-entry kernel
+    pc_l_z: dists.TriInv  # the tilde_l prior Gram at Z
+    pc_ul_z: dists.TriInv  # the L-entry prior Gram at Z
+
+
+def make_ops(x: torch.Tensor, z: torch.Tensor, hyper: dict | None = None) -> SparseOps:
+    """The kriging projections Z → x and the prior factors at Z, on ``x``'s
+    device in ``x``'s dtype."""
+    from ..predict.latent import krige_proj
+
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    z = torch.as_tensor(z, dtype=x.dtype, device=x.device)
+    proj_l, _ = krige_proj(z, x, hp["alpha_tilde_l"], hp["beta_tilde_l"])
+    proj_ul, _ = krige_proj(z, x, hp["alpha_L"], hp["beta_L"])
+    pc_l_z = chol.prior_rbf_inv(z, hp["alpha_tilde_l"], hp["beta_tilde_l"])
+    pc_ul_z = chol.prior_rbf_inv(z, hp["alpha_L"], hp["beta_L"])
+    return SparseOps(z, proj_l, proj_ul, pc_l_z, pc_ul_z)
+
+
+def latents_at_data(p: SparseParams, ops: SparseOps, m: int, hyper=None):
+    """Kriged latent fields at the data: ``(tilde_l_x (N,), ul_x (N, T))``,
+    the prior conditional mean under the exact model's latent priors."""
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    m_z = ops.z.shape[0]
+    t = transforms.tri_size(m)
+    tl_x = hp["mu_tilde_l"] + (p.tilde_l_z - hp["mu_tilde_l"]) @ ops.proj_l
+    ul_mat_z = p.ul_vecs_z.reshape(m_z, t)  # (m_z, T)
+    ul_x = (hp["mu_L"] + (ul_mat_z.T - hp["mu_L"]) @ ops.proj_ul).T  # (N, T)
+    return tl_x, ul_x
+
+
+def chol_factors(ul: torch.Tensor, m: int) -> torch.Tensor:
+    """(n, T) unconstrained L-vectors → (n, M, M) lower-triangular factors."""
+    return transforms.vec_to_tril(transforms.ulvec_to_lvec(ul, m), m)
+
+
+def cross_gram(k_xz: torch.Tensor, lx: torch.Tensor, lz: torch.Tensor) -> torch.Tensor:
+    """Task-major cross Gram ``K[(a,n),(c,j)] = K_x[n,j]·(Lx_n Lz_jᵀ)[a,c]``:
+    rows ``a·N + n`` (``models.gnmgp.gram``'s layout), columns ``c·m_z + j``."""
+    n, m, _ = lx.shape
+    m_z = lz.shape[0]
+    b4 = torch.einsum("nab,jcb->najc", lx, lz)
+    k4 = torch.einsum("nj,najc->ancj", k_xz, b4)
+    return k4.reshape(n * m, m_z * m)
+
+
+def _task_major_perm(n: int, m: int, device) -> torch.Tensor:
+    """Row ``a·n + j`` of the task-major layout is row ``j·m + a`` of the
+    input-major one."""
+    return torch.arange(n * m, device=device).reshape(n, m).T.reshape(-1)
+
+
+def inducing_gram(z: torch.Tensor, ell_z: torch.Tensor, lz: torch.Tensor) -> torch.Tensor:
+    """``K_mm``: the self-form SVC Gram ``(K_z + jitter·I)[j,k]·(Lz_j Lz_kᵀ)[a,c]``
+    in the task-major layout (JAX's ``gram(nonstationary_rbf_cov(z,
+    ell1=ell_z), lz)``), by kernel K3 (input-major, with its backward kernel)
+    and one symmetric permutation."""
+    k_in = gram_kernels.svc_gram_tiled(z.contiguous(), ell_z.contiguous(), lz.contiguous(), settings.jitter)
+    perm = _task_major_perm(z.shape[0], lz.shape[1], z.device)
+    return k_in[perm][:, perm]
+
+
+class _Woodbury(NamedTuple):
+    """The FITC/VFE factor set (prediction and the LOO read it too)."""
+
+    c_mm: torch.Tensor  # (mM, mM) chol(K_mm)
+    a: torch.Tensor  # (mM, NM) = C⁻¹ K_mn Λ^{-1/2}, masked columns zeroed
+    c_in: torch.Tensor  # (mM, mM) chol(I + A Aᵀ)
+    lam: torch.Tensor  # (NM,) diagonal (1.0 at masked slots)
+    d: torch.Tensor  # (NM,) = y_task_major / sqrt(Λ), masked zeroed
+    corr: torch.Tensor  # (NM,) clamp(K_diag − Q_diag, 0): the FITC/VFE correction
+    mv: torch.Tensor | None  # (NM,) mask in the task-major layout (None: all real)
+
+
+def _half_woodbury(k_mm, k_nm, k_diag, y_flat, sigma2_err, approx: str, mv=None):
+    """Everything before the inner factorization: ``(a, lam, d, corr, c_mm)``.
+
+    ``K_mm`` is factored by the robust ladder, forced on, with a relative
+    ridge of 1e-8 (float64) or 1e-5 (float32) of its mean diagonal, as JAX
+    does: near-singular L_z rows make it rank-deficient in a way the data
+    cannot see through Q."""
+    if mv is not None:
+        k_nm = k_nm * mv[:, None]
+        y_flat = y_flat * mv
+    ridge = (1e-8 if k_mm.dtype == torch.float64 else 1e-5) * torch.mean(torch.diagonal(k_mm))
+    eye = torch.eye(k_mm.shape[0], dtype=k_mm.dtype, device=k_mm.device)
+    c_mm = chol.robust_cholesky_small(k_mm + ridge * eye)
+    b = chol.tri_solve_small(c_mm, k_nm.T)  # (mM, NM)
+    q_diag = torch.sum(b * b, dim=0)
+    corr = torch.clamp(k_diag - q_diag, min=0.0)
+    if approx == "fitc":
+        lam = corr + sigma2_err
+    elif approx == "vfe":
+        lam = torch.as_tensor(sigma2_err, dtype=q_diag.dtype, device=q_diag.device).expand(q_diag.shape)
+    else:
+        raise ValueError(f"approx must be 'fitc' or 'vfe', got {approx!r}")
+    if mv is not None:
+        lam = torch.where(mv > 0, lam, 1.0)
+    rsqrt_lam = torch.rsqrt(lam)
+    return b * rsqrt_lam[None, :], lam, y_flat * rsqrt_lam, corr, c_mm
+
+
+def _woodbury_core(k_mm, k_nm, k_diag, y_flat, sigma2_err, approx: str, mv=None) -> _Woodbury:
+    """The layout-agnostic factor set (see :func:`_half_woodbury`)."""
+    a, lam, d, corr, c_mm = _half_woodbury(k_mm, k_nm, k_diag, y_flat, sigma2_err, approx, mv)
+    inner = torch.eye(a.shape[0], dtype=a.dtype, device=a.device) + a @ a.T
+    return _Woodbury(c_mm, a, chol.safe_cholesky(inner), lam, d, corr, mv)
+
+
+def _assemble_full(p: SparseParams, data: FullData, ops: SparseOps, m: int, hyper=None, mask=None):
+    """Cross pieces ``(k_mm, k_nm, k_diag, y_flat, mv)`` for the full layout."""
+    m_z = ops.z.shape[0]
+    tl_x, ul_x = latents_at_data(p, ops, m, hyper)
+    lx = chol_factors(ul_x, m)  # (N, M, M)
+    lz = chol_factors(p.ul_vecs_z.reshape(m_z, -1), m)  # (m_z, M, M)
+    ell_x = torch.exp(tl_x)
+    ell_z = torch.exp(p.tilde_l_z)
+    k_mm = inducing_gram(ops.z, ell_z, lz)  # (mM, mM)
+    k_xz = kernels.nonstationary_rbf_cov(data.x, ell1=ell_x, x2=ops.z, ell2=ell_z)  # kernel K1, cross form
+    k_nm = cross_gram(k_xz, lx, lz)  # (NM, mM)
+    # the Gibbs self-covariance is 1 (+ jitter), so diag K[(a,n)] = (1 + j)·||Lx_n[a,:]||²
+    k_diag = ((1.0 + settings.jitter) * torch.sum(lx * lx, dim=-1)).T.reshape(-1)
+    mv = None
+    if mask is not None:
+        mv = torch.as_tensor(mask, device=data.y.device).to(data.y.dtype).repeat(m)  # task-major (NM,)
+    return k_mm, k_nm, k_diag, task_major(data.y), mv
+
+
+def _woodbury(p: SparseParams, data: FullData, ops: SparseOps, m: int, approx: str, hyper=None,
+              mask=None) -> _Woodbury:
+    k_mm, k_nm, k_diag, y_flat, mv = _assemble_full(p, data, ops, m, hyper, mask)
+    return _woodbury_core(k_mm, k_nm, k_diag, y_flat, torch.exp(p.tilde_sigma2_err), approx, mv)
+
+
+def _loglik_from_woodbury(w: _Woodbury, sigma2_err, approx: str) -> torch.Tensor:
+    u = w.a @ w.d
+    sol = chol.tri_solve(w.c_in, u)
+    quad = torch.sum(w.d * w.d) - torch.sum(sol * sol)
+    logdet = torch.sum(torch.log(w.lam)) + chol.chol_logdet(w.c_in)
+    res = -0.5 * logdet - 0.5 * quad
+    if approx == "vfe":
+        corr = w.corr if w.mv is None else w.corr * w.mv
+        res = res - 0.5 * torch.sum(corr) / sigma2_err
+    return res
+
+
+def _inner_logdet_quad(inner, u):
+    """``(logdet, uᵀ inner⁻¹ u)`` of the Woodbury inner system by precision:
+    ``mixed_logdet_quad`` under ``NMGP_PRECISION=mixed`` (its eigenvalues lie
+    in [1, 1 + ||A||²], inside the mixed kernel's range), else the robust
+    small factor."""
+    if settings.mixed_solves and inner.dtype == torch.float64:
+        from ..ops import mixed
+
+        return mixed.mixed_logdet_quad(inner, u)
+    c_in = chol.robust_cholesky_small(inner)
+    sol = chol.tri_solve_small(c_in, u)
+    return chol.chol_logdet(c_in), torch.sum(sol * sol)
+
+
+def _loglik_mixed_inner(k_mm, k_nm, k_diag, y_flat, noise, approx: str, mv=None) -> torch.Tensor:
+    """The float64-accurate sparse log-likelihood with the inner system served
+    by the mixed-precision kernel (``NMGP_PRECISION=mixed``): ``K_mm`` keeps
+    its float64 robust factor (at sampled hyperparameters its condition,
+    ~1e8, defeats every float32-preconditioned scheme), the inner ``I + A
+    Aᵀ`` (condition ~1e5) takes ``mixed_logdet_quad``."""
+    a, lam, d, corr, _ = _half_woodbury(k_mm, k_nm, k_diag, y_flat, noise, approx, mv)
+    inner = torch.eye(a.shape[0], dtype=a.dtype, device=a.device) + a @ a.T
+    ld_in, quad_in = _inner_logdet_quad(inner, a @ d)
+    res = -0.5 * (torch.sum(torch.log(lam)) + ld_in) - 0.5 * (torch.sum(d * d) - quad_in)
+    if approx == "vfe":
+        c = corr if mv is None else corr * mv
+        res = res - 0.5 * torch.sum(c / noise)
+    return res
+
+
+def _loglik_pieces(pieces, noise, approx: str) -> torch.Tensor:
+    """Assembled cross pieces to the factor path or, under
+    ``NMGP_PRECISION=mixed`` with float64 inputs, the mixed inner kernel."""
+    k_mm, k_nm, k_diag, y_flat, mv = pieces
+    if settings.mixed_solves and k_mm.dtype == torch.float64:
+        return _loglik_mixed_inner(k_mm, k_nm, k_diag, y_flat, noise, approx, mv)
+    w = _woodbury_core(k_mm, k_nm, k_diag, y_flat, noise, approx, mv)
+    return _loglik_from_woodbury(w, noise, approx)
+
+
+def log_lik(p: SparseParams, data: FullData, ops: SparseOps, approx: str = "fitc", hyper=None,
+            mask=None) -> torch.Tensor:
+    """Sparse marginal log-likelihood (unnormalized, reference convention).
+
+    ``approx="fitc"``: log N(y; 0, Q + diag(K − Q) + σ²I).  ``approx="vfe"``:
+    log N(y; 0, Q + σ²I) − tr(K − Q)/(2σ²), Titsias' collapsed bound.
+    ``mask`` (N,) excludes padded observations exactly (rows of K_nm zeroed,
+    unit Λ, zero observation)."""
+    pieces = _assemble_full(p, data, ops, data.y.shape[1], hyper, mask)
+    return _loglik_pieces(pieces, torch.exp(p.tilde_sigma2_err), approx)
+
+
+def log_posterior(p: SparseParams, data: FullData, ops: SparseOps, approx: str = "fitc", hyper=None,
+                  prior: bool = True, mask=None):
+    """Sparse log-posterior: the exact model's priors over the Z-latents (RBF
+    at Z, the inverse-gamma noise prior and its exp-transform Jacobian;
+    ``logpos_SVC``, logpos.py:326-380, with the latent fields at Z).  Returns
+    ``(logpos, components)``."""
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    m_z = ops.z.shape[0]
+    t = transforms.tri_size(data.y.shape[1])
+    loglik = log_lik(p, data, ops, approx=approx, hyper=hp, mask=mask)
+    sigma2_err = torch.exp(p.tilde_sigma2_err)
+    lp_l = dists.mvn_logpdf_chol(p.tilde_l_z, hp["mu_tilde_l"], ops.pc_l_z)
+    lp_ul = torch.sum(dists.mvn_logpdf_chol(p.ul_vecs_z.reshape(m_z, t).T, hp["mu_L"], ops.pc_ul_z))
+    lp_s2 = dists.inverse_gamma_logpdf(sigma2_err, alpha=hp["a"], beta=hp["b"])
+    res = loglik
+    if prior:
+        res = res + lp_l + lp_ul + lp_s2 + p.tilde_sigma2_err
+    comps = {
+        "loglik": loglik,
+        "log_prior_tilde_l": lp_l,
+        "log_prior_uL_vecs": lp_ul,
+        "log_prior_sigma2_err": lp_s2,
+    }
+    return res, comps
+
+
+def make_objective(data: FullData, z=None, n_inducing: int = 64, hyper: dict | None = None, approx: str = "fitc",
+                   prior: bool = True, mask=None):
+    """Sparse negative-log-posterior closure: ``(nlp, ops)``, the objective
+    over the packed ``m_z(1+T)+1`` vector and the hoisted :class:`SparseOps`
+    (which prediction needs again).  ``z`` defaults to
+    ``choose_inducing(x, n_inducing)`` over the real (unmasked) inputs."""
+    check_full_data(data, "gnmgp_sparse")
+    if approx not in ("fitc", "vfe"):
+        raise ValueError(f"approx must be 'fitc' or 'vfe', got {approx!r}")
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    if z is None:
+        x_real = data.x if mask is None else data.x[: int(torch.as_tensor(mask).sum())]
+        z = choose_inducing(x_real, min(n_inducing, x_real.shape[0]))
+    ops = make_ops(data.x, z, hp)
+    m_z, m = ops.z.shape[0], data.y.shape[1]
+
+    def nlp(vec: torch.Tensor) -> torch.Tensor:
+        res, _ = log_posterior(unpack(vec, m_z, m), data, ops, approx=approx, hyper=hp, prior=prior, mask=mask)
+        return -res
+
+    return nlp, ops
+
+
+def init_from_empirical(emp_vec, n: int, m_z: int, m: int, x, z) -> torch.Tensor:
+    """Subsample an exact-model empirical init (N-layout) onto the Z-layout:
+    each inducing slot takes the latent values of its nearest data input.
+    On ``emp_vec``'s device in its dtype."""
+    from . import gnmgp as dense
+
+    p = dense.unpack(emp_vec, n, m)
+    host = lambda v: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v, np.float64)
+    nearest = np.argmin(np.abs(host(x)[None, :] - host(z)[:, None]), axis=1)  # (m_z,)
+    idx = torch.as_tensor(nearest, device=emp_vec.device)
+    t = transforms.tri_size(m)
+    return torch.cat([p.tilde_l[idx], p.ul_vecs.reshape(n, t)[idx].reshape(-1), p.tilde_sigma2_err.reshape(1)])

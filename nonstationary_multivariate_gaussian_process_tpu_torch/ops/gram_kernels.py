@@ -17,8 +17,9 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
   ``svc_gram_fused``.  The same Gram, input-major, written strip by strip
   with wide stores (:func:`k3_forward_schedule`); the Gram of the GNMGP
   likelihood.
-* :func:`gibbs_gram_backward` and :func:`svc_gram_tiled_backward` — the
-  backward kernels of K1's self form and of K3 (new: the TPU had none).
+* :func:`gibbs_gram_backward`, :func:`gibbs_gram_cross_backward` and
+  :func:`svc_gram_tiled_backward` — the backward kernels of K1's self and
+  cross forms and of K3 (new: the TPU had none).
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 launches its kernel for a CUDA tensor, on the current stream (:func:`_launch`),
@@ -30,12 +31,12 @@ operation and serve the CPU, the tests, and the on-card comparison in
 ``chip_smoke.py``; a backward's plain version is ``torch.autograd.grad``
 through its forward's plain version.
 
-Gradients.  When an input of K1's self form or of K3 requires a gradient,
+Gradients.  When an input of K1 (either form) or of K3 requires a gradient,
 the wrapper goes through a ``torch.autograd.Function`` whose forward is the
 forward kernel and whose backward is the backward kernel (on the CPU: the
-plain versions).  ``x`` is data and gets no gradient; asking for one, or for
-a gradient of K1's cross form, raises.  A forward without gradients runs and
-counts exactly as before.
+plain versions).  ``x`` is data and gets no gradient: asking for one (the
+sparse tier's inducing-input refinement would) raises.  A forward without
+gradients runs and counts exactly as before.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #: Each wrapper's source, ``csrc/<name>.cu``.
 SOURCES = {
     "gibbs_gram": "gibbs_gram", "gibbs_gram_backward": "gibbs_gram",
-    "svc_gram": "svc_gram",
+    "gibbs_gram_cross_backward": "gibbs_gram", "svc_gram": "svc_gram",
     "svc_gram_tiled": "svc_gram_tiled", "svc_gram_tiled_backward": "svc_gram_tiled",
 }
 #: Each entry point: the wrapper that launches it (and counts its launches),
@@ -73,6 +74,8 @@ _ENTRY_POINTS = {
     "gibbs_gram_pairs": ("gibbs_gram", [_P, _P, _P, _I, _D, _I, _I, _P]),
     "gibbs_gram_threads": ("gibbs_gram", [_P, _P, _P, _I, _P, _P, _P, _I, _D, _I, _P]),
     "gibbs_gram_backward": ("gibbs_gram_backward", [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P]),
+    "gibbs_gram_cross_backward": ("gibbs_gram_cross_backward",
+                                  [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]),
     "svc_gram": ("svc_gram", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
     "svc_gram_tiled": ("svc_gram_tiled", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
     "svc_gram_tiled_backward": ("svc_gram_tiled_backward", [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P]),
@@ -204,8 +207,9 @@ def gibbs_gram(x1, s1, l1, x2=None, s2=None, l2=None, jitter: float = 0.0) -> to
 
     Self form (``x2 is None``): the column strip is the row strip and
     ``jitter`` is added on the diagonal.  Cross form: ``jitter`` must be 0.
-    Returns (n1, n2).  The self form is differentiable in σ and ℓ (through
-    :func:`gibbs_gram_backward`).
+    Returns (n1, n2).  Both forms are differentiable in σ and ℓ (through
+    :func:`gibbs_gram_backward` and :func:`gibbs_gram_cross_backward`, on
+    both sides for the cross form).
 
     On the card the self form walks the unordered tile pairs and evaluates
     each pair's term once where its outputs fill the card; the cross form,
@@ -218,12 +222,13 @@ def gibbs_gram(x1, s1, l1, x2=None, s2=None, l2=None, jitter: float = 0.0) -> to
     if cross and jitter:
         raise ValueError("gibbs_gram: jitter belongs to the self form (x2=None) only")
     if _needs_grad(x1, s1, l1, *((x2, s2, l2) if cross else ())):
-        if cross:
+        if x1.requires_grad or (cross and x2.requires_grad):
             raise NotImplementedError(
-                "gibbs_gram: the gradient of the cross form is not yet ported"
+                "gibbs_gram: no gradient with respect to x or x2 (x is data; the sparse tier's "
+                "inducing-input refinement, which needs one, is not yet ported)"
             )
-        if x1.requires_grad:
-            raise NotImplementedError("gibbs_gram: no gradient with respect to x (x is data)")
+        if cross:
+            return _GibbsGramCross.apply(x1, s1, l1, x2, s2, l2)
         return _GibbsGramSelf.apply(x1, s1, l1, float(jitter))
     return _gibbs_gram_forward(x1, s1, l1, x2, s2, l2, jitter)
 
@@ -451,6 +456,103 @@ class _GibbsGramSelf(torch.autograd.Function):
         x, s, l = ctx.saved_tensors
         s_bar, l_bar = gibbs_gram_backward(x, s, l, kbar.contiguous(), ctx.jitter)
         return None, s_bar, l_bar, None
+
+
+@dataclasses.dataclass(frozen=True)
+class K1CrossBackwardSchedule:
+    """How K1's cross-form backward kernel cuts its work, from (N1, N2) alone.
+
+    Block ``b`` of ``grid`` takes the row strip ``b·rows .. + rows − 1``
+    (``rows`` = 8 warps × ``rows_per_warp``; warp ``w`` its rows ``b·rows +
+    w + 8k``, ``k < rows_per_warp``) and every column, in chunks of 32 along
+    the lanes (lane ``l`` of chunk ``c0`` takes column ``c0 + l``).  A row's
+    shares stay in its thread's registers across the chunks and a shuffle
+    tree over the 32 lanes sums them, so σ̄1 and ℓ̄1 are written directly; a
+    column's shares are summed over a warp's rows in order, then over the 8
+    warps in order, into ``partial[b][column][2]`` (σ̄2's share, ℓ̄2's), every
+    (block, column) written once.  The self form's second launch sums each
+    column's ``grid`` slots in one fixed order (lane ``j`` adds slots ``j, j
+    + 32, ...``, then a shuffle tree), so the result does not depend on the
+    order the blocks run in.
+    """
+
+    n1: int
+    n2: int
+    rows_per_warp: int
+
+    @property
+    def rows(self) -> int:
+        return 8 * self.rows_per_warp
+
+    @property
+    def grid(self) -> int:
+        return -(-self.n1 // self.rows)
+
+    @property
+    def partial_numel(self) -> int:
+        return self.grid * self.n2 * 2
+
+
+def k1_cross_backward_schedule(n1: int, n2: int, sms: int = 132) -> K1CrossBackwardSchedule:
+    """Strips of 32, 16 or 8 rows: the most that still give every SM a block,
+    else 8."""
+    rpw = next((r for r in (4, 2) if -(-n1 // (8 * r)) >= sms), 1)
+    return K1CrossBackwardSchedule(n1, n2, rpw)
+
+
+def gibbs_gram_cross_backward_plain(x1, s1, l1, x2, s2, l2, kbar):
+    """Plain version of K1's cross-form backward: ``(σ̄1, ℓ̄1, σ̄2, ℓ̄2)`` by
+    ``torch.autograd.grad`` through :func:`gibbs_gram_plain`."""
+    with torch.enable_grad():
+        args = [t.detach().requires_grad_(True) for t in (s1, l1, s2, l2)]
+        k = gibbs_gram_plain(x1.detach(), args[0], args[1], x2.detach(), args[2], args[3])
+        return torch.autograd.grad(k, args, kbar)
+
+
+def gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar):
+    """``(σ̄1, ℓ̄1, σ̄2, ℓ̄2)`` of K1's cross form for the cotangent ``kbar``
+    (n1, n2): the row strip's gradients (n1,) and the column strip's
+    (n2,)."""
+    if x1.device.type == "cpu":
+        return gibbs_gram_cross_backward_plain(x1, s1, l1, x2, s2, l2, kbar)
+    tensors = {"x1": x1, "s1": s1, "l1": l1, "x2": x2, "s2": s2, "l2": l2, "kbar": kbar}
+    device, dtype = _check_cuda("gibbs_gram_cross_backward", tensors, {**dict.fromkeys(tensors, 1), "kbar": 2})
+    n1, n2 = x1.shape[0], x2.shape[0]
+    if s1.shape[0] != n1 or l1.shape[0] != n1 or s2.shape[0] != n2 or l2.shape[0] != n2 \
+            or tuple(kbar.shape) != (n1, n2):
+        raise ValueError("gibbs_gram_cross_backward: want x1, s1, l1 (N1,), x2, s2, l2 (N2,) and kbar (N1, N2)")
+    if n1 >= 2**31 or n2 >= 2**31:
+        raise ValueError(f"gibbs_gram_cross_backward: strips of {n1} x {n2} exceed the launch grid")
+    outs = [torch.empty(n, dtype=dtype, device=device) for n in (n1, n1, n2, n2)]
+    if n1 == 0 or n2 == 0:
+        return tuple(o.zero_() for o in outs)
+    sched = k1_cross_backward_schedule(n1, n2, sm_count(device))
+    partial = torch.empty(sched.partial_numel, dtype=dtype, device=device)
+    _launch("gibbs_gram_cross_backward", dtype, device, x1.data_ptr(), s1.data_ptr(), l1.data_ptr(), n1,
+            x2.data_ptr(), s2.data_ptr(), l2.data_ptr(), n2, kbar.data_ptr(), sched.rows_per_warp, sched.grid,
+            partial.data_ptr(), *(o.data_ptr() for o in outs))
+    gibbs_gram_cross_backward.launches += 1
+    return tuple(outs)
+
+
+gibbs_gram_cross_backward.launches = 0
+
+
+class _GibbsGramCross(torch.autograd.Function):
+    """K1's cross form with its backward kernel (on the CPU, autograd of the
+    plain version), first order only."""
+
+    @staticmethod
+    def forward(ctx, x1, s1, l1, x2, s2, l2):
+        ctx.save_for_backward(x1, s1, l1, x2, s2, l2)
+        return _gibbs_gram_forward(x1, s1, l1, x2, s2, l2, 0.0)
+
+    @staticmethod
+    @first_order_only
+    def backward(ctx, kbar):
+        x1, s1, l1, x2, s2, l2 = ctx.saved_tensors
+        s1_bar, l1_bar, s2_bar, l2_bar = gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar.contiguous())
+        return None, s1_bar, l1_bar, None, s2_bar, l2_bar
 
 
 # ---------------------------------------------------------------------------
@@ -790,6 +892,7 @@ class _SvcGramTiled(torch.autograd.Function):
 _WRAPPERS = {
     "gibbs_gram": gibbs_gram,
     "gibbs_gram_backward": gibbs_gram_backward,
+    "gibbs_gram_cross_backward": gibbs_gram_cross_backward,
     "svc_gram": svc_gram,
     "svc_gram_tiled": svc_gram_tiled,
     "svc_gram_tiled_backward": svc_gram_tiled_backward,

@@ -1,7 +1,9 @@
 """Serving layer: predict endpoints over the artifact store.
 
 Counterpart of the JAX package's ``serving/engine.py`` for the dense models
-``lmc``, ``snmgp``, ``gnmgp`` and ``gnmgp_hetero``, with its two modes:
+``lmc``, ``snmgp``, ``gnmgp`` and ``gnmgp_hetero`` and the sparse GNMGP
+``gnmgp_sparse`` (rebuilt from the inducing inputs ``z`` and the
+approximation its ``map`` artifact carries), with its two modes:
 ``mode="map"`` (plug-in prediction) and ``mode="sample"`` (prediction over
 the stored HMC chain).
 ``PredictEngine(root)`` stands up from an artifact root alone: the
@@ -11,7 +13,8 @@ chain (``hmc``), as ``workflows.run_subject`` of either package writes them.
 Requests are padded to a small set of grid buckets (repeating the last point)
 and cropped, as in the JAX engine, so that a request sees the same shapes
 there and here.  The port runs eagerly: there is nothing to compile.  The
-sparse models are not ported yet and raise ``ValueError``.
+other sparse models (``gnmgp_hetero_sparse``, ``snmgp_sparse``,
+``lmc_sparse``) are not ported yet and raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -25,12 +28,16 @@ from .. import settings
 from ..convert import subject_from_store
 from ..predict import gnmgp as pred_gnmgp
 from ..predict import gnmgp_hetero as pred_gnmgp_hetero
+from ..predict import gnmgp_sparse as pred_gnmgp_sparse
 from ..predict import lmc as pred_lmc
 from ..predict import snmgp as pred_snmgp
 from ..utils.artifacts import ArtifactStore
 
-_PRED = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero}
+_PRED = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero,
+         "gnmgp_sparse": pred_gnmgp_sparse}
 MODELS = tuple(_PRED)
+#: The sparse models: their predictors take the subject's ``SparseOps``.
+SPARSE = ("gnmgp_sparse",)
 MODES = ("map", "sample")
 
 GRID_BUCKETS = (32, 64, 128, 256, 512, 1024)
@@ -102,6 +109,16 @@ class PredictEngine:
                 self.store.root, sid, self.model, self.dataset, self.device, self.dtype
             )
             rec = {"data": subj.data, "vec": subj.vec}
+            if self.model in SPARSE:
+                from ..models import gnmgp_sparse
+
+                map_art = self.store.load(ArtifactStore.key(self.model, self.dataset, sid, "map"))
+                if "z" not in map_art:
+                    raise KeyError(f"subject {sid!r}: sparse artifacts need the inducing inputs ('z' in the map "
+                                   "stage); refit with the current run_subject")
+                z = torch.as_tensor(map_art["z"], dtype=self.dtype, device=self.device)
+                rec["ops"] = gnmgp_sparse.make_ops(subj.data.x, z)
+                rec["approx"] = str(map_art.get("approx", "fitc"))
             hmc = ArtifactStore.key(self.model, self.dataset, sid, "hmc")
             if self.store.exists(hmc):
                 rec["chain"] = torch.as_tensor(
@@ -130,12 +147,13 @@ class PredictEngine:
         grid = np.concatenate([xs, np.full((_bucket(g) - g,), xs[-1])])
         with self._lock:
             rec = self._load(sid)
+            args, kw = self._pred_args(rec, grid)
             if mode == "sample":
                 if "chain" not in rec:
                     raise KeyError(f"subject {sid!r} has no stored HMC chain")
                 draws = self._pred.predict_sample(
-                    self._generator, rec["chain"][-int(n_sample):], rec["data"], grid,
-                    device=self.device, dtype=self.dtype,
+                    self._generator, rec["chain"][-int(n_sample):], rec["data"], *args,
+                    device=self.device, dtype=self.dtype, **kw,
                 )
                 if self.model == "lmc":  # the LMC predictor returns (S, G, M)
                     draws = draws.movedim(0, 1)
@@ -149,7 +167,7 @@ class PredictEngine:
                     "upper": upper,
                 }
             gp = self._pred.predict_map(
-                rec["vec"], rec["data"], grid, device=self.device, dtype=self.dtype
+                rec["vec"], rec["data"], *args, device=self.device, dtype=self.dtype, **kw
             )
             pct = gp.percentiles[:g].cpu().numpy()
             return {
@@ -158,6 +176,14 @@ class PredictEngine:
                 "lower": pct[:, 0],
                 "upper": pct[:, 2],
             }
+
+    def _pred_args(self, rec: dict, grid) -> tuple[tuple, dict]:
+        """A predictor's positional arguments after ``data`` (the grid, after
+        the subject's ops for a sparse model) and its keywords (a sparse
+        model's approximation)."""
+        if self.model in SPARSE:
+            return (rec["ops"], grid), {"approx": rec["approx"]}
+        return (grid,), {}
 
     def info(self, sid: str) -> dict:
         """Fit metadata for one subject: shapes, stored stages, and the

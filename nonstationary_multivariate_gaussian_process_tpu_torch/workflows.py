@@ -2,8 +2,10 @@
 analysis → grid/test prediction → scoring.
 
 Counterpart of ``PipelineConfig`` and ``run_subject`` of the JAX package's
-``workflows.py`` for the dense models on fully observed data: ``lmc``,
-``snmgp``, ``gnmgp`` and ``gnmgp_hetero``, with the reference-contract HMC
+``workflows.py`` for fully observed data: the dense models ``lmc``,
+``snmgp``, ``gnmgp`` and ``gnmgp_hetero``, and the sparse (inducing-point)
+GNMGP ``gnmgp_sparse`` (FITC or VFE at ``n_inducing`` inputs; its latent
+analysis, whitener and LOO at the inducing inputs), with the reference-contract HMC
 sampler (``sampler="hmc"``, any ``hmc_mass``), adaptive NUTS
 (``sampler="nuts"``), delayed-rejection HMC (``sampler="drhmc"``) or
 many-chain ChEES-HMC (``sampler="chees"``), any of them in the natural
@@ -21,7 +23,10 @@ prediction, the chain (either sampler, any ``whiten``), LOO, and held-out
 test scoring by the MAP and by the chain, for ``lmc``, ``snmgp`` and
 ``gnmgp``.
 
-Not ported yet, and refused with ``ValueError``: the sparse models, the
+Not ported yet, and refused with ``ValueError``: the sparse models other
+than ``gnmgp_sparse`` (``gnmgp_hetero_sparse``, ``snmgp_sparse``,
+``lmc_sparse``) and inducing-input refinement (``refine_z > 0``, which needs
+K1's gradient in the inputs), every sparse model in the Hadamard layout, the
 heteroscedastic GNMGP in the Hadamard layout (the JAX package has no
 Hadamard objective for it), and the samplers ``"rmhmc"`` (it needs second-
 and third-order derivatives of the Gram kernels K1 and K3), ``"smc"`` and
@@ -50,19 +55,24 @@ from .inference import init as init_mod
 from .inference import map as map_mod
 from .inference import nuts
 from .inference import whiten as whiten_mod
-from .models import gnmgp, gnmgp_hetero, lmc, snmgp
+from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, snmgp
 from .models.base import FullData, as_hadamard_data
 from .postprocess import analysis
 from .predict import gnmgp as pred_gnmgp
 from .predict import gnmgp_hetero as pred_gnmgp_hetero
+from .predict import gnmgp_sparse as pred_gnmgp_sparse
 from .predict import hadamard as pred_h
 from .predict import lmc as pred_lmc
 from .predict import snmgp as pred_snmgp
 from .utils.artifacts import ArtifactStore
 
-_MODELS = {"lmc": lmc, "snmgp": snmgp, "gnmgp": gnmgp, "gnmgp_hetero": gnmgp_hetero}
-_PREDICT = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero}
+_MODELS = {"lmc": lmc, "snmgp": snmgp, "gnmgp": gnmgp, "gnmgp_hetero": gnmgp_hetero, "gnmgp_sparse": gnmgp_sparse}
+_PREDICT = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero,
+            "gnmgp_sparse": pred_gnmgp_sparse}
 MODELS = tuple(_MODELS)
+#: The sparse (inducing-point) models.
+SPARSE_MODELS = ("gnmgp_sparse",)
+SPARSE_APPROXES = ("fitc", "vfe")
 #: The models with a Hadamard-layout objective.
 HADAMARD_MODELS = ("lmc", "snmgp", "gnmgp")
 HMC_MASSES = ("none", "pilot", "window")
@@ -85,6 +95,13 @@ class PipelineConfig:
 
     model: str = "gnmgp"
     hyper: dict = dataclasses.field(default_factory=dict)
+    n_inducing: int = 64  # sparse models: the inducing-input count m_z
+    #                       (latents at m_z quantile-chosen inputs, kriged to
+    #                       the data; the likelihood is O(N M (m_z M)^2))
+    sparse_approx: str = "fitc"  # sparse models: "fitc" (diagonal-corrected)
+    #                              or "vfe" (Titsias' bound)
+    refine_z: int = 0  # inducing-input refinement rounds after MAP: not yet
+    #                    ported (any value > 0 raises)
     do_empirical: bool = True
     do_map: bool = True
     do_map_analysis: bool = True
@@ -134,6 +151,11 @@ class PipelineConfig:
             raise ValueError(
                 f"model {self.model!r} is not yet ported to the torch package (it runs {MODELS})"
             )
+        if self.refine_z > 0:
+            raise ValueError("refine_z > 0 (inducing-input refinement) is not yet ported to the torch package: it "
+                             "needs the gradient of K1 in the inputs")
+        if self.sparse_approx not in SPARSE_APPROXES:
+            raise ValueError(f"sparse_approx must be one of {SPARSE_APPROXES}, got {self.sparse_approx!r}")
         if self.sampler in UNPORTED_SAMPLERS:
             raise ValueError(f"sampler {self.sampler!r} {UNPORTED_SAMPLERS[self.sampler]} (the torch package "
                              f"runs {SAMPLERS})")
@@ -181,14 +203,20 @@ def n_params(model: str, n: int, m: int) -> int:
     return lmc.n_params(m) if model == "lmc" else _MODELS[model].n_params(n, m)
 
 
-def _build_inits(cfg: PipelineConfig, emp, data: FullData) -> dict:
+def _build_inits(cfg: PipelineConfig, emp, data: FullData, z=None) -> dict:
     """The model's MAP starts, in JAX's order (JAX ``workflows._build_inits``):
     LMC from the empirical estimates; SNMGP from a short LMC Adam fit
     (stationary, combined) and the empirical estimates; GNMGP from a short
     SNMGP Adam fit (separable) and the empirical estimates, and the
-    heteroscedastic GNMGP from those two with the noise broadcast."""
+    heteroscedastic GNMGP from those two with the noise broadcast; the
+    sparse GNMGP from the empirical estimates subsampled onto the inducing
+    inputs ``z`` (no separable warm start: that costs the dense work this
+    tier avoids)."""
     n, m = data.y.shape
     dev, dt = data.x.device, data.x.dtype
+    if cfg.model == "gnmgp_sparse":
+        dense = init_mod.gnmgp_from_empirical(emp, n, m, device=dev, dtype=dt)
+        return {"empirical": gnmgp_sparse.init_from_empirical(dense, n, z.shape[0], m, data.x, z)}
     if cfg.model == "lmc":
         return {"empirical": init_mod.lmc_from_empirical(emp, n, m, dev, dt)}
     if cfg.model == "snmgp":
@@ -216,8 +244,12 @@ def _build_inits(cfg: PipelineConfig, emp, data: FullData) -> dict:
     return inits
 
 
-def _predict_map(cfg: PipelineConfig, map_vec, data: FullData, xs, device, dtype):
-    """The model's plug-in prediction at ``xs`` (LMC's takes no ``hyper``)."""
+def _predict_map(cfg: PipelineConfig, map_vec, data: FullData, xs, device, dtype, sp_ops=None):
+    """The model's plug-in prediction at ``xs`` (LMC's takes no ``hyper``, a
+    sparse model's takes its ``sp_ops`` and approximation)."""
+    if cfg.model in SPARSE_MODELS:
+        return _PREDICT[cfg.model].predict_map(map_vec, data, sp_ops, xs, hyper=cfg.hyper, approx=cfg.sparse_approx,
+                                               device=device, dtype=dtype)
     if cfg.model == "lmc":
         return pred_lmc.predict_map(map_vec, data, xs, device=device, dtype=dtype)
     return _PREDICT[cfg.model].predict_map(map_vec, data, xs, device=device, dtype=dtype, hyper=cfg.hyper)
@@ -325,7 +357,9 @@ def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: 
                             hadamard: bool = False):
     """The sampling stage's whitener for ``cfg.whiten`` (JAX
     ``_make_sampling_whitener``), or None; ``hadamard`` takes the Hadamard
-    objective's prior defaults (``whiten.make_whitener``).
+    objective's prior defaults (``whiten.make_whitener``).  The sparse
+    layout is the dense layout with (x, N) → (Z, m_z): the caller passes
+    ``x=Z``, ``n=m_z`` and the dense model's whitener applies.
 
     ``True``/``"prior"``: prior-factor whitening.  ``"pncp"``: partially
     non-centered, a prior-whitened eigen-mode pilot chain of
@@ -335,13 +369,14 @@ def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: 
     """
     if not cfg.whiten:
         return None
+    model_name = {"gnmgp_sparse": "gnmgp"}.get(cfg.model, cfg.model)
     if cfg.whiten == "pncp":
-        w = whiten_mod.make_whitener(cfg.model, x, n, m, cfg.hyper, hadamard=hadamard, mode="eig")
+        w = whiten_mod.make_whitener(model_name, x, n, m, cfg.hyper, hadamard=hadamard, mode="eig")
         pilot, _ = _run_chain(nlp, map_vec, dataclasses.replace(cfg, n_hmc=cfg.pncp_pilot, whiten=False),
                               _pilot_generator(cfg.seed, 11, map_vec.device), whitener=w)
         return whiten_mod.retune(w, pilot, interp=cfg.pncp_interp)
     if cfg.whiten in (True, "prior"):
-        return whiten_mod.make_whitener(cfg.model, x, n, m, cfg.hyper, hadamard=hadamard)
+        return whiten_mod.make_whitener(model_name, x, n, m, cfg.hyper, hadamard=hadamard)
     raise ValueError(f"unknown whiten setting {cfg.whiten!r} (want False, True, 'prior' or 'pncp')")
 
 
@@ -356,7 +391,9 @@ def run_subject(
     dtype=None,
 ) -> dict:
     """Single-subject pipeline on ``device`` (default ``cuda``, raising when
-    there is none) in ``dtype`` (default ``settings.dtype``).
+    there is none) in ``dtype`` (default ``settings.dtype``).  A sparse model
+    adds ``n_inducing`` and ``sparse_approx`` to the result and its inducing
+    inputs ``z`` and ``approx`` to the ``map`` artifact.
 
     Returns the JAX package's result dict (tensors where it has arrays);
     stages are also written to ``store`` when one is given, and a stored MAP
@@ -393,13 +430,23 @@ def run_subject(
     result["empirical"] = emp
 
     model = _MODELS[cfg.model]
-    nlp = model.make_objective(data, hyper=cfg.hyper)
+    sparse = cfg.model in SPARSE_MODELS
+    sp_ops = sp_z = m_z = None
+    if sparse:
+        nlp, sp_ops = model.make_objective(data, n_inducing=cfg.n_inducing, approx=cfg.sparse_approx,
+                                           hyper=cfg.hyper)
+        sp_z, m_z = sp_ops.z, int(sp_ops.z.shape[0])
+        result["n_inducing"] = m_z
+        result["sparse_approx"] = cfg.sparse_approx
+    else:
+        nlp = model.make_objective(data, hyper=cfg.hyper)
     map_vec = None
     if cfg.do_map:
         stored = None
         if store is not None and store.exists(_key("map")):
-            stored = store.load(_key("map"))["vec"]
-            expected = (n_params(cfg.model, n, m),)
+            map_art = store.load(_key("map"))
+            stored = map_art["vec"]
+            expected = (n_params(cfg.model, m_z if sparse else n, m),)
             if stored.shape != expected:
                 # a stale artifact from other data or another split: refit
                 warnings.warn(
@@ -408,9 +455,16 @@ def run_subject(
                 stored = None
         if stored is not None:
             result["map_vec"] = map_vec = as_t(stored)
+            z_art = map_art.get("z") if sparse else None
+            if z_art is not None and not np.array_equal(np.asarray(z_art, np.float64),
+                                                         sp_z.cpu().numpy().astype(np.float64)):
+                # a MAP stored with another inducing set (a refined one) is
+                # read at its own inputs, never reinterpreted at the default Z
+                sp_z = as_t(z_art)
+                nlp, sp_ops = model.make_objective(data, z=sp_z, approx=cfg.sparse_approx, hyper=cfg.hyper)
         else:
             t0 = time.time()
-            inits = _build_inits(cfg, emp, data)
+            inits = _build_inits(cfg, emp, data, z=sp_z)
             ckpt = None
             if store is not None:
                 ckpt = lambda v, i: store.save(_key("map_ckpt"), vec=v.cpu().numpy(), iteration=i)
@@ -423,11 +477,14 @@ def run_subject(
             result["map_init"] = name
             result["target_hist"] = res.target_hist.cpu().numpy()
             if store is not None:
-                store.save(_key("map"), vec=map_vec.cpu().numpy(), target_hist=result["target_hist"])
+                # a sparse MAP keeps its inducing inputs and approximation beside it
+                extra = {"z": sp_z.cpu().numpy(), "approx": np.asarray(cfg.sparse_approx)} if sparse else {}
+                store.save(_key("map"), vec=map_vec.cpu().numpy(), target_hist=result["target_hist"], **extra)
 
     if cfg.do_hmc and map_vec is not None:
         t0 = time.time()
-        whitener = _make_sampling_whitener(nlp, map_vec, cfg, xd, n, m)
+        # the sparse layout is the dense one at the inducing inputs
+        whitener = _make_sampling_whitener(nlp, map_vec, cfg, sp_z if sparse else xd, m_z if sparse else n, m)
         generator = torch.Generator(device).manual_seed(cfg.seed)
         if cfg.sampler == "chees":
             samples, accept, result["sampling"] = _run_chain_chees(nlp, map_vec, cfg, generator, whitener=whitener)
@@ -442,19 +499,22 @@ def run_subject(
                 # the sampler's own record, for the serving info endpoint
                 store.save(_key("sampling"), **{k: v for k, v in result["sampling"].items() if np.isscalar(v)})
 
-    if cfg.do_map_analysis and map_vec is not None and cfg.model == "gnmgp":
-        tilde_l, b_proc, cor_proc, std_proc = analysis.gnmgp_map_latents(map_vec.cpu().numpy(), n, m)
+    if cfg.do_map_analysis and map_vec is not None and cfg.model in ("gnmgp", "gnmgp_sparse"):
+        # the sparse layout is the dense one at the inducing inputs, so the
+        # same unpack applies with N → m_z; "inputs" says where the processes live
+        n_lat = m_z if sparse else n
+        tilde_l, b_proc, cor_proc, std_proc = analysis.gnmgp_map_latents(map_vec.cpu().numpy(), n_lat, m)
         result["map_latents"] = {"tilde_l": tilde_l, "B": b_proc, "R": cor_proc,
-                                 "stds": std_proc, "inputs": x}
+                                 "stds": std_proc, "inputs": sp_z.cpu().numpy() if sparse else x}
         if "hmc_samples" in result:
             result["latent_summary"] = analysis.gnmgp_latent_summary(
-                result["hmc_samples"].cpu().numpy(), n, m
+                result["hmc_samples"].cpu().numpy(), n_lat, m
             )
 
     grid = torch.linspace(float(x.min()), float(x.max()), cfg.n_grid, dtype=dtype, device=device)
     if cfg.do_pred_grid and map_vec is not None:
         t0 = time.time()
-        gp = _predict_map(cfg, map_vec, data, grid, device, dtype)
+        gp = _predict_map(cfg, map_vec, data, grid, device, dtype, sp_ops)
         result["timings"]["pred_grid"] = time.time() - t0
         result["pred_grid"] = gp
         result["grid"] = grid.cpu().numpy()
@@ -462,7 +522,7 @@ def run_subject(
             store.save(_key("pred_grid"), percentiles=gp.percentiles.cpu().numpy(), grid=result["grid"])
 
     if cfg.do_pred_test and map_vec is not None and x_test is not None:
-        tp = _predict_map(cfg, map_vec, data, as_t(x_test), device, dtype)
+        tp = _predict_map(cfg, map_vec, data, as_t(x_test), device, dtype, sp_ops)
         result["pred_test"] = tp
         if cfg.do_evaluation:
             mean, std = tp.mean.cpu().numpy(), tp.std.cpu().numpy()
@@ -475,6 +535,9 @@ def run_subject(
     if cfg.do_evaluation and map_vec is not None:
         def dev(v):
             with torch.no_grad():
+                if sparse:
+                    return -2.0 * model.log_lik(model.unpack(v, m_z, m), data, sp_ops, approx=cfg.sparse_approx,
+                                                hyper=cfg.hyper)
                 return model.deviance(v, yd, xd)
 
         result["deviance"] = float(dev(map_vec))
@@ -489,7 +552,12 @@ def run_subject(
             if hist.shape[0] > cfg.loo_draws:
                 idx = np.linspace(0, hist.shape[0] - 1, cfg.loo_draws).astype(int)
                 hist = hist[torch.as_tensor(idx, device=hist.device)]
-            cond_ll = evaluate.chain_conditional_loglik(cfg.model, hist, xd, yd, device=device, dtype=dtype)
+            if sparse:
+                cond_ll = evaluate.chain_conditional_loglik_sparse(hist, data, sp_ops, approx=cfg.sparse_approx,
+                                                                   hyper=cfg.hyper, model=cfg.model, device=device,
+                                                                   dtype=dtype)
+            else:
+                cond_ll = evaluate.chain_conditional_loglik(cfg.model, hist, xd, yd, device=device, dtype=dtype)
             loo = evaluate.psis_loo(cond_ll)
             wa = evaluate.waic(cond_ll)
             result["loo"] = {

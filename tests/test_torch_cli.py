@@ -76,7 +76,7 @@ def test_cli_on_a_sim_pickle_matches_run_subject(tmp_path, capsys):
         np.testing.assert_allclose(summary[k], w, rtol=1e-10, err_msg=k)
 
 
-@pytest.mark.parametrize("flag,value", [("--model", "snmgp_sparse"), ("--model", "gnmgp_sparse"),
+@pytest.mark.parametrize("flag,value", [("--model", "snmgp_sparse"), ("--model", "gnmgp_hetero_sparse"),
                                         ("--sampler", "rmhmc"), ("--sampler", "smc")])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flag, value):
     with pytest.raises(SystemExit) as ei:

@@ -108,7 +108,7 @@ def test_observation_cov_matches_jax(rng, n, m):
 
 
 @pytest.mark.parametrize("model,match", [("snmgp_sparse", "not yet ported"), ("lmc_sparse", "not yet ported"),
-                                         ("gnmgp_sparse", "not yet ported"), ("gp", "unknown model")])
+                                         ("gnmgp_hetero_sparse", "not yet ported"), ("gp", "unknown model")])
 def test_observation_cov_refuses_other_models(model, match):
     with pytest.raises(ValueError, match=match):
         evaluate.observation_cov(model, torch.zeros(3, dtype=T64), torch.zeros(1, dtype=T64), 1, 1)

@@ -139,8 +139,8 @@ def test_gradcheck_k1_function(rng):
 
 def test_gradients_that_are_not_ported_raise(rng):
     x, ell, ls = _gram_inputs(rng, 6, 2)
-    with pytest.raises(NotImplementedError, match="cross form is not yet ported"):
-        gram_kernels.gibbs_gram(_t(x), _t(ell, True), _t(ell), _t(x), _t(ell), _t(ell))
+    with pytest.raises(NotImplementedError, match="inducing-input refinement, which needs one, is not yet ported"):
+        gram_kernels.gibbs_gram(_t(x), _t(ell), _t(ell, True), _t(x, True), _t(ell), _t(ell))
     with pytest.raises(NotImplementedError, match="x is data"):
         gram_kernels.gibbs_gram(_t(x, True), _t(ell), _t(ell), jitter=JITTER)
     with pytest.raises(NotImplementedError, match="x is data"):
