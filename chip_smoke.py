@@ -3,7 +3,12 @@
 
 Run from the root of the repository, on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,sparse]
+
+``--phases`` runs the named phases (comma-separated, of 2-14 below) and
+those whose results they take (drift takes serving's; chain and precision
+hmc's; nuts models'; samplers hmc's and models'), in the order below; the
+default is every phase.  The summary then lists what those phases measured.
 
 Phases, each printing its lines:
 
@@ -29,7 +34,9 @@ Phases, each printing its lines:
                an odd N·M, N = 1) and its generic route up to M = 130; K3's
                backward at M = 1, 4..8 and large M; K1's backward at
                N = 1..1100.  The generic routes of K3 are timed at N=200,
-               M=9.
+               M=9.  K1's cross form is also timed at the sparse path's
+               2000 x 64, and one call of its cross-form backward is
+               profiled: it must be one device kernel.
 3. serving   — (slice 1's path) a ``sim_mnts`` subject at N=1000, M=2
                (float64) written to an artifact store, served over HTTP by
                the port's ``serve``; its /predict answers are checked and
@@ -184,8 +191,10 @@ Phases, each printing its lines:
                into ``chiprun_out/cli_sparse``; one gradient rate at
                N=20,000, m_z=64.  The kernels phase also holds K1's
                cross-form backward against autograd of its plain version at
-               2000 × 64 and 1000 × 256 (timed) and at the other strip
-               heights and ragged edges (untimed).
+               2000 × 64, 2000 × 128, 1000 × 256 and 20,000 × 64 (timed)
+               and at the other strip heights, column groups and ragged
+               edges (untimed), and logs its walk (grid, rows a block,
+               column groups, slots, tickets).
 15. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
@@ -277,12 +286,17 @@ K2_OTHER_SHAPES = ((64, 1), (37, 1), (38, 2), (37, 2), (36, 3), (37, 3), (40, 4)
 K1_BWD_OTHER_SIZES = (1, 16, 17, 31, 32, 33, 600, 1024, 1100)
 
 #: K1's cross-form backward (the sparse tier's K_xz) is timed at the sparse
-#: path's N × m_z = 2000 × 64 and at 1000 × 256; these (N1, N2) cover a
-#: single input, ragged strips and column chunks, more blocks than a warp
-#: has lanes, taller strips, and the N = 20,000 rate's shape, each checked
-#: once.
-K1_CROSS_BWD_TIMED = ((2000, 64), (1000, 256))
-K1_CROSS_BWD_OTHER_SHAPES = ((1, 1), (37, 45), (600, 33), (3000, 20), (9000, 40), (20000, 64))
+#: path's N × m_z = 2000 × 64 and 2000 × 128, at 1000 × 256 and at the
+#: N = 20,000 rate's 20,000 × 64; these (N1, N2) cover a single input,
+#: ragged strips and column chunks, column groups (3 at 500 × 130, 4 of 3
+#: chunks at 1000 × 600, 11 at 200 × 700), strips of several 4-row groups a
+#: warp, and the tallest strip with more blocks than SMs (70,000 × 3), each
+#: checked once.  K1's cross forward is also timed at the sparse path's
+#: 2000 × 64 (σ ≡ 1 on both sides, as K_xz is built).
+K1_CROSS_BWD_TIMED = ((2000, 64), (2000, 128), (1000, 256), (20000, 64))
+K1_CROSS_BWD_OTHER_SHAPES = ((1, 1), (37, 45), (600, 33), (500, 130), (1000, 600), (200, 700), (3000, 20),
+                             (9000, 40), (70000, 3))
+K1_CROSS_SPARSE = (2000, 64)
 
 #: The training path: the objective phase's shape, the run_subject subject
 #: and budget, and the card-vs-CPU run.
@@ -534,19 +548,19 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 lambda x=x, s=s, l=l: gk.gibbs_gram_plain(x, s, l, x, s, l, settings.jitter),
                 3 * n * size + n * n * size, 15 * n * n,
             ))
-        x1, s1, l1 = kernel_inputs(torch, gen, SERVED_N, dtype, dev)
-        s1 = torch.ones_like(s1)  # the served path's σ≡1
-        for g in cross_columns:
-            x2, s2, l2 = kernel_inputs(torch, gen, g, dtype, dev)
-            s2 = torch.ones_like(s2)
-            label = f"gibbs_gram cross {SERVED_N}x{g}"
-            sched = gk.k1_forward_schedule(SERVED_N, g, False, dtype, sms)
-            fwd[label] = (SERVED_N * g, sched, k1_walk(sched))
+        # the served path's σ ≡ 1 at each bucket, and the sparse path's K_xz
+        for n1, n2 in [(SERVED_N, g) for g in cross_columns] + [K1_CROSS_SPARSE]:
+            x1, s1, l1 = kernel_inputs(torch, gen, n1, dtype, dev)
+            x2, s2, l2 = kernel_inputs(torch, gen, n2, dtype, dev)
+            s1, s2 = torch.ones_like(s1), torch.ones_like(s2)
+            label = f"gibbs_gram cross {n1}x{n2}"
+            sched = gk.k1_forward_schedule(n1, n2, False, dtype, sms)
+            fwd[label] = (n1 * n2, sched, k1_walk(sched))
             cases.append((
                 label, "gibbs_gram",
-                lambda x2=x2, s2=s2, l2=l2: gk.gibbs_gram(x1, s1, l1, x2, s2, l2),
-                lambda x2=x2, s2=s2, l2=l2: gk.gibbs_gram_plain(x1, s1, l1, x2, s2, l2),
-                3 * (SERVED_N + g) * size + SERVED_N * g * size, 15 * SERVED_N * g,
+                lambda a=(x1, s1, l1, x2, s2, l2): gk.gibbs_gram(*a),
+                lambda a=(x1, s1, l1, x2, s2, l2): gk.gibbs_gram_plain(*a),
+                3 * (n1 + n2) * size + n1 * n2 * size, 15 * n1 * n2,
             ))
         # K2 (task-major; the input-major layout is K3's) at the served shape
         # and a ragged N=257, M=3
@@ -650,12 +664,13 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                             else f"{sched.n_pairs} tile pairs of {sched.tile} inputs") + f", grid {sched.grid}")
                 elif label in k1x_shapes:
                     sched = gk.k1_cross_backward_schedule(*k1x_shapes[label], gk.sm_count(dev))
-                    walk = f"row strips of {sched.rows}, grid {sched.grid}"
+                    walk = k1x_walk(sched)
                 else:
                     sched = gk.k1_backward_schedule(k1_sizes[label], gk.sm_count(dev))
                     walk = f"{sched.n_pairs} tile pairs of {sched.tile} inputs, grid {sched.grid}"
                 route = "strips" if label in k1x_shapes else getattr(sched, "route", "tiled")
-                row.update(cold_ms=time_cold_ms(torch, kern), scratch_bytes=sched.partial_numel * size,
+                scratch = sched.slots_numel if label in k1x_shapes else sched.partial_numel
+                row.update(cold_ms=time_cold_ms(torch, kern), scratch_bytes=scratch * size,
                            kernel_route=route, repeat_bit_equal=True)
                 log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
                     f"(warm {ms:.5f}); scratch {row['scratch_bytes']} B; {walk}")
@@ -687,7 +702,21 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             # K1's self form (the training path's) beside the served cross form,
             # and its cross-form backward at the second timed shape
             main["gibbs_gram"]["self_form_n1000"] = rows["gibbs_gram self N=1000"]
-            main["gibbs_gram_cross_backward"]["at_1000x256"] = rows["gibbs_gram_cross_backward 1000x256"]
+            for n1, n2 in K1_CROSS_BWD_TIMED[1:]:
+                main["gibbs_gram_cross_backward"][f"at_{n1}x{n2}"] = rows[f"gibbs_gram_cross_backward {n1}x{n2}"]
+            main["gibbs_gram"]["cross_{}x{}".format(*K1_CROSS_SPARSE)] = rows["gibbs_gram cross {}x{}".format(
+                *K1_CROSS_SPARSE)]
+            # one call of the cross-form backward is one device kernel
+            n1, n2 = K1_CROSS_BWD_TIMED[0]
+            x1, s1, l1 = kernel_inputs(torch, gen, n1, dtype, dev)
+            x2, s2, l2 = kernel_inputs(torch, gen, n2, dtype, dev)
+            kbar = torch.randn(n1, n2, generator=gen, dtype=torch.float64).to(dev, dtype)
+            _, device_ms, kinds, top = device_profile(
+                torch, lambda: gk.gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar))
+            log("kernels", f"gibbs_gram_cross_backward {n1}x{n2} {dn} profiled: {kinds} device kernel(s) a call, "
+                f"{device_ms:.5f} ms: " + ", ".join(f"{key} x{count}" for _, count, key in top))
+            if kinds != 1 or top[0][1] != 1:
+                raise AssertionError(f"gibbs_gram_cross_backward {n1}x{n2}: {kinds} device kernels a call, not one")
         # K1's forward at other N, untimed: bit-equal to the plain version and
         # on a repeat, the self form exactly symmetric
         for n in K1_FWD_OTHER_SIZES:
@@ -784,8 +813,8 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
                 raise AssertionError(f"{label}: two launches on the same inputs differ")
             sched = gk.k1_cross_backward_schedule(n1, n2, gk.sm_count(dev))
-            log("kernels", f"{label} (strips of {sched.rows} rows, grid {sched.grid}): ok, max_abs_err={err:.3e}, "
-                "two launches bit-equal (untimed)")
+            log("kernels", f"{label} ({k1x_walk(sched)}): ok, max_abs_err={err:.3e}, two launches bit-equal "
+                "(untimed)")
     return main
 
 
@@ -804,6 +833,12 @@ def k1_walk(sched) -> str:
     if sched.route == "pairs":
         return f"{sched.n_pairs} tile pairs of {sched.tile} inputs, grid {sched.grid}"
     return f"one thread per output, {sched.grid} blocks of 32 x 8"
+
+
+def k1x_walk(sched) -> str:
+    """K1's cross-form backward's walk, for the log."""
+    return (f"grid {sched.grid}, {sched.rows} rows a block, {sched.col_groups} column group(s) of "
+            f"{sched.chunks_per_group} chunk(s), {sched.n_slots} column slots, {sched.n_tickets} ticket(s)")
 
 
 def strip_walk(sched) -> str:
@@ -3158,10 +3193,40 @@ def phase_sparse(torch, np, gk, seed) -> dict:
     return counts
 
 
+#: The phases after the build, in the order they run, and the phases whose
+#: results each takes (a named phase runs those too).
+PHASES = ("kernels", "serving", "drift", "objective", "training", "hmc", "chain", "models", "nuts", "hadamard",
+          "precision", "samplers", "sparse")
+PHASE_NEEDS = {"drift": ("serving",), "chain": ("hmc",), "nuts": ("models",), "precision": ("hmc",),
+               "samplers": ("hmc", "models")}
+
+
+def selected_phases(names: str | None) -> tuple[str, ...]:
+    """The phases to run for ``--phases`` (comma-separated; None: every
+    phase), with those they take results from, in ``PHASES`` order."""
+    if names is None:
+        return PHASES
+    want = {n.strip() for n in names.split(",") if n.strip()}
+    unknown = want - set(PHASES)
+    if unknown or not want:
+        raise SystemExit(f"chip_smoke: --phases takes a comma-separated subset of {', '.join(PHASES)}; "
+                         f"got {names!r}")
+    todo = list(want)
+    while todo:
+        for need in PHASE_NEEDS.get(todo.pop(), ()):
+            if need not in want:
+                want.add(need)
+                todo.append(need)
+    return tuple(p for p in PHASES if p in want)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", help="comma-separated phases to run (default: every phase), e.g. "
+                        "kernels,sparse; a phase also runs the phases whose results it takes")
     args = parser.parse_args()
+    phases = selected_phases(args.phases)
 
     import numpy as np
     import torch
@@ -3185,35 +3250,32 @@ def main() -> int:
         cuda_build.load(name)
     log("build", f"{', '.join(gk.KERNEL_SOURCES)} built and loaded in {time.perf_counter() - t0:.3f} s")
 
+    log("env", f"phases: {', '.join(phases)}")
+    res = {}  # each phase's results
+
+    def run(name, fn, *fn_args):
+        if name in phases:
+            t0 = time.perf_counter()
+            res[name] = fn(torch, np, gk, *fn_args)
+            log(name, f"phase took {time.perf_counter() - t0:.3f} s")
+
     buckets = {engine._bucket(g) for g in REQUEST_SIZES + engine.WARM_GRID_SIZES}
-    main_rows = phase_kernels(torch, gk, settings, sorted(buckets), args.seed)
-    launches, n_requests, latency, drift_inputs = phase_serving(torch, np, gk, args.seed)
-    phase_drift(torch, *drift_inputs)
-    rates = phase_objective(torch, np, gk, args.seed)
-    train_launches = phase_training(torch, np, gk, args.seed)
+    run("kernels", lambda torch, np, gk: phase_kernels(torch, gk, settings, sorted(buckets), args.seed))
+    run("serving", phase_serving, args.seed)
+    run("drift", lambda torch, np, gk: phase_drift(torch, *res["serving"][3]))
+    run("objective", phase_objective, args.seed)
+    run("training", phase_training, args.seed)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir, prefix="smoke_hmc_") as root:
-        hmc_launches, hmc_res, hmc_data = phase_hmc(torch, np, gk, args.seed, root)
-        chain_launches = phase_chain(torch, np, gk, args.seed, root, hmc_res, hmc_data)
-    t0 = time.perf_counter()
-    model_launches, model_subjects = phase_models(torch, np, gk, args.seed)
-    log("models", f"phase took {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    nuts_launches = phase_nuts(torch, np, gk, args.seed, model_subjects)
-    log("nuts", f"phase took {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    hadamard_launches = phase_hadamard(torch, np, gk, args.seed)
-    log("hadamard", f"phase took {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    precision_launches = phase_precision(torch, np, gk, args.seed, hmc_res)
-    log("precision", f"phase took {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    sampler_launches = phase_samplers(torch, np, gk, args.seed, hmc_res, model_subjects)
-    log("samplers", f"phase took {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    sparse_launches = phase_sparse(torch, np, gk, args.seed)
-    log("sparse", f"phase took {time.perf_counter() - t0:.3f} s")
+        run("hmc", phase_hmc, args.seed, root)
+        run("chain", lambda torch, np, gk: phase_chain(torch, np, gk, args.seed, root, *res["hmc"][1:]))
+    run("models", phase_models, args.seed)
+    run("nuts", lambda torch, np, gk: phase_nuts(torch, np, gk, args.seed, res["models"][1]))
+    run("hadamard", phase_hadamard, args.seed)
+    run("precision", lambda torch, np, gk: phase_precision(torch, np, gk, args.seed, res["hmc"][1]))
+    run("samplers", lambda torch, np, gk: phase_samplers(torch, np, gk, args.seed, res["hmc"][1], res["models"][1]))
+    run("sparse", phase_sparse, args.seed)
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -3222,63 +3284,62 @@ def main() -> int:
                 "gibbs_gram_cross_backward": f"{pallas}:55", "svc_gram": f"{pallas}:228",
                 "svc_gram_tiled": f"{pallas}:122", "svc_gram_tiled_backward": f"{pallas}:122"}
     kernels = []
-    for name in TRAINING_KERNELS + ("gibbs_gram_cross_backward",):
+    for name in TRAINING_KERNELS + ("gibbs_gram_cross_backward",) if "kernels" in res else ():
         # the served kernels count on slice 1's path, the training kernels on
-        # slice 2's, K1's cross-form backward on the sparse tier's
+        # slice 2's, K1's cross-form backward on the sparse tier's (None where
+        # --phases left that phase out)
         served = name in SERVED_KERNELS
         if served:
-            main_launches = launches[name]
+            main_launches = res["serving"][0][name] if "serving" in res else None
         elif name in TRAINING_KERNELS:
-            main_launches = train_launches[name]
+            main_launches = res["training"][name] if "training" in res else None
         else:
-            main_launches = sparse_launches["run_subject"][name]
+            main_launches = res["sparse"]["run_subject"][name] if "sparse" in res else None
         row = {
             "name": name,
             "route": "cuda",  # the contract's: CUDA C++ (kernel_route: the schedule's route)
             "source": f"nonstationary_multivariate_gaussian_process_tpu_torch/csrc/{gk.SOURCES[name]}.cu",
             "replaces": replaces[name],
             "launches": main_launches,
-            **main_rows[name],  # max_abs_err, ms, plain_ms, bound_ms, bound_by
+            **res["kernels"][name],  # max_abs_err, ms, plain_ms, bound_ms, bound_by
             "library_ms": None,  # no single PyTorch call computes these Grams or their gradients
         }
-        if served:
-            row["launches_per_request"] = launches[name] / n_requests
-        if name in HMC_KERNELS:
-            row["launches_hmc"] = hmc_launches[name]  # the sampling stage of slice 3's path
-        row.update(chain_launches.get(name, {}))  # the LOO stage and a sample request
-        # the other model families: in each chain, DIC, LOO stage and per request
-        row["launches_models"] = {model: c[name] for model, c in model_launches.items()}
-        # the whitened NUTS chains at N=1000, by model
-        row["launches_nuts"] = {model: c[name] for model, c in nuts_launches.items()}
-        # the Hadamard layout by model and stage (run_subject_hadamard at N_obs ≈ 1,500)
-        row["launches_hadamard"] = {model: c[name] for model, c in hadamard_launches.items()}
-        # under NMGP_PRECISION=mixed: per gradient by model, the GNMGP run_subject and its chain
-        row["launches_precision"] = precision_launches.get(name, {})
-        # the sampling stages of DRHMC (GNMGP, LMC), ChEES (GNMGP whitened, Hadamard GNMGP) and tempering
-        row["launches_samplers"] = {run: c[name] for run, c in sampler_launches.items()}
-        # the sparse tier: per gradient, its run_subject and stages, NUTS, per request
-        row["launches_sparse"] = {stage: c[name] for stage, c in sparse_launches.items()}
+        if served and "serving" in res:
+            row["launches_per_request"] = res["serving"][0][name] / res["serving"][1]
+        if name in HMC_KERNELS and "hmc" in res:
+            row["launches_hmc"] = res["hmc"][0][name]  # the sampling stage of slice 3's path
+        row.update(res.get("chain", {}).get(name, {}))  # the LOO stage and a sample request
+        if "precision" in res:
+            # under NMGP_PRECISION=mixed: per gradient by model, the GNMGP run_subject and its chain
+            row["launches_precision"] = res["precision"].get(name, {})
+        # by model: the other families' chain, DIC, LOO stage and requests; the
+        # whitened NUTS chains at N=1000; the Hadamard layout by stage; the
+        # sampling stages of DRHMC, ChEES and tempering; the sparse tier per
+        # gradient, its run_subject and stages, NUTS and requests
+        for phase in ("models", "nuts", "hadamard", "samplers", "sparse"):
+            if phase in res:
+                counts = res[phase][0] if phase == "models" else res[phase]
+                row[f"launches_{phase}"] = {label: c[name] for label, c in counts.items()}
         kernels.append(row)
-    log("summary", "warm /predict latency ms by size: "
-        + ", ".join(f"{g}: {ms:.3f}" for g, ms in latency.items()))
-    log("summary", "launches in the LOO stage and per sample request: "
-        + ", ".join(f"{k}: {v}" for k, v in chain_launches.items()))
-    log("summary", "launches by model (chain, DIC, LOO stage, per map and sample request): " + "; ".join(
-        f"{model}: " + ", ".join(f"{k} {v}" for k, v in c.items() if any(v.values()))
-        for model, c in model_launches.items()))
-    log("summary", "launches in the whitened NUTS chains by model: " + "; ".join(
-        f"{model}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for model, c in nuts_launches.items()))
-    log("summary", "launches in run_subject_hadamard by model and stage: " + "; ".join(
-        f"{model}: " + ", ".join(f"{k} {v}" for k, v in c.items() if any(v.values()))
-        for model, c in hadamard_launches.items()))
-    log("summary", "launches under mixed: " + "; ".join(
-        f"{name}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for name, c in precision_launches.items()))
-    log("summary", "launches in the samplers' stages: " + "; ".join(
-        f"{run}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for run, c in sampler_launches.items()))
-    log("summary", "launches on the sparse path: " + "; ".join(
-        f"{stage}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v) for stage, c in sparse_launches.items()))
-    log("summary", "gradient evaluations/s at N=1000, M=2: "
-        + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items()))
+    joined = lambda counts, keep=bool: "; ".join(
+        f"{label}: " + ", ".join(f"{k} {v}" for k, v in c.items() if keep(v)) for label, c in counts.items())
+    if "serving" in res:
+        log("summary", "warm /predict latency ms by size: "
+            + ", ".join(f"{g}: {ms:.3f}" for g, ms in res["serving"][2].items()))
+    if "chain" in res:
+        log("summary", "launches in the LOO stage and per sample request: "
+            + ", ".join(f"{k}: {v}" for k, v in res["chain"].items()))
+    any_value = lambda v: any(v.values())
+    for phase, what, keep in (("models", "by model (chain, DIC, LOO stage, per map and sample request)", any_value),
+                              ("nuts", "in the whitened NUTS chains by model", bool),
+                              ("hadamard", "in run_subject_hadamard by model and stage", any_value),
+                              ("precision", "under mixed", bool), ("samplers", "in the samplers' stages", bool),
+                              ("sparse", "on the sparse path", bool)):
+        if phase in res:
+            log("summary", f"launches {what}: " + joined(res[phase][0] if phase == "models" else res[phase], keep))
+    if "objective" in res:
+        log("summary", "gradient evaluations/s at N=1000, M=2: "
+            + ", ".join(f"{k}: {v:.3f}" for k, v in res["objective"].items()))
     log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

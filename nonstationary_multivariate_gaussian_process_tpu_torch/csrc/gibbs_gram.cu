@@ -103,17 +103,48 @@
 //   s2bar_j = sum_i Kbar_ij s1_i g_ij     l2bar_j = sum_i Kbar_ij K_ij f2_ij
 //
 // What bounds it: the bytes of Kbar, read once, n1 n2 sizeof(T) (1 MB at the
-// sparse path's 2000 x 64 float64, 0.31 us at 3.35 TB/s); each term's exp
-// and rsqrt cost less than that in float64 at these shapes, so at the
-// path's size it is bound by its launches.  A simple design: each block
-// takes a strip of 8, 16 or 32 rows (as many as still give every SM a
-// block, gram_kernels.k1_cross_backward_schedule) and all the columns, in
-// chunks of 32 along the lanes, so Kbar is read once, coalesced along its
-// rows; a row is reduced in full inside its warp, a column's shares of the
-// strip go to per-block partials that the self form's second launch
-// (gibbs_gram_bwd_reduce, a programmatic dependent launch) sums over the
-// blocks in one fixed order.  No atomics: the result does not depend on
-// scheduling.
+// sparse path's 2000 x 64 float64, 0.31 us at 3.35 TB/s; 10.2 MB, 3.06 us at
+// the N = 20,000 rate's 20,000 x 64).  A term's float64 exp, rsqrt and some
+// 20 other operations take longer than its 8 bytes on an NVIDIA H100 80GB
+// HBM3 at 700 W, and at the sparse path's size one launch's fixed cost and
+// one chain of latencies dominate (PERF.md).  The design, one launch
+// (gram_kernels.k1_cross_backward_schedule):
+// * Block (s, g) (8 warps) takes row strip s and column group g: a
+//   contiguous strip of rows, staged once in shared memory with 1/(2 l)
+//   and sqrt(sqrt(2) l), against a contiguous run of column chunks of 64,
+//   two columns a lane, so Kbar is read once, coalesced along its rows.  A
+//   warp evaluates its rows four at a time (8 independent terms a lane)
+//   and loads the next rows' Kbar while it computes; every load of the
+//   first rows is issued before any arithmetic.
+// * Strips are as short as fill the card once (32 rows a block below
+//   4,224 rows); where that leaves SMs idle and the columns make more than
+//   one chunk, the columns are cut into groups, so a short or wide Kbar
+//   still gives every SM a block.
+// * A row is reduced inside its warp: a row's shares over the lane's two
+//   columns, then over the lanes by halving exchanges that reduce the four
+//   rows' two sums together (9 shuffles of a value where shuffle trees take
+//   40), into the row's sums in shared memory; a later chunk adds to them
+//   in chunk order.  With one column group they are written out; with
+//   several, each group's go to a row slot.
+// * A column's shares stay in the lane's registers across every row of its
+//   warp; once a chunk, the block adds its 8 warps' in order and writes the
+//   strip's column slot once.
+// * Both finish in the same launch: a block takes a ticket of its column
+//   group and (with several groups) one of its strip (atomicInc with
+//   release and acquire at device scope, which wraps back to 0).  The
+//   block with a group's last ticket sums the group's column slots in strip
+//   order and writes s2bar, l2bar; the one with a strip's last ticket sums
+//   its row slots in group order and writes s1bar, l1bar.  No
+//   floating-point atomics: the result does not depend on which block
+//   finishes last, and two launches on the same inputs are bit-equal.  The
+//   wrapper allocates the slots and keeps the tickets, per device and
+//   stream, which the kernel leaves at 0.
+// * Rows past n1 are staged with x = 0, s = 0, l = 1 and columns past n2
+//   read x = 0, s = 0, l = 1, with Kbar = 0 past either, so what they add is
+//   exactly 0.
+// Thread-block clusters that first add their blocks' column slots through
+// distributed shared memory were measured and dropped: their barriers cost
+// more than they saved in the last block's sum (PERF.md).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -580,129 +611,311 @@ int launch_backward(const void* x, const void* s, const void* l, int n, const vo
 // Backward of the cross form
 // ---------------------------------------------------------------------------
 
-// Block b takes the row strip b ROWS .. + ROWS - 1, ROWS = RPW kBwdWarps:
-// warp w its rows b ROWS + w + k kBwdWarps, k < RPW, in registers (past n1:
-// x = 0, s = 0, l = 1, so their shares are exactly 0).  The block walks the
-// columns in chunks of 32, lane l taking column c0 + l; each term adds its
-// shares to its row's accumulators (in registers, across the chunks) and to
-// its column's (over the warp's rows in order, then over the warps in order
-// through shared memory).  A row is whole inside one warp, so after the
-// last chunk a shuffle tree over the lanes gives sbar1 and lbar1 directly;
-// a column's sums are the block's partials, partial[b][column][2], which
-// gibbs_gram_bwd_reduce sums over the blocks in one fixed order.
-template <typename T, int RPW>
-__global__ void __launch_bounds__(kBwdThreads)
+constexpr int kXThreads = 256;                 // 8 warps
+constexpr int kXWarps = kXThreads / 32;
+constexpr int kXGroup = 4;                     // rows a warp evaluates at once
+constexpr int kXCols = 2;                      // columns a lane takes in a chunk
+constexpr int kXChunk = 32 * kXCols;           // columns of a chunk
+constexpr int kXMaxRows = kXThreads;           // the tallest strip: a thread stages at most one row
+constexpr int kXSmemPerRow = 7;                // x, s, l, 1/(2 l), sqrt(sqrt(2) l) and the two row sums
+constexpr int kXSlotBatch = 32;                // slots the last block loads at once
+static_assert(2 * kXChunk <= kXThreads, "a thread for each (column, sum) of a chunk");
+static_assert(kXWarps * 2 * kXChunk >= 4 * kXThreads, "red holds 4 accumulators a thread");
+
+// The N = 2 kXGroup shares v[2 g + t] (row g of a group, t = 0 for sbar1,
+// 1 for lbar1) summed over the warp's 32 lanes.  Halving exchanges with the lanes
+// 16, 8, ... apart leave each lane one value, and shuffles finish it; every
+// sum pairs the same lanes as a shuffle tree over offsets 16, 8, 4, 2, 1,
+// so each result is that tree's.  Lane l returns the sum of v[l / (32 / N)]
+// (lanes 0, 32 / N, ... hold the N sums).
+template <typename T, int N>
+__device__ __forceinline__ T lane_sum(T (&v)[N], int lane) {
+  int o = 16;
+#pragma unroll
+  for (int m = N / 2; m >= 1; m /= 2, o /= 2) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int k = 0; k < m; ++k) v[k] = (up ? v[m + k] : v[k]) + __shfl_xor_sync(0xffffffffu, up ? v[k] : v[m + k], o);
+  }
+  T c = v[0];
+#pragma unroll
+  for (; o > 0; o /= 2) c += __shfl_xor_sync(0xffffffffu, c, o);
+  return c;
+}
+
+// This lane's columns c0 + lane + 32 v of x2, s2, l2; past n2, x = 0, s = 0, l = 1.
+template <typename T>
+__device__ __forceinline__ void load_cols(T (&cx)[kXCols], T (&cs)[kXCols], T (&cl)[kXCols],
+                                          const T* __restrict__ x2, const T* __restrict__ s2,
+                                          const T* __restrict__ l2, int c0, int n2, int lane) {
+#pragma unroll
+  for (int v = 0; v < kXCols; ++v) {
+    const int j = c0 + lane + 32 * v;
+    const bool in = j < n2;
+    cx[v] = in ? x2[j] : T(0);
+    cs[v] = in ? s2[j] : T(0);
+    cl[v] = in ? l2[j] : T(1);
+  }
+}
+
+// Kbar of rows i0 .. i0 + kXGroup - 1, this lane's columns c0 + lane + 32 v;
+// 0 past n1 and n2.
+template <typename T>
+__device__ __forceinline__ void load_group(T (&kb)[kXGroup][kXCols], const T* __restrict__ kbar, int i0, int n1,
+                                           int c0, int n2, int lane) {
+#pragma unroll
+  for (int g = 0; g < kXGroup; ++g) {
+#pragma unroll
+    for (int v = 0; v < kXCols; ++v) {
+      const int i = i0 + g, j = c0 + lane + 32 * v;
+      kb[g][v] = i < n1 && j < n2 ? kbar[static_cast<size_t>(i) * n2 + j] : T(0);
+    }
+  }
+}
+
+// One ticket of n: atomicInc (wrapping to 0 after the last) with release and
+// acquire at device scope, taken after the barrier that follows the block's
+// slot writes: it publishes them and, for the last, makes every other
+// block's visible.  True for the last.
+__device__ __forceinline__ bool take_ticket(unsigned int* ticket, unsigned int n) {
+  unsigned int old;
+  asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;" : "=r"(old) : "l"(ticket), "r"(n - 1) : "memory");
+  return old == n - 1;
+}
+
+// Block b takes row strip s = b / col_groups, rows s rows .. + rows - 1,
+// staged in shared memory (x = 0, s = 0, l = 1 past n1, so its shares are
+// exactly 0), and column group g = b % col_groups, the chunks g per ..
+// g per + per - 1 of kXChunk columns (per = ceil(chunks / col_groups));
+// warp w takes its rows w rows / 8 + k, in groups of kXGroup, lane l of a
+// chunk c0 its columns c0 + l + 32 v (x = 0, s = 0, l = 1 and Kbar = 0 past
+// n2).  Every load of the first group is issued before any arithmetic;
+// after that, each group's Kbar (and at a chunk's last group the next
+// chunk's columns) is loaded while the group before it computes.  A row's
+// shares are summed over the lane's columns, then over the lanes
+// (lane_sum), into the row's sums in shared memory (the group's first chunk
+// stores, a later one adds, in chunk order); with one column group they
+// are written out, else to row slot rslots[g][row][2].  A column's shares
+// stay in the lane's registers across every row of the warp, in order;
+// once a chunk, the block adds its 8 warps' in order into column slot
+// slots[s][column][2], written once.  Then the tickets (tickets[g] of the
+// n_strips blocks of group g, and with several groups tickets[col_groups +
+// s] of strip s's col_groups blocks): a strip's last sums its row slots in
+// group order, a group's last its column slots in strip order (below).  No
+// floating-point atomics: the result does not depend on which block
+// finishes last.
+template <typename T>
+__global__ void __launch_bounds__(kXThreads)
 gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, const T* __restrict__ l1, int n1,
                             const T* __restrict__ x2, const T* __restrict__ s2, const T* __restrict__ l2, int n2,
-                            const T* __restrict__ kbar, T* __restrict__ s1_bar, T* __restrict__ l1_bar,
-                            T* __restrict__ partial) {
-  constexpr int ROWS = RPW * kBwdWarps;
-  __shared__ T red[kBwdWarps][32][2];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T xi[RPW], si[RPW], li[RPW], hi[RPW], ui[RPW], acc_s[RPW], acc_l[RPW];
-#pragma unroll
-  for (int k = 0; k < RPW; ++k) {
-    const int i = blockIdx.x * ROWS + warp + k * kBwdWarps;
-    const bool in = i < n1;
-    xi[k] = in ? x1[i] : T(0);
-    si[k] = in ? s1[i] : T(0);
-    li[k] = in ? l1[i] : T(1);
-    hi[k] = T(1) / (T(2) * li[k]);
-    ui[k] = gsqrt(T(1.4142135623730951) * li[k]);  // u_i u_j = sqrt(2 l_i l_j)
-    acc_s[k] = T(0);
-    acc_l[k] = T(0);
+                            const T* __restrict__ kbar, int rows, int col_groups, T* __restrict__ slots,
+                            unsigned int* __restrict__ tickets, T* __restrict__ s1_bar, T* __restrict__ l1_bar,
+                            T* __restrict__ s2_bar, T* __restrict__ l2_bar) {
+  extern __shared__ __align__(16) unsigned char x_smem[];
+  T* const sx = reinterpret_cast<T*>(x_smem);
+  T* const ss = sx + rows;
+  T* const sl = ss + rows;
+  T* const sh = sl + rows;
+  T* const su = sh + rows;
+  T* const srs = su + rows;  // the strip's sbar1
+  T* const srl = srs + rows;  // and lbar1
+  __shared__ T red[kXWarps][2 * kXChunk];  // the warps' column shares of a chunk, [warp][2 column + t]
+  __shared__ bool last_col, last_row;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int strip = blockIdx.x / col_groups, cgrp = blockIdx.x % col_groups;
+  const int r0 = strip * rows;
+  const int per = ((n2 + kXChunk - 1) / kXChunk + col_groups - 1) / col_groups;  // chunks a column group
+  const int c_begin = cgrp * per * kXChunk, c_end = min(n2, c_begin + per * kXChunk);
+  const int per_warp = rows / kXWarps;
+  const int w0 = warp * per_warp;  // the warp's first row in the strip
+  // the first group's loads, all at once: this thread's staged row, its
+  // columns of the first chunk, the first group's Kbar
+  const int i_st = r0 + tid;
+  const bool st_in = tid < rows && i_st < n1;
+  const T x_st = st_in ? x1[i_st] : T(0), s_st = st_in ? s1[i_st] : T(0), l_st = st_in ? l1[i_st] : T(1);
+  T cx[kXCols], cs[kXCols], cl[kXCols];
+  load_cols(cx, cs, cl, x2, s2, l2, c_begin, n2, lane);
+  T kb[kXGroup][kXCols];
+  load_group(kb, kbar, r0 + w0, n1, c_begin, n2, lane);
+  if (tid < rows) {
+    sx[tid] = x_st;
+    ss[tid] = s_st;
+    sl[tid] = l_st;
+    sh[tid] = T(1) / (T(2) * l_st);
+    su[tid] = gsqrt(T(1.4142135623730951) * l_st);  // u_i u_j = sqrt(2 l_i l_j)
   }
-  for (int c0 = 0; c0 < n2; c0 += 32) {
-    const int j = c0 + lane;
-    const bool col_in = j < n2;
-    const T xj = col_in ? x2[j] : T(0), sj = col_in ? s2[j] : T(0), lj = col_in ? l2[j] : T(1);
-    const T hj = T(1) / (T(2) * lj), uj = gsqrt(T(1.4142135623730951) * lj);
-    T col_s = T(0), col_l = T(0);
+  T xj[kXCols], sj[kXCols], lj[kXCols], lj2[kXCols], hj[kXCols], uj[kXCols];
+  const auto column_setup = [&]() {  // this lane's columns of a chunk, from cx, cs, cl
 #pragma unroll
-    for (int k = 0; k < RPW; ++k) {
-      const int i = blockIdx.x * ROWS + warp + k * kBwdWarps;
-      const T kb = col_in && i < n1 ? kbar[static_cast<size_t>(i) * n2 + j] : T(0);
-      const T dx = xi[k] - xj;
-      const T d = dx * dx;
-      const T rs = grsqrt(fma(li[k], li[k], lj * lj));  // the term's one root, and no division
-      const T ra = rs * rs;
-      const T w = kb * ((ui[k] * uj) * rs * gexp(-d * ra));  // Kbar_ij g_ij
-      const T e = fma(T(2) * d, ra, T(-1)) * ra;            // f = 1/(2 l) + l e
-      const T wss = w * (si[k] * sj);
-      acc_s[k] = fma(w, sj, acc_s[k]);
-      acc_l[k] = fma(wss, fma(li[k], e, hi[k]), acc_l[k]);
-      col_s = fma(w, si[k], col_s);
-      col_l = fma(wss, fma(lj, e, hj), col_l);
+    for (int v = 0; v < kXCols; ++v) {
+      xj[v] = cx[v];
+      sj[v] = cs[v];
+      lj[v] = cl[v];
+      lj2[v] = lj[v] * lj[v];
+      hj[v] = T(1) / (T(2) * lj[v]);
+      uj[v] = gsqrt(T(1.4142135623730951) * lj[v]);
     }
-    red[warp][lane][0] = col_s;
-    red[warp][lane][1] = col_l;
-    __syncthreads();
-    if (warp == 0 && col_in) {
-      T cs = red[0][lane][0], cl = red[0][lane][1];
-#pragma unroll
-      for (int w = 1; w < kBwdWarps; ++w) {
-        cs += red[w][lane][0];
-        cl += red[w][lane][1];
+  };
+  column_setup();
+  __syncthreads();  // the strip is staged (its setup ran beside the columns')
+  for (int c0 = c_begin; c0 < c_end; c0 += kXChunk) {
+    T col_s[kXCols] = {}, col_l[kXCols] = {};
+    const bool next_chunk = c0 + kXChunk < c_end;
+    for (int g0 = w0; g0 < w0 + per_warp; g0 += kXGroup) {
+      T kn[kXGroup][kXCols];
+      const bool next_group = g0 + kXGroup < w0 + per_warp;
+      if (next_group) {
+        load_group(kn, kbar, r0 + g0 + kXGroup, n1, c0, n2, lane);
+      } else if (next_chunk) {
+        load_group(kn, kbar, r0 + w0, n1, c0 + kXChunk, n2, lane);
+        load_cols(cx, cs, cl, x2, s2, l2, c0 + kXChunk, n2, lane);
       }
-      partial[(static_cast<size_t>(blockIdx.x) * n2 + j) * 2] = cs;
-      partial[(static_cast<size_t>(blockIdx.x) * n2 + j) * 2 + 1] = cl;
+      T part[2 * kXGroup];
+#pragma unroll
+      for (int g = 0; g < kXGroup; ++g) {
+        const int r = g0 + g;
+        const T xi = sx[r], si = ss[r], li = sl[r], hi = sh[r], ui = su[r];
+        T ps = T(0), pl = T(0);
+#pragma unroll
+        for (int v = 0; v < kXCols; ++v) {
+          const T dx = xi - xj[v];
+          const T d = dx * dx;
+          const T rs = grsqrt(fma(li, li, lj2[v]));  // the term's one root, and no division
+          const T ra = rs * rs;
+          const T w = kb[g][v] * ((ui * uj[v]) * rs * gexp(-d * ra));  // Kbar_ij g_ij
+          const T e = fma(T(2) * d, ra, T(-1)) * ra;                    // f = 1/(2 l) + l e
+          const T wss = w * (si * sj[v]);
+          ps = fma(w, sj[v], ps);
+          pl = fma(wss, fma(li, e, hi), pl);
+          col_s[v] = fma(w, si, col_s[v]);
+          col_l[v] = fma(wss, fma(lj[v], e, hj[v]), col_l[v]);
+        }
+        part[2 * g] = ps;
+        part[2 * g + 1] = pl;
+      }
+      const T sum = lane_sum(part, lane);
+      constexpr int kSpread = 32 / (2 * kXGroup);  // lanes between two of the 2 kXGroup sums
+      if (lane % kSpread == 0) {
+        const int q = lane / kSpread, r = g0 + (q >> 1);
+        T* acc = (q & 1) ? srl : srs;
+        acc[r] = c0 == c_begin ? sum : acc[r] + sum;
+      }
+      if (next_group || next_chunk) {
+#pragma unroll
+        for (int g = 0; g < kXGroup; ++g)
+#pragma unroll
+          for (int v = 0; v < kXCols; ++v) kb[g][v] = kn[g][v];
+      }
     }
-    __syncthreads();  // red is free for the next chunk
+#pragma unroll
+    for (int v = 0; v < kXCols; ++v) {
+      red[warp][2 * (32 * v + lane)] = col_s[v];
+      red[warp][2 * (32 * v + lane) + 1] = col_l[v];
+    }
+    if (next_chunk) column_setup();  // the next chunk's columns, beside this one's combine
+    __syncthreads();
+    // thread tid < 2 kXChunk: column c0 + tid / 2, sum tid % 2
+    const int j = c0 + (tid >> 1);
+    if (tid < 2 * kXChunk && j < n2) {
+      T acc = red[0][tid];
+#pragma unroll
+      for (int w = 1; w < kXWarps; ++w) acc += red[w][tid];
+      slots[(static_cast<size_t>(strip) * n2 + j) * 2 + (tid & 1)] = acc;
+    }
+    __syncthreads();  // red is free for the next chunk, and the row sums are whole after the last
   }
-#pragma unroll
-  for (int k = 0; k < RPW; ++k) {
-    T vs = acc_s[k], vl = acc_l[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      vs += __shfl_xor_sync(0xffffffffu, vs, off);
-      vl += __shfl_xor_sync(0xffffffffu, vl, off);
+  const unsigned int n_strips = gridDim.x / col_groups;
+  T* const rslots = slots + static_cast<size_t>(n_strips) * n2 * 2;  // [column group][row][2]
+  if (st_in) {
+    if (col_groups == 1) {
+      s1_bar[i_st] = srs[tid];
+      l1_bar[i_st] = srl[tid];
+    } else {
+      rslots[(static_cast<size_t>(cgrp) * n1 + i_st) * 2] = srs[tid];
+      rslots[(static_cast<size_t>(cgrp) * n1 + i_st) * 2 + 1] = srl[tid];
     }
-    const int i = blockIdx.x * ROWS + warp + k * kBwdWarps;
-    if (lane == 0 && i < n1) {
-      s1_bar[i] = vs;
-      l1_bar[i] = vl;
+  }
+  if (col_groups > 1) __syncthreads();  // the row slots are written before the tickets
+  if (tid == 0) {
+    last_col = take_ticket(tickets + cgrp, n_strips);
+    last_row = col_groups > 1 && take_ticket(tickets + col_groups + strip, col_groups);
+  }
+  __syncthreads();
+  if (last_row) {
+    // the strip's rows: row slot of group 0, then + group 1, ... in order
+    for (int p = tid; p < 2 * rows && r0 + (p >> 1) < n1; p += kXThreads) {
+      const size_t at = static_cast<size_t>(r0) * 2 + p;
+      T a = __ldcg(rslots + at);
+      for (int g = 1; g < col_groups; ++g) a += __ldcg(rslots + static_cast<size_t>(g) * n1 * 2 + at);
+      ((p & 1) ? l1_bar : s1_bar)[r0 + (p >> 1)] = a;
     }
+  }
+  if (!last_col) return;
+  // the group's column slots: where its 2 (c_end - c_begin) values leave
+  // threads idle, H thread groups (a power of two, at most 8) take the
+  // batches of kXSlotBatch slots in turn, batch b to group b % H; slot s
+  // goes to accumulator s % 4 of its group, the groups' accumulators are
+  // added in group order, then (a0 + a1) + (a2 + a3)
+  const int n_vals = 2 * (c_end - c_begin);
+  const int groups = n_vals > kXThreads / 2 ? 1 : n_vals > kXThreads / 4 ? 2 : n_vals > kXThreads / 8 ? 4 : 8;
+  const int span = kXThreads / groups;  // threads of a group
+  const size_t stride = static_cast<size_t>(2) * n2;
+  T* const acc4 = &red[0][0];  // [group][4][span]: red's 8 kXChunk 2 values hold 4 kXThreads
+  for (int p0 = 0; p0 < n_vals; p0 += span) {  // p = 2 (column - c_begin) + t
+    const int h = tid / span, p = p0 + tid % span;
+    T a[4] = {T(0), T(0), T(0), T(0)};
+    if (p < n_vals) {
+      const T* src = slots + 2 * c_begin + p;
+      for (unsigned int s = h * kXSlotBatch; s < n_strips; s += groups * kXSlotBatch) {
+        T got[kXSlotBatch];
+#pragma unroll
+        for (int k = 0; k < kXSlotBatch; ++k) {
+          got[k] = T(0);
+          if (s + k < n_strips) got[k] = __ldcg(src + (s + k) * stride);
+        }
+#pragma unroll
+        for (int k = 0; k < kXSlotBatch; ++k) a[k % 4] += got[k];
+      }
+    }
+    if (groups > 1) {
+      __syncthreads();  // acc4 (red) is free
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc4[(h * 4 + k) * span + tid % span] = a[k];
+      __syncthreads();
+      if (h == 0) {
+        for (int g = 1; g < groups; ++g) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) a[k] += acc4[(g * 4 + k) * span + tid];
+        }
+      }
+    }
+    if (h == 0 && p < n_vals) ((p & 1) ? l2_bar : s2_bar)[c_begin + (p >> 1)] = (a[0] + a[1]) + (a[2] + a[3]);
   }
 }
 
-template <typename T, int RPW>
-int launch_cross_backward_rpw(const T* x1, const T* s1, const T* l1, int n1, const T* x2, const T* s2, const T* l2,
-                              int n2, const T* kbar, int grid, T* partial, T* s1_bar, T* l1_bar, T* s2_bar,
-                              T* l2_bar, cudaStream_t st) {
-  gibbs_gram_cross_bwd_kernel<T, RPW><<<grid, kBwdThreads, 0, st>>>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, s1_bar,
-                                                                     l1_bar, partial);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_reduce<T>(partial, grid, n2, s2_bar, l2_bar, st);
-}
-
-// rows_per_warp is 1, 2 or 4, and grid must be ceil(n1 / (8 rows_per_warp)).
+// rows a multiple of kXWarps kXGroup up to kXMaxRows; col_groups such that
+// every group gets ceil(chunks / col_groups) chunks but the last, which
+// gets at least one; grid the strips times col_groups.
 template <typename T>
 int launch_cross_backward(const void* x1, const void* s1, const void* l1, int n1, const void* x2, const void* s2,
-                          const void* l2, int n2, const void* kbar, int rows_per_warp, int grid, void* partial,
-                          void* s1_bar, void* l1_bar, void* s2_bar, void* l2_bar, void* stream) {
-  const int rows = rows_per_warp * kBwdWarps;
-  if (n1 < 1 || n2 < 1 || (rows_per_warp != 1 && rows_per_warp != 2 && rows_per_warp != 4) ||
-      grid != (n1 + rows - 1) / rows)
+                          const void* l2, int n2, const void* kbar, int rows, int col_groups, int grid, void* slots,
+                          void* tickets, void* s1_bar, void* l1_bar, void* s2_bar, void* l2_bar, void* stream) {
+  constexpr int unit = kXWarps * kXGroup;
+  const bool rows_ok = rows >= unit && rows <= kXMaxRows && rows % unit == 0;
+  if (n1 < 1 || n2 < 1 || n2 >= (1 << 30) || !rows_ok || col_groups < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (n2 + kXChunk - 1) / kXChunk;
+  const int per = (chunks + col_groups - 1) / col_groups;
+  const long long strips = (static_cast<long long>(n1) + rows - 1) / rows;
+  if (col_groups > chunks || (chunks + per - 1) / per != col_groups || grid != strips * col_groups ||
+      strips * rows >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* a = static_cast<const T*>(x1);
-  const auto* b = static_cast<const T*>(s1);
-  const auto* c = static_cast<const T*>(l1);
-  const auto* d = static_cast<const T*>(x2);
-  const auto* e = static_cast<const T*>(s2);
-  const auto* f = static_cast<const T*>(l2);
-  const auto* kb = static_cast<const T*>(kbar);
-  auto* pt = static_cast<T*>(partial);
-  auto* sb1 = static_cast<T*>(s1_bar);
-  auto* lb1 = static_cast<T*>(l1_bar);
-  auto* sb2 = static_cast<T*>(s2_bar);
-  auto* lb2 = static_cast<T*>(l2_bar);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows_per_warp == 4)
-    return launch_cross_backward_rpw<T, 4>(a, b, c, n1, d, e, f, n2, kb, grid, pt, sb1, lb1, sb2, lb2, st);
-  if (rows_per_warp == 2)
-    return launch_cross_backward_rpw<T, 2>(a, b, c, n1, d, e, f, n2, kb, grid, pt, sb1, lb1, sb2, lb2, st);
-  return launch_cross_backward_rpw<T, 1>(a, b, c, n1, d, e, f, n2, kb, grid, pt, sb1, lb1, sb2, lb2, st);
+  const size_t smem = static_cast<size_t>(kXSmemPerRow) * rows * sizeof(T);
+  gibbs_gram_cross_bwd_kernel<T><<<grid, kXThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x1), static_cast<const T*>(s1), static_cast<const T*>(l1), n1,
+      static_cast<const T*>(x2), static_cast<const T*>(s2), static_cast<const T*>(l2), n2,
+      static_cast<const T*>(kbar), rows, col_groups, static_cast<T*>(slots), static_cast<unsigned int*>(tickets),
+      static_cast<T*>(s1_bar), static_cast<T*>(l1_bar), static_cast<T*>(s2_bar), static_cast<T*>(l2_bar));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -750,23 +963,25 @@ int gibbs_gram_backward_f64(const void* x, const void* s, const void* l, int n,
   return launch_backward<double>(x, s, l, n, kbar, tile, grid, partial, s_bar, l_bar, stream);
 }
 
-// Cross-form backward.  partial: grid * n2 * 2 scratch values; s1_bar,
-// l1_bar (n1,), s2_bar, l2_bar (n2,).  rows_per_warp, grid:
-// gram_kernels.k1_cross_backward_schedule(n1, n2).
+// Cross-form backward, one launch.  slots: grid / col_groups * n2 * 2
+// scratch values, then (with col_groups > 1) col_groups * n1 * 2; tickets:
+// col_groups unsigned ints, then (with col_groups > 1) one a strip, 0 before
+// the launch and after it; s1_bar, l1_bar (n1,), s2_bar, l2_bar (n2,).
+// rows, col_groups, grid: gram_kernels.k1_cross_backward_schedule(n1, n2).
 int gibbs_gram_cross_backward_f32(const void* x1, const void* s1, const void* l1, int n1, const void* x2,
-                                  const void* s2, const void* l2, int n2, const void* kbar, int rows_per_warp,
-                                  int grid, void* partial, void* s1_bar, void* l1_bar, void* s2_bar, void* l2_bar,
-                                  void* stream) {
-  return launch_cross_backward<float>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, rows_per_warp, grid, partial, s1_bar,
-                                      l1_bar, s2_bar, l2_bar, stream);
+                                  const void* s2, const void* l2, int n2, const void* kbar, int rows, int col_groups,
+                                  int grid, void* slots, void* tickets, void* s1_bar, void* l1_bar, void* s2_bar,
+                                  void* l2_bar, void* stream) {
+  return launch_cross_backward<float>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, rows, col_groups, grid, slots, tickets,
+                                      s1_bar, l1_bar, s2_bar, l2_bar, stream);
 }
 
 int gibbs_gram_cross_backward_f64(const void* x1, const void* s1, const void* l1, int n1, const void* x2,
-                                  const void* s2, const void* l2, int n2, const void* kbar, int rows_per_warp,
-                                  int grid, void* partial, void* s1_bar, void* l1_bar, void* s2_bar, void* l2_bar,
-                                  void* stream) {
-  return launch_cross_backward<double>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, rows_per_warp, grid, partial, s1_bar,
-                                       l1_bar, s2_bar, l2_bar, stream);
+                                  const void* s2, const void* l2, int n2, const void* kbar, int rows, int col_groups,
+                                  int grid, void* slots, void* tickets, void* s1_bar, void* l1_bar, void* s2_bar,
+                                  void* l2_bar, void* stream) {
+  return launch_cross_backward<double>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, rows, col_groups, grid, slots, tickets,
+                                       s1_bar, l1_bar, s2_bar, l2_bar, stream);
 }
 
 }  // extern "C"

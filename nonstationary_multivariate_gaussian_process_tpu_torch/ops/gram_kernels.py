@@ -75,7 +75,7 @@ _ENTRY_POINTS = {
     "gibbs_gram_threads": ("gibbs_gram", [_P, _P, _P, _I, _P, _P, _P, _I, _D, _I, _P]),
     "gibbs_gram_backward": ("gibbs_gram_backward", [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P]),
     "gibbs_gram_cross_backward": ("gibbs_gram_cross_backward",
-                                  [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]),
+                                  [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     "svc_gram": ("svc_gram", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
     "svc_gram_tiled": ("svc_gram_tiled", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
     "svc_gram_tiled_backward": ("svc_gram_tiled_backward", [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P]),
@@ -460,44 +460,96 @@ class _GibbsGramSelf(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class K1CrossBackwardSchedule:
-    """How K1's cross-form backward kernel cuts its work, from (N1, N2) alone.
+    """How K1's cross-form backward kernel cuts its work, from (N1, N2, SMs)
+    alone: one launch of ``grid`` blocks of 8 warps.
 
-    Block ``b`` of ``grid`` takes the row strip ``b·rows .. + rows − 1``
-    (``rows`` = 8 warps × ``rows_per_warp``; warp ``w`` its rows ``b·rows +
-    w + 8k``, ``k < rows_per_warp``) and every column, in chunks of 32 along
-    the lanes (lane ``l`` of chunk ``c0`` takes column ``c0 + l``).  A row's
-    shares stay in its thread's registers across the chunks and a shuffle
-    tree over the 32 lanes sums them, so σ̄1 and ℓ̄1 are written directly; a
-    column's shares are summed over a warp's rows in order, then over the 8
-    warps in order, into ``partial[b][column][2]`` (σ̄2's share, ℓ̄2's), every
-    (block, column) written once.  The self form's second launch sums each
-    column's ``grid`` slots in one fixed order (lane ``j`` adds slots ``j, j
-    + 32, ...``, then a shuffle tree), so the result does not depend on the
-    order the blocks run in.
+    Block ``b`` takes the row strip ``s = b // col_groups``, rows ``s·rows
+    .. + rows − 1`` (``rows`` a multiple of 32, at most 256), and the column
+    group ``g = b % col_groups``, chunks ``g·per .. g·per + per − 1`` of 64
+    columns (``per`` = :attr:`chunks_per_group`).  Warp ``w`` takes its rows
+    ``s·rows + w·rows/8 + k`` in groups of ``group`` = 4 rows evaluated at
+    once; lane ``l`` of chunk ``c0`` takes columns ``c0 + l`` and ``c0 + l +
+    32``.  A row's shares are summed over the lane's two columns, then over
+    the 32 lanes (halving exchanges that pair the lanes as a shuffle tree
+    over offsets 16, 8, 4, 2, 1 does), then over the group's chunks in
+    order; with one column group that is the row's gradient, else it goes to
+    row slot ``[g][row][2]`` and the block whose strip ticket comes last adds
+    the strip's row slots in group order.  A column's shares are summed over
+    the warp's rows in order, then over the 8 warps in order, into column
+    slot ``[s][column][2]`` (σ̄2's share, ℓ̄2's), every (slot, column)
+    written once.  The block whose group ticket comes last sums the group's
+    column slots in strip order: batches of 32 slots go to its thread groups
+    in turn (1 group where 2·(the group's columns) > 128, else 2, 4 or 8),
+    slot ``s`` to accumulator ``s % 4`` of its group, the groups'
+    accumulators are added in group order, then ``(a0 + a1) + (a2 + a3)``;
+    so the result does not depend on the order the blocks finish in.  A
+    strip past N1 or a chunk past N2 adds exactly 0.  The tickets are int32
+    per device and stream (:func:`_tickets_for`), which the kernel leaves
+    at 0.
     """
 
     n1: int
     n2: int
-    rows_per_warp: int
+    rows: int
+    col_groups: int
+
+    warps = 8
+    group = 4
+    chunk = 64
 
     @property
-    def rows(self) -> int:
-        return 8 * self.rows_per_warp
-
-    @property
-    def grid(self) -> int:
+    def n_strips(self) -> int:
         return -(-self.n1 // self.rows)
 
     @property
-    def partial_numel(self) -> int:
-        return self.grid * self.n2 * 2
+    def n_chunks(self) -> int:
+        return -(-self.n2 // self.chunk)
+
+    @property
+    def chunks_per_group(self) -> int:
+        return -(-self.n_chunks // self.col_groups)
+
+    @property
+    def grid(self) -> int:
+        return self.n_strips * self.col_groups
+
+    @property
+    def n_slots(self) -> int:
+        """Column slots: one a strip."""
+        return self.n_strips
+
+    @property
+    def slots_numel(self) -> int:
+        """The column slots, then (with several column groups) the row slots."""
+        return self.n_strips * self.n2 * 2 + (self.col_groups * self.n1 * 2 if self.col_groups > 1 else 0)
+
+    @property
+    def n_tickets(self) -> int:
+        """One a column group, then (with several) one a strip."""
+        return self.col_groups + (self.n_strips if self.col_groups > 1 else 0)
+
+
+#: K1's cross-form backward: the tallest strip (a thread stages one row).
+_K1X_MAX_ROWS = 256
+
+
+def k1x_column_groups(n_chunks: int, want: int) -> int:
+    """The most column groups up to ``want`` in which ``n_chunks`` chunks
+    split evenly but for the last group (none empty)."""
+    per = -(-n_chunks // max(1, min(want, n_chunks)))
+    return -(-n_chunks // per)
 
 
 def k1_cross_backward_schedule(n1: int, n2: int, sms: int = 132) -> K1CrossBackwardSchedule:
-    """Strips of 32, 16 or 8 rows: the most that still give every SM a block,
-    else 8."""
-    rpw = next((r for r in (4, 2) if -(-n1 // (8 * r)) >= sms), 1)
-    return K1CrossBackwardSchedule(n1, n2, rpw)
+    """Strips as short as still fill the card once with one block per SM (a
+    multiple of 32 rows, at most 256); where they leave SMs idle, the column
+    chunks in as many groups as the idle SMs allow (chosen by measurement on
+    an NVIDIA H100 80GB HBM3 at 700 W: ``PERF.md``)."""
+    unit = K1CrossBackwardSchedule.warps * K1CrossBackwardSchedule.group
+    rows = min(unit * max(1, -(-n1 // (unit * sms))), _K1X_MAX_ROWS)
+    strips = -(-n1 // rows)
+    n_chunks = -(-n2 // K1CrossBackwardSchedule.chunk)
+    return K1CrossBackwardSchedule(n1, n2, rows, k1x_column_groups(n_chunks, sms // strips))
 
 
 def gibbs_gram_cross_backward_plain(x1, s1, l1, x2, s2, l2, kbar):
@@ -521,18 +573,42 @@ def gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar):
     if s1.shape[0] != n1 or l1.shape[0] != n1 or s2.shape[0] != n2 or l2.shape[0] != n2 \
             or tuple(kbar.shape) != (n1, n2):
         raise ValueError("gibbs_gram_cross_backward: want x1, s1, l1 (N1,), x2, s2, l2 (N2,) and kbar (N1, N2)")
-    if n1 >= 2**31 or n2 >= 2**31:
+    if n1 >= 2**31 - 8 * _K1X_MAX_ROWS or n2 >= 2**30:
         raise ValueError(f"gibbs_gram_cross_backward: strips of {n1} x {n2} exceed the launch grid")
-    outs = [torch.empty(n, dtype=dtype, device=device) for n in (n1, n1, n2, n2)]
     if n1 == 0 or n2 == 0:
-        return tuple(o.zero_() for o in outs)
-    sched = k1_cross_backward_schedule(n1, n2, sm_count(device))
-    partial = torch.empty(sched.partial_numel, dtype=dtype, device=device)
-    _launch("gibbs_gram_cross_backward", dtype, device, x1.data_ptr(), s1.data_ptr(), l1.data_ptr(), n1,
-            x2.data_ptr(), s2.data_ptr(), l2.data_ptr(), n2, kbar.data_ptr(), sched.rows_per_warp, sched.grid,
-            partial.data_ptr(), *(o.data_ptr() for o in outs))
+        return tuple(torch.zeros(n, dtype=dtype, device=device) for n in (n1, n1, n2, n2))
+    outs = _k1x_launch(k1_cross_backward_schedule(n1, n2, sm_count(device)), x1, s1, l1, x2, s2, l2, kbar)
     gibbs_gram_cross_backward.launches += 1
-    return tuple(outs)
+    return outs
+
+
+def _k1x_launch(sched, x1, s1, l1, x2, s2, l2, kbar) -> tuple:
+    """K1's cross-form backward by ``sched`` into new (σ̄1, ℓ̄1, σ̄2, ℓ̄2);
+    counts nothing."""
+    dtype, device = x1.dtype, x1.device
+    outs = tuple(torch.empty(n, dtype=dtype, device=device) for n in (sched.n1, sched.n1, sched.n2, sched.n2))
+    slots = torch.empty(sched.slots_numel, dtype=dtype, device=device)
+    _launch("gibbs_gram_cross_backward", dtype, device, x1.data_ptr(), s1.data_ptr(), l1.data_ptr(), sched.n1,
+            x2.data_ptr(), s2.data_ptr(), l2.data_ptr(), sched.n2, kbar.data_ptr(), sched.rows, sched.col_groups,
+            sched.grid, slots.data_ptr(), _tickets_for(device, sched.n_tickets).data_ptr(),
+            *(o.data_ptr() for o in outs))
+    return outs
+
+
+_tickets: dict = {}  # (device, stream) -> the cross-form backward's tickets
+
+
+def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
+    """The cross-form backward's tickets on ``device``'s current stream: int32,
+    zeroed once, which every launch leaves at 0 (launches on one stream run
+    in turn, so they can share them).  The default schedule takes at most
+    one more than the SM count, allocated at first use; a schedule that
+    takes more replaces them with as many."""
+    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
+    key = (device, stream)
+    if key not in _tickets or _tickets[key].numel() < n:
+        _tickets[key] = torch.zeros(max(n, sm_count(device) + 1), dtype=torch.int32, device=device)
+    return _tickets[key]
 
 
 gibbs_gram_cross_backward.launches = 0
