@@ -33,10 +33,14 @@ Phases, each printing its lines:
                route at M = 5, 9, 17; K3's forward at every other M (1..8,
                an odd N·M, N = 1) and its generic route up to M = 130; K3's
                backward at M = 1, 4..8 and large M; K1's backward at
-               N = 1..1100.  The generic routes of K3 are timed at N=200,
-               M=9.  K1's cross form is also timed at the sparse path's
-               2000 x 64, and one call of its cross-form backward is
-               profiled: it must be one device kernel.
+               N = 1..1100.  The generic routes of K3 are timed at
+               K3_GENERIC_TIMED (N=200..1000, M = 9, 16, 32) in both types
+               with their bounds by bytes and by operations, and one call
+               of each profiled at N=1000, M=9 (the forward one device
+               kernel, the backward three); K2's generic route is timed at
+               N=1000, M = 5 and 9.  K1's cross form is also timed at the
+               sparse path's 2000 x 64, and one call of its cross-form
+               backward is profiled: it must be one device kernel.
 3. serving   — (slice 1's path) a ``sim_mnts`` subject at N=1000, M=2
                (float64) written to an artifact store, served over HTTP by
                the port's ``serve``; its /predict answers are checked and
@@ -52,7 +56,9 @@ Phases, each printing its lines:
                gradient on the card against the CPU at rtol 1e-6, gradient
                evaluations per second (GNMGP f64 and f32, SNMGP f64), the
                kernels launched per gradient, and a profile of one GNMGP
-               gradient.
+               gradient; then the GNMGP f64 gradient at N=1000, M=9: its
+               launches (one of each K3 wrapper), gradient evaluations per
+               second and a profile with the share of K3's routes.
 6. training  — (slice 2's path) ``workflows.run_subject`` on the card for a
                ``sim_mnts`` subject at N=1000, M=2, f64 into an artifact
                store, with every kernel's launch count read around it; the
@@ -261,7 +267,20 @@ K3_FWD_OTHER_SHAPES = ((100, 1), (100, 4), (64, 5), (77, 6), (61, 7), (50, 8), (
 K3_FWD_GENERIC_SHAPES = {"float64": ((40, 9), (24, 29), (24, 30), (8, 64), (4, 130)),
                          "float32": ((40, 9), (24, 42), (24, 43), (4, 130))}
 K3_BWD_GENERIC_SHAPES = ((40, 9), (33, 12), (20, 16), (12, 30), (4, 130))
+#: K3's generic routes are timed, in both types, at the objective phase's
+#: N=200, M=9 check, the M=9 gradient's N=1000, M = 16 at N=500 (where the
+#: forward's arithmetic meets its bytes), M = 32 at N=200 (where it sets the
+#: bound) and N=64, M=9 (the sparse tier's K_mm at m_z = 64);
+#: K3_GENERIC_PROFILED is profiled for its device kernels a call.
 GENERIC_N, GENERIC_M = 200, 9
+K3_GENERIC_TIMED = ((GENERIC_N, GENERIC_M), (1000, 9), (500, 16), (200, 32), (64, 9))
+K3_GENERIC_PROFILED = (1000, 9)
+#: K2's generic route (M > 4, the prediction path's task-major Gram at M > 4)
+#: is timed in float64 at these (N, M).
+K2_GENERIC_TIMED = ((1000, 5), (1000, 9))
+#: The GNMGP f64 gradient at M > 8 (K3's generic routes) that the objective
+#: phase rates and profiles.
+GRADIENT_N, GRADIENT_M = 1000, 9
 
 #: K1's forward, self form, is timed at N=1000 (pairs route) and N=257
 #: (threads route); these N cover the threads route up to N = 735 and the
@@ -526,9 +545,13 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
     K1's cross form runs at 1000 x ``cross_columns``: every grid bucket the
     served path pads a request to."""
     gen = torch.Generator().manual_seed(seed)
+    # the generic routes' timed rows (but K3's at GENERIC_N, GENERIC_M in
+    # float64, timed before the others joined) draw from a generator of their
+    # own, so that every other check keeps its inputs
+    gen_g = torch.Generator().manual_seed(seed + 17)
     dev = torch.device(DEVICE)
     sms = gk.sm_count(dev)
-    main = {}
+    main, generic = {}, {}  # generic: the generic routes' timed rows (K3 M > 8, K2 M > 4)
     for dtype in (torch.float32, torch.float64):
         dn = str(dtype).replace("torch.", "")
         size = torch.tensor([], dtype=dtype).element_size()
@@ -564,9 +587,10 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             ))
         # K2 (task-major; the input-major layout is K3's) at the served shape
         # and a ragged N=257, M=3
-        for n, m in ((1000, 2), (257, 3)):
-            x, _, l = kernel_inputs(torch, gen, n, dtype, dev)
-            ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
+        for n, m in ((1000, 2), (257, 3)) + (K2_GENERIC_TIMED if dn == "float64" else ()):
+            g = gen if m <= 4 else gen_g
+            x, _, l = kernel_inputs(torch, g, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=g, dtype=torch.float64))
             ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
             label = f"svc_gram task N={n} M={m}"
             sched = gk.k2_schedule(n, m, dtype, sms)
@@ -578,18 +602,19 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 (2 * n + n * m * m) * size + (n * m) ** 2 * size, n * n * (12 + 2 * m**3),
             ))
         # K3 and the two backward kernels (the training path) at the served
-        # shape and a ragged N=257, M=3; in f64 also K3's generic routes
+        # shape and a ragged N=257, M=3, then K3's generic routes
         grads, k3_shapes, k1_sizes = [], {}, {}
-        k3_timed = ((1000, 2), (257, 3)) + (((GENERIC_N, GENERIC_M),) if dn == "float64" else ())
-        for n, m in k3_timed:
-            x, s, l = kernel_inputs(torch, gen, n, dtype, dev)
-            ls = torch.tril(torch.randn(n, m, m, generator=gen, dtype=torch.float64))
+        for n, m in ((1000, 2), (257, 3)) + K3_GENERIC_TIMED:
+            shared = m <= gk.K3_MAX_M or (dn == "float64" and (n, m) == (GENERIC_N, GENERIC_M))
+            g = gen if shared else gen_g
+            x, s, l = kernel_inputs(torch, g, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=g, dtype=torch.float64))
             ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
-            kbar = torch.randn(n * m, n * m, generator=gen, dtype=torch.float64).to(dev, dtype)
-            kbar1 = torch.randn(n, n, generator=gen, dtype=torch.float64).to(dev, dtype)
+            kbar = torch.randn(n * m, n * m, generator=g, dtype=torch.float64).to(dev, dtype)
+            kbar1 = torch.randn(n, n, generator=g, dtype=torch.float64).to(dev, dtype)
             k3_equals_k2(torch, gk, settings, f"svc_gram_tiled N={n} M={m} {dn}", x, l, ls)
             sched = gk.k3_forward_schedule(n, m, dtype, sms)
-            walk = (f"tiles of {sched.rows} x {sched.rows} inputs, {sched.warps} warps a block, grid {sched.grid}"
+            walk = (f"tiles of {sched.rows} x {sched.rows} outputs, {sched.warps} warps a block, grid {sched.grid}"
                     if sched.route == "generic" else strip_walk(sched))
             fwd[f"svc_gram_tiled N={n} M={m}"] = ((n * m) ** 2, sched, walk)
             out_bytes = (n * m) ** 2 * size
@@ -605,7 +630,8 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 lambda x=x, l=l, ls=ls, kb=kbar: gk.svc_gram_tiled_backward(x, l, ls, kb, settings.jitter),
                 lambda x=x, l=l, ls=ls, kb=kbar: gk.svc_gram_tiled_backward_plain(x, l, ls, settings.jitter, kb),
                 out_bytes + (2 * n + n * m * m) * size + (n + n * m * m) * size,
-                n * n * 25 + (n * m) ** 2 * (4 * m + 3),
+                # the generic route: S once, then M fma a side for each element of S
+                n * n * 25 + (n * m) ** 2 * ((2 * m + 1) if m > gk.K3_MAX_M else (4 * m + 3)),
             ))
             if m > gk.K3_MAX_M:
                 continue  # K1's backward is timed at the training path's shapes alone
@@ -632,6 +658,10 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 # K̄ and the six input vectors read once, the four gradients written once
                 n1 * n2 * size + 5 * (n1 + n2) * size, n1 * n2 * 32,
             ))
+        # the generic routes' plain versions build (N, M, N, M) tensors M times over:
+        # timed over fewer calls
+        slow_plain = {f"svc_gram_tiled{b} N={n} M={m}" for n, m in K3_GENERIC_TIMED for b in ("", "_backward")}
+        slow_plain |= {f"svc_gram task N={n} M={m}" for n, m in K2_GENERIC_TIMED}
         main_labels = (f"gibbs_gram cross {SERVED_N}x256", "svc_gram task N=1000 M=2",
                        "svc_gram_tiled N=1000 M=2", "svc_gram_tiled_backward N=1000 M=2",
                        "gibbs_gram_backward N=1000", "gibbs_gram_cross_backward 2000x64")
@@ -642,16 +672,20 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             else:
                 err = check_close(torch, f"{label} {dn}", kern(), plain(), dn)
             torch.cuda.synchronize()
-            ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+            ms = time_ms(torch, kern)
+            plain_ms = time_ms(torch, plain, 3, 3) if label in slow_plain else time_ms(torch, plain)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / PEAK_FLOPS[dn] * 1e3
             row = {
                 "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes_ms": bytes_ms, "operations_ms": ops_ms,
             }
+            row["share_of_bound"] = row["bound_ms"] / ms
             log("kernels", f"{label} {dn}: ok, max_abs_err={err:.3e} ms={ms:.5f} "
-                f"plain_ms={plain_ms:.5f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+                f"plain_ms={plain_ms:.5f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; bytes "
+                f"{bytes_ms:.5f}, operations {ops_ms:.5f}), {100 * row['share_of_bound']:.1f}% of it")
             if label in k3_shapes or label in k1_sizes or label in k1x_shapes:
                 # a backward: bit-equal on a repeat, a cold-L2 time (K̄'s 32
                 # MB at N=1000, M=2, f64 fits in the 50 MB L2), its scratch
@@ -660,8 +694,8 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                     raise AssertionError(f"{label} {dn}: two launches on the same inputs differ")
                 if label in k3_shapes:
                     sched = gk.k3_backward_schedule(*k3_shapes[label], gk.sm_count(dev))
-                    walk = (f"{sched.route} route, " + ("one block per row input" if sched.route == "generic"
-                            else f"{sched.n_pairs} tile pairs of {sched.tile} inputs") + f", grid {sched.grid}")
+                    walk = (f"{sched.route} route, {sched.n_pairs} tile pairs of {sched.tile} "
+                            + ("flattened rows" if sched.route == "generic" else "inputs") + f", grid {sched.grid}")
                 elif label in k1x_shapes:
                     sched = gk.k1_cross_backward_schedule(*k1x_shapes[label], gk.sm_count(dev))
                     walk = k1x_walk(sched)
@@ -669,8 +703,9 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                     sched = gk.k1_backward_schedule(k1_sizes[label], gk.sm_count(dev))
                     walk = f"{sched.n_pairs} tile pairs of {sched.tile} inputs, grid {sched.grid}"
                 route = "strips" if label in k1x_shapes else getattr(sched, "route", "tiled")
-                scratch = sched.slots_numel if label in k1x_shapes else sched.partial_numel
-                row.update(cold_ms=time_cold_ms(torch, kern), scratch_bytes=scratch * size,
+                scratch = (sched.scratch_bytes(dtype) if label in k3_shapes
+                           else (sched.slots_numel if label in k1x_shapes else sched.partial_numel) * size)
+                row.update(cold_ms=time_cold_ms(torch, kern), scratch_bytes=scratch,
                            kernel_route=route, repeat_bit_equal=True)
                 log("kernels", f"{label} {dn}: two launches bit-equal; cold-L2 ms={row['cold_ms']:.5f} "
                     f"(warm {ms:.5f}); scratch {row['scratch_bytes']} B; {walk}")
@@ -698,12 +733,16 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             rows[label] = row
             if dn == "float64" and label in main_labels:
                 main[kname] = row
+            if label in slow_plain:
+                generic[f"{label} {dn}"] = row
         if dn == "float64":
             # K1's self form (the training path's) beside the served cross form,
             # and its cross-form backward at the second timed shape
             main["gibbs_gram"]["self_form_n1000"] = rows["gibbs_gram self N=1000"]
             for n1, n2 in K1_CROSS_BWD_TIMED[1:]:
                 main["gibbs_gram_cross_backward"][f"at_{n1}x{n2}"] = rows[f"gibbs_gram_cross_backward {n1}x{n2}"]
+            for name in ("svc_gram", "svc_gram_tiled", "svc_gram_tiled_backward"):
+                main[name]["generic_route"] = {}
             main["gibbs_gram"]["cross_{}x{}".format(*K1_CROSS_SPARSE)] = rows["gibbs_gram cross {}x{}".format(
                 *K1_CROSS_SPARSE)]
             # one call of the cross-form backward is one device kernel
@@ -717,6 +756,24 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                 f"{device_ms:.5f} ms: " + ", ".join(f"{key} x{count}" for _, count, key in top))
             if kinds != 1 or top[0][1] != 1:
                 raise AssertionError(f"gibbs_gram_cross_backward {n1}x{n2}: {kinds} device kernels a call, not one")
+            # one call of each K3 wrapper on its generic route: the forward one
+            # device kernel, the backward three (the pairs, the slots' sums, ℓ̄)
+            n, m = K3_GENERIC_PROFILED
+            x, _, l = kernel_inputs(torch, gen_g, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=gen_g, dtype=torch.float64))
+            ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
+            kbar = torch.randn(n * m, n * m, generator=gen_g, dtype=torch.float64).to(dev, dtype)
+            for name, fn, want in (
+                    ("svc_gram_tiled", lambda: gk.svc_gram_tiled(x, l, ls, settings.jitter), 1),
+                    ("svc_gram_tiled_backward", lambda: gk.svc_gram_tiled_backward(x, l, ls, kbar, settings.jitter),
+                     3)):
+                _, device_ms, kinds, top = device_profile(torch, fn)
+                log("kernels", f"{name} N={n} M={m} {dn} (generic route) profiled: {kinds} device kernel(s) a "
+                    f"call, {device_ms:.5f} ms: " + ", ".join(f"{key} x{count}" for _, count, key in top))
+                if kinds != want or any(count != 1 for _, count, _ in top):
+                    raise AssertionError(f"{name} N={n} M={m}: {kinds} device kernels a call, not {want}")
+                main[name][f"generic_kernels_per_call_n{n}_m{m}"] = kinds
+            del x, l, ls, kbar
         # K1's forward at other N, untimed: bit-equal to the plain version and
         # on a repeat, the self form exactly symmetric
         for n in K1_FWD_OTHER_SIZES:
@@ -815,6 +872,9 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             sched = gk.k1_cross_backward_schedule(n1, n2, gk.sm_count(dev))
             log("kernels", f"{label} ({k1x_walk(sched)}): ok, max_abs_err={err:.3e}, two launches bit-equal "
                 "(untimed)")
+    for label, row in generic.items():  # the generic routes' rows, both types, by kernel
+        name = label.split()[0] if not label.startswith("svc_gram task") else "svc_gram"
+        main[name]["generic_route"][label.split(" ", 1)[1]] = row
     return main
 
 
@@ -891,9 +951,10 @@ def check_answer(np, out, g):
     return arr
 
 
-def device_profile(torch, fn, reps: int = 3):
+def device_profile(torch, fn, reps: int = 3, top_n: int | None = 12):
     """``fn`` warm, timed on the host clock (ending in a synchronize), then
-    under torch.profiler: ``(wall ms, device ms, kernel rows)`` per call."""
+    under torch.profiler: ``(wall ms, device ms, kernel kinds, the top_n
+    kernel rows (every row where None))`` per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -915,7 +976,7 @@ def device_profile(torch, fn, reps: int = 3):
         key=self_dev, reverse=True,
     )
     device_ms = sum(self_dev(e) for e in rows) / 1e3 / reps
-    top = [(self_dev(e) / 1e3 / reps, e.count // reps, e.key[:90]) for e in rows[:12]]
+    top = [(self_dev(e) / 1e3 / reps, e.count // reps, e.key[:90]) for e in rows[:top_n]]
     return wall_ms, device_ms, len(rows), top
 
 
@@ -1081,11 +1142,12 @@ def training_subject(torch, seed: int, n: int):
     return d.x.numpy(), d.y.numpy(), gvec, svec
 
 
-def gnmgp_subject(torch, seed: int, n: int, m: int):
-    """A GNMGP subject at any M (``sim_mnts`` draws M = 2 only), on the CPU in
-    float64: the sim's lengthscale process, smooth random L-process vectors,
-    y drawn from the GNMGP likelihood they define.  Returns x, y (numpy) and
-    the packed parameter vector."""
+def gnmgp_subject(torch, seed: int, n: int, m: int, device: str = "cpu"):
+    """A GNMGP subject at any M (``sim_mnts`` draws M = 2 only) in float64:
+    the sim's lengthscale process, smooth random L-process vectors, y drawn
+    from the GNMGP likelihood they define, its Gram and factor on ``device``
+    (random numbers from a CPU generator).  Returns x, y (numpy) and the
+    packed parameter vector (on the CPU)."""
     from nonstationary_multivariate_gaussian_process_tpu_torch import settings
     from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
     from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels as gk
@@ -1099,12 +1161,12 @@ def gnmgp_subject(torch, seed: int, n: int, m: int):
     a, b = (0.3 * torch.randn(t, generator=gen, dtype=f64) for _ in range(2))
     ul = a[None, :] + b[None, :] * x[:, None]  # (N, T), smooth in x
     sigma2 = 1e-2
-    ls = gnmgp.chol_process(ul.reshape(-1), n, m)
-    cov = gk.svc_gram_tiled_plain(x, torch.exp(tilde_l), ls, settings.jitter)
-    cov = cov + sigma2 * torch.eye(n * m, dtype=f64)
-    y = torch.linalg.cholesky(cov) @ torch.randn(n * m, generator=gen, dtype=f64)
+    ls = gnmgp.chol_process(ul.reshape(-1).to(device), n, m)
+    cov = gk.svc_gram_tiled_plain(x.to(device), torch.exp(tilde_l).to(device), ls, settings.jitter)
+    cov = cov + sigma2 * torch.eye(n * m, dtype=f64, device=device)
+    y = torch.linalg.cholesky(cov) @ torch.randn(n * m, generator=gen, dtype=f64).to(device)
     vec = torch.cat([tilde_l, ul.reshape(-1), torch.log(torch.tensor([sigma2], dtype=f64))])
-    return x.numpy(), y.reshape(n, m).numpy(), vec
+    return x.numpy(), y.reshape(n, m).cpu().numpy(), vec
 
 
 def held(np, got, want, rtol) -> tuple[float, float]:
@@ -1118,6 +1180,55 @@ def held(np, got, want, rtol) -> tuple[float, float]:
     with np.errstate(divide="ignore", invalid="ignore"):
         rel = np.nanmax(err / np.abs(want))
     return float(rel), float(err.max() / scale)
+
+
+def generic_gradient(torch, np, gk, seed: int, n: int = GRADIENT_N, m: int = GRADIENT_M) -> dict:
+    """The GNMGP f64 gradient at M > 8 (K3's generic routes) on the card:
+    the kernels one gradient launches, gradient evaluations per second
+    (median of RATE_BATCHES batches of RATE_EVALS) and a profile of one
+    gradient with the device time by kernel and the share of K3's routes.
+    It calls only what every tree of the port since dde4b95 (K3 at any M)
+    has, so that ``scripts/k3g_ab.py`` runs it against an earlier tree's
+    package too."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    label = f"gnmgp f64 N={n} M={m}"
+    t0 = time.perf_counter()
+    x, y, vec = gnmgp_subject(torch, seed, n, m, device=DEVICE)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=DEVICE)
+    f = gnmgp.make_objective(FullData(as_t(x), as_t(y)))
+    v = vec.to(DEVICE)
+    gk.reset_launches()
+    val, grad = value_and_grad(f, v)
+    torch.cuda.synchronize()
+    counts = {k: c for k, c in gk.launches().items() if c}
+    if counts != {"svc_gram_tiled": 1, "svc_gram_tiled_backward": 1}:
+        raise AssertionError(f"{label}: one gradient launched {counts}")
+    if not (torch.isfinite(val) and torch.isfinite(grad).all()):
+        raise AssertionError(f"{label}: non-finite value or gradient")
+    per_s = []
+    for _ in range(RATE_BATCHES):
+        t1 = time.perf_counter()
+        for _ in range(RATE_EVALS):
+            value_and_grad(f, v)
+        torch.cuda.synchronize()
+        per_s.append(RATE_EVALS / (time.perf_counter() - t1))
+    wall_ms, device_ms, kinds, rows = device_profile(torch, lambda: value_and_grad(f, v), top_n=None)
+    k3_ms = sum(ms for ms, _, key in rows if "svc_gram_tiled" in key)
+    out = {"rate": statistics.median(per_s), "rates": per_s, "wall_ms": wall_ms, "device_ms": device_ms,
+           "k3_ms": k3_ms, "kinds": kinds, "launches": counts, "value": val.item(),
+           "by_kernel": [(ms, count, key) for ms, count, key in rows], "seconds": time.perf_counter() - t0}
+    log("objective", f"{label}: one gradient launched {counts}; {out['rate']:.3f} gradient evaluations/s (median "
+        f"of {RATE_BATCHES} batches of {RATE_EVALS}; min {min(per_s):.3f}, max {max(per_s):.3f}); value "
+        f"{out['value']:.10e}")
+    log("profile", f"one {label} gradient: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms (busy share "
+        f"{device_ms / wall_ms:.3f}), {kinds} kernel kinds; K3's routes {k3_ms:.4f} ms "
+        f"({100 * k3_ms / device_ms:.1f}% of the device time)")
+    for ms, count, key in rows[:12]:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+    return out
 
 
 def phase_objective(torch, np, gk, seed) -> dict:
@@ -1187,6 +1298,9 @@ def phase_objective(torch, np, gk, seed) -> dict:
         f"(busy share {device_ms / wall_ms:.3f}), {kinds} kernel kinds")
     for ms, count, key in top:
         log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+    # K3's generic routes in a gradient at the headline N
+    res = generic_gradient(torch, np, gk, seed + 5)
+    rates[f"gnmgp f64 N={GRADIENT_N} M={GRADIENT_M}"] = res["rate"]
     return rates
 
 
@@ -3338,7 +3452,7 @@ def main() -> int:
         if phase in res:
             log("summary", f"launches {what}: " + joined(res[phase][0] if phase == "models" else res[phase], keep))
     if "objective" in res:
-        log("summary", "gradient evaluations/s at N=1000, M=2: "
+        log("summary", "gradient evaluations/s (N=1000, M=2 unless named): "
             + ", ".join(f"{k}: {v:.3f}" for k, v in res["objective"].items()))
     log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,10 +41,22 @@
 //   a lane keeps the L rows of its chunks in registers for the whole item;
 //   for M = 5..8 the warp stages its strip of L in shared memory, transposed
 //   to [b][e], and a lane holds one row of L_n at a time, so nothing spills.
-// * M > 8 takes the generic route: one block per 16 x 16 tile of input
-//   pairs, a runtime task loop, scalar stores.  Its shared memory holds x,
-//   l and the Gibbs terms of the tile, a fixed size; L is read through the
-//   cache, so any M that fits the card runs.
+// * M > 8 takes the generic route, M at run time.  The output is the N M x
+//   N M product (kx (x) 1) o (Lf Lf^T) of Lf = L viewed as (N M, M), so the
+//   route is a register-blocked product over tiles of 64 x 64 outputs of the
+//   flattened index, one block of 256 threads a tile.  A block stages its
+//   rows' and columns' L, 16 task columns b at a time, transposed to [b][row]
+//   (so any M runs in a fixed 18.6 KB of shared memory), and the <= 9 x 9
+//   Gibbs terms its tile spans, with each row's and column's input found by
+//   one division a block.  Thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and 4
+//   columns, two 16-B groups of them (columns 2 tx, 2 tx + 32 in float64, 4
+//   tx in float32), reads each b's 4 + 4 values of L as 16-B loads, steps b
+//   with no index arithmetic, and stores V values at once (V the widest store
+//   of at most 16 B that divides N M: every row offset r N M and column is a
+//   multiple of it), so each store instruction of a warp writes two rows of
+//   256 contiguous bytes.  Bound: the bytes written, (N M)^2 w, and at large M
+//   the 2 M operations an output, each a separate multiply or add
+//   (-fmad=false), which at M = 32 take about as long as the bytes.
 // The ragged edge is masked.  Values never depend on the schedule: each
 // output is kx * bsum of its own (n, a, p, c).  What holds it back on the
 // card (PERF.md): in float64 the Gibbs term's exp, sqrt and two divisions
@@ -93,10 +105,16 @@
 //   ceil(N/T) N (M^2 + 1) values: 2.5 MB at N=1000, M=2, T=16, float64.
 // * T (16 for M <= 4, else 8) and M are template parameters.  No tensor
 //   cores: wgmma has no float64 form and the task contraction has length M.
-// * M > 8 takes a generic route with M at run time: one block per row input,
-//   no partials, and shared memory of a fixed size (see
-//   svc_gram_tiled_bwd_generic_kernel).  It is simple, not fast: it reads
-//   Kbar twice.
+// * M > 8 takes a generic route with M at run time, over the same unordered
+//   tile pairs but of the flattened index: tiles of 64 rows (n, a), whatever
+//   M, so any M runs within a block's shared memory (see
+//   svc_gram_tiled_bwd_generic_kernel).  It reads each element of Kbar once,
+//   along its rows, stages it and the tiles' rows of L with cp.async a pair
+//   ahead, and forms S once a pair; the sums run in double.  Its partials
+//   are ceil(N M / 64) (M + ceil(M / 3)) N M doubles (122 MB at N=1000, M=9
+//   against Kbar's 648 MB), summed by two more launches in a fixed order.
+//   Bound: the bytes of Kbar, (N M)^2 w; its (N M)^2 M fma stay under that up
+//   to M ~ 32 in float64.
 //
 // Built without fast math and with -fmad=false: the forward's task sum runs
 // b = 0..M-1 in the plain version's order, each operation rounded on its own,
@@ -108,11 +126,19 @@
 
 namespace {
 
-constexpr int kTile = 16;  // forward, M > 8: input pairs per tile side
-constexpr int kGenericSmem = 4 * kTile + kTile * kTile;  // forward, M > 8: shared values a block
 constexpr int kThreads = 256;
 constexpr int kMaxM = 8;  // the largest M of the templated routes
 constexpr int kFwdMaxThreads = 256;  // forward, M <= 8: at most 8 warps a block
+// The generic routes (M > 8): tiles of the flattened N M x N M index.
+constexpr int kGenTile = 64;             // rows (and columns) of a tile
+constexpr int kGenSpan = 9;              // inputs a tile's 64 rows span at M >= 9: 63 / 9 + 2
+constexpr int kGenK = 16;                // forward: task columns b of L staged at once
+constexpr int kGenPitch = kGenTile + 4;  // forward: a staged [b] row of L (16-B aligned in either type)
+constexpr int kGenFwdThreads = 256;      // forward: 16 x 16 threads, 4 x 4 outputs each
+constexpr int kGenBB = 3;                // backward: b values of a task
+constexpr int kGenKP = kGenTile + 1;     // backward: padded row of a staged Kbar tile and of S
+constexpr int kGenBwdThreads = 384;      // backward: 12 warps, one block per SM
+constexpr size_t kMaxSmem = 232448;      // a block's shared memory on the H100 (227 KB)
 
 __device__ __forceinline__ float gexp(float v) { return expf(v); }
 __device__ __forceinline__ double gexp(double v) { return exp(v); }
@@ -268,61 +294,115 @@ svc_gram_tiled_fwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
   }
 }
 
-// M > 8, any M: one block per 16 x 16 tile of input pairs.  Shared memory
-// holds the tile's x, l and Gibbs terms alone, kGenericSmem values whatever
-// M is; the rows of L_n and L_p are read through the cache.
+// M > 8, any M: one block per 64 x 64 tile of the flattened output; see the
+// header.  Thread (ty, tx) owns rows 4 ty + i (i < 4) and the columns of
+// GenFwd<T>::col(tx, j); the sums run b = 0..M-1 in order, each operation
+// rounded on its own, as the plain version's do.
 template <typename T>
-__global__ void svc_gram_tiled_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell,
-                                              const T* __restrict__ ls, int n, int m, T jitter,
-                                              T* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int mm = m * m;
-  T* x_r = smem;                     // kTile
-  T* l_r = x_r + kTile;              // kTile
-  T* x_c = l_r + kTile;              // kTile
-  T* l_c = x_c + kTile;              // kTile
-  T* kx_s = l_c + kTile;             // kTile * kTile
+struct GenFwd {
+  static constexpr int CW = 16 / static_cast<int>(sizeof(T));  // a thread's contiguous columns: 2, or 4 in float32
+  static constexpr int GROUPS = 4 / CW;                         // its groups of them: 2, or 1 in float32
+  // local column of value j (< 4) of thread tx: group j / CW at 16 CW apart
+  __device__ static __forceinline__ int col(int tx, int j) { return CW * tx + 16 * CW * (j / CW) + j % CW; }
+};
 
-  const int n0 = blockIdx.y * kTile;
-  const int p0 = blockIdx.x * kTile;
-  const int rows_in = min(kTile, n - n0);
-  const int cols_in = min(kTile, n - p0);
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < kTile; i += blockDim.x) {
-    x_r[i] = i < rows_in ? x[n0 + i] : T(0);
-    l_r[i] = i < rows_in ? ell[n0 + i] : T(1);
-    x_c[i] = i < cols_in ? x[p0 + i] : T(0);
-    l_c[i] = i < cols_in ? ell[p0 + i] : T(1);
+// Four consecutive values from 16-B aligned shared memory.
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T* v) {
+  if constexpr (sizeof(T) == 8) {
+    const double2 a = *reinterpret_cast<const double2*>(p), b = *reinterpret_cast<const double2*>(p + 2);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   }
-  __syncthreads();
+}
 
-  // the Gibbs term of each pair, once
-  for (int i = tid; i < kTile * kTile; i += blockDim.x) {
-    const int r = i / kTile, c = i % kTile;
-    T kx = gibbs(x_r[r], l_r[r], x_c[c], l_c[c]);
-    if (n0 + r == p0 + c) kx = kx + jitter;
+// One step b of the sums: the thread's 4 rows and 4 columns of staged L, 16 B
+// at a time.  FIRST: the product starts the sum.
+template <typename T, bool FIRST>
+__device__ __forceinline__ void gen_fwd_step(const T* As_b, const T* Bs_b, int tx, int ty, T (&acc)[4][4]) {
+  using G = GenFwd<T>;
+  T a[4], c[4];
+  load4(As_b + 4 * ty, a);
+#pragma unroll
+  for (int g = 0; g < G::GROUPS; ++g) {
+    const T* src = Bs_b + G::CW * tx + 16 * G::CW * g;
+    if constexpr (sizeof(T) == 8) {
+      const double2 v = *reinterpret_cast<const double2*>(src);
+      c[2 * g] = v.x;
+      c[2 * g + 1] = v.y;
+    } else {
+      load4(src, c);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = FIRST ? a[i] * c[j] : acc[i][j] + a[i] * c[j];
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kGenFwdThreads)
+svc_gram_tiled_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell,
+                              const T* __restrict__ ls, int n, int m, T jitter,
+                              T* __restrict__ out) {
+  using G = GenFwd<T>;
+  __shared__ __align__(16) T As[kGenK * kGenPitch];  // [b][row]: L of the tile's rows, task columns k0 + b
+  __shared__ __align__(16) T Bs[kGenK * kGenPitch];  // [b][column]
+  __shared__ T kx_s[kGenSpan * kGenSpan];            // [row input][column input], from the tile's first
+  __shared__ int rn_s[kGenTile], cp_s[kGenTile];      // each row's (column's) input, from the tile's first
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int nm = n * m;
+  const int R0 = blockIdx.y * kGenTile, C0 = blockIdx.x * kGenTile;
+  const int n0 = R0 / m, p0 = C0 / m;
+  if (tid < kGenTile) {
+    rn_s[tid] = (R0 + tid) / m - n0;
+    cp_s[tid] = (C0 + tid) / m - p0;
+  }
+  for (int i = tid; i < kGenSpan * kGenSpan; i += kGenFwdThreads) {
+    const int r = n0 + i / kGenSpan, p = p0 + i % kGenSpan;
+    T kx = T(0);
+    if (r < n && p < n) {
+      kx = gibbs(x[r], ell[r], x[p], ell[p]);
+      if (r == p) kx = kx + jitter;
+    }
     kx_s[i] = kx;
   }
-  __syncthreads();
-
-  // the (T*M) x (T*M) output tile, consecutive threads on consecutive columns
-  const int rows = rows_in * m;
-  const int cols = cols_in * m;
-  const size_t nm = static_cast<size_t>(n) * m;
-  const T* L_r = ls + static_cast<size_t>(n0) * mm;
-  const T* L_c = ls + static_cast<size_t>(p0) * mm;
-  T* tile_out = out + static_cast<size_t>(n0) * m * nm + static_cast<size_t>(p0) * m;
-  for (int e = tid; e < rows * cols; e += blockDim.x) {
-    const int r = e / cols, q = e % cols;
-    const int nl = r / m, a = r % m;
-    const int pl = q / m, c = q % m;
-    const T* lr = L_r + static_cast<size_t>(nl) * mm + a * m;
-    const T* lc = L_c + static_cast<size_t>(pl) * mm + c * m;
-    T bsum = __ldg(lr) * __ldg(lc);
-    for (int b = 1; b < m; ++b) bsum = bsum + __ldg(lr + b) * __ldg(lc + b);
-    tile_out[static_cast<size_t>(r) * nm + q] = kx_s[nl * kTile + pl] * bsum;
+  T acc[4][4];
+  for (int k0 = 0; k0 < m; k0 += kGenK) {
+    const int kn = min(kGenK, m - k0);
+    __syncthreads();  // every thread is done with the previous chunk
+    for (int i = tid; i < kGenTile * kGenK; i += kGenFwdThreads) {
+      const int r = i / kGenK, b = i % kGenK;  // consecutive threads: consecutive b of one row of L
+      const bool in_b = b < kn;
+      As[b * kGenPitch + r] = in_b && R0 + r < nm ? ls[static_cast<size_t>(R0 + r) * m + k0 + b] : T(0);
+      Bs[b * kGenPitch + r] = in_b && C0 + r < nm ? ls[static_cast<size_t>(C0 + r) * m + k0 + b] : T(0);
+    }
+    __syncthreads();
+    int b = 0;
+    if (k0 == 0) {
+      gen_fwd_step<T, true>(As, Bs, tx, ty, acc);
+      b = 1;
+    }
+    for (; b < kn; ++b) gen_fwd_step<T, false>(As + b * kGenPitch, Bs + b * kGenPitch, tx, ty, acc);
+  }
+  // V values a store; V divides N M and CW, so a group never crosses the edge
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int lr = 4 * ty + i;
+    if (R0 + lr >= nm) break;
+    const T* kx_r = kx_s + rn_s[lr] * kGenSpan;
+    T* orow = out + static_cast<size_t>(R0 + lr) * nm + C0;
+#pragma unroll
+    for (int j = 0; j < 4; j += V) {
+      const int lc = G::col(tx, j);
+      if (C0 + lc >= nm) continue;
+      T val[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) val[v] = kx_r[cp_s[lc + v]] * acc[i][j + v];
+      store_vec<T, V>(orow + lc, val);
+    }
   }
 }
 
@@ -342,9 +422,16 @@ int launch_forward_m(const T* x, const T* ell, const T* ls, int n, int rows, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// vec must be the store width of (T, m) and rows the tile's row inputs
-// (16 for m > 8); for m <= 8, 1 <= warps <= kFwdMaxThreads / 32 and
-// 1 <= grid.
+// The widest store of at most 16 B whose value count divides k.
+template <typename T>
+int store_width(long long k) {
+  return sizeof(T) == 8 ? (k % 2 == 0 ? 2 : 1) : (k % 4 == 0 ? 4 : k % 2 == 0 ? 2 : 1);
+}
+
+// For m <= 8, vec must be the store width of (T, m), and 1 <= warps <=
+// kFwdMaxThreads / 32 and 1 <= grid.  For m > 8 (the generic route) vec must
+// be the store width of (T, n m), rows = kGenTile, warps = kGenFwdThreads /
+// 32 and grid = tiles^2.
 template <typename T>
 int launch_forward(const void* x_, const void* ell_, const void* ls_, int n, int m,
                    double jitter_, int vec, int rows, int warps, int grid, void* out_,
@@ -357,18 +444,27 @@ int launch_forward(const void* x_, const void* ell_, const void* ls_, int n, int
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (m > kMaxM) {
-    // a tile's (16 M)^2 outputs and N M must fit an int
-    const int tiles = (n + kTile - 1) / kTile;
-    if (vec != 1 || rows != kTile || tiles > 65535 || static_cast<long long>(n) * m > 0x7fffffff ||
-        kTile * m > 46340)
+    // N M must fit an int, and (16 M)^2 too (the first generic route's limit, kept)
+    const long long nm = static_cast<long long>(n) * m;
+    const long long tiles = (nm + kGenTile - 1) / kGenTile;
+    if (nm > 0x7fffffff || 16 * m > 46340 || tiles > 65535 || vec != store_width<T>(nm) || rows != kGenTile ||
+        warps * 32 != kGenFwdThreads || static_cast<long long>(grid) != tiles * tiles)
       return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = sizeof(T) * kGenericSmem;
-    svc_gram_tiled_generic_kernel<T><<<dim3(tiles, tiles), kThreads, smem, stream>>>(
-        x, ell, ls, n, m, jitter, out);
+    const dim3 blocks(static_cast<unsigned>(tiles), static_cast<unsigned>(tiles));
+    switch (vec) {
+      case 1:
+        svc_gram_tiled_generic_kernel<T, 1><<<blocks, kGenFwdThreads, 0, stream>>>(x, ell, ls, n, m, jitter, out);
+        break;
+      case 2:
+        svc_gram_tiled_generic_kernel<T, 2><<<blocks, kGenFwdThreads, 0, stream>>>(x, ell, ls, n, m, jitter, out);
+        break;
+      default:
+        if constexpr (sizeof(T) == 4)
+          svc_gram_tiled_generic_kernel<T, 4><<<blocks, kGenFwdThreads, 0, stream>>>(x, ell, ls, n, m, jitter, out);
+    }
     return static_cast<int>(cudaGetLastError());
   }
-  const int want_vec = sizeof(T) == 8 ? (m % 2 == 0 ? 2 : 1) : (m % 4 == 0 ? 4 : m % 2 == 0 ? 2 : 1);
-  if (vec != want_vec || rows < 1 || warps < 1 || warps * 32 > kFwdMaxThreads || grid < 1)
+  if (vec != store_width<T>(m) || rows < 1 || warps < 1 || warps * 32 > kFwdMaxThreads || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long items = static_cast<long long>((n + rows - 1) / rows) * ((n + 31) / 32);
   if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
@@ -669,79 +765,273 @@ __global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_s
   }
 }
 
-// M > 8, any M: one block per row input n, no scratch and no second launch.
-// For each column input p, t[a,b] = sum_c S[(n,a),(p,c)] L[p,c,b]; then
-// Lbar[n,a,b] = sum_p kxj[n,p] t[a,b] and, since gsum[n,p] = sum_{a,b}
-// L[n,a,b] t[a,b], lbar[n] = sum_{a,b} sum_p kx[n,p] f L[n,a,b] t[a,b].
-// Thread k owns (a, b) = (k / M, k % M), then k + kThreads, ...; it walks p
-// in order, c in order within p.  kxj and kx f of a chunk of kThreads column
-// inputs are computed once into shared memory (the only shared memory, a
-// fixed size).  Kbar and L are read through the cache: Kbar[(n,a),:] along
-// the row, Kbar[:,(n,a)] down the column, so each element is read twice in
-// all.  lbar's shares are summed through shared memory by a fixed tree.
-// The sums run in double for either T: at large M, lbar is a small
-// difference of large terms (M = 130: sums of 10^4 terms of ~10^2 that
-// cancel to ~50), which float32 sums would carry with errors of 1e-4 of it.
+// M > 8, any M: the tiled route's walk over unordered tile pairs (I <= J),
+// on tiles of 64 rows of the flattened index (row (n, a) = n M + a), with M
+// at run time.  For Lf = L viewed as (N M, M) and S = Kbar + Kbar^T,
+//
+//   Lbar[r, b] = sum_q kxj(r, q) S[r, q] Lf[q, b]
+//   lbar[n]    = sum_{a, b} Lf[(n, a), b] Q[(n, a), b],  Q[r, b] = sum_q W(r, q) S[r, q] Lf[q, b]
+//
+// with kxj(r, q) = kxj[n(r), p(q)] and W(r, q) = kx f(l_n; l_p, D) (0 where
+// n == p).  A pair stages Kbar[I,J] and Kbar[J,I] (one tile on the diagonal)
+// and the tiles' 64 rows of Lf with cp.async into one of two stages while
+// the previous pair computes (Lf only where both stages fit: M <= 47 in
+// float64, 127 in float32; else Lf is read through the cache), forms S[I,J]
+// once in double (in place of Kbar[I,J] in float64), and evaluates the Gibbs
+// terms of the <= 9 x 9 input pairs the tiles span once (kxj, W both ways).
+// A task is one row side (a row r of I, walking the columns q of J) or one
+// column side (a row q of J, walking the rows r of I, through S^T: S is
+// symmetric), for kGenBB consecutive b: along its walk it sums t = S Lf over
+// each input's run of M (or fewer) rows, then adds kxj t to Lbar's share and
+// W t to Q's.  Row r of tile I gets the shares of every q of J, row q of J
+// those of every r of I, so each pair writes the rows of I to slot J and (off
+// the diagonal) those of J to slot I: partial[slot][k][row], k < M the Lbar
+// share, k = M + (b block) the lbar share sum_b Lf Q of that b block.  Every
+// (slot, k, row) is written once; two more launches sum them in one fixed
+// order (svc_gram_tiled_bwd_generic_reduce, _finish).  The sums run in
+// double for either T: at large M, lbar is a small difference of large terms
+// (M = 130: sums of 10^4 terms of ~10^2 that cancel to ~50), which float32
+// sums would carry with errors of 1e-4 of it.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct GenBwd {
+  static constexpr int KB = kGenTile * kGenKP;  // one staged Kbar tile, [row][col]
+  static constexpr int TAB = kGenSpan * kGenSpan;
+  static constexpr bool S_IN_PLACE = sizeof(T) == 8;  // S overwrites Kbar[I,J]; else a double buffer of its own
+  // a stage: Kbar[I,J], Kbar[J,I], then (staged) the 64 rows of Lf of I and of J
+  __host__ __device__ static constexpr int stage(int m, bool stage_l) { return 2 * KB + (stage_l ? 2 * kGenTile * m : 0); }
+  // two stages of T, then S (float32) and the kxj, W (row side), W (column side) tables in double
+  __host__ __device__ static constexpr size_t smem(int m, bool stage_l) {
+    return sizeof(T) * 2 * stage(m, stage_l) + sizeof(double) * ((S_IN_PLACE ? 0 : KB) + 3 * TAB);
+  }
+};
+
+// Kbar's tile of rows R0.. and columns C0.. into [row][col], read along
+// Kbar's rows; past N M it is 0.
+template <typename T>
+__device__ __forceinline__ void stage_gen_tile(T* dst, int R0, int C0, int nm, const T* kbar, int tid) {
+  const int rows = min(kGenTile, nm - R0), cols = min(kGenTile, nm - C0);
+  const T* src = kbar + static_cast<size_t>(R0) * nm + C0;
+  for (int i = tid; i < kGenTile * kGenTile; i += kGenBwdThreads) {
+    const int r = i / kGenTile, c = i % kGenTile;
+    T* d = dst + r * kGenKP + c;
+    if (r < rows && c < cols) copy_async(d, src + static_cast<size_t>(r) * nm + c);
+    else *d = T(0);
+  }
+}
+
+// Tile pair (I, J)'s Kbar tiles and, if stage_l, its rows of Lf (contiguous
+// in memory; past N M they are 0).
+template <typename T>
+__device__ __forceinline__ void stage_gen_pair(T* st, int I, int J, int nm, int m, bool stage_l, const T* ls,
+                                               const T* kbar, int tid) {
+  stage_gen_tile<T>(st, I * kGenTile, J * kGenTile, nm, kbar, tid);
+  if (I != J) stage_gen_tile<T>(st + GenBwd<T>::KB, J * kGenTile, I * kGenTile, nm, kbar, tid);
+  if (!stage_l) return;
+  const size_t total = static_cast<size_t>(nm) * m;
+  for (int t = 0; t < (I != J ? 2 : 1); ++t) {
+    const size_t src0 = static_cast<size_t>(t == 0 ? I : J) * kGenTile * m;
+    T* dst = st + 2 * GenBwd<T>::KB + t * kGenTile * m;
+    for (int i = tid; i < kGenTile * m; i += kGenBwdThreads) {
+      if (src0 + i < total) copy_async(dst + i, ls + src0 + i);
+      else dst[i] = T(0);
+    }
+  }
+}
+
+// One task: output row own0 + e, walking the rows of tile walk0 in order
+// through s(w) = S[e][w] (row side) or S[w][e] (column side).  Lown, Lwalk:
+// the own and the walked tile's rows of Lf (staged or in memory), row stride
+// m.  tab: the (own input, walked input) entry of the kxj and W tables.
+template <typename T, bool COL>
+__device__ __forceinline__ void gen_bwd_task(const double* __restrict__ S, const double* __restrict__ kxj_s,
+                                             const double* __restrict__ w_s, const T* Lown, const T* Lwalk,
+                                             int m, int nm, int e, int bb, int own0, int walk0, int slot, int ks,
+                                             double* __restrict__ partial) {
+  const int row = own0 + e;
+  if (row >= nm) return;
+  const int own = row / m - own0 / m;  // the row's input, from its tile's first
+  const int first = walk0 / m;         // the walked tile's first input
+  const int wlim = min(kGenTile, nm - walk0);
+  int bi[kGenBB];
+#pragma unroll
+  for (int j = 0; j < kGenBB; ++j) bi[j] = min(bb * kGenBB + j, m - 1);  // past M: read in bounds, never stored
+  double acc[kGenBB], lacc[kGenBB];
+#pragma unroll
+  for (int j = 0; j < kGenBB; ++j) acc[j] = lacc[j] = 0.0;
+  int w = 0, seg = 0;
+  for (int end = (first + 1) * m - walk0; w < wlim; end += m, ++seg) {  // one walked input a segment
+    const int e1 = min(end, wlim);
+    double t[kGenBB];
+#pragma unroll
+    for (int j = 0; j < kGenBB; ++j) t[j] = 0.0;
+#pragma unroll 4
+    for (; w < e1; ++w) {
+      const double s = COL ? S[w * kGenKP + e] : S[e * kGenKP + w];
+      const T* lw = Lwalk + w * m;
+#pragma unroll
+      for (int j = 0; j < kGenBB; ++j) t[j] = fma(s, static_cast<double>(lw[bi[j]]), t[j]);
+    }
+    const int tab = COL ? seg * kGenSpan + own : own * kGenSpan + seg;
+    const double kk = kxj_s[tab], ww = w_s[tab];
+#pragma unroll
+    for (int j = 0; j < kGenBB; ++j) {
+      acc[j] = fma(kk, t[j], acc[j]);
+      lacc[j] = fma(ww, t[j], lacc[j]);
+    }
+  }
+  double* dst = partial + static_cast<size_t>(slot) * ks * nm + row;
+  const T* lr = Lown + e * m;
+  double lsum = 0.0;
+#pragma unroll
+  for (int j = 0; j < kGenBB; ++j) {
+    if (bb * kGenBB + j >= m) break;
+    dst[static_cast<size_t>(bb * kGenBB + j) * nm] = acc[j];
+    lsum = fma(static_cast<double>(lr[bi[j]]), lacc[j], lsum);
+  }
+  dst[static_cast<size_t>(m + bb) * nm] = lsum;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGenBwdThreads, 1)
 svc_gram_tiled_bwd_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell,
-                                  const T* __restrict__ ls, int n, int m, T jitter,
-                                  const T* __restrict__ kbar, T* __restrict__ ls_bar,
-                                  T* __restrict__ ell_bar) {
-  __shared__ double kxj_s[kThreads], w_s[kThreads], red[kThreads];
-  const int row = blockIdx.x;
+                                  const T* __restrict__ ls, int n, int m, T jitter, bool stage_l,
+                                  const T* __restrict__ kbar, double* __restrict__ partial) {
+  using G = GenBwd<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int stage = G::stage(m, stage_l);
+  T* stages = reinterpret_cast<T*>(smem_raw);
+  double* Sbuf = reinterpret_cast<double*>(smem_raw + sizeof(T) * 2 * stage);  // float32: S
+  double* kxj_s = Sbuf + (G::S_IN_PLACE ? 0 : G::KB);  // [row input][column input], from each tile's first
+  double* wr_s = kxj_s + G::TAB;                       // kx f(l_n; l_p, D): the row side's W
+  double* wc_s = wr_s + G::TAB;                        // kx f(l_p; l_n, D): the column side's W
   const int tid = threadIdx.x;
-  const int mm = m * m;
-  const size_t nm = static_cast<size_t>(n) * m;
-  const T xn = x[row], ln = ell[row];
-  const T* Ln = ls + static_cast<size_t>(row) * mm;
-  const T* krow = kbar + static_cast<size_t>(row) * m * nm;  // Kbar[(n,0), :]
-  const T* kcol = kbar + static_cast<size_t>(row) * m;       // Kbar[:, (n,0)]
-  double lsh = 0.0;
-  for (int k0 = 0; k0 < mm; k0 += kThreads) {
-    const int k = k0 + tid;
-    const bool own = k < mm;
-    const int a = own ? k / m : 0, b = own ? k % m : 0;
-    const double lnab = own ? static_cast<double>(Ln[k]) : 0.0;
-    double acc = 0.0;
-    for (int p0 = 0; p0 < n; p0 += kThreads) {
-      __syncthreads();  // every thread is done with the previous chunk
-      const int pi = p0 + tid;
-      if (pi < n) {
-        const T lp = ell[pi];
-        const T dx = xn - x[pi];
-        const T d = dx * dx;
-        const T a2 = ln * ln + lp * lp;
-        const T kx = gsqrt(T(2) * (ln * lp) / a2) * gexp(-d / a2);
-        kxj_s[tid] = pi == row ? kx + jitter : kx;
-        w_s[tid] = pi == row ? T(0) : kx * (T(1) / (T(2) * ln) - ln / a2 + T(2) * ln * d / (a2 * a2));
-      }
-      __syncthreads();
-      if (own) {
-        const int p1 = min(n, p0 + kThreads);
-        for (int p = p0; p < p1; ++p) {
-          const T* Lp = ls + static_cast<size_t>(p) * mm + b;
-          const T* kr = krow + a * nm + static_cast<size_t>(p) * m;   // Kbar[(n,a),(p,c)] at c
-          const T* kc = kcol + static_cast<size_t>(p) * m * nm + a;  // Kbar[(p,c),(n,a)] at c nm
-          double t = 0.0;
-          for (int c = 0; c < m; ++c) {
-            const double s = static_cast<double>(__ldg(kr + c)) + static_cast<double>(__ldg(kc + c * nm));
-            t = fma(s, static_cast<double>(__ldg(Lp + c * m)), t);
-          }
-          acc = fma(kxj_s[p - p0], t, acc);
-          lsh = fma(w_s[p - p0] * lnab, t, lsh);
+  const int nm = n * m;
+  const int n_tiles = (nm + kGenTile - 1) / kGenTile;
+  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
+  const int nbb = (m + kGenBB - 1) / kGenBB;
+  const int ks = m + nbb;
+
+  int q = blockIdx.x, I, J;
+  tile_pair(q, n_tiles, I, J);
+  stage_gen_pair<T>(stages, I, J, nm, m, stage_l, ls, kbar, tid);
+  __pipeline_commit();
+  for (int it = 0; q < n_pairs; ++it, q += gridDim.x) {
+    T* st = stages + (it & 1) * stage;
+    int In = 0, Jn = 0;
+    if (q + gridDim.x < n_pairs) {
+      tile_pair(q + gridDim.x, n_tiles, In, Jn);
+      stage_gen_pair<T>(stages + ((it + 1) & 1) * stage, In, Jn, nm, m, stage_l, ls, kbar, tid);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // this pair's copies have landed
+    __syncthreads();
+
+    const bool diag = I == J;
+    const int I0 = I * kGenTile, J0 = J * kGenTile;
+    T* kb = st;                               // Kbar[(I0 + r), (J0 + c)] at [r][c]
+    const T* kbt = diag ? st : st + G::KB;    // Kbar[(J0 + c), (I0 + r)] at [c][r]
+    double* S = G::S_IN_PLACE ? reinterpret_cast<double*>(kb) : Sbuf;
+    for (int i = tid; i < kGenTile * kGenTile; i += kGenBwdThreads) {
+      const int r = i / kGenTile, c = i % kGenTile;
+      if (diag) {  // each unordered (r, c) by one thread, so S may overwrite Kbar
+        if (r <= c) {
+          const double v = static_cast<double>(kb[r * kGenKP + c]) + static_cast<double>(kb[c * kGenKP + r]);
+          S[r * kGenKP + c] = v;
+          S[c * kGenKP + r] = v;
         }
+      } else {
+        S[r * kGenKP + c] = static_cast<double>(kb[r * kGenKP + c]) + static_cast<double>(kbt[c * kGenKP + r]);
       }
     }
-    if (own) ls_bar[static_cast<size_t>(row) * mm + k] = static_cast<T>(acc);
-  }
-  red[tid] = lsh;
-  __syncthreads();
-  for (int off = kThreads / 2; off > 0; off >>= 1) {
-    if (tid < off) red[tid] = red[tid] + red[tid + off];
+    if (tid < G::TAB) {
+      const int nn = I0 / m + tid / kGenSpan, pp = J0 / m + tid % kGenSpan;
+      double kxj = 0.0, wr = 0.0, wc = 0.0;
+      if (nn < n && pp < n) {
+        const double ln = ell[nn], lp = ell[pp];
+        const double dx = static_cast<double>(x[nn]) - static_cast<double>(x[pp]);
+        const double d = dx * dx, a2 = fma(ln, ln, lp * lp);
+        const double kx = sqrt(2.0 * (ln * lp) / a2) * exp(-d / a2);
+        kxj = nn == pp ? kx + static_cast<double>(jitter) : kx;
+        if (nn != pp) {
+          const double g = fma(2.0 * d, 1.0 / (a2 * a2), -1.0 / a2);  // -1/A + 2 D/A^2
+          wr = kx * fma(ln, g, 0.5 / ln);
+          wc = kx * fma(lp, g, 0.5 / lp);
+        }
+      }
+      kxj_s[tid] = kxj;
+      wr_s[tid] = wr;
+      wc_s[tid] = wc;
+    }
     __syncthreads();
+
+    // the tiles' rows of Lf: staged, or in memory
+    const T* LI = stage_l ? st + 2 * G::KB : ls + static_cast<size_t>(I0) * m;
+    const T* LJ = stage_l ? (diag ? LI : st + 2 * G::KB + kGenTile * m) : ls + static_cast<size_t>(J0) * m;
+    const int side = kGenTile * nbb;  // the tasks of one side
+    const int n_tasks = diag ? side : 2 * side;
+    for (int k = tid; k < n_tasks; k += kGenBwdThreads) {
+      if (k < side)  // the rows of I, walking J: slot J (I on the diagonal)
+        gen_bwd_task<T, false>(S, kxj_s, wr_s, LI, LJ, m, nm, k % kGenTile, k / kGenTile, I0, J0, J, ks, partial);
+      else  // the rows of J, walking I: slot I
+        gen_bwd_task<T, true>(S, kxj_s, wc_s, LJ, LI, m, nm, (k - side) % kGenTile, (k - side) / kGenTile, J0, I0,
+                              I, ks, partial);
+    }
+    __syncthreads();  // every thread is done with this stage, S and the tables
+    I = In;
+    J = Jn;
   }
-  if (tid == 0) ell_bar[row] = static_cast<T>(red[0]);
+}
+
+// Sums the generic route's slots in one fixed order, in double: thread i
+// takes (k, row) = (i / (N M), i % (N M)) and adds its slots 0, 1, ... in
+// turn (loads issued kGenSlotBatch at a time); k < M is L̄'s element (row,
+// k), written to ls_bar (N, M, M), k >= M the row's lbar share of b block k
+// - M, written back over slot 0 (only this thread reads it).
+constexpr int kGenSlotBatch = 8;
+
+template <typename T>
+__global__ void svc_gram_tiled_bwd_generic_reduce(double* __restrict__ partial, int n_slots, int n, int m,
+                                                  T* __restrict__ ls_bar) {
+  const long long nm = static_cast<long long>(n) * m;
+  const int nbb = (m + kGenBB - 1) / kGenBB, ks = m + nbb;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= nm * ks) return;
+  const long long k = i / nm, row = i % nm;
+  const double* src = partial + k * nm + row;
+  const size_t stride = static_cast<size_t>(ks) * nm;  // one slot
+  double acc = 0.0;
+  int s = 0;
+  for (; s + kGenSlotBatch <= n_slots; s += kGenSlotBatch) {
+    double v[kGenSlotBatch];
+#pragma unroll
+    for (int j = 0; j < kGenSlotBatch; ++j) v[j] = src[(s + j) * stride];
+#pragma unroll
+    for (int j = 0; j < kGenSlotBatch; ++j) acc += v[j];
+  }
+  for (; s < n_slots; ++s) acc += src[s * stride];
+  if (k < m) ls_bar[row * m + k] = static_cast<T>(acc);
+  else partial[i] = acc;
+}
+
+// ell_bar[n]: one warp per input n; lane l adds terms l, l + 32, ... of j =
+// a * (b blocks) + b block (the reduced shares left in slot 0), then a fixed
+// shuffle tree adds the lanes.
+template <typename T>
+__global__ void svc_gram_tiled_bwd_generic_finish(const double* __restrict__ partial, int n, int m,
+                                                  T* __restrict__ ell_bar) {
+  const long long nm = static_cast<long long>(n) * m;
+  const int nbb = (m + kGenBB - 1) / kGenBB;
+  const long long w = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= n) return;  // whole warps leave together
+  double acc = 0.0;
+  for (int j = lane; j < m * nbb; j += 32) {
+    const int a = j / nbb, kb = j % nbb;
+    acc += partial[(m + kb) * nm + w * m + a];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) ell_bar[w] = static_cast<T>(acc);
 }
 
 template <typename T>
@@ -780,20 +1070,40 @@ int launch_backward_m(const BwdArgs<T>& a) {
 
 // For m <= 8, tile must be the backward's tile side for m (16 for m <= 4,
 // else 8), and 1 <= grid <= the number of tile pairs, which must fit an
-// int.  For m > 8 (the generic route), tile = 1, grid = n and partial is
-// not used; a row's (M N)-long slice of Kbar must fit an int.
+// int.  For m > 8 (the generic route), tile = kGenTile rows of the flattened
+// index, 1 <= grid <= its tile pairs, and partial holds ceil(n m / kGenTile)
+// (m + ceil(m / kGenBB)) n m doubles.
 template <typename T>
 int launch_backward(const void* x, const void* ell, const void* ls, int n, int m,
                     double jitter, const void* kbar, int tile, int grid, void* partial,
                     void* ls_bar, void* ell_bar, void* stream) {
   if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (m > kMaxM) {
-    if (tile != 1 || grid != n || static_cast<long long>(n) * m > 0x7fffffff)
+    const long long nm = static_cast<long long>(n) * m;
+    const long long n_tiles = (nm + kGenTile - 1) / kGenTile;
+    if (nm > 0x7fffffff || tile != kGenTile || n_tiles > 46340 || grid < 1 || grid > n_tiles * (n_tiles + 1) / 2)
       return static_cast<int>(cudaErrorInvalidValue);
-    svc_gram_tiled_bwd_generic_kernel<T><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    // Lf joins the stages where both still fit a block's shared memory
+    const bool stage_l = GenBwd<T>::smem(m, true) <= kMaxSmem;
+    const size_t smem = GenBwd<T>::smem(m, stage_l);
+    cudaError_t err = cudaFuncSetAttribute(svc_gram_tiled_bwd_generic_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    svc_gram_tiled_bwd_generic_kernel<T><<<grid, kGenBwdThreads, smem, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n, m,
-        static_cast<T>(jitter), static_cast<const T*>(kbar), static_cast<T*>(ls_bar),
-        static_cast<T*>(ell_bar));
+        static_cast<T>(jitter), stage_l, static_cast<const T*>(kbar), static_cast<double*>(partial));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long ks = m + (m + kGenBB - 1) / kGenBB;
+    const long long blocks = (nm * ks + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    svc_gram_tiled_bwd_generic_reduce<T><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        static_cast<double*>(partial), static_cast<int>(n_tiles), n, m, static_cast<T*>(ls_bar));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    svc_gram_tiled_bwd_generic_finish<T><<<(n + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
+        static_cast<const double*>(partial), n, m, static_cast<T*>(ell_bar));
     return static_cast<int>(cudaGetLastError());
   }
   const int n_tiles = (n + tile - 1) / tile;
@@ -832,7 +1142,8 @@ int svc_gram_tiled_f64(const void* x, const void* ell, const void* ls, int n, in
   return launch_forward<double>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, out, stream);
 }
 
-// partial: ceil(n/tile) * n * (m*m + 1) scratch values (none for m > 8);
+// partial: ceil(n/tile) * n * (m*m + 1) scratch values of the input's type,
+// or for m > 8 ceil(n m / tile) * (m + ceil(m / 3)) * n m doubles;
 // ls_bar (n, m, m); ell_bar (n,).  tile, grid: gram_kernels.k3_backward_schedule(n, m).
 int svc_gram_tiled_backward_f32(const void* x, const void* ell, const void* ls, int n, int m,
                                 double jitter, const void* kbar, int tile, int grid,

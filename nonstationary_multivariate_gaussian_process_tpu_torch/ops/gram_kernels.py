@@ -759,9 +759,21 @@ def k2_schedule(n: int, m: int, dtype: torch.dtype, sms: int = 132) -> K2Schedul
 #: backward; above it both take their generic routes, with M at run time.
 K3_MAX_M = 8
 
-#: K3's forward, generic route: the shared values of a block (x and ℓ of a
-#: 16-input row and column strip, the tile's 16 × 16 Gibbs terms), whatever M.
-_K3_GENERIC_SMEM = 4 * 16 + 16 * 16
+#: K3's generic routes (M > 8) cut the flattened NM × NM index into tiles of
+#: this many rows (and columns), whatever M.
+K3_GENERIC_TILE = 64
+#: The inputs a tile's 64 rows span at M >= 9 (63 // 9 + 2): the Gibbs terms
+#: a tile needs fit a 9 × 9 table.
+_K3_GENERIC_SPAN = 9
+#: The generic forward stages L 16 task columns at a time, [b][row] with rows
+#: padded to 68; a block's shared memory: those two strips and the Gibbs
+#: table in the input's type, and two int arrays of 64 (each row's and
+#: column's input), whatever M.
+_K3_GEN_FWD_K, _K3_GEN_FWD_PITCH = 16, 68
+#: The generic backward: b values of a task, the padded row of a staged K̄
+#: tile, and a block's shared memory on the H100 (227 KB), which decides
+#: whether the tiles' rows of L join the staged K̄.
+K3_GENERIC_BB, _K3_GEN_KP, _H100_SMEM = 3, 65, 232_448
 
 
 def svc_gram_tiled_plain(x, ell, ls, jitter: float) -> torch.Tensor:
@@ -798,12 +810,20 @@ class K3ForwardSchedule(_Strips):
     values at once, for ``k < M / vec``.  ``vec`` is 2 for an even M in
     float64, 4 or 2 for M divisible by 4 or 2 in float32, else 1: then every
     row offset ``(n·M + a)·N·M`` and strip offset ``p0·M`` is a multiple of
-    ``vec``, and the output's base is 256-B aligned.  The generic route
-    (M > 8) takes one block per 16 × 16 tile of input pairs (``rows`` = 16,
-    ``grid`` = tiles²) with scalar stores.  ``smem_bytes`` is a block's
-    dynamic shared memory as the kernel sizes it: the warps' strips of L for
+    ``vec``, and the output's base is 256-B aligned.
+
+    The generic route (M > 8) cuts the flattened NM × NM output into tiles of
+    ``rows`` = 64 rows and columns, one block of 256 threads (``warps`` = 8)
+    a tile, ``grid`` = ``n_tiles``² blocks (block (x, y): column tile x, row
+    tile y).  Thread ``(ty, tx)`` = ``(t // 16, t % 16)`` owns rows ``4ty ..
+    4ty + 3`` of its tile and the 4 columns :meth:`generic_columns` gives
+    (two 16-B groups in float64, one in float32), sums b = 0..M−1 in order
+    from L staged 16 task columns at a time, and stores ``vec`` values at
+    once: the widest store of at most 16 B whose width divides N·M, so that
+    every row offset ``r·N·M`` is a multiple of it.  ``smem_bytes`` is a
+    block's shared memory as the kernel sizes it: the warps' strips of L for
     M = 5..8, none for M ≤ 4, and for the generic route a size that does not
-    depend on M (L is read through the cache).
+    depend on M.
     """
 
     n: int
@@ -817,19 +837,33 @@ class K3ForwardSchedule(_Strips):
 
     strip = 32
 
+    @property
+    def n_tiles(self) -> int:
+        """The generic route's tiles a side: ⌈N·M / rows⌉."""
+        return -(-self.n * self.m // self.rows)
+
+    def generic_columns(self, tx: int, size: int) -> list[int]:
+        """The generic route: the 4 columns of its tile that thread column
+        ``tx`` owns, for elements of ``size`` bytes (groups of 16 B, 16
+        groups apart)."""
+        cw = 16 // size
+        return [cw * tx + 16 * cw * (j // cw) + j % cw for j in range(4)]
+
 
 #: K3's forward: every SM should get at least this many warps' items.
 _K3_FWD_WARPS_PER_SM = 16
 
 
 def k3_forward_schedule(n: int, m: int, dtype: torch.dtype, sms: int = 132) -> K3ForwardSchedule:
-    """The store route and width, the rows of an item (the most of 8, 4, 2,
-    1 that still gives every SM 16 warps' items), 4 warps a block and a grid
-    of at most 16 blocks per SM, never more blocks than the items fill."""
+    """For M ≤ 8 the store route and width, the rows of an item (the most of
+    8, 4, 2, 1 that still gives every SM 16 warps' items), 4 warps a block
+    and a grid of at most 16 blocks per SM, never more blocks than the items
+    fill; for M > 8 the generic route's tiles and store width."""
     size = torch.tensor([], dtype=dtype).element_size()
     if m > K3_MAX_M:
-        tiles = -(-n // 16)
-        return K3ForwardSchedule(n, m, "generic", 1, 16, 8, tiles * tiles, size * _K3_GENERIC_SMEM)
+        tiles = -(-n * m // K3_GENERIC_TILE)
+        smem = size * (2 * _K3_GEN_FWD_K * _K3_GEN_FWD_PITCH + _K3_GENERIC_SPAN**2) + 4 * 2 * K3_GENERIC_TILE
+        return K3ForwardSchedule(n, m, "generic", _store_width(n * m, dtype), K3_GENERIC_TILE, 8, tiles * tiles, smem)
     vec = _store_width(m, dtype)
     rows = _strip_rows(n, -(-n // 32), sms, _K3_FWD_WARPS_PER_SM)
     warps = 4
@@ -883,19 +917,32 @@ def svc_gram_tiled_backward_plain(x, ell, ls, jitter: float, kbar):
 class K3BackwardSchedule(_TilePairs):
     """How K3's backward kernel cuts its work, from (N, M) alone.
 
-    ``route`` is ``"tiled"`` for M ≤ 8 (below) or ``"generic"`` above: one
-    block per row input (``tile`` = 1, ``grid`` = N), which writes ℓ̄ and L̄
-    of its row itself, so it needs no partials (``partial_numel`` = 0).
-
-    The tiled route walks the unordered tile pairs ``(I, J)``, ``I <= J``, in the
-    order of :meth:`pairs` (row-major), and computes the same mapping from a
-    pair's index itself; block ``b`` of ``grid`` takes pairs ``b, b + grid,
+    ``route`` is ``"tiled"`` for M ≤ 8 or ``"generic"`` above.  Both walk
+    the unordered tile pairs ``(I, J)``, ``I <= J``, in the order of
+    :meth:`pairs` (row-major), and compute the same mapping from a pair's
+    index themselves; block ``b`` of ``grid`` takes pairs ``b, b + grid,
     ...``.  Pair ``(I, J)`` writes the rows of tile ``I`` into slot ``J`` and
-    the rows of tile ``J`` into slot ``I`` of ``partial[slot][row][k]``
-    (``k < M²``: L̄'s share, ``k = M²``: ℓ̄'s); every (slot, row) is written
-    once.  A second launch sums each row's slots in one fixed order: lane
-    ``j`` of the row's warp adds slots ``j, j + 32, ...``, then a shuffle
-    tree adds the lanes.  So the result does not depend on ``grid``.
+    the rows of tile ``J`` into slot ``I``; every (slot, row) is written
+    once, and a second launch sums each row's slots in one fixed order, so
+    the result does not depend on ``grid``.
+
+    Tiled (M ≤ 8): tiles of ``tile`` inputs, ``partial[slot][row][k]`` (``k
+    < M²``: L̄'s share, ``k = M²``: ℓ̄'s), in the input's type; the second
+    launch's lane ``j`` of a row's warp adds slots ``j, j + 32, ...``, then a
+    shuffle tree adds the lanes.
+
+    Generic (M > 8): tiles of ``tile`` = 64 rows of the flattened index (row
+    ``n·M + a``), one block of 384 threads per SM; the tiles' rows of L join
+    the staged K̄ where both stages fit (:meth:`l_staged`).  A pair's tasks
+    are the rows of I walking the columns of J (the row side) and, off the
+    diagonal, the rows of J walking the rows of I (the column side), each
+    for ``K3_GENERIC_BB`` consecutive b (b block ``k // 64``, row ``k % 64``
+    of task ``k`` of a side).  The partials are doubles,
+    ``partial[slot][k][row]`` with ``k < M`` L̄'s share and ``k = M + (b
+    block)`` that block's ℓ̄ share.  A second launch sums each (k, row)'s
+    slots in order (L̄, and the ℓ̄ shares back into slot 0); a third sums ℓ̄
+    by one warp per input, lane ``l`` adding terms ``l, l + 32, ...`` of
+    ``j = a·(b blocks) + b block``, then a shuffle tree.
     """
 
     n: int
@@ -905,18 +952,53 @@ class K3BackwardSchedule(_TilePairs):
     grid: int
 
     @property
+    def n_tiles(self) -> int:
+        rows = self.n * self.m if self.route == "generic" else self.n
+        return -(-rows // self.tile)
+
+    @property
+    def n_bblocks(self) -> int:
+        """The generic route's b blocks a row: ⌈M / K3_GENERIC_BB⌉."""
+        return -(-self.m // K3_GENERIC_BB)
+
+    @property
     def partial_numel(self) -> int:
         if self.route == "generic":
-            return 0
+            return self.n_tiles * (self.m + self.n_bblocks) * self.n * self.m
         return self.n_tiles * self.n * (self.m * self.m + 1)
+
+    def partial_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        """The partials' type: the input's (tiled), float64 (generic)."""
+        return torch.float64 if self.route == "generic" else dtype
+
+    def scratch_bytes(self, dtype: torch.dtype) -> int:
+        return self.partial_numel * torch.tensor([], dtype=self.partial_dtype(dtype)).element_size()
+
+    def smem_bytes(self, dtype: torch.dtype, l_staged: bool | None = None) -> int:
+        """The generic route's shared memory a block: two stages of the two
+        K̄ tiles (and, staged, the tiles' 64 rows of L) in the input's type,
+        then S (float32: in double; float64 overwrites K̄[I, J]) and three
+        9 × 9 tables in double."""
+        if l_staged is None:
+            l_staged = self.l_staged(dtype)
+        size = torch.tensor([], dtype=dtype).element_size()
+        kb = self.tile * _K3_GEN_KP
+        stage = 2 * kb + (2 * self.tile * self.m if l_staged else 0)
+        return size * 2 * stage + 8 * ((0 if size == 8 else kb) + 3 * _K3_GENERIC_SPAN**2)
+
+    def l_staged(self, dtype: torch.dtype) -> bool:
+        """Whether the generic route stages L (M <= 47 in float64, 127 in float32)."""
+        return self.smem_bytes(dtype, True) <= _H100_SMEM
 
 
 def k3_backward_schedule(n: int, m: int, sms: int = 132) -> K3BackwardSchedule:
-    """The route; for M ≤ 8 the tile side (16 inputs for M ≤ 4, else 8),
-    the persistent grid (4 blocks per SM, never more blocks than tile pairs)
-    and, through the result's properties, the pairs and the partials' size."""
+    """The route; the tile side (16 inputs for M ≤ 4, else 8; 64 flattened
+    rows for M > 8), the persistent grid (4 blocks per SM for M ≤ 8, one for
+    M > 8, never more blocks than tile pairs) and, through the result's
+    properties, the pairs and the partials' size."""
     if m > K3_MAX_M:
-        return K3BackwardSchedule(n, m, "generic", 1, max(1, n))
+        sched = K3BackwardSchedule(n, m, "generic", K3_GENERIC_TILE, 1)
+        return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs, sms)))
     sched = K3BackwardSchedule(n, m, "tiled", 16 if m <= 4 else 8, 1)
     return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs, 4 * sms)))
 
@@ -937,7 +1019,7 @@ def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float):
     if n == 0:
         return ell_bar, ls_bar
     sched = k3_backward_schedule(n, m, sm_count(device))
-    partial = torch.empty(sched.partial_numel, dtype=dtype, device=device)
+    partial = torch.empty(sched.partial_numel, dtype=sched.partial_dtype(dtype), device=device)
     _launch("svc_gram_tiled_backward", dtype, device, x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m,
             float(jitter), kbar.data_ptr(), sched.tile, sched.grid, partial.data_ptr(),
             ls_bar.data_ptr(), ell_bar.data_ptr())

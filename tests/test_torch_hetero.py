@@ -72,7 +72,7 @@ def subject():
 
 def test_sim_mnts_hetero_matches_jax_given_its_inputs_and_normals():
     key = jax.random.PRNGKey(4)
-    want = jsim.sim_mnts_hetero(key, n=30)
+    want = jax.jit(lambda k: jsim.sim_mnts_hetero(k, n=30))(key)  # op by op: seconds
     k_x, k_y = jax.random.split(key)
     x = np.sort(np.asarray(jax.random.uniform(k_x, (30,), jnp.float64)))
     z = np.asarray(jax.random.normal(k_y, (60,), jnp.float64))
@@ -124,7 +124,8 @@ def test_layout_converters_and_warm_start_match_jax(subject):
 
 def test_observation_cov_and_loo_conditionals_match_jax(subject):
     x, y, vec, chain, _ = subject
-    want = np.asarray(jevaluate.observation_cov("gnmgp_hetero", jnp.asarray(vec), jnp.asarray(x), N, M))
+    jax_cov = jax.jit(jevaluate.observation_cov, static_argnums=(0, 3, 4))  # op by op: seconds
+    want = np.asarray(jax_cov("gnmgp_hetero", jnp.asarray(vec), jnp.asarray(x), N, M))
     got = evaluate.observation_cov("gnmgp_hetero", _t(vec), _t(x), N, M)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-15)
     want_ll = np.asarray(jevaluate.chain_conditional_loglik("gnmgp_hetero", chain[:3], x, y))

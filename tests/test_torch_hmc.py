@@ -359,7 +359,7 @@ def test_latent_summary_and_dic_match_jax(small):
     for f, g, w in zip(want._fields, got, want):
         np.testing.assert_allclose(g, np.asarray(w), rtol=1e-12, err_msg=f)
     jx, jy = jnp.asarray(x), jnp.asarray(y)
-    want_dic = jevaluate.get_dic(jnp.asarray(hist), lambda v: jgnmgp.deviance(v, jy, jx))
+    want_dic = jevaluate.get_dic(jnp.asarray(hist), jax.jit(lambda v: jgnmgp.deviance(v, jy, jx)))
     got_dic = evaluate.get_dic(_t(hist), lambda v: gnmgp.deviance(v, _t(y), _t(x)))
     np.testing.assert_allclose(got_dic, want_dic, rtol=1e-9)
 
@@ -382,7 +382,8 @@ def hmc_runs(tmp_path_factory):
     port writes to a store."""
     d = jsim.sim_mnts(jax.random.PRNGKey(6), n=N_SUBJECT, m=2)
     x, y = np.asarray(d.x), np.asarray(d.y)
-    kw = dict(n_opt=N_OPT, do_hmc=True, n_hmc=N_HMC, hmc_leapfrog=N_LEAPFROG)
+    # no assertion reads the grid prediction (pred_grid), so neither run makes one
+    kw = dict(n_opt=N_OPT, do_hmc=True, n_hmc=N_HMC, hmc_leapfrog=N_LEAPFROG, do_pred_grid=False)
     want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**kw))
     root = str(tmp_path_factory.mktemp("hmc_store"))
     got = workflows.run_subject(x, y, workflows.PipelineConfig(**kw), store=ArtifactStore(root),
@@ -420,7 +421,7 @@ def test_run_subject_hmc_summaries_match_jax_on_the_port_chain(hmc_runs):
     for f, w in zip(want._fields, want):
         np.testing.assert_allclose(got["latent_summary"][f], np.asarray(w), rtol=1e-12, err_msg=f)
     jx, jy = jnp.asarray(x), jnp.asarray(y)
-    want_dic = jevaluate.get_dic(jnp.asarray(chain), lambda v: jgnmgp.deviance(v, jy, jx))
+    want_dic = jevaluate.get_dic(jnp.asarray(chain), jax.jit(lambda v: jgnmgp.deviance(v, jy, jx)))
     np.testing.assert_allclose(got["dic"], want_dic, rtol=1e-9)
 
 

@@ -16,6 +16,14 @@ kernel computes a pair's (I, J) from its index itself (``tile_pair``);
 ``_kernel_tile_pair`` is that loop transcribed, and a test holds it to the
 schedule's order.
 
+The generic route (M > 8) has its own emulation, ``emulate_generic``: the
+same walk over unordered tile pairs, on tiles of 64 rows of the flattened
+index (row n·M + a), S formed once a pair, the row side of I walking the
+columns of J and (off the diagonal) the column side of J walking the rows
+of I, input by input, for each block of ``K3_GENERIC_BB`` b values; the
+slots ``partial[slot][k][row]`` (k < M: L̄'s share, M + b block: that
+block's ℓ̄ share) and the two summing launches' fixed order.
+
 Tolerance: the emulation sums in another order than autograd and JAX, so it
 is held at 1e-10 of the gradient's largest |entry|, in float64, with an
 asymmetric K̄.
@@ -248,77 +256,211 @@ def test_emulation_does_not_depend_on_the_grid(rng):
     assert torch.equal(one[0], many[0]) and torch.equal(one[1], many[1])
 
 
-def emulate_generic(x, ell, ls, kbar, jitter, threads=256):
-    """(ℓ̄, L̄) by the generic route's order of work (M > 8): one block per
-    row input n; thread k owns (a, b) = (k / M, k % M), then k + threads,
-    ...; for each column input p in order, t[a,b] = Σ_c S[(n,a),(p,c)]·L[p,c,b]
-    in c order, L̄ += kxj·t, and the thread's ℓ̄ share += kx·f·L[n,a,b]·t;
-    the shares are summed by the block's tree."""
+def _generic_tables(x, ell, jitter, n0, p0, span=9):
+    """The generic route's Gibbs tables of a tile pair: kxj, W of the row
+    side (kx·f(ℓ_n; ℓ_p, D)) and of the column side (kx·f(ℓ_p; ℓ_n, D)) for
+    the inputs n0 + i, p0 + j (i, j < 9); 0 past N and W = 0 at n == p."""
+    n = len(x)
+    nn, pp = n0 + torch.arange(span), p0 + torch.arange(span)
+    ok = (nn[:, None] < n) & (pp[None, :] < n)
+    xi, li = x[nn.clamp(max=n - 1)], ell[nn.clamp(max=n - 1)]
+    xj, lj = x[pp.clamp(max=n - 1)], ell[pp.clamp(max=n - 1)]
+    ln, lp = li[:, None], lj[None, :]
+    d = (xi[:, None] - xj[None, :]) ** 2
+    a2 = ln * ln + lp * lp
+    kx = torch.sqrt(2 * (ln * lp) / a2) * torch.exp(-d / a2)
+    same = nn[:, None] == pp[None, :]
+    g = 2 * d / (a2 * a2) - 1 / a2
+    kxj = torch.where(ok, kx + jitter * same, 0.0)
+    wr = torch.where(ok & ~same, kx * (0.5 / ln + ln * g), 0.0)
+    wc = torch.where(ok & ~same, kx * (0.5 / lp + lp * g), 0.0)
+    return kxj, wr, wc
+
+
+def _generic_side(s, lf, m, nm, own0, walk0, kxj, w, bb):
+    """One side of a pair for every row e of tile own0 and every b: walking
+    the rows of tile walk0 input by input (s[e, w] = S along the walk),
+    L̄'s share and each b block's ℓ̄ share.  kxj, w: [own input, walked
+    input] tables."""
+    t = s.shape[0]
+    own = (own0 + torch.arange(t)) // m - own0 // m
+    first, wlim = walk0 // m, min(t, nm - walk0)
+    acc, lacc = torch.zeros((t, m), dtype=T64), torch.zeros((t, m), dtype=T64)
+    w0, seg, end = 0, 0, (walk0 // m + 1) * m - walk0
+    while w0 < wlim:  # one walked input a segment
+        w1 = min(end, wlim)
+        part = s[:, w0:w1] @ lf[walk0 + w0:walk0 + w1]
+        acc = acc + kxj[own, seg][:, None] * part
+        lacc = lacc + w[own, seg][:, None] * part
+        w0, seg, end = w1, seg + 1, end + m
+    rows = torch.arange(own0, own0 + t).clamp(max=nm - 1)
+    blocks = -(-m // bb)
+    lsh = torch.stack([(lf[rows, k * bb:(k + 1) * bb] * lacc[:, k * bb:(k + 1) * bb]).sum(1) for k in range(blocks)], 1)
+    return acc, lsh
+
+
+def emulate_generic(x, ell, ls, kbar, jitter, sms=132):
+    """(ℓ̄, L̄) by the generic route's schedule (M > 8), with the count of
+    reads of each K̄ element and of writes of each (slot, k, row)."""
     n, m, _ = ls.shape
-    mm = m * m
-    d = (x[:, None] - x[None, :]) ** 2
-    a2 = ell[:, None] ** 2 + ell[None, :] ** 2
-    kx = torch.sqrt(2 * (ell[:, None] * ell[None, :]) / a2) * torch.exp(-d / a2)
-    f = 1 / (2 * ell[:, None]) - ell[:, None] / a2 + 2 * ell[:, None] * d / (a2 * a2)
-    w = (kx * f).fill_diagonal_(0)
-    kxj = kx + jitter * torch.eye(n, dtype=T64)
-    kb4 = kbar.reshape(n, m, n, m)
-    ls_bar = torch.empty((n, mm), dtype=T64)
-    ell_bar = torch.empty(n, dtype=T64)
-    a_of, b_of = torch.arange(mm) // m, torch.arange(mm) % m
-    for r in range(n):
-        acc = torch.zeros(mm, dtype=T64)
-        lsh = torch.zeros(mm, dtype=T64)
-        for p in range(n):
-            t = torch.zeros(mm, dtype=T64)
-            for c in range(m):
-                t = t + (kb4[r, a_of, p, c] + kb4[p, c, r, a_of]) * ls[p, c, b_of]
-            acc = acc + kxj[r, p] * t
-            lsh = lsh + w[r, p] * ls[r].reshape(-1) * t
-        ls_bar[r] = acc
-        # thread k % threads holds the shares of k, k + threads, ...; then the tree
-        red = torch.zeros(threads, dtype=T64)
-        for k0 in range(0, mm, threads):
-            chunk = lsh[k0:k0 + threads]
-            red[:chunk.numel()] += chunk
-        off = threads // 2
-        while off:
-            red = red[:off] + red[off:2 * off]
-            off //= 2
-        ell_bar[r] = red[0]
-    return ell_bar, ls_bar.reshape(n, m, m)
+    nm = n * m
+    sched = gk.k3_backward_schedule(n, m, sms)
+    t, nt, bb = sched.tile, sched.n_tiles, gk.K3_GENERIC_BB
+    nbb = sched.n_bblocks
+    ks = m + nbb
+    assert sched.partial_numel == nt * ks * nm
+    lf = ls.reshape(nm, m)
+    kbs = torch.zeros((nt * t, nt * t), dtype=T64)  # staged: 0 past NM
+    kbs[:nm, :nm] = kbar
+    partial = torch.full((nt, ks, nm), float("nan"), dtype=T64)
+    reads = torch.zeros((nm, nm), dtype=torch.int64)
+    writes = torch.zeros((nt, ks, nm), dtype=torch.int64)
+    for b in range(sched.grid):  # the persistent grid: block b takes q = b, b + grid, ...
+        for q in range(b, sched.n_pairs, sched.grid):
+            i, j = _kernel_tile_pair(q, nt)
+            i0, j0 = i * t, j * t
+            reads[i0:i0 + t, j0:j0 + t] += 1
+            if i != j:
+                reads[j0:j0 + t, i0:i0 + t] += 1
+            s = kbs[i0:i0 + t, j0:j0 + t] + kbs[j0:j0 + t, i0:i0 + t].T  # S[I, J], formed once
+            kxj, wr, wc = _generic_tables(x, ell, jitter, i0 // m, j0 // m)
+            sides = [(s, i0, j0, kxj, wr, j)]  # the rows of I walking J, into slot J
+            if i != j:
+                sides.append((s.T, j0, i0, kxj.T, wc.T, i))  # the rows of J walking I, into slot I
+            for s_, own0, walk0, kt, wt, slot in sides:
+                acc, lsh = _generic_side(s_, lf, m, nm, own0, walk0, kt, wt, bb)
+                rows = slice(own0, min(nm, own0 + t))
+                real = rows.stop - rows.start
+                partial[slot, :m, rows] = acc[:real].T
+                partial[slot, m:, rows] = lsh[:real].T
+                writes[slot, :, rows] += 1
+    # the second launch: each (k, row)'s slots in order; the third: ℓ̄'s
+    # terms j = a·(b blocks) + b block by one warp an input, lane l adding
+    # terms l, l + 32, ..., then a shuffle tree
+    sums = torch.zeros((ks, nm), dtype=T64)
+    for slot in range(nt):
+        sums = sums + partial[slot]
+    terms = sums[m:].T.reshape(n, m * nbb)  # [n][a·nbb + b block]
+    lanes = torch.zeros((n, 32), dtype=T64)
+    for k in range(terms.shape[1]):
+        lanes[:, k % 32] = lanes[:, k % 32] + terms[:, k]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, torch.arange(32) ^ off]
+    return lanes[:, 0], sums[:m].T.reshape(n, m, m), reads, writes
 
 
-@pytest.mark.parametrize("n,m", [(6, 9), (4, 13), (3, 17)])
-def test_generic_route_order_of_work_matches_jax_grad(rng, n, m):
-    """M > 8: the generic route, at M = 9, 13 and 17 (M² over a block's 256
-    threads, so a thread owns two (a, b))."""
+GENERIC_SHAPES = [(6, 9), (4, 13), (3, 17), (21, 9), (5, 30), (2, 64)]
+
+
+def _coupled_inputs(rng, n, m):
     x, _, ls, kbar = _inputs(rng, n, m)
     # lengthscales that couple these few inputs, so that ℓ̄ is not 0 up to rounding
     ell = np.exp(-1 + 0.2 * rng.normal(size=n))
+    return x, ell, ls, kbar
+
+
+@pytest.mark.parametrize("n,m", GENERIC_SHAPES)
+def test_generic_route_order_of_work_matches_jax_grad(rng, n, m):
+    """M > 8: the generic route's walk against ``jax.grad`` of the JAX
+    package's Gram and against autograd of the plain version."""
+    x, ell, ls, kbar = _coupled_inputs(rng, n, m)
     want_e, want_l = _jax_grad(x, ell, ls, kbar)
-    got_e, got_l = emulate_generic(*(torch.tensor(a, dtype=T64) for a in (x, ell, ls, kbar)), JITTER)
-    for got, want in ((got_e, want_e), (got_l, want_l)):
+    args = [torch.tensor(a, dtype=T64) for a in (x, ell, ls, kbar)]
+    got_e, got_l, *_ = emulate_generic(*args, JITTER)
+    plain_e, plain_l = gk.svc_gram_tiled_backward_plain(args[0], args[1], args[2], JITTER, args[3])
+    for got, want, plain in ((got_e, want_e, plain_e), (got_l, want_l, plain_l)):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-10 * np.abs(want).max())
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-10, atol=1e-10 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n,m", GENERIC_SHAPES)
+@pytest.mark.parametrize("sms", [1, 132])
+def test_generic_route_reads_kbar_once_and_writes_each_slot_once(rng, n, m, sms):
+    x, ell, ls, kbar = (torch.tensor(a, dtype=T64) for a in _coupled_inputs(rng, n, m))
+    *_, reads, writes = emulate_generic(x, ell, ls, kbar, JITTER, sms)
+    assert torch.equal(reads, torch.ones_like(reads))
+    assert torch.equal(writes, torch.ones_like(writes))
+
+
+def test_generic_route_does_not_depend_on_the_grid(rng):
+    x, ell, ls, kbar = (torch.tensor(a, dtype=T64) for a in _coupled_inputs(rng, 21, 9))
+    one = emulate_generic(x, ell, ls, kbar, JITTER, sms=1)
+    many = emulate_generic(x, ell, ls, kbar, JITTER, sms=132)
+    assert gk.k3_backward_schedule(21, 9, 1).grid == 1 and gk.k3_backward_schedule(21, 9).grid == 6
+    assert torch.equal(one[0], many[0]) and torch.equal(one[1], many[1])
 
 
 def test_generic_route_schedule():
-    sched = gk.k3_backward_schedule(40, 9)
-    assert (sched.route, sched.tile, sched.grid, sched.partial_numel) == ("generic", 1, 40, 0)
+    """The A/B shapes: tiles of 64 flattened rows, one block per SM (never
+    more than the tile pairs), and the partials in doubles."""
+    want = {(200, 9): (29, 435, 132, 5_011_200), (1000, 9): (141, 10_011, 132, 121_824_000),
+            (500, 16): (125, 7_875, 132, 176_000_000), (200, 32): (100, 5_050, 132, 220_160_000),
+            (64, 9): (9, 45, 45, 497_664)}
+    for (n, m), (tiles, pairs, grid, scratch) in want.items():
+        sched = gk.k3_backward_schedule(n, m)
+        assert (sched.route, sched.tile) == ("generic", 64)
+        assert (sched.n_tiles, sched.n_pairs, sched.grid) == (tiles, pairs, grid)
+        for dtype in (torch.float64, torch.float32):
+            assert sched.partial_dtype(dtype) == torch.float64 and sched.scratch_bytes(dtype) == scratch
     assert gk.k3_backward_schedule(40, 8).route == "tiled"
+    assert gk.k3_backward_schedule(40, 8).partial_dtype(torch.float32) == torch.float32
+
+
+def test_generic_emulation_mirrors_the_kernel_source():
+    """The lines of ``svc_gram_tiled.cu`` that ``emulate_generic`` and
+    ``_generic_side`` transcribe: a change there must be made here too."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "svc_gram_tiled.cu")) as f:
+        src = " ".join(f.read().split())
+    for line in (
+        "constexpr int kGenTile = 64;",
+        "constexpr int kGenBB = 3;",
+        "S[r * kGenKP + c] = static_cast<double>(kb[r * kGenKP + c]) + static_cast<double>(kbt[c * kGenKP + r]);",
+        "const int nn = I0 / m + tid / kGenSpan, pp = J0 / m + tid % kGenSpan;",
+        "kxj = nn == pp ? kx + static_cast<double>(jitter) : kx;",
+        "for (int end = (first + 1) * m - walk0; w < wlim; end += m, ++seg) {",
+        "const double s = COL ? S[w * kGenKP + e] : S[e * kGenKP + w];",
+        "const int tab = COL ? seg * kGenSpan + own : own * kGenSpan + seg;",
+        "gen_bwd_task<T, false>(S, kxj_s, wr_s, LI, LJ, m, nm, k % kGenTile, k / kGenTile, I0, J0, J, ks, partial);",
+        "gen_bwd_task<T, true>(S, kxj_s, wc_s, LJ, LI, m, nm, (k - side) % kGenTile, (k - side) / kGenTile, J0, I0, I, ks, partial);",
+        "const double v = static_cast<double>(kb[r * kGenKP + c]) + static_cast<double>(kb[c * kGenKP + r]);",
+        "dst[static_cast<size_t>(m + bb) * nm] = lsum;",
+        "for (int j = 0; j < kGenSlotBatch; ++j) v[j] = src[(s + j) * stride];",
+        "for (int j = 0; j < kGenSlotBatch; ++j) acc += v[j];",
+        "for (; s < n_slots; ++s) acc += src[s * stride];",
+        "if (k < m) ls_bar[row * m + k] = static_cast<T>(acc); else partial[i] = acc;",
+        "for (int j = lane; j < m * nbb; j += 32) { const int a = j / nbb, kb = j % nbb;",
+        "acc += partial[(m + kb) * nm + w * m + a];",
+    ):
+        assert line in src, line
 
 
 def test_generic_route_shared_memory_does_not_grow_with_m():
-    """Every M above 8 (9..256 here) takes the generic route, whose only
-    shared memory is three double arrays of a block's 256 threads: 6,144 B
-    whatever M and the type are, far under the H100's 232,448 B a block."""
+    """Every M above 8 (9..256 here) takes the generic route, whose shared
+    memory is two stages of two 64 x 65 K̄ tiles in the input's type, the
+    tiles' 64 rows of L where both stages still fit the H100's 232,448 B a
+    block (M <= 47 in float64, 127 in float32; above, L is read through the
+    cache and the size no longer grows with M), then S (float32) and three
+    9 x 9 tables in double."""
     with open(os.path.join(cuda_build.CSRC_DIR, "svc_gram_tiled.cu")) as f:
-        src = f.read()
-    body = src[src.index("svc_gram_tiled_bwd_generic_kernel(const T*"):]
-    body = body[:body.index("\ntemplate <typename T>")]
-    assert "extern __shared__" not in body
-    assert [ln.strip() for ln in body.splitlines() if "__shared__" in ln] == [
-        "__shared__ double kxj_s[kThreads], w_s[kThreads], red[kThreads];"]
-    assert "constexpr int kThreads = 256;" in src
-    assert all(gk.k3_backward_schedule(40, m).route == "generic" for m in range(9, 257))
+        src = " ".join(f.read().split())
+    for line in (
+        "static constexpr int KB = kGenTile * kGenKP;",
+        "static constexpr int TAB = kGenSpan * kGenSpan;",
+        "static constexpr bool S_IN_PLACE = sizeof(T) == 8;",
+        "return 2 * KB + (stage_l ? 2 * kGenTile * m : 0);",
+        "return sizeof(T) * 2 * stage(m, stage_l) + sizeof(double) * ((S_IN_PLACE ? 0 : KB) + 3 * TAB);",
+        "const bool stage_l = GenBwd<T>::smem(m, true) <= kMaxSmem;",
+        "constexpr size_t kMaxSmem = 232448;",
+        "constexpr int kGenKP = kGenTile + 1;",
+    ):
+        assert line in src, line
+    for dtype, size, last in ((torch.float64, 8, 47), (torch.float32, 4, 127)):
+        staged = [m for m in range(9, 257) if gk.k3_backward_schedule(40, m).l_staged(dtype)]
+        assert staged == list(range(9, last + 1))
+        for m in range(9, 257):
+            sched = gk.k3_backward_schedule(40, m)
+            assert sched.route == "generic" and sched.smem_bytes(dtype) <= 232_448
+            stage = 2 * 64 * 65 + (2 * 64 * m if m <= last else 0)
+            assert sched.smem_bytes(dtype) == size * 2 * stage + 8 * ((0 if size == 8 else 64 * 65) + 3 * 81)
+    assert gk.k3_backward_schedule(1000, 9).smem_bytes(torch.float64) == 153_496

@@ -16,11 +16,18 @@ tail of a short vector otherwise, and the walk, not ``exp``, is what the
 emulation checks.  The task sums and the jitter are the emulation's own, in
 the kernel's order, so the assembled Gram must equal the plain version bit
 for bit.
+
+The generic route (M > 8) has its own emulation, ``emulate_generic``: one
+block per 64 × 64 tile of the flattened NM × NM output, the tile's L staged
+(zero past NM), each sum run b = 0..M−1 in order, and each thread's stores
+(rows ``4ty + i``, the columns of ``K3ForwardSchedule.generic_columns``,
+``vec`` values at once) counted and checked for alignment.
 """
 
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,6 +92,82 @@ def emulate(x, ell, ls, jitter, sched):
     return out, writes, aligned
 
 
+def emulate_generic(x, ell, ls, jitter, sched):
+    """The generic route's Gram by its walk, the count of writes of each
+    output, and whether every store was aligned to its width."""
+    n, m, _ = ls.shape
+    nm, t, vec = n * m, sched.rows, sched.vec
+    kx0 = _kx(x, ell)
+    lf = ls.reshape(nm, m)
+    out = torch.full((nm, nm), float("nan"), dtype=x.dtype)
+    writes = torch.zeros((nm, nm), dtype=torch.int64)
+    aligned = True
+    # thread (ty, tx): rows 4ty + i, columns generic_columns(tx); a store covers vec of them
+    cols = torch.tensor([sched.generic_columns(tx, x.element_size()) for tx in range(16)])
+    assert sorted(cols.flatten().tolist()) == list(range(t))  # the 16 x 16 threads cover the tile once
+    starts = cols[:, ::vec].flatten()  # the first column of each store
+    rows = torch.arange(t)  # 4 ty + i over ty < 16, i < 4
+    idx = torch.arange(t)
+    for by in range(sched.n_tiles):  # block (x, y) = (column tile, row tile)
+        for bx in range(sched.n_tiles):
+            r0, c0 = by * t, bx * t
+            a, b = (torch.zeros((t, m), dtype=x.dtype) for _ in range(2))
+            a[: max(0, min(t, nm - r0))] = lf[r0:r0 + t]  # staged, 0 past NM
+            b[: max(0, min(t, nm - c0))] = lf[c0:c0 + t]
+            acc = a[:, 0, None] * b[None, :, 0]
+            for j in range(1, m):
+                acc = acc + a[:, j, None] * b[None, :, j]
+            r_ok, c_ok = r0 + rows < nm, c0 + idx < nm
+            s_ok = c0 + starts < nm
+            aligned &= bool((((r0 + rows[r_ok, None]) * nm + c0 + starts[None, s_ok]) % vec == 0).all())
+            rr, cc = r0 + rows[r_ok], c0 + idx[c_ok]
+            nr, pc = rr // m, cc // m
+            kx = kx0[nr[:, None], pc[None, :]] + (nr[:, None] == pc[None, :]).to(x.dtype) * jitter
+            out[rr[:, None], cc[None, :]] = kx * acc[r_ok][:, c_ok]
+            writes[rr[:, None], cc[None, :]] += 1
+    return out, writes, aligned
+
+
+GENERIC_SHAPES = [(6, 9), (4, 13), (3, 17), (21, 9), (5, 30), (2, 64)]
+
+
+@jax.jit
+def _jax_gram(x, ell, ls):
+    """The JAX package's Gram, permuted to input-major (jitted: op by op it
+    takes seconds a shape)."""
+    n, m, _ = ls.shape
+    kx = jkernels.nonstationary_rbf_cov(x, ell1=ell)
+    return jgnmgp.gram(kx, ls).reshape(m, n, m, n).transpose(1, 0, 3, 2).reshape(n * m, n * m)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m", GENERIC_SHAPES)
+def test_generic_walk_writes_each_output_once_and_equals_plain(rng, n, m, dtype):
+    x, ell, ls = _inputs(rng, n, m, dtype)
+    sched = gk.k3_forward_schedule(n, m, dtype)
+    got, writes, aligned = emulate_generic(x, ell, ls, JITTER, sched)
+    assert torch.equal(writes, torch.ones_like(writes))
+    assert aligned
+    assert torch.equal(got, gk.svc_gram_tiled_plain(x, ell, ls, JITTER))
+    if dtype == torch.float64:
+        want = _jax_gram(*(jnp.asarray(a.numpy()) for a in (x, ell, ls)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-14)
+
+
+def test_generic_schedule_at_the_timed_shapes():
+    """The A/B shapes: 64 x 64 tiles of the flattened output, 256 threads
+    a block, double2 stores where N·M is even (float4 in float32 where N·M
+    is divisible by 4)."""
+    for (n, m), tiles in {(200, 9): 29, (1000, 9): 141, (500, 16): 125, (200, 32): 100, (64, 9): 9}.items():
+        sched = gk.k3_forward_schedule(n, m, torch.float64)
+        assert (sched.route, sched.rows, sched.warps, sched.vec) == ("generic", 64, 8, 2)
+        assert (sched.n_tiles, sched.grid) == (tiles, tiles * tiles)
+        assert gk.k3_forward_schedule(n, m, torch.float32).vec == 4
+    assert gk.k3_forward_schedule(21, 9, torch.float64).vec == 1  # N·M = 189
+    assert gk.k3_forward_schedule(5, 30, torch.float32).vec == 2  # N·M = 150
+    assert gk.k3_forward_schedule(4, 130, torch.float64).grid == 81
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m", [1, 2, 3, 5])
 @pytest.mark.parametrize("n", [1, 17, 37])
@@ -120,7 +203,9 @@ def test_route_follows_the_alignment_rule(m):
         for n in (1, 37, 1000):
             sched = gk.k3_forward_schedule(n, m, dtype)
             if m > gk.K3_MAX_M:
-                assert (sched.route, sched.vec, sched.rows) == ("generic", 1, 16)
+                # the generic route: the widest store that divides N·M
+                want = max(v for v in (1, 2, 4) if (n * m) % v == 0 and v * size <= 16)
+                assert (sched.route, sched.vec, sched.rows) == ("generic", want, 64)
                 continue
             # the widest store (at most 16 B) whose width divides M
             want = max(v for v in (1, 2, 4) if m % v == 0 and v * size <= 16)
@@ -174,17 +259,39 @@ def test_emulation_mirrors_the_kernel_source():
         assert line in src, line
 
 
+def test_generic_emulation_mirrors_the_kernel_source():
+    """The lines of ``svc_gram_tiled.cu`` that ``emulate_generic`` and
+    ``generic_columns`` transcribe: a change there must be made here too."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "svc_gram_tiled.cu")) as f:
+        src = " ".join(f.read().split())
+    for line in (
+        "constexpr int kGenTile = 64;",
+        "const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;",
+        "const int R0 = blockIdx.y * kGenTile, C0 = blockIdx.x * kGenTile;",
+        "As[b * kGenPitch + r] = in_b && R0 + r < nm ? ls[static_cast<size_t>(R0 + r) * m + k0 + b] : T(0);",
+        "acc[i][j] = FIRST ? a[i] * c[j] : acc[i][j] + a[i] * c[j];",
+        "return CW * tx + 16 * CW * (j / CW) + j % CW;",
+        "const int lr = 4 * ty + i;",
+        "if (r == p) kx = kx + jitter;",
+        "for (int j = 0; j < 4; j += V) { const int lc = G::col(tx, j); if (C0 + lc >= nm) continue;",
+        "for (int v = 0; v < V; ++v) val[v] = kx_r[cp_s[lc + v]] * acc[i][j + v];",
+        "store_vec<T, V>(orow + lc, val);",
+        "return sizeof(T) == 8 ? (k % 2 == 0 ? 2 : 1) : (k % 4 == 0 ? 4 : k % 2 == 0 ? 2 : 1);",
+    ):
+        assert line in src, line
+
+
 def test_shared_memory_fits_the_card_at_every_m():
-    """A block's dynamic shared memory, as the schedule computes it from (M,
-    dtype), stays under the H100's 232,448 B a block for M = 1..256: the
-    generic route (M > 8) holds x, ℓ and the Gibbs terms of its tile alone,
-    a size that does not depend on M."""
+    """A block's shared memory, as the schedule computes it from (M, dtype),
+    stays under the H100's 232,448 B a block for M = 1..256: the generic
+    route (M > 8) stages L 16 task columns at a time, a size that does not
+    depend on M."""
     for dtype, size in ((torch.float64, 8), (torch.float32, 4)):
         for m in range(1, 257):
             sched = gk.k3_forward_schedule(1000, m, dtype)
             assert 0 <= sched.smem_bytes <= 232_448
             if m > gk.K3_MAX_M:
-                assert sched.smem_bytes == size * (4 * 16 + 16 * 16)
+                assert sched.smem_bytes == size * (2 * 16 * 68 + 9 * 9) + 4 * 2 * 64
             elif m <= 4:
                 assert sched.smem_bytes == 0
             else:
@@ -193,24 +300,23 @@ def test_shared_memory_fits_the_card_at_every_m():
 
 def test_shared_memory_formula_mirrors_the_kernel_source():
     """The lines of ``svc_gram_tiled.cu`` that size the forward's shared
-    memory, and the generic kernel's use of it: L is read through the
-    cache, never staged."""
+    memory: the generic kernel's static arrays, whatever M."""
     with open(os.path.join(cuda_build.CSRC_DIR, "svc_gram_tiled.cu")) as f:
         raw = f.read()
     src = " ".join(raw.split())
     for line in (
-        "constexpr int kTile = 16;",
-        "constexpr int kGenericSmem = 4 * kTile + kTile * kTile;",
-        "const size_t smem = sizeof(T) * kGenericSmem;",
+        "constexpr int kGenK = 16;",
+        "constexpr int kGenPitch = kGenTile + 4;",
+        "constexpr int kGenSpan = 9;",
+        "__shared__ __align__(16) T As[kGenK * kGenPitch];",
+        "__shared__ __align__(16) T Bs[kGenK * kGenPitch];",
+        "__shared__ T kx_s[kGenSpan * kGenSpan];",
+        "__shared__ int rn_s[kGenTile], cp_s[kGenTile];",
         "static constexpr bool REGS = M <= 4;",
         "static constexpr int STRIP = 32 * MM;",
         "const size_t smem = F::REGS ? 0 : sizeof(T) * F::STRIP * warps;",
-        "T* kx_s = l_c + kTile; // kTile * kTile",
-        "T bsum = __ldg(lr) * __ldg(lc);",
-        "for (int b = 1; b < m; ++b) bsum = bsum + __ldg(lr + b) * __ldg(lc + b);",
-        "tile_out[static_cast<size_t>(r) * nm + q] = kx_s[nl * kTile + pl] * bsum;",
     ):
         assert line in src, line
     body = raw[raw.index("svc_gram_tiled_generic_kernel(const T*"):]
     body = body[:body.index("\ntemplate <typename T")]
-    assert "kx_s + kTile * kTile" not in body  # nothing staged past the Gibbs terms
+    assert "extern __shared__" not in body  # nothing sized by M

@@ -97,7 +97,8 @@ def test_observation_cov_and_loo_conditionals_match_jax(rng):
     n, m, s = 14, 2, 3
     x, y, vec = subject(rng, n, m)
     hist = vec[None, :] + 0.05 * rng.normal(size=(s, vec.size))
-    want = np.asarray(jevaluate.observation_cov("lmc", jnp.asarray(vec), jnp.asarray(x), n, m))
+    jax_cov = jax.jit(jevaluate.observation_cov, static_argnums=(0, 3, 4))  # op by op: seconds
+    want = np.asarray(jax_cov("lmc", jnp.asarray(vec), jnp.asarray(x), n, m))
     got = evaluate.observation_cov("lmc", _t(vec), _t(x), n, m)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-15)
     want_ll = np.asarray(jevaluate.chain_conditional_loglik("lmc", hist, x, y))

@@ -97,11 +97,15 @@ def _draws(rng, n, m, s, scale=0.05):
     return center[None, :] + scale * rng.normal(size=(s, center.size))
 
 
+#: JAX's observation covariance, jitted (op by op it took 3.5 s a shape).
+_jax_observation_cov = jax.jit(jevaluate.observation_cov, static_argnums=(0, 3, 4))
+
+
 @pytest.mark.parametrize("n,m", [(12, 2), (9, 3)])
 def test_observation_cov_matches_jax(rng, n, m):
     x = np.sort(rng.uniform(size=n))
     vec = _draws(rng, n, m, 1)[0]
-    want = np.asarray(jevaluate.observation_cov("gnmgp", jnp.asarray(vec), jnp.asarray(x), n, m))
+    want = np.asarray(_jax_observation_cov("gnmgp", jnp.asarray(vec), jnp.asarray(x), n, m))
     got = evaluate.observation_cov("gnmgp", _t(vec), _t(x), n, m)
     assert got.shape == (n * m, n * m)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-14)
@@ -133,10 +137,11 @@ def test_pointwise_conditional_loglik_matches_jax_and_brute_force(rng, masked):
     x = np.sort(rng.uniform(size=n))
     vec = _draws(rng, n, m, 1)[0]
     y_tm = rng.normal(size=n * m)
-    cov = np.asarray(jevaluate.observation_cov("gnmgp", jnp.asarray(vec), jnp.asarray(x), n, m))
+    cov = np.asarray(_jax_observation_cov("gnmgp", jnp.asarray(vec), jnp.asarray(x), n, m))
     mask = np.tile(np.arange(n) < n - 3, m) if masked else None
-    want = np.asarray(jevaluate.pointwise_conditional_loglik(
-        jnp.asarray(cov), jnp.asarray(y_tm), None if mask is None else jnp.asarray(mask)))
+    jmask = None if mask is None else jnp.asarray(mask)
+    want = np.asarray(jax.jit(lambda c, yy: jevaluate.pointwise_conditional_loglik(c, yy, jmask))(
+        jnp.asarray(cov), jnp.asarray(y_tm)))
     got = evaluate.pointwise_conditional_loglik(_t(cov), _t(y_tm), None if mask is None else torch.tensor(mask))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-8, atol=1e-12)
     keep = np.ones(n * m, bool) if mask is None else mask

@@ -277,17 +277,17 @@ def test_gnmgp_objective_matches_jax(rng, n, m, masked):
     mask = (np.arange(n) < n - max(1, n // 8)) if masked else None
     jdata = JFullData(jnp.asarray(x), jnp.asarray(y))
     jf = jgnmgp.make_objective(jdata, mask=None if mask is None else jnp.asarray(mask))
-    want_v, want_g = jax.jit(jax.value_and_grad(jf))(jnp.asarray(vec))
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    # JAX's side as one jitted program: one compile a case
+    (want_v, want_g), want_nlp, want_dev = jax.jit(lambda v: (
+        jax.value_and_grad(jf)(v), jgnmgp.nlogpos(v, jy, jx), jgnmgp.deviance(v, jy, jx)))(jnp.asarray(vec))
     f = gnmgp.make_objective(FullData(_t(x), _t(y)), mask=None if mask is None else torch.tensor(mask))
     got_v, got_g = _value_and_grad(f, vec)
     np.testing.assert_allclose(got_v, float(want_v), rtol=1e-6)
     _close(got_g, want_g, 1e-6)
     if not masked:
-        jargs = (jnp.asarray(vec), jnp.asarray(y), jnp.asarray(x))
-        np.testing.assert_allclose(gnmgp.nlogpos(_t(vec), _t(y), _t(x)).item(),
-                                   float(jax.jit(jgnmgp.nlogpos)(*jargs)), rtol=1e-6)
-        np.testing.assert_allclose(gnmgp.deviance(_t(vec), _t(y), _t(x)).item(),
-                                   float(jax.jit(jgnmgp.deviance)(*jargs)), rtol=1e-6)
+        np.testing.assert_allclose(gnmgp.nlogpos(_t(vec), _t(y), _t(x)).item(), float(want_nlp), rtol=1e-6)
+        np.testing.assert_allclose(gnmgp.deviance(_t(vec), _t(y), _t(x)).item(), float(want_dev), rtol=1e-6)
 
 
 def test_gnmgp_verbose_components_match_jax(rng):
@@ -308,20 +308,21 @@ def test_snmgp_objective_matches_jax(rng, n, m):
     vec = np.concatenate([3 * (x - 1) ** 3 - 2, 0.2 * rng.normal(size=n),
                           0.5 * rng.normal(size=t), [np.log(5e-2)]])
     jdata = JFullData(jnp.asarray(x), jnp.asarray(y))
-    want_v, want_g = jax.jit(jax.value_and_grad(jsnmgp.make_objective(jdata)))(jnp.asarray(vec))
+    mask = np.arange(n) < n - 2
+    jx, jy, jmask = jnp.asarray(x), jnp.asarray(y), jnp.asarray(mask)
+    # JAX's side as one jitted program: one compile a case (op by op, the
+    # masked log-likelihood alone took seconds)
+    (want_v, want_g), want_nlp, want_dev, want_ll = jax.jit(lambda v: (
+        jax.value_and_grad(jsnmgp.make_objective(jdata))(v), jsnmgp.nlogpos(v, jy, jx), jsnmgp.deviance(v, jy, jx),
+        jsnmgp.log_lik(jsnmgp.unpack(v, n, m), jdata, mask=jmask)))(jnp.asarray(vec))
     got_v, got_g = _value_and_grad(snmgp.make_objective(FullData(_t(x), _t(y))), vec)
     np.testing.assert_allclose(got_v, float(want_v), rtol=1e-6)
     _close(got_g, want_g, 1e-6)
-    jargs = (jnp.asarray(vec), jnp.asarray(y), jnp.asarray(x))
-    np.testing.assert_allclose(snmgp.nlogpos(_t(vec), _t(y), _t(x)).item(),
-                               float(jax.jit(jsnmgp.nlogpos)(*jargs)), rtol=1e-6)
-    np.testing.assert_allclose(snmgp.deviance(_t(vec), _t(y), _t(x)).item(),
-                               float(jax.jit(jsnmgp.deviance)(*jargs)), rtol=1e-6)
-    mask = np.arange(n) < n - 2
+    np.testing.assert_allclose(snmgp.nlogpos(_t(vec), _t(y), _t(x)).item(), float(want_nlp), rtol=1e-6)
+    np.testing.assert_allclose(snmgp.deviance(_t(vec), _t(y), _t(x)).item(), float(want_dev), rtol=1e-6)
     np.testing.assert_allclose(
         snmgp.log_lik(snmgp.unpack(_t(vec), n, m), FullData(_t(x), _t(y)), mask=torch.tensor(mask)).item(),
-        float(jsnmgp.log_lik(jsnmgp.unpack(jnp.asarray(vec), n, m), jdata, mask=jnp.asarray(mask))),
-        rtol=1e-6)
+        float(want_ll), rtol=1e-6)
 
 
 def test_models_pack_unpack_roundtrip(rng):

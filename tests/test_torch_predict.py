@@ -64,7 +64,9 @@ def test_krige_rbf_rejects_2d_inputs():
 def test_predict_map_matches_jax(rng, n, m):
     x, y, vec = make_subject(rng, n, m)
     grid = np.linspace(0.0, 1.0, 37)
-    want = jpred.predict_map(jnp.asarray(vec), JFullData(jnp.asarray(x), jnp.asarray(y)), jnp.asarray(grid))
+    # jitted, as the other models' tests run it (op by op: seconds a shape)
+    want = jax.jit(lambda v, xx, yy, gg: jpred.predict_map(v, JFullData(xx, yy), gg))(
+        *(jnp.asarray(a) for a in (vec, x, y, grid)))
     got = pred.predict_map(vec, FullData(x, y), grid, device="cpu")
     assert got.mean.shape == (37, m) and got.percentiles.shape == (37, 3, m)
     assert got.mean.dtype == torch.float64 and got.mean.device.type == "cpu"

@@ -79,19 +79,26 @@ def _jdata(x, y):
 def test_predict_sample_matches_jax_given_its_noise(subject):
     x, y, _, chain, grid = subject
     key = jax.random.PRNGKey(4)
-    want = np.asarray(jpred.predict_sample(key, jnp.asarray(chain), _jdata(x, y), jnp.asarray(grid),
-                                           hyper=HYPER, n_sample=S))
+    # jitted: JAX's vmapped draws run op by op otherwise (~12 s here)
+    jax_sample = jax.jit(lambda k, c, d, g: jpred.predict_sample(k, c, d, g, hyper=HYPER, n_sample=S))
+    want = np.asarray(jax_sample(key, jnp.asarray(chain), _jdata(x, y), jnp.asarray(grid)))
     got = pred.predict_sample(None, chain, FullData(x, y), grid, hyper=HYPER, n_sample=S, device="cpu",
                               noise=jax_y_noise(key, S))
     assert got.shape == want.shape == (G, S, M) and got.dtype == torch.float64
     _close(got.numpy(), want)
 
 
+def _jax_map_sampling(**kw):
+    """JAX's predict_map_sampling over S draws, jitted (op by op its
+    vmapped draws took seconds a call)."""
+    return jax.jit(lambda k, v, d, g: jpred.predict_map_sampling(k, S, v, d, g, hyper=HYPER, **kw))
+
+
 def test_predict_map_sampling_smoothness_matches_jax(subject):
     x, y, vec, _, grid = subject
     key = jax.random.PRNGKey(5)
-    want = np.asarray(jpred.predict_map_sampling(key, S, jnp.asarray(vec), _jdata(x, y), jnp.asarray(grid),
-                                                 hyper=HYPER, pred_smoothness=True))
+    want = np.asarray(_jax_map_sampling(pred_smoothness=True)(key, jnp.asarray(vec), _jdata(x, y),
+                                                               jnp.asarray(grid)))
     got = pred.predict_map_sampling(None, S, vec, FullData(x, y), grid, hyper=HYPER, pred_smoothness=True,
                                     device="cpu", noise=jax_noise(key, S, (G,)))
     assert got.shape == want.shape == (G, S)
@@ -101,8 +108,7 @@ def test_predict_map_sampling_smoothness_matches_jax(subject):
 def test_predict_map_sampling_cov_matches_jax(subject):
     x, y, vec, _, grid = subject
     key = jax.random.PRNGKey(6)
-    want = np.asarray(jpred.predict_map_sampling(key, S, jnp.asarray(vec), _jdata(x, y), jnp.asarray(grid),
-                                                 hyper=HYPER, pred_cov=True))
+    want = np.asarray(_jax_map_sampling(pred_cov=True)(key, jnp.asarray(vec), _jdata(x, y), jnp.asarray(grid)))
     got = pred.predict_map_sampling(None, S, vec, FullData(x, y), grid, hyper=HYPER, pred_cov=True,
                                     device="cpu", noise=jax_noise(key, S, (T, G)))
     assert got.shape == want.shape == (G, S, M, M)
@@ -113,7 +119,7 @@ def test_predict_map_sampling_cov_matches_jax(subject):
 def test_predict_map_sampling_y_matches_jax(subject):
     x, y, vec, _, grid = subject
     key = jax.random.PRNGKey(7)
-    want = jpred.predict_map_sampling(key, S, jnp.asarray(vec), _jdata(x, y), jnp.asarray(grid), hyper=HYPER)
+    want = _jax_map_sampling()(key, jnp.asarray(vec), _jdata(x, y), jnp.asarray(grid))
     got = pred.predict_map_sampling(None, S, vec, FullData(x, y), grid, hyper=HYPER, device="cpu",
                                     noise=jax_y_noise(key, S))
     assert isinstance(got, pred.SampledPrediction) and got.quantiles.shape == (G, 2, M)
