@@ -30,7 +30,8 @@ Phases, each printing its lines:
                shapes its routes take: K1's self form at N = 1..1100 (single
                input, odd N, whole and ragged last tiles), its cross form at
                37 x 45; K2 at M = 1..4 with even and odd N and its generic
-               route at M = 5, 9, 17; K3's forward at every other M (1..8,
+               route at M = 5, 9, 17, 33 and 130 (odd N, ragged tiles, task
+               groups past the first staging chunk); K3's forward at every other M (1..8,
                an odd N·M, N = 1) and its generic route up to M = 130; K3's
                backward at M = 1, 4..8 and large M; K1's backward at
                N = 1..1100.  The generic routes of K3 are timed at
@@ -38,7 +39,8 @@ Phases, each printing its lines:
                with their bounds by bytes and by operations, and one call
                of each profiled at N=1000, M=9 (the forward one device
                kernel, the backward three); K2's generic route is timed at
-               N=1000, M = 5 and 9.  K1's cross form is also timed at the
+               N=1000, M = 5 and 9 in both types and one call of it profiled
+               at M = 9 (one device kernel).  K1's cross form is also timed at the
                sparse path's 2000 x 64, and one call of its cross-form
                backward is profiled: it must be one device kernel.
 3. serving   — (slice 1's path) a ``sim_mnts`` subject at N=1000, M=2
@@ -58,7 +60,15 @@ Phases, each printing its lines:
                kernels launched per gradient, and a profile of one GNMGP
                gradient; then the GNMGP f64 gradient at N=1000, M=9: its
                launches (one of each K3 wrapper), gradient evaluations per
-               second and a profile with the share of K3's routes.
+               second and a profile with the share of K3's routes; then the
+               GNMGP f64 prediction at N=1000, M=9 (K2's generic route):
+               ``predict_map`` on a 201-point grid and ``predict_sample``
+               over 10 draws, each with its launches (K2 exactly once a map
+               call and once a draw), wall and device ms, device ms by kernel
+               and K2's share; and at N=200, M=9 the card against the CPU
+               with the same draws and noise: both predictions at rtol 1e-6
+               with a floor of 1e-6 of the scale, each draw's
+               ``observation_cov`` and the LOO conditionals at rtol 1e-6.
 6. training  — (slice 2's path) ``workflows.run_subject`` on the card for a
                ``sim_mnts`` subject at N=1000, M=2, f64 into an artifact
                store, with every kernel's launch count read around it; the
@@ -276,8 +286,22 @@ GENERIC_N, GENERIC_M = 200, 9
 K3_GENERIC_TIMED = ((GENERIC_N, GENERIC_M), (1000, 9), (500, 16), (200, 32), (64, 9))
 K3_GENERIC_PROFILED = (1000, 9)
 #: K2's generic route (M > 4, the prediction path's task-major Gram at M > 4)
-#: is timed in float64 at these (N, M).
+#: is timed at these (N, M), in float64 (from the generic routes' generator,
+#: as since it was first timed) and float32 (from K2's own), and profiled at
+#: K2_GENERIC_PROFILED for its device kernels a call; K2_GENERIC_SHAPES are
+#: checked once each, untimed, in both types from K2's own generator: odd N
+#: (scalar stores), ragged tiles, one tile walked by many units, small task
+#: groups (M = 33), M = 130, and b staged in chunks (M = 120 in float64; M =
+#: 430, past where two whole tasks fit a block in either type).
 K2_GENERIC_TIMED = ((1000, 5), (1000, 9))
+K2_GENERIC_PROFILED = (1000, 9)
+K2_GENERIC_SHAPES = ((37, 9), (130, 9), (66, 17), (37, 33), (1, 130), (4, 130), (37, 120), (3, 430))
+#: The GNMGP prediction at M > 4 (K2's generic route): predict_map on a
+#: PREDICT_GRID-point grid and predict_sample over PREDICT_DRAWS draws (the
+#: MAP vector and small perturbations of it) at N=PREDICT_N, M=PREDICT_M, f64;
+#: the card against the CPU at N=PREDICT_CHECK_N with the same draws and
+#: noise.
+PREDICT_N, PREDICT_M, PREDICT_GRID, PREDICT_DRAWS, PREDICT_CHECK_N = 1000, 9, 201, 10, 200
 #: The GNMGP f64 gradient at M > 8 (K3's generic routes) that the objective
 #: phase rates and profiles.
 GRADIENT_N, GRADIENT_M = 1000, 9
@@ -549,6 +573,7 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
     # float64, timed before the others joined) draw from a generator of their
     # own, so that every other check keeps its inputs
     gen_g = torch.Generator().manual_seed(seed + 17)
+    gen_k2 = torch.Generator().manual_seed(seed + 18)  # K2's generic rows added since
     dev = torch.device(DEVICE)
     sms = gk.sm_count(dev)
     main, generic = {}, {}  # generic: the generic routes' timed rows (K3 M > 8, K2 M > 4)
@@ -587,14 +612,14 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             ))
         # K2 (task-major; the input-major layout is K3's) at the served shape
         # and a ragged N=257, M=3
-        for n, m in ((1000, 2), (257, 3)) + (K2_GENERIC_TIMED if dn == "float64" else ()):
-            g = gen if m <= 4 else gen_g
+        for n, m in ((1000, 2), (257, 3)) + K2_GENERIC_TIMED:
+            g = gen if m <= 4 else gen_g if dn == "float64" else gen_k2
             x, _, l = kernel_inputs(torch, g, n, dtype, dev)
             ls = torch.tril(torch.randn(n, m, m, generator=g, dtype=torch.float64))
             ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
             label = f"svc_gram task N={n} M={m}"
             sched = gk.k2_schedule(n, m, dtype, sms)
-            fwd[label] = ((n * m) ** 2, sched, strip_walk(sched))
+            fwd[label] = ((n * m) ** 2, sched, k2_walk(sched))
             cases.append((
                 label, "svc_gram",
                 lambda x=x, l=l, ls=ls: gk.svc_gram(x, l, ls, settings.jitter),
@@ -750,12 +775,8 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
             x1, s1, l1 = kernel_inputs(torch, gen, n1, dtype, dev)
             x2, s2, l2 = kernel_inputs(torch, gen, n2, dtype, dev)
             kbar = torch.randn(n1, n2, generator=gen, dtype=torch.float64).to(dev, dtype)
-            _, device_ms, kinds, top = device_profile(
-                torch, lambda: gk.gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar))
-            log("kernels", f"gibbs_gram_cross_backward {n1}x{n2} {dn} profiled: {kinds} device kernel(s) a call, "
-                f"{device_ms:.5f} ms: " + ", ".join(f"{key} x{count}" for _, count, key in top))
-            if kinds != 1 or top[0][1] != 1:
-                raise AssertionError(f"gibbs_gram_cross_backward {n1}x{n2}: {kinds} device kernels a call, not one")
+            one_call_kernels(torch, f"gibbs_gram_cross_backward {n1}x{n2} {dn}",
+                             lambda: gk.gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar), 1)
             # one call of each K3 wrapper on its generic route: the forward one
             # device kernel, the backward three (the pairs, the slots' sums, ℓ̄)
             n, m = K3_GENERIC_PROFILED
@@ -767,13 +788,30 @@ def phase_kernels(torch, gk, settings, cross_columns, seed):
                     ("svc_gram_tiled", lambda: gk.svc_gram_tiled(x, l, ls, settings.jitter), 1),
                     ("svc_gram_tiled_backward", lambda: gk.svc_gram_tiled_backward(x, l, ls, kbar, settings.jitter),
                      3)):
-                _, device_ms, kinds, top = device_profile(torch, fn)
-                log("kernels", f"{name} N={n} M={m} {dn} (generic route) profiled: {kinds} device kernel(s) a "
-                    f"call, {device_ms:.5f} ms: " + ", ".join(f"{key} x{count}" for _, count, key in top))
-                if kinds != want or any(count != 1 for _, count, _ in top):
-                    raise AssertionError(f"{name} N={n} M={m}: {kinds} device kernels a call, not {want}")
-                main[name][f"generic_kernels_per_call_n{n}_m{m}"] = kinds
+                main[name][f"generic_kernels_per_call_n{n}_m{m}"] = one_call_kernels(
+                    torch, f"{name} N={n} M={m} {dn} (generic route)", fn, want)
             del x, l, ls, kbar
+            # one call of K2's generic route is one device kernel (profiled after
+            # the others, so that their profiles keep their place)
+            n, m = K2_GENERIC_PROFILED
+            x, _, l = kernel_inputs(torch, gen_k2, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=gen_k2, dtype=torch.float64))
+            ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
+            main["svc_gram"][f"generic_kernels_per_call_n{n}_m{m}"] = one_call_kernels(
+                torch, f"svc_gram task N={n} M={m} {dn} (generic route)",
+                lambda: gk.svc_gram(x, l, ls, settings.jitter), 1)
+            del x, l, ls
+        # K2's generic route at the other shapes, untimed, from its own generator:
+        # bit-equal to the plain version and on a repeat, K3 to it permuted
+        for n, m in K2_GENERIC_SHAPES:
+            x, _, l = kernel_inputs(torch, gen_k2, n, dtype, dev)
+            ls = torch.tril(torch.randn(n, m, m, generator=gen_k2, dtype=torch.float64))
+            ls = (ls + 2.0 * torch.eye(m, dtype=torch.float64)).to(device=dev, dtype=dtype)
+            sched = gk.k2_schedule(n, m, dtype, sms)
+            check_forward(torch, f"svc_gram task N={n} M={m} {dn} ({k2_walk(sched)})",
+                          lambda: gk.svc_gram(x, l, ls, settings.jitter), gk.svc_gram_plain(x, l, ls, settings.jitter),
+                          dn, sched)
+            k3_equals_k2(torch, gk, settings, f"svc_gram_tiled N={n} M={m} {dn}", x, l, ls)
         # K1's forward at other N, untimed: bit-equal to the plain version and
         # on a repeat, the self form exactly symmetric
         for n in K1_FWD_OTHER_SIZES:
@@ -901,6 +939,14 @@ def k1x_walk(sched) -> str:
             f"{sched.chunks_per_group} chunk(s), {sched.n_slots} column slots, {sched.n_tickets} ticket(s)")
 
 
+def k2_walk(sched) -> str:
+    """K2's walk, for the log: the strips, or the generic route's units."""
+    if sched.route != "generic":
+        return strip_walk(sched)
+    return (f"{sched.n_units} units of a 64 x 64 tile by {sched.row_tasks} x {sched.col_tasks} tasks, "
+            f"b in chunks of {sched.b_chunk}, {sched.smem_bytes} B of staged L a block, grid {sched.grid}")
+
+
 def strip_walk(sched) -> str:
     """A strip walk's shape, for the log."""
     return (f"items of {sched.rows} x {sched.strip} inputs, {sched.n_items} items, "
@@ -951,10 +997,12 @@ def check_answer(np, out, g):
     return arr
 
 
-def device_profile(torch, fn, reps: int = 3, top_n: int | None = 12):
+def device_profile(torch, fn, reps: int = 3, top_n: int | None = 12, per_call: bool = True):
     """``fn`` warm, timed on the host clock (ending in a synchronize), then
     under torch.profiler: ``(wall ms, device ms, kernel kinds, the top_n
-    kernel rows (every row where None))`` per call."""
+    kernel rows (every row where None))`` per call; a row's launches are per
+    call (floored), or the records in all ``reps`` calls where not
+    ``per_call``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -976,8 +1024,22 @@ def device_profile(torch, fn, reps: int = 3, top_n: int | None = 12):
         key=self_dev, reverse=True,
     )
     device_ms = sum(self_dev(e) for e in rows) / 1e3 / reps
-    top = [(self_dev(e) / 1e3 / reps, e.count // reps, e.key[:90]) for e in rows[:top_n]]
+    top = [(self_dev(e) / 1e3 / reps, e.count // reps if per_call else e.count, e.key[:90]) for e in rows[:top_n]]
     return wall_ms, device_ms, len(rows), top
+
+
+def one_call_kernels(torch, label: str, fn, want: int, reps: int = 10) -> int:
+    """One call of ``fn`` launches ``want`` device kernels, each once: of
+    ``reps`` profiled calls, ``want`` kernel kinds, each with ``reps``
+    records or ``reps`` − 1 (the profiler has been seen to drop the record
+    of a short kernel: PERF.md §7).  Logs them, returns the kinds."""
+    _, device_ms, kinds, top = device_profile(torch, fn, reps, top_n=None, per_call=False)
+    log("kernels", f"{label} profiled: {kinds} device kernel(s) a call, {device_ms:.5f} ms; records in {reps} "
+        "calls: " + ", ".join(f"{key} x{count}" for _, count, key in top))
+    if kinds != want or any(not reps - 1 <= count <= reps for _, count, _ in top):
+        raise AssertionError(f"{label}: {kinds} device kernel kind(s), {[c for _, c, _ in top]} records in "
+                             f"{reps} calls, not {want} kernel(s) once a call")
+    return kinds
 
 
 def profile_request(torch, engine, xs, http_ms: float, reps: int = 3) -> None:
@@ -1231,6 +1293,100 @@ def generic_gradient(torch, np, gk, seed: int, n: int = GRADIENT_N, m: int = GRA
     return out
 
 
+def prediction_draws(torch, vec, s: int, g: int, m: int, seed: int):
+    """A chain of ``s`` draws (``vec`` and s − 1 perturbations of it by 0.01
+    standard normals) and the normals ``predict_sample`` takes for them on a
+    ``g``-point grid, from a CPU generator of their own."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import transforms
+
+    gen = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    hist = vec[None, :] + 0.01 * torch.randn(s, vec.shape[0], generator=gen, dtype=f64)
+    hist[0] = vec
+    t = transforms.tri_size(m)
+    noise = tuple(torch.randn((s,) + shape, generator=gen, dtype=f64) for shape in ((g,), (t, g), (g, m)))
+    return hist, noise
+
+
+def generic_prediction(torch, np, gk, seed: int, n: int = PREDICT_N, m: int = PREDICT_M) -> dict:
+    """The GNMGP f64 prediction at M > 4 (K2's generic route) on the card:
+    ``predict_map`` on a PREDICT_GRID-point grid and ``predict_sample`` over
+    PREDICT_DRAWS draws with injected noise; for each the kernels one call
+    launches (K2 exactly once a map call and once a draw), its wall and
+    device ms and the device ms by kernel with K2's share.  It calls only
+    what the tree of 125ef4c has, so that ``scripts/k2g_ab.py`` runs it
+    against that tree's package too."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp as pred
+
+    label = f"gnmgp f64 N={n} M={m}"
+    t0 = time.perf_counter()
+    x, y, vec = gnmgp_subject(torch, seed, n, m, device=DEVICE)
+    data = FullData(x, y)
+    grid = np.linspace(float(x.min()), float(x.max()), PREDICT_GRID)
+    hist, noise = prediction_draws(torch, vec, PREDICT_DRAWS, PREDICT_GRID, m, seed + 1)
+    calls = {"map": (lambda: pred.predict_map(vec, data, grid, device=DEVICE), 1),
+             "sample": (lambda: pred.predict_sample(None, hist, data, grid, device=DEVICE, noise=noise),
+                        PREDICT_DRAWS)}
+    out = {}
+    for mode, (fn, draws) in calls.items():
+        gk.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in gk.launches().items() if c}
+        if counts != {"svc_gram": draws, "gibbs_gram": draws}:
+            raise AssertionError(f"{label} predict_{mode}: launched {counts}, expected K1 and K2 {draws} each")
+        values = got.mean if mode == "map" else got
+        if not torch.isfinite(values).all():
+            raise AssertionError(f"{label} predict_{mode}: non-finite values")
+        wall_ms, device_ms, kinds, rows = device_profile(torch, fn, reps=3 if mode == "map" else 1, top_n=None)
+        k2_ms = sum(ms for ms, _, key in rows if "svc_gram_" in key and "tiled" not in key)
+        out[mode] = {"wall_ms": wall_ms, "device_ms": device_ms, "k2_ms": k2_ms, "kinds": kinds,
+                     "launches": counts, "draws": draws, "by_kernel": rows}
+        log("objective", f"{label} predict_{mode} on a {PREDICT_GRID}-point grid ({draws} draw(s)): launched "
+            f"{counts}; wall {wall_ms:.3f} ms, device {device_ms:.3f} ms a call ({device_ms / draws:.3f} ms a draw; "
+            f"busy share {device_ms / wall_ms:.3f}); K2 {k2_ms:.4f} ms ({100 * k2_ms / device_ms:.1f}% of the "
+            f"device time), {kinds} kernel kinds")
+        for ms, count, key in rows[:8]:
+            log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def generic_prediction_check(torch, np, seed: int, n: int = PREDICT_CHECK_N, m: int = PREDICT_M) -> None:
+    """The GNMGP prediction path at M > 4 on the card against the CPU, with
+    the same draws and noise: ``predict_map`` and ``predict_sample`` at rtol
+    SERVED_RTOL with a floor of SERVED_ATOL_OF_SCALE of the scale, and each
+    draw's ``observation_cov`` and the LOO conditionals at rtol
+    OBJECTIVE_RTOL (with the same floor)."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp as pred
+
+    x, y, vec = gnmgp_subject(torch, seed, n, m)
+    data = FullData(x, y)
+    grid = np.linspace(float(x.min()), float(x.max()), PREDICT_GRID)
+    hist, noise = prediction_draws(torch, vec, PREDICT_DRAWS, PREDICT_GRID, m, seed + 1)
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        xd = torch.as_tensor(x, dtype=torch.float64, device=dev)
+        map_ = pred.predict_map(vec, data, grid, device=dev)
+        outs[dev] = {
+            "predict_map mean": map_.mean, "predict_map std": map_.std, "predict_map percentiles": map_.percentiles,
+            "predict_sample": pred.predict_sample(None, hist, data, grid, device=dev, noise=noise),
+            "observation_cov": torch.stack([evaluate.observation_cov("gnmgp", v.to(dev), xd, n, m) for v in hist]),
+            "LOO conditionals": evaluate.chain_conditional_loglik("gnmgp", hist, x, y, device=dev),
+        }
+    for name, got in outs[DEVICE].items():
+        rtol = SERVED_RTOL if name.startswith("predict") else OBJECTIVE_RTOL
+        got, want = (np.asarray(v.cpu() if torch.is_tensor(v) else v) for v in (got, outs["cpu"][name]))
+        if not np.isfinite(got).all():
+            raise AssertionError(f"N={n} M={m} {name}: non-finite values on the card")
+        rel, frac = held(np, got, want, rtol)
+        log("objective", f"gnmgp f64 N={n} M={m} {name}, card vs CPU, {PREDICT_DRAWS} draws, the same noise: ok at "
+            f"rtol {rtol} with a floor of {rtol} of the scale; max rel err {rel:.3e}, max err {frac:.3e} of the scale")
+
+
 def phase_objective(torch, np, gk, seed) -> dict:
     """The MAP objectives at N=TRAIN_N, M=2, and the GNMGP objective at
     N=GENERIC_N, M=GENERIC_M: card against CPU, gradient evaluations per
@@ -1301,7 +1457,10 @@ def phase_objective(torch, np, gk, seed) -> dict:
     # K3's generic routes in a gradient at the headline N
     res = generic_gradient(torch, np, gk, seed + 5)
     rates[f"gnmgp f64 N={GRADIENT_N} M={GRADIENT_M}"] = res["rate"]
-    return rates
+    # K2's generic route in a prediction at the headline N, then card vs CPU
+    prediction = generic_prediction(torch, np, gk, seed + 8)
+    generic_prediction_check(torch, np, seed + 10)
+    return {"rates": rates, "prediction": prediction}
 
 
 def phase_training(torch, np, gk, seed):
@@ -3423,6 +3582,11 @@ def main() -> int:
         if name in HMC_KERNELS and "hmc" in res:
             row["launches_hmc"] = res["hmc"][0][name]  # the sampling stage of slice 3's path
         row.update(res.get("chain", {}).get(name, {}))  # the LOO stage and a sample request
+        if name == "svc_gram" and "objective" in res:
+            # the prediction at M > 4 (the generic route): per map call and per draw
+            pr = res["objective"]["prediction"]
+            row["launches_generic_prediction"] = {"map_call": pr["map"]["launches"][name],
+                                                  "sample_draw": pr["sample"]["launches"][name] / pr["sample"]["draws"]}
         if "precision" in res:
             # under NMGP_PRECISION=mixed: per gradient by model, the GNMGP run_subject and its chain
             row["launches_precision"] = res["precision"].get(name, {})
@@ -3453,7 +3617,10 @@ def main() -> int:
             log("summary", f"launches {what}: " + joined(res[phase][0] if phase == "models" else res[phase], keep))
     if "objective" in res:
         log("summary", "gradient evaluations/s (N=1000, M=2 unless named): "
-            + ", ".join(f"{k}: {v:.3f}" for k, v in res["objective"].items()))
+            + ", ".join(f"{k}: {v:.3f}" for k, v in res["objective"]["rates"].items()))
+        log("summary", f"GNMGP f64 prediction at N={PREDICT_N}, M={PREDICT_M}: " + ", ".join(
+            f"{mode} device {r['device_ms']:.3f} ms, K2 {r['k2_ms']:.4f} ms, launches {r['launches']}"
+            for mode, r in res["objective"]["prediction"].items() if mode != "seconds"))
     log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

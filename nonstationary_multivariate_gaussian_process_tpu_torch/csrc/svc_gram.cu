@@ -36,10 +36,33 @@
 // * M (1..4) and V are template parameters.  V is 2 in float64 and 4 or 2 in
 //   float32 where N is divisible by it, so every offset (a*N + n) N M + c*N +
 //   p is a multiple of V; else 1 (scalar stores).
-// * M > 4 takes the generic route, with M at run time: one thread per input
-//   pair (n, p) on (32, 8) blocks, threads of a warp on neighbouring p,
-//   scalar stores.  At V M^2 values of L in registers a lane would spill
-//   from M = 5; serving runs M = 2.
+// * M > 4 takes the generic route, with M at run time.  There a lane cannot
+//   keep V M^2 values of L in registers, and a tile of the flattened output
+//   (K3's generic walk) would cover one task pair, so each Gibbs term would
+//   be evaluated M^2 times.  So the route tiles the input pairs instead:
+//   - A unit of work is a tile of 64 x 64 input pairs (n, p) and a group of
+//     row tasks a by a group of column tasks c.  One block of 16 x 16
+//     threads takes units blockIdx.x, + gridDim.x, ... (a persistent grid;
+//     the groups and the grid: gram_kernels.k2_schedule).
+//   - Thread (ty, tx) owns rows n0 + 4 ty .. + 3 and 4 columns (two 16-B
+//     groups, p0 + 2 tx and p0 + 2 tx + 32, in float64; p0 + 4 tx in
+//     float32).  It evaluates its 16 Gibbs terms once a unit, the jitter on
+//     n == p, and keeps them in registers across every task pair of the unit.
+//   - The block stages its rows' L[n, a, :] and its columns' L[p, c, :] for
+//     the unit's tasks in shared memory, transposed to [task][b][input], so a
+//     thread's 4 values for one b arrive in one or two 16-B loads.  A block
+//     stages (row tasks + column tasks) b_chunk 68 w bytes, within half an
+//     SM's shared memory (two blocks an SM) at every M.  Where two whole
+//     tasks do not fit (M > 106 in float64, 212 in float32), the CHUNKED
+//     variant takes one task pair a unit and stages its b range b_chunk
+//     values at a time, its 4 x 4 sums kept in registers across the chunks
+//     and its Gibbs terms evaluated after them.  Inputs past N are not
+//     staged.
+//   - For each (a, c) it sums b = 0..M-1 over its 4 x 4 pairs and stores
+//     row a*N + n, columns c*N + p .., V values at once: each store
+//     instruction of a warp writes two rows' 256 contiguous bytes.
+//   The bound is the bytes written, (N M)^2 w, against 2 M operations an
+//   output (each multiply and add on its own, -fmad=false).
 // The ragged edge is masked.  Values never depend on the schedule.
 //
 // Built without fast math and with -fmad=false: the task sum runs b = 0..M-1
@@ -52,7 +75,11 @@ namespace {
 
 constexpr int kMaxM = 4;          // the largest M of the templated route
 constexpr int kMaxThreads = 256;  // templated route: at most 8 warps a block
-constexpr int kGenericX = 32, kGenericY = 8;  // generic route: the block
+// The generic route (M > 4): tiles of input pairs, staged L, 4 x 4 pairs a thread.
+constexpr int kGenTile = 64;             // row (and column) inputs of a tile
+constexpr int kGenPitch = kGenTile + 4;  // a staged [task][b] row of L (16-B aligned in either type)
+constexpr int kGenThreads = 256;         // 16 x 16 threads
+constexpr size_t kMaxSmem = 232448;      // a block's shared memory on the H100 (227 KB)
 
 __device__ __forceinline__ float gexp(float v) { return expf(v); }
 __device__ __forceinline__ double gexp(double v) { return exp(v); }
@@ -149,27 +176,180 @@ svc_gram_task_kernel(const T* __restrict__ x, const T* __restrict__ ell, const T
   }
 }
 
-// M > 4, any M: one thread per input pair (n, p); see the header.
+// The generic route: thread column tx's 4 columns of a tile, two 16-B groups
+// of 2 in float64 (2 tx, 2 tx + 1, 2 tx + 32, 2 tx + 33), one of 4 in float32.
 template <typename T>
-__global__ void svc_gram_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell,
-                                        const T* __restrict__ ls, int n, int m, T jitter,
-                                        T* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int q = blockIdx.y * blockDim.y + threadIdx.y;  // the row input n
-  if (q >= n || p >= n) return;
-  T kx = gibbs(x[q], ell[q], x[p], ell[p]);
-  if (q == p) kx = kx + jitter;
-  const size_t nm = static_cast<size_t>(n) * m;
-  const T* lq = ls + static_cast<size_t>(q) * m * m;
-  const T* lp = ls + static_cast<size_t>(p) * m * m;
-  for (int a = 0; a < m; ++a) {
-    T* row = out + (static_cast<size_t>(a) * n + q) * nm + p;
-    for (int c = 0; c < m; ++c) {
-      T bsum = lq[a * m] * lp[c * m];
-      for (int b = 1; b < m; ++b) bsum = bsum + lq[a * m + b] * lp[c * m + b];
-      row[static_cast<size_t>(c) * n] = kx * bsum;
+__device__ __forceinline__ int gen_col(int tx, int j) {
+  constexpr int cw = 16 / sizeof(T);
+  return cw * tx + 16 * cw * (j / cw) + j % cw;
+}
+
+// One b of a task pair: a thread's 4 row values and 4 column values of L, as
+// 16-B loads from the staged rows (Ra) and columns (Cc), into its 4 x 4 sums.
+template <typename T, bool FIRST>
+__device__ __forceinline__ void gen_step(const T* __restrict__ Ra, const T* __restrict__ Cc, int ty, int tx,
+                                         T (&acc)[4][4]) {
+  T r[4], c[4];
+  if constexpr (sizeof(T) == 8) {
+    const double2 r0 = *reinterpret_cast<const double2*>(Ra + 4 * ty);
+    const double2 r1 = *reinterpret_cast<const double2*>(Ra + 4 * ty + 2);
+    const double2 c0 = *reinterpret_cast<const double2*>(Cc + 2 * tx);
+    const double2 c1 = *reinterpret_cast<const double2*>(Cc + 2 * tx + 32);
+    r[0] = r0.x, r[1] = r0.y, r[2] = r1.x, r[3] = r1.y;
+    c[0] = c0.x, c[1] = c0.y, c[2] = c1.x, c[3] = c1.y;
+  } else {
+    const float4 r0 = *reinterpret_cast<const float4*>(Ra + 4 * ty);
+    const float4 c0 = *reinterpret_cast<const float4*>(Cc + 4 * tx);
+    r[0] = r0.x, r[1] = r0.y, r[2] = r0.z, r[3] = r0.w;
+    c[0] = c0.x, c[1] = c0.y, c[2] = c0.z, c[3] = c0.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = FIRST ? r[i] * c[j] : acc[i][j] + r[i] * c[j];
+}
+
+// Stage `width` values a row input of L for inputs base .. base + count - 1,
+// from flat value t0 * m + k0 of each, transposed: S[j * kGenPitch + r].
+template <typename T>
+__device__ __forceinline__ void gen_stage(T* __restrict__ S, const T* __restrict__ ls, int base, int count, int m,
+                                          int t0, int k0, int width, int tid) {
+  for (int i = tid; i < count * width; i += kGenThreads) {
+    const int r = i / width, j = i % width;  // consecutive threads: consecutive (task, b) of one input
+    S[j * kGenPitch + r] = ls[(static_cast<size_t>(base + r) * m + t0) * m + k0 + j];
+  }
+}
+
+// A thread's 16 Gibbs terms, the jitter on n == p (0 past N).
+template <typename T>
+__device__ __forceinline__ void gen_gibbs(const T* __restrict__ x, const T* __restrict__ ell, int n, int n0, int p0,
+                                          int ty, int tx, T jitter, T (&kx)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = n0 + 4 * ty + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = p0 + gen_col<T>(tx, j);
+      T k = T(0);
+      if (r < n && p < n) {
+        k = gibbs(x[r], ell[r], x[p], ell[p]);
+        if (r == p) k = k + jitter;
+      }
+      kx[i][j] = k;
     }
   }
+}
+
+// A task pair's outputs of a thread, kx * acc, to its rows from orow (row
+// n0 + 4 ty, column c*N + p0), V values a store; V divides N and 16 B, so a
+// group never crosses the edge.
+template <typename T, int V>
+__device__ __forceinline__ void gen_store(T* __restrict__ orow, int n, size_t nm, int n0, int p0, int ty, int tx,
+                                          const T (&kx)[4][4], const T (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (n0 + 4 * ty + i >= n) break;
+#pragma unroll
+    for (int j = 0; j < 4; j += V) {
+      const int lc = gen_col<T>(tx, j);
+      if (p0 + lc >= n) continue;
+      T val[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) val[v] = kx[i][j + v] * acc[i][j + v];
+      store_vec<T, V>(orow + i * nm + lc, val);
+    }
+  }
+}
+
+// M > 4, M at run time: a persistent walk of units (a tile of 64 x 64 input
+// pairs, a group of row tasks, a group of column tasks); see the header.
+// CHUNKED: one row and one column task a unit, b staged b_chunk values at a
+// time, the sums kept across the chunks; else every task of the unit staged
+// whole (b_chunk = m).
+template <typename T, int V, bool CHUNKED>
+__global__ void __launch_bounds__(kGenThreads, 2)
+svc_gram_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell, const T* __restrict__ ls, int n,
+                        int m, int row_tasks, int col_tasks, int b_chunk, int n_units, T jitter,
+                        T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Rs = reinterpret_cast<T*>(smem);              // [q][b][row]: L[n0 + row, a0 + q, k0 + b]
+  T* Cs = Rs + row_tasks * b_chunk * kGenPitch;    // [q][b][col]: L[p0 + col, c0 + q, k0 + b]
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tiles = (n + kGenTile - 1) / kGenTile;
+  const int a_groups = (m + row_tasks - 1) / row_tasks, c_groups = (m + col_tasks - 1) / col_tasks;
+  const size_t nm = static_cast<size_t>(n) * m;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int ic = u % c_groups, ia = u / c_groups % a_groups, tile = u / c_groups / a_groups;
+    const int n0 = tile / tiles * kGenTile, p0 = tile % tiles * kGenTile;
+    const int a0 = ia * row_tasks, c0 = ic * col_tasks;
+    // inputs past N are not staged: what their threads read there is never stored
+    const int rn = min(kGenTile, n - n0), cn = min(kGenTile, n - p0);
+    T kx[4][4];  // the thread's Gibbs terms, jitter on n == p, for every task pair of the unit
+    if constexpr (CHUNKED) {
+      T acc[4][4];
+      for (int k0 = 0; k0 < m; k0 += b_chunk) {
+        const int kb = min(b_chunk, m - k0);
+        __syncthreads();  // every thread is done with the previous chunk's (or unit's) staged L
+        gen_stage(Rs, ls, n0, rn, m, a0, k0, kb, tid);
+        gen_stage(Cs, ls, p0, cn, m, c0, k0, kb, tid);
+        __syncthreads();
+        if (k0 == 0) {
+          gen_step<T, true>(Rs, Cs, ty, tx, acc);
+        } else {
+          gen_step<T, false>(Rs, Cs, ty, tx, acc);
+        }
+#pragma unroll 1  // as below
+        for (int b = 1; b < kb; ++b) gen_step<T, false>(Rs + b * kGenPitch, Cs + b * kGenPitch, ty, tx, acc);
+      }
+      // the Gibbs terms once the sums are done: live beside them only here, so nothing spills
+      gen_gibbs(x, ell, n, n0, p0, ty, tx, jitter, kx);
+      gen_store<T, V>(out + (static_cast<size_t>(a0) * n + n0 + 4 * ty) * nm + static_cast<size_t>(c0) * n + p0, n,
+                      nm, n0, p0, ty, tx, kx, acc);
+    } else {
+      const int rw = min(row_tasks, m - a0) * m, cw = min(col_tasks, m - c0) * m;  // staged values an input
+      __syncthreads();  // every thread is done with the previous unit's staged L
+      gen_stage(Rs, ls, n0, rn, m, a0, 0, rw, tid);
+      gen_stage(Cs, ls, p0, cn, m, c0, 0, cw, tid);
+      gen_gibbs(x, ell, n, n0, p0, ty, tx, jitter, kx);
+      __syncthreads();
+      for (int qa = 0; qa < rw / m; ++qa) {
+        const T* Ra = Rs + qa * m * kGenPitch;
+        T* rows = out + (static_cast<size_t>(a0 + qa) * n + n0 + 4 * ty) * nm + p0;
+        for (int qc = 0; qc < cw / m; ++qc) {
+          const T* Cc = Cs + qc * m * kGenPitch;
+          T acc[4][4];
+          gen_step<T, true>(Ra, Cc, ty, tx, acc);
+#pragma unroll 1  // unrolled, the next b's loads spill in float64 (128 registers at 2 blocks an SM)
+          for (int b = 1; b < m; ++b) gen_step<T, false>(Ra + b * kGenPitch, Cc + b * kGenPitch, ty, tx, acc);
+          gen_store<T, V>(rows + static_cast<size_t>(c0 + qc) * n, n, nm, n0, p0, ty, tx, kx, acc);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int V, bool CHUNKED>
+int launch_generic(const T* x, const T* ell, const T* ls, int n, int m, int row_tasks, int col_tasks, int b_chunk,
+                   int n_units, T jitter, int grid, size_t smem, T* out, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(svc_gram_generic_kernel<T, V, CHUNKED>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  svc_gram_generic_kernel<T, V, CHUNKED><<<grid, kGenThreads, smem, stream>>>(x, ell, ls, n, m, row_tasks,
+                                                                              col_tasks, b_chunk, n_units, jitter,
+                                                                              out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_generic_b(const T* x, const T* ell, const T* ls, int n, int m, int row_tasks, int col_tasks, int b_chunk,
+                     int n_units, T jitter, int grid, size_t smem, T* out, cudaStream_t stream) {
+  if (b_chunk < m)
+    return launch_generic<T, V, true>(x, ell, ls, n, m, row_tasks, col_tasks, b_chunk, n_units, jitter, grid, smem,
+                                      out, stream);
+  return launch_generic<T, V, false>(x, ell, ls, n, m, row_tasks, col_tasks, b_chunk, n_units, jitter, grid, smem,
+                                     out, stream);
 }
 
 template <typename T, int M, int V>
@@ -190,29 +370,43 @@ int launch_task_m(const T* x, const T* ell, const T* ls, int n, int vec, int row
 }
 
 // For m <= 4: vec must be the store width of n, rows >= 1, 1 <= warps <= 8,
-// grid >= 1, and the items must fit an int.  For m > 4 (the generic route):
-// vec = 1, rows = 8, warps = 8 and grid = ceil(n / 32) * ceil(n / 8), the
-// blocks of the (32, 8) grid.
+// grid >= 1, the items must fit an int, and row_tasks = col_tasks = b_chunk =
+// 0.  For m > 4 (the generic route): vec the store width of n, rows = 64 (a
+// tile's inputs), warps = 8, 1 <= row_tasks, col_tasks <= m, 1 <= b_chunk <=
+// m (below m only with one row and one column task), their staged L within a
+// block's shared memory, the units within an int, and grid >= 1.
 template <typename T>
 int launch(const void* x_, const void* ell_, const void* ls_, int n, int m, double jitter_, int vec,
-           int rows, int warps, int grid, void* out_, void* stream_) {
+           int rows, int warps, int grid, int row_tasks, int col_tasks, int b_chunk, void* out_, void* stream_) {
   const T* x = static_cast<const T*>(x_);
   const T* ell = static_cast<const T*>(ell_);
   const T* ls = static_cast<const T*>(ls_);
   const T jitter = static_cast<T>(jitter_);
   T* out = static_cast<T*>(out_);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || m < 1 || grid < 1 || vec != store_width<T>(n)) return static_cast<int>(cudaErrorInvalidValue);
   if (m > kMaxM) {
-    const dim3 block(kGenericX, kGenericY);
-    const dim3 blocks((n + kGenericX - 1) / kGenericX, (n + kGenericY - 1) / kGenericY);
-    if (vec != 1 || rows != kGenericY || warps != kGenericX * kGenericY / 32 || blocks.y > 65535 ||
-        static_cast<long long>(grid) != static_cast<long long>(blocks.x) * blocks.y)
+    const long long tiles = (n + kGenTile - 1) / kGenTile;
+    if (rows != kGenTile || warps * 32 != kGenThreads || row_tasks < 1 || row_tasks > m || col_tasks < 1 ||
+        col_tasks > m || b_chunk < 1 || b_chunk > m || (b_chunk < m && (row_tasks != 1 || col_tasks != 1)))
       return static_cast<int>(cudaErrorInvalidValue);
-    svc_gram_generic_kernel<T><<<blocks, block, 0, stream>>>(x, ell, ls, n, m, jitter, out);
-    return static_cast<int>(cudaGetLastError());
+    const long long units = tiles * tiles * ((m + row_tasks - 1) / row_tasks) * ((m + col_tasks - 1) / col_tasks);
+    const size_t smem = sizeof(T) * static_cast<size_t>(row_tasks + col_tasks) * b_chunk * kGenPitch;
+    if (units > 0x7fffffff || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    const int n_units = static_cast<int>(units);
+    if constexpr (sizeof(T) == 4) {
+      if (vec == 4)
+        return launch_generic_b<T, 4>(x, ell, ls, n, m, row_tasks, col_tasks, b_chunk, n_units, jitter, grid, smem,
+                                      out, stream);
+    }
+    if (vec == 2)
+      return launch_generic_b<T, 2>(x, ell, ls, n, m, row_tasks, col_tasks, b_chunk, n_units, jitter, grid, smem,
+                                    out, stream);
+    return launch_generic_b<T, 1>(x, ell, ls, n, m, row_tasks, col_tasks, b_chunk, n_units, jitter, grid, smem, out,
+                                  stream);
   }
-  if (vec != store_width<T>(n) || rows < 1 || warps < 1 || warps * 32 > kMaxThreads || grid < 1)
+  if (row_tasks != 0 || col_tasks != 0 || b_chunk != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 1 || warps < 1 || warps * 32 > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long items = static_cast<long long>((n + rows - 1) / rows) * ((n + 32 * vec - 1) / (32 * vec));
   if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
@@ -230,15 +424,17 @@ int launch(const void* x_, const void* ell_, const void* ls_, int n, int m, doub
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success).
-// vec, rows, warps, grid: gram_kernels.k2_schedule(n, m, dtype).
+// vec, rows, warps, grid, row_tasks, col_tasks, b_chunk: gram_kernels.k2_schedule(n, m, dtype).
 int svc_gram_f32(const void* x, const void* ell, const void* ls, int n, int m, double jitter, int vec,
-                 int rows, int warps, int grid, void* out, void* stream) {
-  return launch<float>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, out, stream);
+                 int rows, int warps, int grid, int row_tasks, int col_tasks, int b_chunk, void* out, void* stream) {
+  return launch<float>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, row_tasks, col_tasks, b_chunk, out,
+                       stream);
 }
 
 int svc_gram_f64(const void* x, const void* ell, const void* ls, int n, int m, double jitter, int vec,
-                 int rows, int warps, int grid, void* out, void* stream) {
-  return launch<double>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, out, stream);
+                 int rows, int warps, int grid, int row_tasks, int col_tasks, int b_chunk, void* out, void* stream) {
+  return launch<double>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, row_tasks, col_tasks, b_chunk, out,
+                        stream);
 }
 
 }  // extern "C"

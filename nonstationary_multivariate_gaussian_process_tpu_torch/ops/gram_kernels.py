@@ -76,7 +76,7 @@ _ENTRY_POINTS = {
     "gibbs_gram_backward": ("gibbs_gram_backward", [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P]),
     "gibbs_gram_cross_backward": ("gibbs_gram_cross_backward",
                                   [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
-    "svc_gram": ("svc_gram", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
+    "svc_gram": ("svc_gram", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _I, _I, _I, _P]),
     "svc_gram_tiled": ("svc_gram_tiled", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
     "svc_gram_tiled_backward": ("svc_gram_tiled_backward", [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P]),
 }
@@ -669,8 +669,9 @@ def svc_gram(x, ell, ls, jitter: float, layout: str = "task") -> torch.Tensor:
 
     ``x``, ``ell``: (N,); ``ls``: (N, M, M).  ``layout="task"`` puts entry
     (n, a) at row ``a·N + n`` (``models.gnmgp.gram``): kernel K2, in warp
-    strips with V-wide stores for M ≤ 4 and one thread per input pair above
-    (:func:`k2_schedule`), counted in ``svc_gram.launches``.
+    strips with V-wide stores for M ≤ 4 and in tiles of input pairs with L
+    staged in shared memory above (:func:`k2_schedule`), counted in
+    ``svc_gram.launches``.
     ``layout="input"`` puts it at row ``n·M + a`` (``svc_gram_fused2d``'s
     contract): the same matrix bit for bit, computed by K3's forward kernel
     (:func:`svc_gram_tiled`), so the launch is counted in
@@ -694,31 +695,52 @@ def svc_gram(x, ell, ls, jitter: float, layout: str = "task") -> torch.Tensor:
 def _k2_launch(sched, x, ell, ls, jitter, out) -> torch.Tensor:
     """K2 by ``sched`` into ``out``; counts nothing."""
     _launch("svc_gram", x.dtype, x.device, x.data_ptr(), ell.data_ptr(), ls.data_ptr(), sched.n, sched.m,
-            float(jitter), sched.vec, sched.rows, sched.warps, sched.grid, out.data_ptr())
+            float(jitter), sched.vec, sched.rows, sched.warps, sched.grid, sched.row_tasks, sched.col_tasks,
+            sched.b_chunk, out.data_ptr())
     return out
 
 
 svc_gram.launches = 0
 
 #: The largest M with K2's templated (warp-strip) route; above it the
-#: generic route, one thread per input pair with M at run time.
+#: generic route, tiles of input pairs with M at run time.
 K2_MAX_M = 4
+
+#: K2's generic route (M > 4): tiles of 64 × 64 input pairs, one block of 256
+#: threads (4 × 4 pairs each) a unit; L staged [task][b][input] with a pitch
+#: of 68 inputs (16-B aligned in either type), within half an SM's 228 KB
+#: (less 1 KB a block), so that two blocks share an SM at every M.
+K2_GENERIC_TILE, _K2_GEN_PITCH, _K2_GEN_THREADS = 64, 68, 256
+_K2_GEN_HALF_SM = 115_712
 
 
 @dataclasses.dataclass(frozen=True)
 class K2Schedule(_Strips):
-    """How K2's kernel cuts its work, from (N, M, dtype) alone.
+    """How K2's kernel cuts its work, from (N, M, dtype, SMs) alone.
 
     ``route`` is ``"vector"`` or ``"scalar"`` (M ≤ 4) or ``"generic"`` (M >
-    4).  For M ≤ 4 the strip walk (:class:`_Strips`): an item is ``rows``
-    row inputs by a strip of 32·``vec`` column inputs, and lane ``l`` owns
-    column inputs ``p = p0 + l·vec ..``; for each row input ``n`` and task
-    pair ``(a, c)`` it stores ``vec`` values at row ``a·N + n``, column
-    ``c·N + p``.  ``vec`` is 2 in float64, 4 or 2 in float32, where N is
-    divisible by it (then every such offset is a multiple of ``vec``), else
-    1.  The generic route takes one thread per input pair on blocks of 32 ×
-    8 threads (``rows`` = 8 row inputs, ``warps`` = 8): ``grid`` =
-    ⌈N/32⌉·⌈N/8⌉ blocks, scalar stores.
+    4).  ``vec`` is the store width: 2 in float64, 4 or 2 in float32, where
+    N is divisible by it (then every offset ``(a·N + n)·N·M + c·N + p`` with
+    ``p`` a multiple of ``vec`` is one too), else 1.
+
+    For M ≤ 4 the strip walk (:class:`_Strips`): an item is ``rows`` row
+    inputs by a strip of 32·``vec`` column inputs, and lane ``l`` owns column
+    inputs ``p = p0 + l·vec ..``; for each row input ``n`` and task pair
+    ``(a, c)`` it stores ``vec`` values at row ``a·N + n``, column ``c·N +
+    p``.  ``row_tasks`` = ``col_tasks`` = 0.
+
+    The generic route walks units: a tile of ``rows`` = 64 × 64 input pairs
+    (tile ``t``: row inputs ``64·(t // n_tiles)``.., column inputs ``64·(t %
+    n_tiles)``..), a group of ``row_tasks`` row tasks and a group of
+    ``col_tasks`` column tasks; unit ``u`` is tile ``u // (a_groups ·
+    c_groups)``, row group ``u // c_groups % a_groups``, column group ``u %
+    c_groups``.  Block ``b`` of ``grid`` (``warps`` = 8 a block) takes units
+    ``b, b + grid, ...``.  Thread ``(ty, tx)`` = ``(t // 16, t % 16)`` owns
+    rows ``4ty .. 4ty + 3`` of the tile and the 4 columns
+    :meth:`generic_columns` gives.  A unit stages its tasks' L ``b_chunk`` b
+    values at a time: ``b_chunk`` = M, or less with one row and one column
+    task a unit.  ``smem_bytes`` is a block's staged L, (``row_tasks`` +
+    ``col_tasks``)·``b_chunk``·68 values (0 for M ≤ 4).
     """
 
     n: int
@@ -728,10 +750,49 @@ class K2Schedule(_Strips):
     rows: int
     warps: int
     grid: int
+    row_tasks: int = 0
+    col_tasks: int = 0
+    b_chunk: int = 0
+    smem_bytes: int = 0
 
     @property
     def strip(self) -> int:
-        return 32 if self.route == "generic" else 32 * self.vec
+        return 32 * self.vec
+
+    @property
+    def n_tiles(self) -> int:
+        """The generic route's tiles a side: ⌈N / 64⌉."""
+        return -(-self.n // K2_GENERIC_TILE)
+
+    @property
+    def a_groups(self) -> int:
+        return -(-self.m // self.row_tasks)
+
+    @property
+    def c_groups(self) -> int:
+        return -(-self.m // self.col_tasks)
+
+    @property
+    def n_units(self) -> int:
+        return self.n_tiles**2 * self.a_groups * self.c_groups
+
+    def unit(self, u: int) -> tuple[int, int, int, int]:
+        """Unit ``u``'s first row input, first column input, first row task
+        and first column task."""
+        tile, ia, ic = u // (self.a_groups * self.c_groups), u // self.c_groups % self.a_groups, u % self.c_groups
+        return (tile // self.n_tiles * K2_GENERIC_TILE, tile % self.n_tiles * K2_GENERIC_TILE,
+                ia * self.row_tasks, ic * self.col_tasks)
+
+    def units(self, block: int) -> range:
+        """The units block ``block`` takes, in its order."""
+        return range(block, self.n_units, self.grid)
+
+    @staticmethod
+    def generic_columns(tx: int, size: int) -> list[int]:
+        """The 4 columns of a tile that thread column ``tx`` owns, for
+        elements of ``size`` bytes (groups of 16 B, 16 groups apart)."""
+        cw = 16 // size
+        return [cw * tx + 16 * cw * (j // cw) + j % cw for j in range(4)]
 
 
 #: K2: every SM should get at least this many warps' items (K2's strips are
@@ -739,16 +800,53 @@ class K2Schedule(_Strips):
 _K2_WARPS_PER_SM = 8
 
 
+def _element_size(dtype: torch.dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+@functools.lru_cache(maxsize=256)
 def k2_schedule(n: int, m: int, dtype: torch.dtype, sms: int = 132) -> K2Schedule:
-    """The route and store width, the rows of an item (the most of 8, 4, 2,
-    1 that still gives every SM 8 warps' items), 4 warps a block and a grid
-    of at most 16 blocks per SM, never more blocks than the items fill."""
-    if m > K2_MAX_M:
-        return K2Schedule(n, m, "generic", 1, 8, 8, -(-n // 32) * -(-n // 8))
+    """For M ≤ 4 the route and store width, the rows of an item (the most of
+    8, 4, 2, 1 that still gives every SM 8 warps' items), 4 warps a block
+    and a grid of at most 16 blocks per SM, never more blocks than the items
+    fill.  For M > 4 the generic route: :func:`_k2_generic_groups` picks the
+    task groups and the b chunk, and the grid is the two blocks an SM holds,
+    never more than the units."""
     vec = _store_width(n, dtype)
+    if m > K2_MAX_M:
+        row_tasks, col_tasks, b_chunk = _k2_generic_groups(n, m, dtype, sms)
+        smem = _element_size(dtype) * (row_tasks + col_tasks) * b_chunk * _K2_GEN_PITCH
+        sched = K2Schedule(n, m, "generic", vec, K2_GENERIC_TILE, _K2_GEN_THREADS // 32, 1, row_tasks, col_tasks,
+                           b_chunk, smem)
+        return dataclasses.replace(sched, grid=min(sched.n_units, 2 * sms))
     rows = _strip_rows(n, -(-n // (32 * vec)), sms, _K2_WARPS_PER_SM)
     sched = K2Schedule(n, m, "vector" if vec > 1 else "scalar", vec, rows, 4, 1)
     return dataclasses.replace(sched, grid=_strip_grid(sched.n_items, sched.warps, sms))
+
+
+def _k2_generic_groups(n: int, m: int, dtype: torch.dtype, sms: int) -> tuple[int, int, int]:
+    """K2's generic route: the row tasks and column tasks of a unit and the b
+    values staged at once.  One b value of a task staged for a tile's 64
+    inputs takes 68·w bytes, and a block stages within half an SM.  Where a
+    row and a column task do not fit whole, a unit is one task pair staged
+    in chunks of b.  Else, of the groups whose staging fits, the one whose
+    waves of units (two blocks an SM) cost least, a unit costing its task
+    pairs and one more for its Gibbs terms, staging and barriers; the fewest
+    units break a tie."""
+    per_b = _element_size(dtype) * _K2_GEN_PITCH
+    b_chunk = min(m, _K2_GEN_HALF_SM // (2 * per_b))
+    if b_chunk < m:
+        return 1, 1, b_chunk
+    cap = _K2_GEN_HALF_SM // (per_b * m)  # whole tasks staged at once
+    tiles, slots = (-(-n // K2_GENERIC_TILE)) ** 2, 2 * sms
+    sizes = sorted({-(-m // g) for g in range(1, m + 1)}, reverse=True)  # the distinct group sizes
+
+    def cost(a: int, c: int) -> tuple[int, int]:
+        units = tiles * -(-m // a) * -(-m // c)
+        return -(-units // slots) * (a * c + 1), units
+
+    row_tasks, col_tasks = min(((a, c) for a in sizes for c in sizes if a + c <= cap), key=lambda ac: cost(*ac))
+    return row_tasks, col_tasks, m
 
 
 # ---------------------------------------------------------------------------

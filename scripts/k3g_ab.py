@@ -90,8 +90,9 @@ def load_smoke():
     return mod
 
 
-def child(root: str, seed: int) -> int:
-    """One gradient turn: ``root``'s package built and rated."""
+def child(root: str, seed: int, smoke_fn: str = "generic_gradient", log=log) -> int:
+    """One turn: ``root``'s package built, then ``chip_smoke.<smoke_fn>`` on
+    it, its result printed as a ``RESULT`` line."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -106,32 +107,30 @@ def child(root: str, seed: int) -> int:
     for name in gk.KERNEL_SOURCES:
         cuda_build.load(name)
     log(f"built in {time.perf_counter() - t0:.3f} s")
-    res = load_smoke().generic_gradient(torch, np, gk, seed)
+    res = getattr(load_smoke(), smoke_fn)(torch, np, gk, seed)
     print("RESULT " + json.dumps(res), flush=True)
     return 0
 
 
-def gradient_turns(old_root: str, seed: int) -> list:
-    turns = []
+def turns(script: str, what: str, old_root: str, seed: int) -> list:
+    """Old, new, new, old: each turn ``script --child ROOT`` in a process of
+    its own that imports only that tree's package; their results."""
+    out = []
     for which in ("old", "new", "new", "old"):
         root = os.path.abspath(old_root) if which == "old" else ROOT
         t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root, "--seed", str(seed)],
+        run = subprocess.run([sys.executable, os.path.abspath(script), "--child", root, "--seed", str(seed)],
                              cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=1200)
         lines = run.stdout.splitlines()
         for line in lines:
             if not line.startswith("RESULT "):
                 print(f"[{which}] {line}", flush=True)
         if run.returncode != 0:
-            raise RuntimeError(f"the {which} gradient turn failed (rc {run.returncode})")
+            raise RuntimeError(f"the {which} {what} turn failed (rc {run.returncode})")
         res = json.loads(next(line for line in lines if line.startswith("RESULT "))[7:])
         res.update(tree=which, turn_seconds=time.perf_counter() - t0)
-        turns.append(res)
-    for t in turns:
-        log(f"gradient {t['tree']}: {t['rate']:.3f} gradient evaluations/s, device {t['device_ms']:.3f} ms "
-            f"(K3's routes {t['k3_ms']:.4f} ms), wall {t['wall_ms']:.3f} ms, value {t['value']:.10e}, "
-            f"launches {t['launches']}")
-    return turns
+        out.append(res)
+    return out
 
 
 def main() -> int:
@@ -272,7 +271,11 @@ def main() -> int:
                     log(f"{route} {tag}: {label} device ms by kernel: "
                         + ", ".join(f"{k} {v:.5f}" for k, v in rows.items()))
             del x, ell, ls, kbar, routes
-    record["gradient"] = gradient_turns(args.old_root, args.seed)
+    record["gradient"] = turns(__file__, "gradient", args.old_root, args.seed)
+    for t in record["gradient"]:
+        log(f"gradient {t['tree']}: {t['rate']:.3f} gradient evaluations/s, device {t['device_ms']:.3f} ms "
+            f"(K3's routes {t['k3_ms']:.4f} ms), wall {t['wall_ms']:.3f} ms, value {t['value']:.10e}, "
+            f"launches {t['launches']}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

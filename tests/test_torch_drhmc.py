@@ -23,7 +23,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from nonstationary_multivariate_gaussian_process_tpu.data import sim as jsim
 from nonstationary_multivariate_gaussian_process_tpu.inference import drhmc as jdrhmc
 from nonstationary_multivariate_gaussian_process_tpu.inference import empirical as jempirical
 from nonstationary_multivariate_gaussian_process_tpu.inference import init as jinit
@@ -35,7 +34,10 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.inference import init
 from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
 from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
 
+from test_torch_hmc import jax_sim
+
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 
 T64 = torch.float64
 FIELDS = ("samples", "potentials", "accept_prob1", "step_size")
@@ -93,7 +95,7 @@ FUNNEL_Q0 = np.array([1.0, 0.5, -0.3, 0.8])
 @pytest.fixture(scope="module")
 def gnmgp_subject():
     """A sim subject at N=12, M=2, both objectives and the empirical init."""
-    d = jsim.sim_mnts(jax.random.PRNGKey(5), n=12, m=2)
+    d = jax_sim(jax.random.PRNGKey(5), n=12, m=2)
     x, y = np.asarray(d.x), np.asarray(d.y)
     emp = jempirical.local_estimation(x, y, window_size=4, method="profile")
     init = np.asarray(jinit.gnmgp_from_empirical(emp, 12, 2))

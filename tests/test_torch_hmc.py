@@ -52,6 +52,12 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts impor
 
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
+
+#: The JAX simulator, jitted: op by op it compiled its operations anew in
+#: every module (~3.5 s a subject). Both packages take the same draw; the
+#: other port test files import it from here.
+jax_sim = jax.jit(jsim.sim_mnts, static_argnames=("n", "m"))
+
 T64 = torch.float64
 FIELDS = ("samples", "potentials", "accept_prob", "step_size")
 
@@ -299,7 +305,7 @@ def test_generator_seed_reproduces_its_chain():
 def small():
     """A sim subject at N=16 (``test_torch_train``'s ``small``), both
     objectives and the empirical init (a MAP-like point)."""
-    d = jsim.sim_mnts(jax.random.PRNGKey(5), n=16, m=2)
+    d = jax_sim(jax.random.PRNGKey(5), n=16, m=2)
     x, y = np.asarray(d.x), np.asarray(d.y)
     emp = jempirical.local_estimation(x, y, window_size=5, method="profile")
     jobj = jgnmgp.make_objective(JFullData(jnp.asarray(x), jnp.asarray(y)))
@@ -380,7 +386,7 @@ CHAIN_RADIUS, ACCEPT_FLOOR = 0.05, 0.5
 def hmc_runs(tmp_path_factory):
     """The JAX and the port's run_subject(do_hmc=True) on one subject; the
     port writes to a store."""
-    d = jsim.sim_mnts(jax.random.PRNGKey(6), n=N_SUBJECT, m=2)
+    d = jax_sim(jax.random.PRNGKey(6), n=N_SUBJECT, m=2)
     x, y = np.asarray(d.x), np.asarray(d.y)
     # no assertion reads the grid prediction (pred_grid), so neither run makes one
     kw = dict(n_opt=N_OPT, do_hmc=True, n_hmc=N_HMC, hmc_leapfrog=N_LEAPFROG, do_pred_grid=False)

@@ -30,6 +30,7 @@ held to the plain version at ``KERNEL_TOL``).
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,8 +200,9 @@ def test_pairs_walk_covers_every_output_on_any_grid(rng, n, grid):
 def test_pairs_walk_matches_jax(rng, n):
     x, s, l = _inputs(rng, n)
     got = emulate_pairs(x, s, l, JITTER, pairs_schedule(n, torch.float64))[0]
-    want = jkernels.nonstationary_rbf_cov(jnp.asarray(x.numpy()), sigma1=jnp.asarray(s.numpy()),
-                                          ell1=jnp.asarray(l.numpy()), jitter=JITTER)
+    # jitted, as the other references (op by op a shape took ~1 s)
+    want = jax.jit(lambda a, b, c: jkernels.nonstationary_rbf_cov(a, sigma1=b, ell1=c, jitter=JITTER))(
+        jnp.asarray(x.numpy()), jnp.asarray(s.numpy()), jnp.asarray(l.numpy()))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **JAX_TOL)
     np.testing.assert_allclose(gk.gibbs_gram(x, s, l, jitter=JITTER).numpy(), np.asarray(want), **JAX_TOL)
 
@@ -211,7 +213,8 @@ def test_cross_form_matches_jax(rng, n1, n2):
     sched = gk.k1_forward_schedule(n1, n2, False, torch.float64)
     got = emulate_threads(x1, s1, l1, x2, s2, l2, 0.0, sched)[0]
     j = lambda t: jnp.asarray(t.numpy())
-    want = jkernels.nonstationary_rbf_cov(j(x1), sigma1=j(s1), ell1=j(l1), x2=j(x2), sigma2=j(s2), ell2=j(l2))
+    want = jax.jit(lambda a, b, c, d, e, f: jkernels.nonstationary_rbf_cov(a, sigma1=b, ell1=c, x2=d, sigma2=e,
+                                                                          ell2=f))(j(x1), j(s1), j(l1), j(x2), j(s2), j(l2))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **JAX_TOL)
 
 

@@ -229,10 +229,9 @@ def test_schedule_at_the_timed_shapes():
 @pytest.mark.parametrize("n,m", [(1, 2), (1, 9), (21, 9), (5, 30)])
 def test_svc_gram_tiled_cpu_matches_permuted_jax_gram(rng, n, m):
     x, ell, ls = _inputs(rng, n, m)
-    kx = jkernels.nonstationary_rbf_cov(jnp.asarray(x.numpy()), ell1=jnp.asarray(ell.numpy()))
-    want = jgnmgp.gram(kx, jnp.asarray(ls.numpy())).reshape(m, n, m, n).transpose(1, 0, 3, 2)
+    want = _jax_gram(jnp.asarray(x.numpy()), jnp.asarray(ell.numpy()), jnp.asarray(ls.numpy()))  # input-major
     got = gk.svc_gram_tiled(x, ell, ls, JITTER)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(n * m, n * m), rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-14)
 
 
 def test_emulation_mirrors_the_kernel_source():

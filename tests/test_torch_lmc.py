@@ -18,7 +18,6 @@ import jax
 import jax.numpy as jnp
 
 from nonstationary_multivariate_gaussian_process_tpu import evaluate as jevaluate
-from nonstationary_multivariate_gaussian_process_tpu.data import sim as jsim
 from nonstationary_multivariate_gaussian_process_tpu.inference import empirical as jempirical
 from nonstationary_multivariate_gaussian_process_tpu.inference import init as jinit
 from nonstationary_multivariate_gaussian_process_tpu.models import lmc as jlmc
@@ -31,7 +30,10 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import Fu
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels
 from nonstationary_multivariate_gaussian_process_tpu_torch.predict import lmc as pred
 
+from test_torch_hmc import jax_sim
+
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 
 T64 = torch.float64
 
@@ -140,7 +142,7 @@ def test_predict_sample_matches_jax_given_its_noise(rng):
 
 
 def test_init_builders_match_jax():
-    d = jsim.sim_mnts(jax.random.PRNGKey(2), n=30, m=2)
+    d = jax_sim(jax.random.PRNGKey(2), n=30, m=2)
     x, y = np.asarray(d.x), np.asarray(d.y)
     emp = jempirical.local_estimation(x, y, window_size=8, method="profile")
     pemp = convert.empirical_from_jax(emp)

@@ -23,7 +23,6 @@ import jax.numpy as jnp
 
 from nonstationary_multivariate_gaussian_process_tpu import evaluate as jevaluate
 from nonstationary_multivariate_gaussian_process_tpu import workflows as jworkflows
-from nonstationary_multivariate_gaussian_process_tpu.data import sim as jsim
 from nonstationary_multivariate_gaussian_process_tpu.inference import pathfinder as jpathfinder
 from nonstationary_multivariate_gaussian_process_tpu.utils.artifacts import ArtifactStore as JaxStore
 from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, workflows
@@ -32,7 +31,10 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
+from test_torch_hmc import jax_sim
+
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 
 T64 = torch.float64
 LOO_KEYS = ("elpd_loo", "p_loo", "looic", "n_bad_k", "k_hat_max", "elpd_waic", "p_waic", "waic")
@@ -101,7 +103,7 @@ def _draws(rng, n, m, s, scale=0.05):
 _jax_observation_cov = jax.jit(jevaluate.observation_cov, static_argnums=(0, 3, 4))
 
 
-@pytest.mark.parametrize("n,m", [(12, 2), (9, 3)])
+@pytest.mark.parametrize("n,m", [(12, 2), (9, 3), (8, 5)])
 def test_observation_cov_matches_jax(rng, n, m):
     x = np.sort(rng.uniform(size=n))
     vec = _draws(rng, n, m, 1)[0]
@@ -154,7 +156,7 @@ def test_failed_factor_gives_nan_conditionals_as_in_jax():
     cov = -np.eye(4)
     y = np.arange(4.0)
     got = evaluate.pointwise_conditional_loglik(_t(cov), _t(y)).numpy()
-    want = np.asarray(jevaluate.pointwise_conditional_loglik(jnp.asarray(cov), jnp.asarray(y)))
+    want = np.asarray(jax.jit(jevaluate.pointwise_conditional_loglik)(jnp.asarray(cov), jnp.asarray(y)))
     assert np.isnan(got).all() and np.isnan(want).all()
 
 
@@ -226,7 +228,7 @@ LOO_CFG = dict(model="gnmgp", n_opt=40, do_hmc=True, do_loo=True, n_hmc=8, loo_d
 def loo_runs(tmp_path_factory):
     """JAX's run_subject(do_hmc=True, do_loo=True) into a store, and the
     port's on the same data with JAX's chain in place of its own."""
-    d = jsim.sim_mnts(jax.random.PRNGKey(3), n=16)
+    d = jax_sim(jax.random.PRNGKey(3), n=16)
     x, y = np.asarray(d.x), np.asarray(d.y)
     jroot = str(tmp_path_factory.mktemp("jax_loo"))
     want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**LOO_CFG), store=JaxStore(jroot))
@@ -279,7 +281,7 @@ def test_loo_thins_the_chain_as_jax_does(loo_runs, monkeypatch):
     monkeypatch.setattr(evaluate, "chain_conditional_loglik", spy)
     chain = torch.tensor(np.asarray(want["hmc_samples"]), dtype=T64)
     monkeypatch.setattr(workflows, "_run_chain", lambda *a, whitener=None: (chain, 1.0))
-    d = jsim.sim_mnts(jax.random.PRNGKey(3), n=16)
+    d = jax_sim(jax.random.PRNGKey(3), n=16)
     cfg = workflows.PipelineConfig(**{**LOO_CFG, "n_opt": 2})
     workflows.run_subject(np.asarray(d.x), np.asarray(d.y), cfg, device="cpu")
     idx = np.linspace(0, 7, 6).astype(int)

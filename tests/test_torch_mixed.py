@@ -167,7 +167,8 @@ def test_f32_jitter_rung(monkeypatch, rng, robust):
     a = 0.5 * (a + a.T)
     y = rng.normal(size=n)
     assert torch.linalg.cholesky_ex(_t(a, torch.float32)).info.item() > 0
-    jf = lambda: jmixed.mixed_logdet_quad(jnp.asarray(a), jnp.asarray(y))  # un-jitted: reads the settings
+    # a fresh jit a call: JAX reads the settings at trace time (op by op it took ~3 s)
+    jf = lambda: jax.jit(lambda aa, yy: jmixed.mixed_logdet_quad(aa, yy))(jnp.asarray(a), jnp.asarray(y))
     ld, q = mixed.mixed_logdet_quad(_t(a), _t(y))
     jld, jq = jf()
     jit = (mixed.FALLBACK_REL * torch.mean(torch.diagonal(_t(a, torch.float32)))).item()  # f32 product

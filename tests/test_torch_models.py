@@ -51,7 +51,9 @@ def _gram_inputs(rng, n, m):
     return x, ell, ls
 
 
+@jax.jit
 def _jax_input_major(x, ell, ls):
+    """JAX's Gram permuted to input-major (jitted: op by op a shape took ~1.5 s)."""
     n, m, _ = ls.shape
     kx = jkernels.nonstationary_rbf_cov(x, ell1=ell)
     return jgnmgp.gram(kx, ls).reshape(m, n, m, n).transpose(1, 0, 3, 2).reshape(n * m, n * m)
@@ -183,10 +185,12 @@ def test_mvn_logpdfs_match_jax(rng):
     cov, y, mu = _spd(rng, n), rng.normal(size=n), rng.normal(size=n)
     np.testing.assert_allclose(
         dists.mvn_logpdf_dense_unnorm(_t(y), _t(mu), _t(cov)).item(),
-        float(jdists.mvn_logpdf_dense_unnorm(jnp.asarray(y), jnp.asarray(mu), jnp.asarray(cov))), rtol=1e-12)
+        float(jax.jit(jdists.mvn_logpdf_dense_unnorm)(jnp.asarray(y), jnp.asarray(mu), jnp.asarray(cov))),
+        rtol=1e-12)
     c = np.linalg.cholesky(cov)
     ys = rng.normal(size=(3, n))
-    want = jax.vmap(lambda r: jdists.mvn_logpdf_chol(r, 0.2, jnp.asarray(c)))(jnp.asarray(ys))
+    want = jax.jit(jax.vmap(lambda r, cc: jdists.mvn_logpdf_chol(r, 0.2, cc), (0, None)))(
+        jnp.asarray(ys), jnp.asarray(c))
     np.testing.assert_allclose(dists.mvn_logpdf_chol(_t(ys), 0.2, _t(c)).numpy(), np.asarray(want), rtol=1e-12)
 
 
@@ -197,7 +201,8 @@ def test_kron_chol_logdet_quad_matches_jax(rng, masked):
     y = rng.normal(size=n * m)
     mask = (np.arange(n) < 15) if masked else None
     jm = None if mask is None else jnp.asarray(mask)
-    want = jkron.kron_chol_logdet_quad(jnp.asarray(b), jnp.asarray(k), 0.3, jnp.asarray(y), mask=jm)
+    want = jax.jit(lambda bb, kk, yy: jkron.kron_chol_logdet_quad(bb, kk, 0.3, yy, mask=jm))(
+        jnp.asarray(b), jnp.asarray(k), jnp.asarray(y))
     got = kron.kron_chol_logdet_quad(_t(b), _t(k), 0.3, _t(y), mask=None if mask is None else torch.tensor(mask))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.item(), float(w), rtol=1e-10)
@@ -208,10 +213,11 @@ def test_kron_solve_and_mv_match_jax(rng):
     b, k, y = _spd(rng, m), _spd(rng, n) / n, rng.normal(size=n * m)
     np.testing.assert_allclose(
         kron.kron_solve(_t(b), _t(k), 0.3, _t(y)).numpy(),
-        np.asarray(jkron.kron_solve(jnp.asarray(b), jnp.asarray(k), 0.3, jnp.asarray(y))), rtol=1e-10)
+        np.asarray(jax.jit(lambda bb, kk, yy: jkron.kron_solve(bb, kk, 0.3, yy))(
+            jnp.asarray(b), jnp.asarray(k), jnp.asarray(y))), rtol=1e-10)
     np.testing.assert_allclose(
         kron.kron_mv(_t(b), _t(k), _t(y)).numpy(),
-        np.asarray(jkron.kron_mv(jnp.asarray(b), jnp.asarray(k), jnp.asarray(y))), rtol=1e-12)
+        np.asarray(jax.jit(jkron.kron_mv)(jnp.asarray(b), jnp.asarray(k), jnp.asarray(y))), rtol=1e-12)
 
 
 def test_kron_failed_block_turns_nan():
@@ -224,12 +230,12 @@ def test_kron_failed_block_turns_nan():
 def test_psd_logdet_quad_and_solve_match_jax(rng):
     n = 30
     a, y = _spd(rng, n), rng.normal(size=n)
-    want = jchol.psd_logdet_quad(jnp.asarray(a), jnp.asarray(y))
+    want = jax.jit(jchol.psd_logdet_quad)(jnp.asarray(a), jnp.asarray(y))  # op by op: ~1 s
     got = chol.psd_logdet_quad(_t(a), _t(y))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.item(), float(w), rtol=1e-10)
     np.testing.assert_allclose(
-        chol.psd_solve(_t(a), _t(y)).numpy(), np.asarray(jchol.psd_solve(jnp.asarray(a), jnp.asarray(y))),
+        chol.psd_solve(_t(a), _t(y)).numpy(), np.asarray(jax.jit(jchol.psd_solve)(jnp.asarray(a), jnp.asarray(y))),
         rtol=1e-10)
 
 
@@ -292,7 +298,9 @@ def test_gnmgp_objective_matches_jax(rng, n, m, masked):
 
 def test_gnmgp_verbose_components_match_jax(rng):
     x, y, vec = _gnmgp_case(rng, 12, 2)
-    want = jgnmgp.nlogpos(jnp.asarray(vec), jnp.asarray(y), jnp.asarray(x), verbose=True)
+    # jitted: op by op it took ~3.5 s
+    want = jax.jit(lambda v, yy, xx: jgnmgp.nlogpos(v, yy, xx, verbose=True))(
+        jnp.asarray(vec), jnp.asarray(y), jnp.asarray(x))
     got = gnmgp.nlogpos(_t(vec), _t(y), _t(x), verbose=True)
     assert len(got) == len(want) == 5
     for g, w in zip(got, want):

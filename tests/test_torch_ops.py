@@ -9,6 +9,7 @@ versions on the card by ``chip_smoke.py``.
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from nonstationary_multivariate_gaussian_process_tpu import settings as jsettings
@@ -78,11 +79,11 @@ def test_nonstationary_rbf_cov_matches_jax(rng, n1, n2):
     x1, s1, l1 = rng.uniform(size=n1), rng.uniform(0.5, 2.0, n1), rng.uniform(0.1, 1.0, n1)
     if n2 is None:
         got = kernels.nonstationary_rbf_cov(_t(x1), _t(s1), _t(l1))
-        want = jkernels.nonstationary_rbf_cov(jnp.asarray(x1), jnp.asarray(s1), jnp.asarray(l1))
+        want = jax.jit(jkernels.nonstationary_rbf_cov)(jnp.asarray(x1), jnp.asarray(s1), jnp.asarray(l1))
     else:
         x2, s2, l2 = rng.uniform(size=n2), rng.uniform(0.5, 2.0, n2), rng.uniform(0.1, 1.0, n2)
         got = kernels.nonstationary_rbf_cov(_t(x1), _t(s1), _t(l1), _t(x2), _t(s2), _t(l2))
-        want = jkernels.nonstationary_rbf_cov(
+        want = jax.jit(jkernels.nonstationary_rbf_cov)(
             jnp.asarray(x1), jnp.asarray(s1), jnp.asarray(l1),
             x2=jnp.asarray(x2), sigma2=jnp.asarray(s2), ell2=jnp.asarray(l2),
         )
@@ -93,11 +94,11 @@ def test_rbf_cov_matches_jax(rng):
     x, g = rng.uniform(size=20), rng.uniform(size=7)
     np.testing.assert_allclose(
         kernels.rbf_cov(_t(x), alpha=5.0, beta=0.7).numpy(),
-        np.asarray(jkernels.rbf_cov(jnp.asarray(x), alpha=5.0, beta=0.7)), rtol=1e-12,
+        np.asarray(jax.jit(lambda a: jkernels.rbf_cov(a, alpha=5.0, beta=0.7))(jnp.asarray(x))), rtol=1e-12,
     )
     np.testing.assert_allclose(
         kernels.rbf_cov(_t(x), _t(g), alpha=5.0, beta=0.7).numpy(),
-        np.asarray(jkernels.rbf_cov(jnp.asarray(x), jnp.asarray(g), alpha=5.0, beta=0.7)),
+        np.asarray(jax.jit(lambda a, b: jkernels.rbf_cov(a, b, alpha=5.0, beta=0.7))(jnp.asarray(x), jnp.asarray(g))),
         rtol=1e-12,
     )
 
@@ -131,14 +132,19 @@ def test_svc_gram_plain_input_layout_matches_pallas_interpret(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
 
 
+@jax.jit
+def _jax_task_gram(x, ell, ls):
+    """JAX's task-major Gram (jitted: op by op a shape took ~1.5 s)."""
+    return jgnmgp.gram(jkernels.nonstationary_rbf_cov(x, ell1=ell), ls)
+
+
 @pytest.mark.parametrize("layout", ["task", "input"])
 @pytest.mark.parametrize("n,m", [(24, 2), (17, 3)])
 def test_svc_gram_matches_jax_gram(rng, layout, n, m):
     """Both layouts against the JAX Gram in f64; "input" is its permutation."""
     x, ell, ls = _inputs(rng, n, m)
     got = gram_kernels.svc_gram(_t(x), _t(ell), _t(ls), settings.jitter, layout=layout).numpy()
-    kx = jkernels.nonstationary_rbf_cov(jnp.asarray(x), ell1=jnp.asarray(ell))
-    want = np.asarray(jgnmgp.gram(kx, jnp.asarray(ls)))  # task-major
+    want = np.asarray(_jax_task_gram(jnp.asarray(x), jnp.asarray(ell), jnp.asarray(ls)))  # task-major
     if layout == "input":
         want = want.reshape(m, n, m, n).transpose(1, 0, 3, 2).reshape(n * m, n * m)
     np.testing.assert_allclose(got, want, rtol=1e-12)

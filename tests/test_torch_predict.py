@@ -60,7 +60,7 @@ def test_krige_rbf_rejects_2d_inputs():
         latent.krige_rbf(torch.zeros(3, 2), torch.zeros(4), torch.zeros(3), 0.0, 1.0, 1.0)
 
 
-@pytest.mark.parametrize("n,m", [(48, 2), (40, 3)])
+@pytest.mark.parametrize("n,m", [(48, 2), (40, 3), (16, 5)])
 def test_predict_map_matches_jax(rng, n, m):
     x, y, vec = make_subject(rng, n, m)
     grid = np.linspace(0.0, 1.0, 37)

@@ -87,19 +87,21 @@ def test_predict_map_matches_jax(case, approx, masked):
 def test_predict_test_matches_jax(case):
     x, y, vec, _, _, jdata, jops, ops = case
     x_test = np.random.default_rng(6).uniform(size=7)
-    want = jpred.predict_test(jnp.asarray(vec), jdata, jops, jnp.asarray(x_test), approx="vfe")
+    jx_test = jnp.asarray(x_test)  # a constant of the program, as the grid is below (op by op: ~2 s)
+    want = jax.jit(lambda v: jpred.predict_test(v, jdata, jops, jx_test, approx="vfe"))(jnp.asarray(vec))
     got = pred.predict_test(_t(vec), FullData(_t(x), _t(y)), ops, _t(x_test), approx="vfe", device="cpu")
     for g, w in zip(got, want):
         _close(g.numpy(), w)
 
 
 def test_predict_sample_with_jax_noise_matches_jax(case):
-    """Over the chain's last ``n_sample`` draws (JAX's vmapped draws run op by
-    op here, ~10 s a call, so one case)."""
+    """Over the chain's last ``n_sample`` draws (JAX's vmapped draws, jitted:
+    op by op they took ~10 s a call)."""
     x, y, _, chain, grid, jdata, jops, ops = case
     key, n_sample = jax.random.PRNGKey(8), 3
-    want = np.asarray(jpred.predict_sample(key, jnp.asarray(chain), jdata, jops, jnp.asarray(grid),
-                                           n_sample=n_sample))
+    jgrid = jnp.asarray(grid)  # a constant of the program: the kriging reads it on the host
+    want = np.asarray(jax.jit(lambda k, c: jpred.predict_sample(k, c, jdata, jops, jgrid, n_sample=n_sample))(
+        key, jnp.asarray(chain)))
     s = n_sample
     gram_kernels.reset_launches()
     got = pred.predict_sample(None, chain, FullData(x, y), ops, grid, n_sample=n_sample, device="cpu",

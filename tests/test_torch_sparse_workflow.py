@@ -20,7 +20,6 @@ import torch
 import jax
 
 from nonstationary_multivariate_gaussian_process_tpu import workflows as jworkflows
-from nonstationary_multivariate_gaussian_process_tpu.data import sim as jsim
 from nonstationary_multivariate_gaussian_process_tpu.utils.artifacts import ArtifactStore as JaxStore
 from nonstationary_multivariate_gaussian_process_tpu_torch import convert, viz, workflows
 from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline as cli
@@ -31,9 +30,10 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp_
 from nonstationary_multivariate_gaussian_process_tpu_torch.serving import engine
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
-from test_torch_hmc import jax_noise
+from test_torch_hmc import jax_noise, jax_sim
 
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 
 T64 = torch.float64
 N, M_Z = 40, 8
@@ -54,7 +54,7 @@ def _close(got, want, err_msg=""):
 def runs(tmp_path_factory):
     """JAX's run_subject into a store, and the port's on the same subject
     with JAX's chain noise, into another."""
-    d = jsim.sim_mnts(jax.random.PRNGKey(3), n=N)
+    d = jax_sim(jax.random.PRNGKey(3), n=N)
     x, y = np.asarray(d.x), np.asarray(d.y)
     jroot = str(tmp_path_factory.mktemp("jax_sparse"))
     want = convert.result_to_numpy(jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**CFG),

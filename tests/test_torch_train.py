@@ -25,7 +25,6 @@ from nonstationary_multivariate_gaussian_process_tpu import evaluate as jevaluat
 from nonstationary_multivariate_gaussian_process_tpu import native as jnative
 from nonstationary_multivariate_gaussian_process_tpu import workflows as jworkflows
 from nonstationary_multivariate_gaussian_process_tpu.data import preprocess as jpreprocess
-from nonstationary_multivariate_gaussian_process_tpu.data import sim as jsim
 from nonstationary_multivariate_gaussian_process_tpu.inference import empirical as jempirical
 from nonstationary_multivariate_gaussian_process_tpu.inference import init as jinit
 from nonstationary_multivariate_gaussian_process_tpu.inference import map as jmap
@@ -43,7 +42,10 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.postprocess import an
 from nonstationary_multivariate_gaussian_process_tpu_torch.serving import PredictEngine
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
+from test_torch_hmc import jax_sim
+
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
+
 
 T64 = torch.float64
 
@@ -53,7 +55,7 @@ def _t(a):
 
 
 def _sim(n, key=3):
-    d = jsim.sim_mnts(jax.random.PRNGKey(key), n=n, m=2)
+    d = jax_sim(jax.random.PRNGKey(key), n=n, m=2)
     return np.asarray(d.x), np.asarray(d.y)
 
 
