@@ -5,7 +5,7 @@ Run from the root of the repository, on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--phases kernels,sparse]
 
-``--phases`` runs the named phases (comma-separated, of 2-14 below) and
+``--phases`` runs the named phases (comma-separated, of 2-15 below) and
 those whose results they take (drift takes serving's; chain and precision
 hmc's; nuts models'; samplers hmc's and models'), in the order below; the
 default is every phase.  The summary then lists what those phases measured.
@@ -211,7 +211,28 @@ Phases, each printing its lines:
                and at the other strip heights, column groups and ragged
                edges (untimed), and logs its walk (grid, rows a block,
                column groups, slots, tickets).
-15. summary  — one JSON line listing every kernel, the card's name and power
+15. sparse_models — (the sparse SNMGP, LMC and heteroscedastic GNMGP tiers,
+               no device named) for each at N=2000, m_z=64, M=2, f64: FITC
+               and VFE gradient evaluations per second, exact launches per
+               gradient (the separable tiers: K1's self form for K_zz and
+               cross form for K_xz, and both backward kernels, σ and ℓ on
+               both sides; the hetero tier the sparse GNMGP's) and a profile
+               of one gradient; K1's self form, cross form and their
+               backward kernels at the SNMGP path's own inputs against their
+               plain versions; ``run_subject(do_hmc=True, do_loo=True,
+               n_opt=30)`` into a store (the SNMGP with the default chain,
+               the other two with 25 draws) with the launches of its chain,
+               DIC and LOO stages counted exactly; warm ``POST /predict`` at
+               201 points, mode="map" for each and mode="sample" for the
+               separable tiers (exact launches), the hetero tier's sample
+               request refused with a 400 as JAX's engine refuses it; the
+               card against the CPU at N=200, m_z=16 (values and gradients
+               under both approximations, run_subject's MAP at rtol 1e-6,
+               predictions at rtol 1e-6 with a floor of 1e-6 of the scale,
+               the LOO conditionals at 1e-8); one SNMGP gradient under
+               NMGP_PRECISION=mixed against f64; the CLI with ``--model
+               snmgp_sparse`` at N=200 into ``chiprun_out/cli_snmgp_sparse``.
+16. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -257,8 +278,11 @@ TRAINING_KERNELS = ("gibbs_gram", "gibbs_gram_backward", "svc_gram", "svc_gram_t
 
 #: Backward kernels against autograd through the plain versions: the sums
 #: run in another order, so the tolerance is relative to the gradient's
-#: largest |entry|, by dtype.
+#: largest |entry|, by dtype; where that entry is subnormal, GRAD_TINY units
+#: of the type's smallest normal instead (a relative bound there falls under
+#: one subnormal step, so rounding alone could break it).
 GRAD_TOL = {"float64": 1e-10, "float32": 1e-4}
+GRAD_TINY = 4
 
 #: K3's backward is timed at N=1000 M=2 and N=257 M=3; these (N, M) cover
 #: the other M it is compiled for, each checked once.
@@ -539,8 +563,11 @@ def check_close(torch, name, got, want, dtype_name) -> float:
 
 def check_grad(torch, name, got, want, dtype_name) -> float:
     """Backward outputs against autograd of the plain version: every entry
-    within GRAD_TOL of the output's largest |entry|; returns the max abs error."""
+    within GRAD_TOL of the output's largest |entry| or, where that entry is
+    subnormal, within GRAD_TINY units of the type's smallest normal; returns
+    the max abs error."""
     err = 0.0
+    tiny = torch.finfo(getattr(torch, dtype_name)).tiny
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
@@ -548,7 +575,8 @@ def check_grad(torch, name, got, want, dtype_name) -> float:
             raise AssertionError(f"{name}: non-finite kernel output")
         diff = (g - w).abs().max().item()
         scale = w.abs().max().item()
-        if not diff <= GRAD_TOL[dtype_name] * scale:
+        bound = GRAD_TOL[dtype_name] * scale if scale >= tiny else GRAD_TINY * tiny
+        if not diff <= bound:
             raise AssertionError(f"{name}: off by {diff:.3e} against a scale of {scale:.3e}")
         err = max(err, diff)
     return err
@@ -3466,10 +3494,375 @@ def phase_sparse(torch, np, gk, seed) -> dict:
     return counts
 
 
+
+#: The other sparse tiers (``snmgp_sparse``, ``lmc_sparse``,
+#: ``gnmgp_hetero_sparse``) at the sparse phase's N=SPARSE_N, m_z=SPARSE_M_Z,
+#: M=2, f64.  The kernels each launches per gradient, per value (a DIC or LOO
+#: draw) and per mode="map" request (and per draw of a mode="sample" one):
+#: the separable tiers K1's self form for K_zz and its cross form for K_xz
+#: (K_gz too in a request), with the self-form and cross-form backward
+#: kernels (σ and ℓ on both sides); the hetero tier the sparse GNMGP's.  Every
+#: other kernel must launch 0 times.  Each run_subject takes the default
+#: chain (SPARSE_TIER_DRAWS None) or that many draws of 20 leapfrog steps.
+SPARSE_TIERS = ("snmgp_sparse", "lmc_sparse", "gnmgp_hetero_sparse")
+_K1_SEPARABLE = {"gradient": {"gibbs_gram": 2, "gibbs_gram_backward": 1, "gibbs_gram_cross_backward": 1},
+                 "value": {"gibbs_gram": 2}, "request": {"gibbs_gram": 3}}
+SPARSE_TIER_LAUNCHES = {"snmgp_sparse": _K1_SEPARABLE, "lmc_sparse": _K1_SEPARABLE,
+                        "gnmgp_hetero_sparse": {"gradient": SPARSE_GRADIENT, "value": SPARSE_VALUE,
+                                                "request": SPARSE_REQUEST}}
+SPARSE_TIER_DRAWS = {"snmgp_sparse": None, "lmc_sparse": 25, "gnmgp_hetero_sparse": 25}
+#: The dense model whose subject (and truth) each tier takes.
+SPARSE_TIER_BASE = {"snmgp_sparse": "snmgp", "lmc_sparse": "lmc", "gnmgp_hetero_sparse": "gnmgp_hetero"}
+SPARSE_TIER_CHECK_DRAWS = 4
+
+
+def sparse_tier_start(torch, np, model: str, vec, n: int, x, z):
+    """A tier's vector at Z from the dense truth ``vec`` (N layout): each
+    inducing input takes the latents of its nearest data input, as
+    ``init_from_empirical`` does; the LMC vector is N-free."""
+    if model == "lmc_sparse":
+        return vec
+    nearest = torch.as_tensor(np.argmin(np.abs(np.asarray(x)[None, :] - z.cpu().numpy()[:, None]), axis=1))
+    if model == "snmgp_sparse":
+        return torch.cat([vec[:n][nearest], vec[n:2 * n][nearest], vec[2 * n:]])
+    t = 3
+    return torch.cat([vec[:n][nearest], vec[n:n + n * t].reshape(n, t)[nearest].reshape(-1),
+                      vec[n + n * t:].reshape(2, n)[:, nearest].reshape(-1)])
+
+
+def ops_to(ops, device):
+    """A tier's ops (named tuples of tensors, nested for the hetero tier) on
+    ``device``."""
+    return type(ops)(*(o.to(device) if hasattr(o, "to") else ops_to(o, device) for o in ops))
+
+
+def check_k1_sparse_path(torch, np, gk, settings, v, ops, data) -> None:
+    """K1 at the separable path's own inputs (the kriged σ- and ℓ-processes at
+    N=SPARSE_N and at Z): the self form and its backward kernel at m_z, the
+    cross form and its backward kernel with σ̄ and ℓ̄ on both sides, each
+    against its plain version, with their warm times."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import snmgp_sparse
+
+    with torch.no_grad():
+        p = snmgp_sparse.unpack(v, ops.z.shape[0], 2)
+        tl_x, ts_x = snmgp_sparse.latents_at_data(p, ops)
+        sx, lx, sz, lz = torch.exp(ts_x), torch.exp(tl_x), torch.exp(p.tilde_sigma_z), torch.exp(p.tilde_l_z)
+    x, z = data.x, ops.z
+    gen = torch.Generator().manual_seed(7)
+    kbar_zz = torch.randn(z.shape[0], z.shape[0], generator=gen, dtype=torch.float64).to(DEVICE)
+    kbar_xz = torch.randn(x.shape[0], z.shape[0], generator=gen, dtype=torch.float64).to(DEVICE)
+    jit = settings.jitter
+    n, m_z = x.shape[0], z.shape[0]
+    checks = (
+        ("K1 self form", m_z, lambda: gk.gibbs_gram(z, sz, lz, jitter=jit),
+         lambda: gk.gibbs_gram_plain(z, sz, lz, z, sz, lz, jit), check_close),
+        ("K1 cross form", n, lambda: gk.gibbs_gram(x, sx, lx, z, sz, lz),
+         lambda: gk.gibbs_gram_plain(x, sx, lx, z, sz, lz), check_close),
+        ("K1 self-form backward", m_z, lambda: gk.gibbs_gram_backward(z, sz, lz, kbar_zz, jit),
+         lambda: gk.gibbs_gram_backward_plain(z, sz, lz, jit, kbar_zz), check_grad),
+        ("K1 cross-form backward (σ̄, ℓ̄ both sides)", n,
+         lambda: gk.gibbs_gram_cross_backward(x, sx, lx, z, sz, lz, kbar_xz),
+         lambda: gk.gibbs_gram_cross_backward_plain(x, sx, lx, z, sz, lz, kbar_xz), check_grad),
+    )
+    for label, rows, kern, plain, check in checks:
+        err = check(torch, label, kern(), plain(), "float64")
+        log("sparse_models", f"{label} at the snmgp_sparse path's inputs ({rows} x {m_z}, f64): max abs err "
+            f"{err:.3e} against its plain version; warm {time_ms(torch, kern):.5f} ms, plain "
+            f"{time_ms(torch, plain):.5f} ms")
+
+
+def phase_sparse_models(torch, np, gk, seed) -> dict:
+    """The sparse SNMGP, LMC and hetero GNMGP tiers at N=SPARSE_N,
+    m_z=SPARSE_M_Z, M=2, f64, no device named, each: (a) FITC and VFE
+    gradients with their exact launches, gradient evaluations/s and a
+    profile of one gradient (and, for the SNMGP, K1's self-form and
+    cross-form kernels and backward kernels at its inputs against their
+    plain versions); (b) ``run_subject(do_hmc=True, do_loo=True,
+    n_opt=TRAIN_N_OPT)`` into a store, with the launches of its chain, DIC
+    and LOO stages counted exactly; (c) warm ``POST /predict`` at 201 points,
+    mode="map" for each and mode="sample" for the separable tiers, the hetero
+    tier's sample request refused; (d) the card against the CPU at
+    N=SPARSE_CHECK_N, m_z=SPARSE_CHECK_M_Z: values and gradients under both
+    approximations, a short run_subject's MAP, the predictions and the LOO
+    conditionals.  Then (e) one SNMGP gradient under NMGP_PRECISION=mixed
+    against float64 and (f) the CLI with ``--model snmgp_sparse``.  Returns
+    each kernel's launches by label."""
+    import urllib.error
+
+    from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, settings, workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp_sparse
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import mixed
+    from nonstationary_multivariate_gaussian_process_tpu_torch.serving import serve
+    from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
+
+    f64 = torch.float64
+    as_t = lambda a, dev=DEVICE: torch.as_tensor(a, dtype=f64, device=dev)
+    expect = lambda per, times: {k: per.get(k, 0) * times for k in gk.launches()}
+    counts: dict = {}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def objective(model, data, **kw):
+        hetero = model == "gnmgp_hetero_sparse"
+        return (gnmgp_sparse.make_objective_hetero if hetero else workflows._MODELS[model].make_objective)(data, **kw)
+
+    def z_of(ops):
+        return ops.base.z if hasattr(ops, "base") else ops.z
+
+    for i, model in enumerate(SPARSE_TIERS):
+        t_model = time.perf_counter()
+        want = SPARSE_TIER_LAUNCHES[model]
+        x, y, dense = model_subject(torch, SPARSE_TIER_BASE[model], seed + 100 + i, SPARSE_N)
+        data = FullData(as_t(x), as_t(y))
+
+        # (a) FITC and VFE: launches per gradient, gradient evaluations/s, a profile
+        objectives = {}
+        for approx in ("fitc", "vfe"):
+            nlp, ops = objective(model, data, n_inducing=SPARSE_M_Z, approx=approx)
+            v = sparse_tier_start(torch, np, model, dense, SPARSE_N, x, z_of(ops)).to(DEVICE)
+            objectives[approx] = (nlp, ops, v)
+            gk.reset_launches()
+            val, grad = value_and_grad(nlp, v)
+            torch.cuda.synchronize()
+            counts[f"{model}_gradient_{approx}"] = gk.launches()
+            if gk.launches() != expect(want["gradient"], 1):
+                raise AssertionError(f"{model} {approx}: one gradient launched {gk.launches()}, expected "
+                                     f"{want['gradient']}")
+            if not (torch.isfinite(val) and torch.isfinite(grad).all()):
+                raise AssertionError(f"{model} {approx}: non-finite objective or gradient")
+            per_s = gradient_rate(torch, value_and_grad, nlp, v)
+            wall, device_ms, kinds, top = device_profile(torch, lambda: value_and_grad(nlp, v))
+            log("sparse_models", f"{model} {approx} N={SPARSE_N} m_z={SPARSE_M_Z} M=2 f64 (P={v.shape[0]}): "
+                f"objective {val.item():.10e}; {statistics.median(per_s):.3f} gradient evaluations/s (median of "
+                f"{RATE_BATCHES} batches of {RATE_EVALS}; min {min(per_s):.3f}, max {max(per_s):.3f}); one gradient "
+                f"launched {want['gradient']}")
+            log("profile", f"one {model} {approx} gradient N={SPARSE_N} m_z={SPARSE_M_Z}: wall {wall:.3f} ms, "
+                f"device {device_ms:.3f} ms (busy share {device_ms / wall:.3f}), {kinds} kernel kinds")
+            for ms, count, key in top:
+                log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+        if model == "snmgp_sparse":
+            _, ops, v = objectives["fitc"]
+            check_k1_sparse_path(torch, np, gk, settings, v, ops, data)
+
+        # (b) run_subject(do_hmc=True, do_loo=True) into a store, its stages' launches counted exactly
+        draws = SPARSE_TIER_DRAWS[model]
+        cfg = workflows.PipelineConfig(model=model, n_inducing=SPARSE_M_Z, n_opt=TRAIN_N_OPT, do_hmc=True,
+                                       do_loo=True, **({} if draws is None else {"n_hmc": draws}))
+        n_grads = 1 + (cfg.n_hmc + cfg.hmc_warmup) * cfg.hmc_leapfrog
+        stages: dict = {}
+
+        def counted(name, fn):
+            def wrapped(*args, **kwargs):
+                before = gk.launches()
+                t0 = time.perf_counter()
+                res = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                stages[name] = ({k: v_ - before[k] for k, v_ in gk.launches().items()}, time.perf_counter() - t0)
+                return res
+            return wrapped
+
+        originals = (workflows._run_chain, evaluate.get_dic, evaluate.chain_conditional_loglik_sparse)
+        workflows._run_chain = counted("chain", originals[0])
+        evaluate.get_dic = counted("dic", originals[1])
+        evaluate.chain_conditional_loglik_sparse = counted("loo", originals[2])
+        with tempfile.TemporaryDirectory(dir=out_dir, prefix=f"smoke_{model}_") as root:
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                gk.reset_launches()  # the main path starts here
+                t0 = time.perf_counter()
+                res = workflows.run_subject(x, y, cfg, store=ArtifactStore(root), dataset="sim")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts[f"{model}_run_subject"] = gk.launches()  # the main path ends here
+            finally:
+                workflows._run_chain, evaluate.get_dic, evaluate.chain_conditional_loglik_sparse = originals
+            samples, t_hmc = res["hmc_samples"], res["timings"]["hmc"]
+            s = samples.shape[0]
+            loo = {k: v_ for k, v_ in res["loo"].items() if k != "pointwise"}
+            log("sparse_models", f"run_subject {model} N={SPARSE_N} m_z={res['n_inducing']} M=2 f64 "
+                f"n_opt={TRAIN_N_OPT} do_hmc do_loo on {samples.device} (no device named): {wall:.3f} s; stages "
+                "(s): " + ", ".join(f"{k} {v_:.3f}" for k, v_ in res["timings"].items())
+                + f", DIC {stages['dic'][1]:.3f}, LOO {stages['loo'][1]:.3f}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            log("sparse_models", f"{model} chain: {cfg.n_hmc} draws x {cfg.hmc_leapfrog} leapfrog steps at "
+                f"{cfg.hmc_step_size}: {cfg.n_hmc / t_hmc:.3f} draws/s, {n_grads / t_hmc:.3f} gradients/s "
+                f"({n_grads} gradients); mean acceptance {res['hmc_accept']:.6f}; DIC {res['dic']:.6e} (deviance at "
+                f"the MAP {res['deviance']:.6e}); loo " + ", ".join(f"{k} {v_:.6g}" for k, v_ in loo.items()))
+            for stage, per, times in (("chain", "gradient", n_grads), ("dic", "value", s + 1), ("loo", "value", s)):
+                counts[f"{model}_{stage}"] = stages[stage][0]
+                if stages[stage][0] != expect(want[per], times):
+                    raise AssertionError(f"{model}: the {stage} stage launched {stages[stage][0]}, expected "
+                                         f"{expect(want[per], times)}")
+            log("sparse_models", f"{model} launches: chain {stages['chain'][0]} = {n_grads} gradients x "
+                f"{want['gradient']}; DIC {stages['dic'][0]}; LOO {stages['loo'][0]}; the whole run "
+                f"{counts[f'{model}_run_subject']}")
+            if (tuple(samples.shape) != (cfg.n_hmc, workflows.n_params(model, SPARSE_M_Z, 2))
+                    or samples.device.type != torch.device(DEVICE).type or not torch.isfinite(samples).all()):
+                raise AssertionError(f"{model}: hmc_samples on {samples.device} with shape {tuple(samples.shape)}")
+            if not (np.isfinite([res["dic"], loo["elpd_loo"], loo["looic"]]).all() and 0.0 < res["hmc_accept"] <= 1.0):
+                raise AssertionError(f"{model}: non-finite DIC or LOO, or no draw accepted")
+
+            # (c) warm POST /predict at 201 points
+            httpd = serve(root, port=0, model=model)  # warms mode="map" at the 64- and 256-point buckets
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            xs = np.linspace(float(x.min()), float(x.max()), 201)
+
+            def post(mode):
+                body = json.dumps({"subject": "0", "x": list(map(float, xs)), "mode": mode,
+                                   "n_sample": CHAIN_N_SAMPLE}).encode()
+                req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_port}/predict", data=body,
+                                             method="POST")
+                return json.load(urllib.request.urlopen(req, timeout=300))
+
+            answers = {}
+            modes = (("map", check_answer, 1),)
+            if model != "gnmgp_hetero_sparse":
+                modes += (("sample", check_sample_answer, min(s, CHAIN_N_SAMPLE)),)
+            try:
+                for mode, check, times in modes:
+                    answers[mode] = check(np, post(mode), 201)  # first request at this bucket
+                    times_ms = []
+                    for _ in range(TIMED_REQUESTS):
+                        gk.reset_launches()  # a request starts here
+                        t0 = time.perf_counter()
+                        check(np, post(mode), 201)
+                        times_ms.append((time.perf_counter() - t0) * 1e3)
+                        counts[f"{model}_{mode}_request"] = gk.launches()  # a request ends here
+                        if gk.launches() != expect(want["request"], times):
+                            raise AssertionError(f"{model}: a {mode} request launched {gk.launches()}, expected "
+                                                 f"{expect(want['request'], times)}")
+                    log("sparse_models", f"{model} POST /predict mode={mode} 201 points: ok, warm latency median "
+                        f"{statistics.median(times_ms):.3f} ms (min {min(times_ms):.3f}, max {max(times_ms):.3f}, "
+                        f"{TIMED_REQUESTS} requests); launches per request {want['request']} x {times}")
+                if model == "gnmgp_hetero_sparse":
+                    try:
+                        post("sample")
+                    except urllib.error.HTTPError as exc:
+                        refusal = (exc.code, json.load(exc)["error"])
+                    else:
+                        raise AssertionError(f"{model}: a mode=sample request was answered")
+                    if refusal[0] != 400 or "serves mode='map' only" not in refusal[1]:
+                        raise AssertionError(f"{model}: a mode=sample request got {refusal}")
+                    log("sparse_models", f"{model} POST /predict mode=sample: refused as JAX's engine refuses it "
+                        f"({refusal[0]}: {refusal[1]})")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=30)
+            if thread.is_alive():
+                raise AssertionError("server thread did not stop")
+            stored = ArtifactStore(root).load(ArtifactStore.key(model, "sim", 0, "map"))
+        map_vec = res["map_vec"].cpu()
+        pred = workflows._PREDICT[model]
+        predict_map = pred.predict_map_hetero if model == "gnmgp_hetero_sparse" else pred.predict_map
+        make_ops = (gnmgp_sparse.make_ops_hetero if model == "gnmgp_hetero_sparse"
+                    else workflows._MODELS[model].make_ops)
+        cpu_ops = make_ops(as_t(x, "cpu"), as_t(stored["z"], "cpu"))
+        ref = predict_map(map_vec, FullData(x, y), cpu_ops, xs, device="cpu")
+        for k, w_ in (("mean", ref.mean), ("std", ref.std), ("upper", ref.percentiles[:, 2])):
+            rel, frac = held(np, answers["map"][k], w_.numpy(), SERVED_RTOL)
+            log("sparse_models", f"{model} served 201-point map {k} vs CPU: ok, max rel err {rel:.3e}, max err "
+                f"{frac:.3e} of max |CPU|")
+
+        # (d) the card against the CPU at N=SPARSE_CHECK_N, m_z=SPARSE_CHECK_M_Z
+        xc, yc, dc = model_subject(torch, SPARSE_TIER_BASE[model], seed + 110 + i, SPARSE_CHECK_N)
+        for approx in ("fitc", "vfe"):
+            vals = {}
+            for dev in (DEVICE, "cpu"):
+                nlp_c, ops_c = objective(model, FullData(as_t(xc, dev), as_t(yc, dev)), n_inducing=SPARSE_CHECK_M_Z,
+                                         approx=approx)
+                v_c = sparse_tier_start(torch, np, model, dc, SPARSE_CHECK_N, xc, z_of(ops_c)).to(dev)
+                vals[dev] = [t_.cpu() for t_ in value_and_grad(nlp_c, v_c)]
+            rel_v, _ = held(np, [vals[DEVICE][0].item()], [vals["cpu"][0].item()], OBJECTIVE_RTOL)
+            rel_g, frac_g = held(np, vals[DEVICE][1].numpy(), vals["cpu"][1].numpy(), OBJECTIVE_RTOL)
+            log("sparse_models", f"{model} {approx} N={SPARSE_CHECK_N} m_z={SPARSE_CHECK_M_Z} card vs CPU: value "
+                f"rel {rel_v:.3e}, gradient max rel err {rel_g:.3e}, max err {frac_g:.3e} of its scale: ok at "
+                f"rtol {OBJECTIVE_RTOL}")
+        cfg_c = workflows.PipelineConfig(model=model, n_inducing=SPARSE_CHECK_M_Z, n_opt=CHECK_N_OPT,
+                                         sparse_approx="vfe")
+        runs = {dev: workflows.run_subject(xc, yc, cfg_c, device=dev, dtype=f64) for dev in (DEVICE, "cpu")}
+        nlp_c, ops_c = objective(model, FullData(as_t(xc, "cpu"), as_t(yc, "cpu")), n_inducing=SPARSE_CHECK_M_Z,
+                                 approx="vfe")
+        with torch.no_grad():
+            final = {dev: nlp_c(r["map_vec"].cpu()).item() for dev, r in runs.items()}
+        rel_f, _ = held(np, [final[DEVICE]], [final["cpu"]], OBJECTIVE_RTOL)
+        rel_m, frac_m = held(np, runs[DEVICE]["map_vec"].cpu().numpy(), runs["cpu"]["map_vec"].numpy(),
+                             OBJECTIVE_RTOL)
+        # the predictions and the LOO conditionals at one vector and one chain, the CPU's ops on both devices
+        vec_c = runs["cpu"]["map_vec"]
+        chain_c = vec_c + 0.01 * torch.randn(SPARSE_TIER_CHECK_DRAWS, vec_c.shape[0],
+                                             generator=torch.Generator().manual_seed(seed + 120 + i), dtype=f64)
+        xs_c = np.linspace(float(xc.min()), float(xc.max()), 201)
+        preds, conds, samples_c = {}, {}, {}
+        for dev in (DEVICE, "cpu"):
+            ops_d = ops_to(ops_c, dev)
+            data_d = FullData(as_t(xc, dev), as_t(yc, dev))
+            preds[dev] = predict_map(vec_c, data_d, ops_d, xs_c, approx="vfe", device=dev, dtype=f64)
+            conds[dev] = evaluate.chain_conditional_loglik_sparse(chain_c, data_d, ops_d, approx="vfe", model=model,
+                                                                  device=dev, dtype=f64)
+            if model != "gnmgp_hetero_sparse":
+                noise = sample_noise(torch, SPARSE_TIER_BASE[model], torch.Generator().manual_seed(seed + 130 + i),
+                                     SPARSE_TIER_CHECK_DRAWS, 201)
+                samples_c[dev] = pred.predict_sample(None, chain_c, data_d, ops_d, xs_c, approx="vfe", device=dev,
+                                                     dtype=f64, noise=noise).cpu().numpy()
+        for k in ("mean", "std"):
+            held(np, getattr(preds[DEVICE], k).cpu().numpy(), getattr(preds["cpu"], k).numpy(), SERVED_RTOL)
+        rel_l, frac_l = held(np, conds[DEVICE], conds["cpu"], CHAIN_LOO_RTOL)
+        if samples_c:
+            held(np, samples_c[DEVICE], samples_c["cpu"], SERVED_RTOL)
+        log("sparse_models", f"{model} vfe N={SPARSE_CHECK_N} m_z={SPARSE_CHECK_M_Z} run_subject card vs CPU: final "
+            f"objective {final[DEVICE]:.10e} vs {final['cpu']:.10e} (rel {rel_f:.3e}); map_vec max rel err "
+            f"{rel_m:.3e}, max err {frac_m:.3e} of its scale: ok at rtol {OBJECTIVE_RTOL}; predict_map"
+            + (" and predict_sample (the same noise)" if samples_c else "")
+            + f" at 201 points ok at rtol {SERVED_RTOL} (floor of the scale); LOO conditionals over "
+            f"{SPARSE_TIER_CHECK_DRAWS} draws max rel err {rel_l:.3e}, max err {frac_l:.3e} of the scale: ok at "
+            f"{CHAIN_LOO_RTOL}; the model's phase took {time.perf_counter() - t_model:.3f} s")
+
+        # (e) one SNMGP FITC gradient under NMGP_PRECISION=mixed against float64
+        if model == "snmgp_sparse":
+            nlp, _, v = objectives["fitc"]
+            calls = []
+            real = mixed.mixed_logdet_quad
+            mixed.mixed_logdet_quad = lambda *a: calls.append(1) or real(*a)
+            settings.mixed_solves = True
+            try:
+                val_m, grad_m = value_and_grad(nlp, v)
+            finally:
+                settings.mixed_solves = False
+                mixed.mixed_logdet_quad = real
+            val_f, grad_f = value_and_grad(nlp, v)
+            if not calls:
+                raise AssertionError(f"{model}: the mixed objective did not take the mixed route")
+            rel_v, _ = held(np, [val_m.item()], [val_f.item()], MIXED_VALUE_RTOL)
+            g_err = (grad_m - grad_f).abs().max().item() / grad_f.abs().max().item()
+            if not g_err <= MIXED_GRAD_TOL:
+                raise AssertionError(f"{model}: the mixed gradient is off by {g_err:.3e} of the f64 gradient's scale")
+            log("sparse_models", f"{model} fitc N={SPARSE_N} NMGP_PRECISION=mixed vs f64: value {val_m.item():.12e} "
+                f"vs {val_f.item():.12e} (rel {rel_v:.3e}), gradient off by {g_err:.3e} of its scale: ok at "
+                f"{MIXED_VALUE_RTOL} and {MIXED_GRAD_TOL}")
+
+    # (f) the CLI with --model snmgp_sparse
+    cli_out = os.path.join(out_dir, "cli_snmgp_sparse")
+    t0 = time.perf_counter()
+    summary = run_sim_pipeline.main(["--model", "snmgp_sparse", "--n", str(CHAIN_CHECK_N), "--n-opt", str(CHECK_N_OPT),
+                                     "--n-hmc", str(CHAIN_CLI_HMC), "--out", cli_out])
+    for name in ("posterior.png", "target_trace.png", "manifest.json"):
+        if not os.path.getsize(os.path.join(cli_out, name)) > 0:
+            raise AssertionError(f"the snmgp_sparse CLI did not write {name}")
+    if not all(np.isfinite(summary.get(k, np.nan)) for k in ("deviance", "aic", "bic", "dic", "hmc_accept")):
+        raise AssertionError(f"the snmgp_sparse CLI's summary lacks finite scores: {summary}")
+    log("sparse_models", f"CLI --model snmgp_sparse --n {CHAIN_CHECK_N} --n-opt {CHECK_N_OPT} --n-hmc "
+        f"{CHAIN_CLI_HMC} on the card: {time.perf_counter() - t0:.3f} s; summary {summary}")
+    return counts
+
 #: The phases after the build, in the order they run, and the phases whose
 #: results each takes (a named phase runs those too).
 PHASES = ("kernels", "serving", "drift", "objective", "training", "hmc", "chain", "models", "nuts", "hadamard",
-          "precision", "samplers", "sparse")
+          "precision", "samplers", "sparse", "sparse_models")
 PHASE_NEEDS = {"drift": ("serving",), "chain": ("hmc",), "nuts": ("models",), "precision": ("hmc",),
                "samplers": ("hmc", "models")}
 
@@ -3549,6 +3942,7 @@ def main() -> int:
     run("precision", lambda torch, np, gk: phase_precision(torch, np, gk, args.seed, res["hmc"][1]))
     run("samplers", lambda torch, np, gk: phase_samplers(torch, np, gk, args.seed, res["hmc"][1], res["models"][1]))
     run("sparse", phase_sparse, args.seed)
+    run("sparse_models", phase_sparse_models, args.seed)
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -3593,8 +3987,9 @@ def main() -> int:
         # by model: the other families' chain, DIC, LOO stage and requests; the
         # whitened NUTS chains at N=1000; the Hadamard layout by stage; the
         # sampling stages of DRHMC, ChEES and tempering; the sparse tier per
-        # gradient, its run_subject and stages, NUTS and requests
-        for phase in ("models", "nuts", "hadamard", "samplers", "sparse"):
+        # gradient, its run_subject and stages, NUTS and requests; the other
+        # sparse tiers likewise, by tier
+        for phase in ("models", "nuts", "hadamard", "samplers", "sparse", "sparse_models"):
             if phase in res:
                 counts = res[phase][0] if phase == "models" else res[phase]
                 row[f"launches_{phase}"] = {label: c[name] for label, c in counts.items()}
@@ -3612,7 +4007,8 @@ def main() -> int:
                               ("nuts", "in the whitened NUTS chains by model", bool),
                               ("hadamard", "in run_subject_hadamard by model and stage", any_value),
                               ("precision", "under mixed", bool), ("samplers", "in the samplers' stages", bool),
-                              ("sparse", "on the sparse path", bool)):
+                              ("sparse", "on the sparse path", bool),
+                              ("sparse_models", "on the other sparse tiers' paths", bool)):
         if phase in res:
             log("summary", f"launches {what}: " + joined(res[phase][0] if phase == "models" else res[phase], keep))
     if "objective" in res:

@@ -6,8 +6,11 @@ The port keeps the JAX package's packed parameter vectors (reference
 tilde_sigma2_err]``; ``vec2pars_S``: ``[tilde_l, tilde_sigma, uL_vec (T),
 tilde_sigma2_err]``; the heteroscedastic GNMGP's ``[tilde_l (N), uL_vecs
 (N·T), tilde_sigma2_err (N·M)]``; the sparse GNMGP's ``[tilde_l_z (m_z),
-uL_vecs_z (m_z·T), tilde_sigma2_err]`` with its ``SparseOps``), its
-empirical estimate and its artifact-store format,
+uL_vecs_z (m_z·T), tilde_sigma2_err]``, its hetero tier's with
+``tilde_sigma2_err_z (m_z·M)``, the sparse SNMGP's ``[tilde_l_z (m_z),
+tilde_sigma_z (m_z), uL_vec (T), tilde_sigma2_err]``, the sparse LMC's the
+LMC's, each with its ops), its empirical estimate and its artifact-store
+format,
 so carrying a fit across is a matter of moving arrays into tensors on a
 device.  A Hadamard-layout subject's GNMGP and SNMGP vectors are the dense
 layouts with N the number of observations (``params_from_jax(vec, n_obs,
@@ -28,7 +31,7 @@ import torch
 from . import dists, settings
 from .inference import whiten
 from .inference.empirical import EmpiricalEstimate
-from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, snmgp
+from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, lmc_sparse, snmgp, snmgp_sparse
 from .models.base import FullData
 from .utils.artifacts import ArtifactStore
 
@@ -75,6 +78,40 @@ def sparse_ops_from_jax(ops, device=None, dtype=None) -> gnmgp_sparse.SparseOps:
     t = lambda a: _tensor(np.array(a), device, dtype)
     tri = lambda pc: dists.TriInv(t(pc.w), t(pc.logdet))
     return gnmgp_sparse.SparseOps(t(ops.z), t(ops.proj_l), t(ops.proj_ul), tri(ops.pc_l_z), tri(ops.pc_ul_z))
+
+
+def sparse_hetero_params_from_jax(vec: np.ndarray, m_z: int, m: int, device=None, dtype=None) -> gnmgp_hetero.Params:
+    """The JAX package's packed sparse hetero GNMGP vector (task-major noise
+    at Z) as the port's ``Params``."""
+    return gnmgp_sparse.unpack_hetero(_tensor(vec, device, dtype), m_z, m)
+
+
+def sparse_hetero_ops_from_jax(ops_h, device=None, dtype=None) -> gnmgp_sparse.SparseHeteroOps:
+    """A JAX ``SparseHeteroOps`` as the port's: its base ``SparseOps`` and the
+    noise GP's projection and prior factor at Z."""
+    t = lambda a: _tensor(np.array(a), device, dtype)
+    return gnmgp_sparse.SparseHeteroOps(sparse_ops_from_jax(ops_h.base, device, dtype), t(ops_h.proj_err),
+                                        dists.TriInv(t(ops_h.pc_err_z.w), t(ops_h.pc_err_z.logdet)))
+
+
+def snmgp_sparse_params_from_jax(vec: np.ndarray, m_z: int, m: int, device=None,
+                                 dtype=None) -> snmgp_sparse.SparseParams:
+    """The JAX package's packed sparse SNMGP vector as the port's ``SparseParams``."""
+    return snmgp_sparse.unpack(_tensor(vec, device, dtype), m_z, m)
+
+
+def snmgp_sparse_ops_from_jax(ops, device=None, dtype=None) -> snmgp_sparse.SparseOps:
+    """A JAX sparse SNMGP ``SparseOps`` (Z, the ℓ̃ and σ̃ projections and
+    their prior factors at Z) as the port's."""
+    t = lambda a: _tensor(np.array(a), device, dtype)
+    tri = lambda pc: dists.TriInv(t(pc.w), t(pc.logdet))
+    return snmgp_sparse.SparseOps(t(ops.z), t(ops.proj_l), t(ops.proj_sigma), tri(ops.pc_l_z), tri(ops.pc_sigma_z))
+
+
+def lmc_sparse_ops_from_jax(ops, device=None, dtype=None) -> lmc_sparse.SparseOps:
+    """A JAX sparse LMC ``SparseOps`` (its inducing inputs) as the port's; its
+    vector is the LMC's (:func:`lmc_params_from_jax`)."""
+    return lmc_sparse.SparseOps(_tensor(np.array(ops.z), device, dtype))
 
 
 def empirical_from_jax(emp) -> EmpiricalEstimate:

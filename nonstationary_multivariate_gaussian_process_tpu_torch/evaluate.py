@@ -8,10 +8,10 @@ likelihood is one joint MVN, so the pointwise terms are the exact
 leave-one-out conditionals ``p(y_i | y_{−i}, θ)`` from one precision matrix
 per draw.  The dense LOO conditionals cover ``lmc``, ``snmgp``, ``gnmgp``
 and ``gnmgp_hetero``, in the Hadamard layout ``lmc``, ``snmgp`` and
-``gnmgp``, and the sparse ones ``gnmgp_sparse`` (from its Woodbury factors,
-never the dense precision); the G/P/D scores, ``loo_compare``,
-``stacking_weights`` and the other sparse models' conditionals are not
-ported yet.
+``gnmgp``, and the sparse ones ``gnmgp_sparse``, ``gnmgp_hetero_sparse``,
+``snmgp_sparse`` and ``lmc_sparse`` (from their Woodbury factors, never the
+dense precision); the G/P/D scores, ``loo_compare`` and
+``stacking_weights`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,13 +22,14 @@ import numpy as np
 import torch
 
 from . import settings
-from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, snmgp
+from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, lmc_sparse, snmgp, snmgp_sparse
 from .models.base import task_major
 from .ops import chol, kernels
 
-#: Sparse models whose Woodbury factors the JAX package builds and this port
-#: does not yet.
-_NOT_PORTED = ("gnmgp_hetero_sparse", "snmgp_sparse", "lmc_sparse")
+#: The sparse models, whose LOO conditionals come from their Woodbury factors
+#: (:func:`chain_conditional_loglik_sparse`); their observation covariance is
+#: never formed.
+SPARSE_MODELS = ("gnmgp_sparse", "gnmgp_hetero_sparse", "snmgp_sparse", "lmc_sparse")
 
 def mse(a, b, axis=None):
     """Mean squared error (utils.py:165-172)."""
@@ -98,9 +99,8 @@ def observation_cov(model: str, vec: torch.Tensor, x: torch.Tensor, n: int, m: i
     likelihood (Gram + noise).  On CUDA the ``gnmgp`` and ``gnmgp_hetero``
     Gram is kernel K2 (``models.gnmgp.gram``, with its self-nugget), and
     the ``lmc`` and ``snmgp`` input covariance ``K_x`` kernel K1's self form,
-    expanded as ``B_f ⊗ K_x``."""
-    if model in _NOT_PORTED:
-        raise ValueError(f"observation_cov for model {model!r} is not yet ported to the torch package")
+    expanded as ``B_f ⊗ K_x``.  A sparse model's covariance is never formed,
+    here or in JAX: its name raises, as an unknown one does."""
     if model in ("gnmgp", "gnmgp_hetero"):
         mod = gnmgp if model == "gnmgp" else gnmgp_hetero
         p = mod.unpack(vec, n, m)
@@ -113,6 +113,9 @@ def observation_cov(model: str, vec: torch.Tensor, x: torch.Tensor, n: int, m: i
     elif model == "lmc":
         p = lmc.unpack(vec, m)
         b_f, k_x, sigma2_err = lmc.task_cov(p.ul_vec, m), lmc.input_cov(p, x), torch.exp(p.tilde_sigma2_err)
+    elif model in SPARSE_MODELS:
+        raise ValueError(f"unknown model {model!r} for a dense observation covariance (a sparse model's LOO "
+                         "conditionals come from chain_conditional_loglik_sparse)")
     else:
         raise ValueError(f"unknown model {model!r}")
     cov = torch.kron(b_f, k_x)
@@ -189,28 +192,46 @@ def chain_conditional_loglik_sparse(
         diag(Σ⁻¹) = (1 − colnorms²(L_in⁻¹ A)) / Λ
         Σ⁻¹ y     = (d − Aᵀ inner⁻¹ (A d)) / sqrt(Λ)
 
+    ``model`` picks the Woodbury factor set: ``"gnmgp_sparse"`` (with
+    ``hetero=True`` the per-slot-noise tier, whose ``ops`` are its
+    ``SparseHeteroOps``; ``"gnmgp_hetero_sparse"`` names it too),
+    ``"snmgp_sparse"`` or ``"lmc_sparse"``.  As in JAX, ``hetero=True``
+    with a separable model's name raises, since it would read the draws in
+    the hetero layout; so does an unknown name.
+
     The draws run one at a time on ``device`` (default ``cuda``, raising when
     there is none) in ``dtype`` (default ``settings.dtype``), ``data`` and
     ``ops`` already there; ``chunk`` draws' rows are copied to the host
-    together, and the result does not depend on ``chunk``.  ``model`` is
-    ``"gnmgp_sparse"``; the heteroscedastic (``hetero=True``), separable and
-    LMC sparse builders are not ported yet and raise.
+    together, and the result does not depend on ``chunk``.
     """
-    if hetero or model != "gnmgp_sparse":
-        raise ValueError(f"chain_conditional_loglik_sparse for model={model!r}, hetero={hetero} is not yet ported "
-                         "to the torch package (it runs model='gnmgp_sparse')")
+    if model not in SPARSE_MODELS:
+        raise ValueError(f"unknown sparse model {model!r} (want one of {SPARSE_MODELS})")
+    if hetero and model not in ("gnmgp_sparse", "gnmgp_hetero_sparse"):
+        raise ValueError(f"hetero=True applies to the GNMGP sparse family only (got model={model!r})")
+    hetero = hetero or model == "gnmgp_hetero_sparse"
     device = settings.resolve_device(device)
     dtype = dtype or settings.dtype
     hist = torch.as_tensor(hist_vecs, dtype=dtype, device=device)
     n, m = data.y.shape
-    m_z = ops.z.shape[0]
+    m_z = (ops.base.z if hetero else ops.z).shape[0]
     mask_tm = None if mask is None else torch.as_tensor(mask, dtype=torch.bool, device=device).repeat(m)
+
+    def woodbury(v):
+        if hetero:
+            p = gnmgp_sparse.unpack_hetero(v, m_z, m)
+            noise = torch.exp(gnmgp_sparse.noise_at_data(p, ops, m, hyper))
+            return gnmgp_sparse._woodbury_noise(gnmgp_sparse._base_params(p), data, ops.base, m, approx, noise,
+                                                hyper, mask)
+        if model == "snmgp_sparse":
+            return snmgp_sparse._woodbury(snmgp_sparse.unpack(v, m_z, m), data, ops, m, approx, hyper, mask)
+        if model == "lmc_sparse":
+            return lmc_sparse._woodbury(lmc_sparse.unpack(v, m), data, ops, m, approx, mask)
+        return gnmgp_sparse._woodbury(gnmgp_sparse.unpack(v, m_z, m), data, ops, m, approx, hyper, mask)
+
     out = np.empty((hist.shape[0], n * m))
     with torch.no_grad():
         for start in range(0, hist.shape[0], chunk):
-            rows = [_loo_from_woodbury(gnmgp_sparse._woodbury(gnmgp_sparse.unpack(v, m_z, m), data, ops, m, approx,
-                                                              hyper, mask), mask_tm)
-                    for v in hist[start : start + chunk]]
+            rows = [_loo_from_woodbury(woodbury(v), mask_tm) for v in hist[start : start + chunk]]
             out[start : start + len(rows)] = torch.stack(rows).cpu().numpy()
     return out
 

@@ -1,21 +1,21 @@
 """Single-subject synthetic pipeline driver.
 
 Counterpart of the JAX package's ``examples/run_sim_pipeline.py`` for the
-dense models and the sparse GNMGP (``--model
-lmc|snmgp|gnmgp|gnmgp_hetero|gnmgp_sparse``, the last with
-``--n-inducing`` and ``--sparse-approx fitc|vfe``): generate (or load)
-one synthetic subject (``sim_mnts``, or ``sim_mnts_hetero`` for
-``gnmgp_hetero``), run empirical init → MAP (→ HMC) → grid/test prediction
-→ scores, and write figures, artifacts and a JSON summary on stdout.
+dense models and the sparse tiers (``--model
+lmc|snmgp|gnmgp|gnmgp_hetero|gnmgp_sparse|gnmgp_hetero_sparse|snmgp_sparse|lmc_sparse``,
+the sparse ones with ``--n-inducing`` and ``--sparse-approx fitc|vfe``):
+generate (or load) one synthetic subject (``sim_mnts``, or
+``sim_mnts_hetero`` for ``gnmgp_hetero`` and ``gnmgp_hetero_sparse``), run
+empirical init → MAP (→ HMC) → grid/test prediction → scores, and write
+figures, artifacts and a JSON summary on stdout.
 
     python -m nonstationary_multivariate_gaussian_process_tpu_torch.examples.run_sim_pipeline \\
         --model gnmgp --n 200 --n-opt 1000 --out res/sim_nonseparable
 
 It runs on ``cuda``.  The arguments are the JAX CLI's, and ``--sampler``
-takes ``hmc``, ``nuts``, ``drhmc`` and ``chees``; the choices this package
-does not have yet (the models ``gnmgp_hetero_sparse``, ``snmgp_sparse`` and
-``lmc_sparse``, the samplers ``rmhmc``, ``smc`` and ``pathfinder``) exit with
-an error that says so.
+takes ``hmc``, ``nuts``, ``drhmc`` and ``chees``; the samplers this package
+does not have yet (``rmhmc``, ``smc`` and ``pathfinder``) exit with an error
+that says so.
 """
 
 from __future__ import annotations
@@ -67,9 +67,6 @@ def main(argv=None, device=None) -> dict:
     none); print and return the JSON summary."""
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.model not in workflows.MODELS:
-        ap.error(f"--model {args.model} is not yet ported to the torch package (it runs "
-                 f"{', '.join(workflows.MODELS)})")
     if args.sampler in workflows.UNPORTED_SAMPLERS:
         ap.error(f"--sampler {args.sampler} {workflows.UNPORTED_SAMPLERS[args.sampler]}")
     device = settings.resolve_device(device)
@@ -79,7 +76,7 @@ def main(argv=None, device=None) -> dict:
         loaded = data_io.load_sim_pickle(args.data)
         x, y = loaded["x"], loaded["y"]
     else:
-        gen = sim.sim_mnts_hetero if args.model == "gnmgp_hetero" else sim.sim_mnts
+        gen = sim.sim_mnts_hetero if args.model in ("gnmgp_hetero", "gnmgp_hetero_sparse") else sim.sim_mnts
         d = gen(torch.Generator().manual_seed(args.seed), n=args.n, device=device)
         x, y = d.x.cpu().numpy(), d.y.cpu().numpy()
 

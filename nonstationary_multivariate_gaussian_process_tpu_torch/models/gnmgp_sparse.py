@@ -25,8 +25,14 @@ Kernels, on the card:
 * ``cross_gram`` stays a ``torch.einsum``, as JAX leaves it to XLA.
 * The factors take ``chol.robust_cholesky_small`` and ``tri_solve_small``.
 
-The Hadamard, heteroscedastic, separable and inducing-refinement parts of
-the JAX module are not ported yet.
+The module also holds what the other sparse tiers share: the separable
+likelihood :func:`_loglik_separable` (``models/snmgp_sparse.py`` and
+``models/lmc_sparse.py``: ``K_mm = B_f ⊗ K_zz`` and ``K_nm = B_f ⊗ K_xz``,
+never materialized, with ``K_zz`` from K1's self form and ``K_xz`` from its
+cross form, σ and ℓ on both sides, each with its backward kernel), and the
+heteroscedastic tier (``gnmgp_hetero_sparse``: a per-(input, task) noise GP
+at Z, kriged to the data, with the per-slot VFE penalty).  The Hadamard and
+inducing-refinement parts of the JAX module are not ported yet.
 """
 
 from __future__ import annotations
@@ -268,7 +274,68 @@ def _loglik_pieces(pieces, noise, approx: str) -> torch.Tensor:
     if settings.mixed_solves and k_mm.dtype == torch.float64:
         return _loglik_mixed_inner(k_mm, k_nm, k_diag, y_flat, noise, approx, mv)
     w = _woodbury_core(k_mm, k_nm, k_diag, y_flat, noise, approx, mv)
+    if approx == "vfe" and noise.dim() > 0:
+        # per-slot noise (the hetero tier): the Titsias penalty is pointwise
+        res = _loglik_from_woodbury(w, 1.0, approx="fitc")
+        c = w.corr if w.mv is None else w.corr * w.mv
+        return res - 0.5 * torch.sum(c / noise)
     return _loglik_from_woodbury(w, noise, approx)
+
+
+def _loglik_separable(b_f, k_zz, k_xz, k_x_diag, y_nm, noise, approx: str, mask=None) -> torch.Tensor:
+    """Kronecker-factored sparse likelihood of the separable tiers.
+
+    Equal to assembling ``K_mm = B_f ⊗ K_zz`` and ``K_nm = B_f ⊗ K_xz`` and
+    going through :func:`_loglik_pieces`, but the Kronecker products are
+    never formed:
+
+    * ``chol(B ⊗ K) = chol(B) ⊗ chol(K)``: two small robust factors, M×M and
+      m_z×m_z, each with its own ridge of 1e-8 (float64) or 1e-5 (float32)
+      of its mean diagonal, where the assembled path puts one on ``K_mm``;
+    * the solve ``C⁻¹ K_mn`` stays factored, ``B_b = L_b⁻¹ B_f`` and
+      ``B_k = L_k⁻¹ K_xzᵀ``, so ``Q``'s diagonal is the outer product of
+      their column norms;
+    * the inner Gram ``I + A Aᵀ = I + Σ_a (B_b[:,a] B_b[:,a]ᵀ) ⊗ (B_k
+      diag(w_a) B_kᵀ)`` takes M batched (m_z × N × m_z) products;
+    * its logdet and quadratic form go through :func:`_inner_logdet_quad`,
+      so ``NMGP_PRECISION=mixed`` routes them as JAX does.
+
+    ``y_nm`` is the (N, M) observation matrix; ``mask`` (N,) excludes padded
+    rows exactly (zero weight, unit Λ)."""
+    m, m_z = b_f.shape[0], k_zz.shape[0]
+    dtype, device = k_zz.dtype, k_zz.device
+    rel = 1e-8 if dtype == torch.float64 else 1e-5
+    eye = lambda k: torch.eye(k, dtype=dtype, device=device)
+    lb = chol.robust_cholesky_small(b_f + rel * torch.mean(torch.diagonal(b_f)) * eye(m))
+    lk = chol.robust_cholesky_small(k_zz + rel * torch.mean(torch.diagonal(k_zz)) * eye(m_z))
+    bb = chol.tri_solve_small(lb, b_f)  # (M, M)
+    bk = chol.tri_solve_small(lk, k_xz.T)  # (m_z, N)
+    y_mn = y_nm.T  # task-major rows (M, N)
+    qb = torch.sum(bb * bb, dim=0)  # (M,)
+    qk = torch.sum(bk * bk, dim=0)  # (N,)
+    corr = torch.clamp(torch.diagonal(b_f)[:, None] * k_x_diag[None, :] - qb[:, None] * qk[None, :], min=0.0)
+    if approx == "fitc":
+        lam = corr + noise
+    elif approx == "vfe":
+        lam = torch.as_tensor(noise, dtype=dtype, device=device).expand(corr.shape)
+    else:
+        raise ValueError(f"approx must be 'fitc' or 'vfe', got {approx!r}")
+    mv = None if mask is None else torch.as_tensor(mask, device=device).to(dtype)  # (N,)
+    if mv is not None:
+        lam = torch.where(mv[None, :] > 0, lam, 1.0)
+        y_mn = y_mn * mv[None, :]
+    w = 1.0 / lam if mv is None else mv[None, :] / lam  # (M, N)
+    dd = torch.sum(y_mn * y_mn / lam)
+    u = (bb @ (bk @ (y_mn / lam).T).T).reshape(-1)  # (M·m_z,), index c·m_z + j
+    g = (bk[None] * w[:, None, :]) @ bk.T  # (M, m_z, m_z): B_k diag(w_a) B_kᵀ per task
+    bb2 = bb[:, None, :] * bb[None, :, :]  # (c, d, a)
+    inner = torch.einsum("cda,ajk->cjdk", bb2, g).reshape(m * m_z, m * m_z) + eye(m * m_z)
+    ld_in, quad_in = _inner_logdet_quad(inner, u)
+    res = -0.5 * (torch.sum(torch.log(lam)) + ld_in) - 0.5 * (dd - quad_in)
+    if approx == "vfe":
+        c = corr if mv is None else corr * mv[None, :]
+        res = res - 0.5 * torch.sum(c) / noise
+    return res
 
 
 def log_lik(p: SparseParams, data: FullData, ops: SparseOps, approx: str = "fitc", hyper=None,
@@ -344,3 +411,124 @@ def init_from_empirical(emp_vec, n: int, m_z: int, m: int, x, z) -> torch.Tensor
     idx = torch.as_tensor(nearest, device=emp_vec.device)
     t = transforms.tri_size(m)
     return torch.cat([p.tilde_l[idx], p.ul_vecs.reshape(n, t)[idx].reshape(-1), p.tilde_sigma2_err.reshape(1)])
+
+
+# ---------------------------------------------------------------------------
+# The heteroscedastic tier: a per-(input, task) noise GP, also at Z.
+# ---------------------------------------------------------------------------
+
+#: The hetero defaults, as ``models/gnmgp_hetero.py``'s: the noise GP
+#: replaces the inverse-gamma prior.
+HETERO_DEFAULT_HYPERS = {k: v for k, v in DEFAULT_HYPERS.items() if k not in ("a", "b")}
+HETERO_DEFAULT_HYPERS.update({"mu_err": 0.0, "alpha_err": 1.0, "beta_err": 1.0})
+
+
+class SparseHeteroOps(NamedTuple):
+    """:class:`SparseOps` and the noise process's kriging projection and prior
+    factor at Z."""
+
+    base: SparseOps
+    proj_err: torch.Tensor  # (m_z, N)
+    pc_err_z: dists.TriInv  # the noise-GP prior Gram at Z
+
+
+def n_params_hetero(m_z: int, m: int) -> int:
+    return m_z + m_z * transforms.tri_size(m) + m_z * m
+
+
+def unpack_hetero(vec: torch.Tensor, m_z: int, m: int):
+    """Layout ``[tilde_l_z(m_z), uL_vecs_z(m_z·T), tilde_sigma2_err_z(m_z·M
+    task-major)]``: ``models/gnmgp_hetero.py``'s with N → m_z, as its
+    ``Params``."""
+    from .gnmgp_hetero import Params as HeteroParams
+
+    t = transforms.tri_size(m)
+    check_vec(vec, m_z + m_z * t + m_z * m, "gnmgp_hetero_sparse",
+              f"[tilde_l_z({m_z}), uL_vecs_z({m_z}*{t}), tilde_sigma2_err_z({m_z}*{m})] for m_z={m_z}, M={m}")
+    return HeteroParams(tilde_l=vec[:m_z], ul_vecs=vec[m_z : m_z + m_z * t], tilde_sigma2_err=vec[m_z + m_z * t :])
+
+
+def make_ops_hetero(x: torch.Tensor, z: torch.Tensor, hyper: dict | None = None) -> SparseHeteroOps:
+    """:func:`make_ops` and the noise GP's projection and prior factor at Z,
+    on ``x``'s device in ``x``'s dtype."""
+    from ..predict.latent import krige_proj
+
+    hp = {**HETERO_DEFAULT_HYPERS, **(hyper or {})}
+    base = make_ops(x, z, hp)
+    proj_err, _ = krige_proj(base.z, x, hp["alpha_err"], hp["beta_err"])
+    return SparseHeteroOps(base, proj_err, chol.prior_rbf_inv(base.z, hp["alpha_err"], hp["beta_err"]))
+
+
+def noise_at_data(p, ops_h: SparseHeteroOps, m: int, hyper=None) -> torch.Tensor:
+    """The kriged task-major (N·M,) log-noise field at the data inputs."""
+    hp = {**HETERO_DEFAULT_HYPERS, **(hyper or {})}
+    err_mat_z = p.tilde_sigma2_err.reshape(m, ops_h.base.z.shape[0])  # task-major rows
+    return (hp["mu_err"] + (err_mat_z - hp["mu_err"]) @ ops_h.proj_err).reshape(-1)
+
+
+def _base_params(p) -> SparseParams:
+    """The hetero parameters as :class:`SparseParams` (the scalar noise slot
+    unused)."""
+    return SparseParams(p.tilde_l, p.ul_vecs, torch.zeros((), dtype=p.tilde_l.dtype, device=p.tilde_l.device))
+
+
+def log_lik_hetero(p, data: FullData, ops_h: SparseHeteroOps, approx: str = "fitc", hyper=None,
+                   mask=None) -> torch.Tensor:
+    """Sparse heteroscedastic marginal log-likelihood: the Nyström structure of
+    :func:`log_lik` with the per-slot noise diagonal ``exp(kriged log-noise)``;
+    under VFE the penalty is the per-slot ``−corr_i / (2 λ_i)``."""
+    m = data.y.shape[1]
+    noise = torch.exp(noise_at_data(p, ops_h, m, hyper))  # (N·M,)
+    pieces = _assemble_full(_base_params(p), data, ops_h.base, m, hyper, mask)
+    return _loglik_pieces(pieces, noise, approx)
+
+
+def _woodbury_noise(sp_p: SparseParams, data: FullData, ops: SparseOps, m: int, approx: str, noise: torch.Tensor,
+                    hyper=None, mask=None) -> _Woodbury:
+    """:func:`_woodbury` with an explicit per-slot noise diagonal."""
+    k_mm, k_nm, k_diag, y_flat, mv = _assemble_full(sp_p, data, ops, m, hyper, mask)
+    return _woodbury_core(k_mm, k_nm, k_diag, y_flat, noise, approx, mv)
+
+
+def log_posterior_hetero(p, data: FullData, ops_h: SparseHeteroOps, approx: str = "fitc", hyper=None,
+                         prior: bool = True, mask=None):
+    """Sparse hetero log-posterior: the exact hetero model's priors at Z (GP
+    priors on ``tilde_l``, the L-entry columns and each task's log-noise
+    row, and the exp Jacobian summed over the noise slots).  The L-entry and
+    noise priors are batched: one product with the hoisted prior factor for
+    all their series.  Returns ``(logpos, components)``."""
+    hp = {**HETERO_DEFAULT_HYPERS, **(hyper or {})}
+    m_z = ops_h.base.z.shape[0]
+    m = data.y.shape[1]
+    t = transforms.tri_size(m)
+    loglik = log_lik_hetero(p, data, ops_h, approx=approx, hyper=hp, mask=mask)
+    lp_l = dists.mvn_logpdf_chol(p.tilde_l, hp["mu_tilde_l"], ops_h.base.pc_l_z)
+    lp_ul = torch.sum(dists.mvn_logpdf_chol(p.ul_vecs.reshape(m_z, t).T, hp["mu_L"], ops_h.base.pc_ul_z))
+    lp_err = torch.sum(dists.mvn_logpdf_chol(p.tilde_sigma2_err.reshape(m, m_z), hp["mu_err"], ops_h.pc_err_z))
+    res = loglik
+    if prior:
+        res = res + lp_l + lp_ul + lp_err + torch.sum(p.tilde_sigma2_err)
+    comps = {"loglik": loglik, "log_prior_tilde_l": lp_l, "log_prior_uL_vecs": lp_ul,
+             "log_prior_sigma2_err": lp_err}
+    return res, comps
+
+
+def make_objective_hetero(data: FullData, z=None, n_inducing: int = 64, hyper: dict | None = None,
+                          approx: str = "fitc", prior: bool = True, mask=None):
+    """Sparse hetero negative-log-posterior closure: ``(nlp, ops_h)``."""
+    check_full_data(data, "gnmgp_hetero_sparse")
+    if approx not in ("fitc", "vfe"):
+        raise ValueError(f"approx must be 'fitc' or 'vfe', got {approx!r}")
+    hp = {**HETERO_DEFAULT_HYPERS, **(hyper or {})}
+    if z is None:
+        x_real = data.x if mask is None else data.x[: int(torch.as_tensor(mask).sum())]
+        z = choose_inducing(x_real, min(n_inducing, x_real.shape[0]))
+    ops_h = make_ops_hetero(data.x, z, hp)
+    m_z, m = ops_h.base.z.shape[0], data.y.shape[1]
+
+    def nlp(vec: torch.Tensor) -> torch.Tensor:
+        res, _ = log_posterior_hetero(unpack_hetero(vec, m_z, m), data, ops_h, approx=approx, hyper=hp,
+                                      prior=prior, mask=mask)
+        return -res
+
+    return nlp, ops_h

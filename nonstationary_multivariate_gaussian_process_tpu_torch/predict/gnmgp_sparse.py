@@ -11,7 +11,10 @@ layout.  Prediction rides the Woodbury factor set the likelihood builds
 so a grid of G points costs one (mM × GM) triangular solve pair.  The latent
 processes at new inputs are kriged from their inducing values under the same
 RBF priors.  On CUDA the (G, m_z) cross-covariance ``K_gz`` is kernel K1's
-cross form (no gradient) and each draw's ``K_mm`` kernel K3.
+cross form (no gradient) and each draw's ``K_mm`` kernel K3.  The
+heteroscedastic tier (``predict_map_hetero``, ``predict_test_hetero``)
+serves the MAP only, as JAX's does: its predictive noise is kriged from the
+noise field at Z.
 
 Randomness comes from an explicit ``torch.Generator`` or from ``noise=``,
 the standard normals the JAX function draws, so a caller can replay JAX's
@@ -50,10 +53,11 @@ def _latents_at(p: model.SparseParams, z, grid, hp, m: int):
     return tl_g, l_vec_g, transforms.vec_to_tril(l_vec_g, m)
 
 
-def _conditional(p: model.SparseParams, w, z, grid, ell_g, ls_g, m: int):
+def _conditional(p: model.SparseParams, w, z, grid, ell_g, ls_g, m: int, noise=None):
     """Predictive ``(mu (G, M), s2_y (G, M))`` at ``grid`` from the Woodbury
     factors ``w`` and the latent values there (``ell_g`` (G,), ``ls_g`` (G,
-    M, M))."""
+    M, M)); the observation noise is ``exp(p.tilde_sigma2_err)`` or, for
+    the hetero tier, ``noise`` (G, M)."""
     g = grid.shape[0]
     m_z = z.shape[0]
     lz = model.chol_factors(p.ul_vecs_z.reshape(m_z, -1), m)
@@ -65,7 +69,7 @@ def _conditional(p: model.SparseParams, w, z, grid, ell_g, ls_g, m: int):
     mu = (w_star.T @ v).reshape(m, g).T  # (G, M) from task-major flat
     k_star_diag = ((1.0 + settings.jitter) * torch.sum(ls_g * ls_g, dim=-1)).T.reshape(-1)
     var = (k_star_diag - torch.sum(t_star * t_star, dim=0) + torch.sum(w_star * w_star, dim=0)).reshape(m, g).T
-    sigma2_err = torch.exp(p.tilde_sigma2_err)
+    sigma2_err = torch.exp(p.tilde_sigma2_err) if noise is None else noise
     return mu, torch.maximum(var + sigma2_err, sigma2_err)  # the noise floor (see predict/snmgp)
 
 
@@ -138,3 +142,48 @@ def predict_sample(generator: torch.Generator | None, hist_vecs, data: FullData,
         mu, s2 = _conditional(p, w, ops.z, grid, torch.exp(tl), model.chol_factors(ul.T, m), m)
         ys.append(mu + torch.sqrt(s2) * z_y[i])
     return torch.stack(ys, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# The heteroscedastic tier: the predictive noise kriged from the Z noise field.
+# ---------------------------------------------------------------------------
+
+
+def _moments_hetero(vec, data: FullData, ops_h: model.SparseHeteroOps, grid, hyper=None, approx: str = "fitc",
+                    mask=None, device=None, dtype=None):
+    """Sparse hetero predictive moments: the homoscedastic machinery with the
+    per-slot training noise in the Woodbury factors and the kriged noise at
+    the grid in the predictive variance.  Returns ``(mu (G, M), s2_y (G,
+    M), l_vecs (G, T))``."""
+    data, grid, as_t = setup(data, grid, device, dtype, "gnmgp_hetero_sparse")
+    hp = {**model.HETERO_DEFAULT_HYPERS, **(hyper or {})}
+    m = data.y.shape[1]
+    z = ops_h.base.z
+    p = model.unpack_hetero(as_t(vec), z.shape[0], m)
+    sp_p = model._base_params(p)
+    noise_tr = torch.exp(model.noise_at_data(p, ops_h, m, hp))
+    w = model._woodbury_noise(sp_p, data, ops_h.base, m, approx, noise_tr, hp, mask)
+    tl_g, l_vec_g, ls_g = _latents_at(sp_p, z, grid, hp, m)
+    proj_err, _ = krige_proj(z, grid, hp["alpha_err"], hp["beta_err"])
+    noise_g = torch.exp(hp["mu_err"] + (p.tilde_sigma2_err.reshape(m, z.shape[0]) - hp["mu_err"]) @ proj_err).T
+    mu, s2 = _conditional(sp_p, w, z, grid, torch.exp(tl_g), ls_g, m, noise=noise_g)
+    return mu, s2, l_vec_g
+
+
+@torch.no_grad()
+def predict_map_hetero(vec, data: FullData, ops_h: model.SparseHeteroOps, grid, hyper=None, approx: str = "fitc",
+                       mask=None, device=None, dtype=None) -> GridPredictionSVC:
+    """Plug-in MAP grid prediction of the sparse hetero tier.  Device and
+    dtype as in :func:`predict_map`."""
+    mu, s2, l_vec_g = _moments_hetero(vec, data, ops_h, grid, hyper, approx, mask, device, dtype)
+    pct, sd = band(mu, s2)
+    return GridPredictionSVC(percentiles=pct, mean=mu, std=sd, l_vecs=l_vec_g)
+
+
+@torch.no_grad()
+def predict_test_hetero(vec, data: FullData, ops_h: model.SparseHeteroOps, x_test, hyper=None, approx: str = "fitc",
+                        mask=None, device=None, dtype=None):
+    """Held-out predictive ``(mean (G, M), var (G, M))`` of the sparse hetero
+    tier."""
+    mu, s2, _ = _moments_hetero(vec, data, ops_h, x_test, hyper, approx, mask, device, dtype)
+    return mu, s2

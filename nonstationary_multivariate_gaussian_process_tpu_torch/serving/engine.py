@@ -1,20 +1,20 @@
 """Serving layer: predict endpoints over the artifact store.
 
 Counterpart of the JAX package's ``serving/engine.py`` for the dense models
-``lmc``, ``snmgp``, ``gnmgp`` and ``gnmgp_hetero`` and the sparse GNMGP
-``gnmgp_sparse`` (rebuilt from the inducing inputs ``z`` and the
-approximation its ``map`` artifact carries), with its two modes:
+``lmc``, ``snmgp``, ``gnmgp`` and ``gnmgp_hetero`` and the sparse tiers
+``gnmgp_sparse``, ``gnmgp_hetero_sparse``, ``snmgp_sparse`` and
+``lmc_sparse`` (their ops rebuilt from the inducing inputs ``z`` and the
+approximation the ``map`` artifact carries), with its two modes:
 ``mode="map"`` (plug-in prediction) and ``mode="sample"`` (prediction over
-the stored HMC chain).
+the stored HMC chain).  As in JAX, ``gnmgp_hetero_sparse`` serves
+``mode="map"`` only: a sample request for it raises ``ValueError``.
 ``PredictEngine(root)`` stands up from an artifact root alone: the
 conditioning data (``data`` stage) next to the MAP vector (``map``) and the
 chain (``hmc``), as ``workflows.run_subject`` of either package writes them.
 
 Requests are padded to a small set of grid buckets (repeating the last point)
 and cropped, as in the JAX engine, so that a request sees the same shapes
-there and here.  The port runs eagerly: there is nothing to compile.  The
-other sparse models (``gnmgp_hetero_sparse``, ``snmgp_sparse``,
-``lmc_sparse``) are not ported yet and raise ``ValueError``.
+there and here.  The port runs eagerly: there is nothing to compile.
 """
 
 from __future__ import annotations
@@ -30,14 +30,20 @@ from ..predict import gnmgp as pred_gnmgp
 from ..predict import gnmgp_hetero as pred_gnmgp_hetero
 from ..predict import gnmgp_sparse as pred_gnmgp_sparse
 from ..predict import lmc as pred_lmc
+from ..predict import lmc_sparse as pred_lmc_sparse
 from ..predict import snmgp as pred_snmgp
+from ..predict import snmgp_sparse as pred_snmgp_sparse
 from ..utils.artifacts import ArtifactStore
 
 _PRED = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero,
-         "gnmgp_sparse": pred_gnmgp_sparse}
+         "gnmgp_sparse": pred_gnmgp_sparse, "gnmgp_hetero_sparse": pred_gnmgp_sparse,
+         "snmgp_sparse": pred_snmgp_sparse, "lmc_sparse": pred_lmc_sparse}
 MODELS = tuple(_PRED)
-#: The sparse models: their predictors take the subject's ``SparseOps``.
-SPARSE = ("gnmgp_sparse",)
+#: The sparse models: their predictors take the subject's ops.
+SPARSE = ("gnmgp_sparse", "gnmgp_hetero_sparse", "snmgp_sparse", "lmc_sparse")
+#: The models that serve ``mode="map"`` only (JAX's engine has no chain
+#: predictor for them).
+MAP_ONLY = ("gnmgp_hetero_sparse",)
 MODES = ("map", "sample")
 
 GRID_BUCKETS = (32, 64, 128, 256, 512, 1024)
@@ -70,10 +76,7 @@ class PredictEngine:
         dtype=None,
     ):
         if model not in MODELS:
-            raise ValueError(
-                f"model {model!r} is not yet ported to the torch package "
-                f"(it serves {MODELS})"
-            )
+            raise ValueError(f"unknown model {model!r} (want one of {MODELS})")
         self.device = settings.resolve_device(device)
         self.dtype = dtype or settings.dtype
         self.store = ArtifactStore(root)
@@ -110,14 +113,16 @@ class PredictEngine:
             )
             rec = {"data": subj.data, "vec": subj.vec}
             if self.model in SPARSE:
-                from ..models import gnmgp_sparse
+                from ..models import gnmgp_sparse, lmc_sparse, snmgp_sparse
 
+                make_ops = {"gnmgp_sparse": gnmgp_sparse.make_ops, "gnmgp_hetero_sparse": gnmgp_sparse.make_ops_hetero,
+                            "snmgp_sparse": snmgp_sparse.make_ops, "lmc_sparse": lmc_sparse.make_ops}[self.model]
                 map_art = self.store.load(ArtifactStore.key(self.model, self.dataset, sid, "map"))
                 if "z" not in map_art:
                     raise KeyError(f"subject {sid!r}: sparse artifacts need the inducing inputs ('z' in the map "
                                    "stage); refit with the current run_subject")
                 z = torch.as_tensor(map_art["z"], dtype=self.dtype, device=self.device)
-                rec["ops"] = gnmgp_sparse.make_ops(subj.data.x, z)
+                rec["ops"] = make_ops(subj.data.x, z)
                 rec["approx"] = str(map_art.get("approx", "fitc"))
             hmc = ArtifactStore.key(self.model, self.dataset, sid, "hmc")
             if self.store.exists(hmc):
@@ -149,6 +154,8 @@ class PredictEngine:
             rec = self._load(sid)
             args, kw = self._pred_args(rec, grid)
             if mode == "sample":
+                if self.model in MAP_ONLY:
+                    raise ValueError(f"model {self.model!r} serves mode='map' only")
                 if "chain" not in rec:
                     raise KeyError(f"subject {sid!r} has no stored HMC chain")
                 draws = self._pred.predict_sample(
@@ -166,9 +173,8 @@ class PredictEngine:
                     "lower": lower,
                     "upper": upper,
                 }
-            gp = self._pred.predict_map(
-                rec["vec"], rec["data"], *args, device=self.device, dtype=self.dtype, **kw
-            )
+            predict_map = self._pred.predict_map_hetero if self.model in MAP_ONLY else self._pred.predict_map
+            gp = predict_map(rec["vec"], rec["data"], *args, device=self.device, dtype=self.dtype, **kw)
             pct = gp.percentiles[:g].cpu().numpy()
             return {
                 "mean": gp.mean[:g].cpu().numpy(),

@@ -4,8 +4,10 @@ analysis → grid/test prediction → scoring.
 Counterpart of ``PipelineConfig`` and ``run_subject`` of the JAX package's
 ``workflows.py`` for fully observed data: the dense models ``lmc``,
 ``snmgp``, ``gnmgp`` and ``gnmgp_hetero``, and the sparse (inducing-point)
-GNMGP ``gnmgp_sparse`` (FITC or VFE at ``n_inducing`` inputs; its latent
-analysis, whitener and LOO at the inducing inputs), with the reference-contract HMC
+tiers ``gnmgp_sparse``, ``gnmgp_hetero_sparse``, ``snmgp_sparse`` and
+``lmc_sparse`` (FITC or VFE at ``n_inducing`` inputs; their whiteners and
+LOO at the inducing inputs, the sparse GNMGP's latent analysis there too),
+with the reference-contract HMC
 sampler (``sampler="hmc"``, any ``hmc_mass``), adaptive NUTS
 (``sampler="nuts"``), delayed-rejection HMC (``sampler="drhmc"``) or
 many-chain ChEES-HMC (``sampler="chees"``), any of them in the natural
@@ -23,10 +25,9 @@ prediction, the chain (either sampler, any ``whiten``), LOO, and held-out
 test scoring by the MAP and by the chain, for ``lmc``, ``snmgp`` and
 ``gnmgp``.
 
-Not ported yet, and refused with ``ValueError``: the sparse models other
-than ``gnmgp_sparse`` (``gnmgp_hetero_sparse``, ``snmgp_sparse``,
-``lmc_sparse``) and inducing-input refinement (``refine_z > 0``, which needs
-K1's gradient in the inputs), every sparse model in the Hadamard layout, the
+Not ported yet, and refused with ``ValueError``: inducing-input refinement
+(``refine_z > 0``, which needs K1's gradient in the inputs), every sparse
+model in the Hadamard layout, the
 heteroscedastic GNMGP in the Hadamard layout (the JAX package has no
 Hadamard objective for it), and the samplers ``"rmhmc"`` (it needs second-
 and third-order derivatives of the Gram kernels K1 and K3), ``"smc"`` and
@@ -55,7 +56,7 @@ from .inference import init as init_mod
 from .inference import map as map_mod
 from .inference import nuts
 from .inference import whiten as whiten_mod
-from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, snmgp
+from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, lmc_sparse, snmgp, snmgp_sparse
 from .models.base import FullData, as_hadamard_data
 from .postprocess import analysis
 from .predict import gnmgp as pred_gnmgp
@@ -63,15 +64,19 @@ from .predict import gnmgp_hetero as pred_gnmgp_hetero
 from .predict import gnmgp_sparse as pred_gnmgp_sparse
 from .predict import hadamard as pred_h
 from .predict import lmc as pred_lmc
+from .predict import lmc_sparse as pred_lmc_sparse
 from .predict import snmgp as pred_snmgp
+from .predict import snmgp_sparse as pred_snmgp_sparse
 from .utils.artifacts import ArtifactStore
 
-_MODELS = {"lmc": lmc, "snmgp": snmgp, "gnmgp": gnmgp, "gnmgp_hetero": gnmgp_hetero, "gnmgp_sparse": gnmgp_sparse}
+_MODELS = {"lmc": lmc, "snmgp": snmgp, "gnmgp": gnmgp, "gnmgp_hetero": gnmgp_hetero, "gnmgp_sparse": gnmgp_sparse,
+           "gnmgp_hetero_sparse": gnmgp_sparse, "snmgp_sparse": snmgp_sparse, "lmc_sparse": lmc_sparse}
 _PREDICT = {"lmc": pred_lmc, "snmgp": pred_snmgp, "gnmgp": pred_gnmgp, "gnmgp_hetero": pred_gnmgp_hetero,
-            "gnmgp_sparse": pred_gnmgp_sparse}
+            "gnmgp_sparse": pred_gnmgp_sparse, "gnmgp_hetero_sparse": pred_gnmgp_sparse,
+            "snmgp_sparse": pred_snmgp_sparse, "lmc_sparse": pred_lmc_sparse}
 MODELS = tuple(_MODELS)
 #: The sparse (inducing-point) models.
-SPARSE_MODELS = ("gnmgp_sparse",)
+SPARSE_MODELS = ("gnmgp_sparse", "gnmgp_hetero_sparse", "snmgp_sparse", "lmc_sparse")
 SPARSE_APPROXES = ("fitc", "vfe")
 #: The models with a Hadamard-layout objective.
 HADAMARD_MODELS = ("lmc", "snmgp", "gnmgp")
@@ -101,7 +106,7 @@ class PipelineConfig:
     sparse_approx: str = "fitc"  # sparse models: "fitc" (diagonal-corrected)
     #                              or "vfe" (Titsias' bound)
     refine_z: int = 0  # inducing-input refinement rounds after MAP: not yet
-    #                    ported (any value > 0 raises)
+    #                    ported (any value > 0 raises, for every sparse model)
     do_empirical: bool = True
     do_map: bool = True
     do_map_analysis: bool = True
@@ -148,9 +153,7 @@ class PipelineConfig:
 
     def __post_init__(self):
         if self.model not in MODELS:
-            raise ValueError(
-                f"model {self.model!r} is not yet ported to the torch package (it runs {MODELS})"
-            )
+            raise ValueError(f"unknown model {self.model!r} (the torch package runs {MODELS})")
         if self.refine_z > 0:
             raise ValueError("refine_z > 0 (inducing-input refinement) is not yet ported to the torch package: it "
                              "needs the gradient of K1 in the inputs")
@@ -198,9 +201,14 @@ def _validate_hadamard(x, indx, y, m):
 
 
 def n_params(model: str, n: int, m: int) -> int:
-    """Length of ``model``'s packed vector for N inputs and M tasks (LMC's
-    does not depend on N)."""
-    return lmc.n_params(m) if model == "lmc" else _MODELS[model].n_params(n, m)
+    """Length of ``model``'s packed vector for N inputs (m_z inducing inputs
+    for a sparse model) and M tasks (LMC's, sparse or not, does not depend on
+    N)."""
+    if model in ("lmc", "lmc_sparse"):
+        return lmc.n_params(m)
+    if model == "gnmgp_hetero_sparse":
+        return gnmgp_sparse.n_params_hetero(n, m)
+    return _MODELS[model].n_params(n, m)
 
 
 def _build_inits(cfg: PipelineConfig, emp, data: FullData, z=None) -> dict:
@@ -209,15 +217,24 @@ def _build_inits(cfg: PipelineConfig, emp, data: FullData, z=None) -> dict:
     (stationary, combined) and the empirical estimates; GNMGP from a short
     SNMGP Adam fit (separable) and the empirical estimates, and the
     heteroscedastic GNMGP from those two with the noise broadcast; the
-    sparse GNMGP from the empirical estimates subsampled onto the inducing
-    inputs ``z`` (no separable warm start: that costs the dense work this
-    tier avoids)."""
+    sparse GNMGP and SNMGP from their empirical estimates subsampled onto the
+    inducing inputs ``z`` (no separable warm start: that costs the dense work
+    this tier avoids), the sparse hetero GNMGP from the sparse GNMGP's with
+    the noise broadcast over m_z·M, the sparse LMC as the LMC (its layout is
+    N-free)."""
     n, m = data.y.shape
     dev, dt = data.x.device, data.x.dtype
-    if cfg.model == "gnmgp_sparse":
+    if cfg.model in ("gnmgp_sparse", "gnmgp_hetero_sparse"):
         dense = init_mod.gnmgp_from_empirical(emp, n, m, device=dev, dtype=dt)
-        return {"empirical": gnmgp_sparse.init_from_empirical(dense, n, z.shape[0], m, data.x, z)}
-    if cfg.model == "lmc":
+        v = gnmgp_sparse.init_from_empirical(dense, n, z.shape[0], m, data.x, z)
+        if cfg.model == "gnmgp_hetero_sparse":
+            # the homoscedastic noise broadcast over the (Z × task) process
+            v = torch.cat([v[:-1], v[-1].expand(z.shape[0] * m)])
+        return {"empirical": v}
+    if cfg.model == "snmgp_sparse":
+        dense = init_mod.snmgp_from_empirical(emp, n, m, dev, dt)
+        return {"empirical": snmgp_sparse.init_from_empirical(dense, n, z.shape[0], m, data.x, z)}
+    if cfg.model in ("lmc", "lmc_sparse"):
         return {"empirical": init_mod.lmc_from_empirical(emp, n, m, dev, dt)}
     if cfg.model == "snmgp":
         lmc_res = map_mod.fit_map(
@@ -246,10 +263,12 @@ def _build_inits(cfg: PipelineConfig, emp, data: FullData, z=None) -> dict:
 
 def _predict_map(cfg: PipelineConfig, map_vec, data: FullData, xs, device, dtype, sp_ops=None):
     """The model's plug-in prediction at ``xs`` (LMC's takes no ``hyper``, a
-    sparse model's takes its ``sp_ops`` and approximation)."""
+    sparse model's takes its ``sp_ops`` and approximation, the sparse hetero
+    tier's is ``predict_map_hetero``)."""
     if cfg.model in SPARSE_MODELS:
-        return _PREDICT[cfg.model].predict_map(map_vec, data, sp_ops, xs, hyper=cfg.hyper, approx=cfg.sparse_approx,
-                                               device=device, dtype=dtype)
+        pred = _PREDICT[cfg.model]
+        fn = pred.predict_map_hetero if cfg.model == "gnmgp_hetero_sparse" else pred.predict_map
+        return fn(map_vec, data, sp_ops, xs, hyper=cfg.hyper, approx=cfg.sparse_approx, device=device, dtype=dtype)
     if cfg.model == "lmc":
         return pred_lmc.predict_map(map_vec, data, xs, device=device, dtype=dtype)
     return _PREDICT[cfg.model].predict_map(map_vec, data, xs, device=device, dtype=dtype, hyper=cfg.hyper)
@@ -369,7 +388,8 @@ def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: 
     """
     if not cfg.whiten:
         return None
-    model_name = {"gnmgp_sparse": "gnmgp"}.get(cfg.model, cfg.model)
+    model_name = {"gnmgp_sparse": "gnmgp", "gnmgp_hetero_sparse": "gnmgp_hetero", "snmgp_sparse": "snmgp",
+                  "lmc_sparse": "lmc"}.get(cfg.model, cfg.model)
     if cfg.whiten == "pncp":
         w = whiten_mod.make_whitener(model_name, x, n, m, cfg.hyper, hadamard=hadamard, mode="eig")
         pilot, _ = _run_chain(nlp, map_vec, dataclasses.replace(cfg, n_hmc=cfg.pncp_pilot, whiten=False),
@@ -431,11 +451,14 @@ def run_subject(
 
     model = _MODELS[cfg.model]
     sparse = cfg.model in SPARSE_MODELS
+    hsparse = cfg.model == "gnmgp_hetero_sparse"
+    # the sparse tiers share the (nlp, ops) make_objective contract
+    make_sparse = gnmgp_sparse.make_objective_hetero if hsparse else model.make_objective
     sp_ops = sp_z = m_z = None
     if sparse:
-        nlp, sp_ops = model.make_objective(data, n_inducing=cfg.n_inducing, approx=cfg.sparse_approx,
-                                           hyper=cfg.hyper)
-        sp_z, m_z = sp_ops.z, int(sp_ops.z.shape[0])
+        nlp, sp_ops = make_sparse(data, n_inducing=cfg.n_inducing, approx=cfg.sparse_approx, hyper=cfg.hyper)
+        sp_z = sp_ops.base.z if hsparse else sp_ops.z
+        m_z = int(sp_z.shape[0])
         result["n_inducing"] = m_z
         result["sparse_approx"] = cfg.sparse_approx
     else:
@@ -461,7 +484,7 @@ def run_subject(
                 # a MAP stored with another inducing set (a refined one) is
                 # read at its own inputs, never reinterpreted at the default Z
                 sp_z = as_t(z_art)
-                nlp, sp_ops = model.make_objective(data, z=sp_z, approx=cfg.sparse_approx, hyper=cfg.hyper)
+                nlp, sp_ops = make_sparse(data, z=sp_z, approx=cfg.sparse_approx, hyper=cfg.hyper)
         else:
             t0 = time.time()
             inits = _build_inits(cfg, emp, data, z=sp_z)
@@ -535,9 +558,13 @@ def run_subject(
     if cfg.do_evaluation and map_vec is not None:
         def dev(v):
             with torch.no_grad():
+                if hsparse:
+                    return -2.0 * gnmgp_sparse.log_lik_hetero(gnmgp_sparse.unpack_hetero(v, m_z, m), data, sp_ops,
+                                                              approx=cfg.sparse_approx, hyper=cfg.hyper)
                 if sparse:
-                    return -2.0 * model.log_lik(model.unpack(v, m_z, m), data, sp_ops, approx=cfg.sparse_approx,
-                                                hyper=cfg.hyper)
+                    # unpack is (vec, m) for the N-free LMC layout, (vec, m_z, m) for the others
+                    p = model.unpack(v, m) if cfg.model == "lmc_sparse" else model.unpack(v, m_z, m)
+                    return -2.0 * model.log_lik(p, data, sp_ops, approx=cfg.sparse_approx, hyper=cfg.hyper)
                 return model.deviance(v, yd, xd)
 
         result["deviance"] = float(dev(map_vec))
@@ -554,8 +581,8 @@ def run_subject(
                 hist = hist[torch.as_tensor(idx, device=hist.device)]
             if sparse:
                 cond_ll = evaluate.chain_conditional_loglik_sparse(hist, data, sp_ops, approx=cfg.sparse_approx,
-                                                                   hyper=cfg.hyper, model=cfg.model, device=device,
-                                                                   dtype=dtype)
+                                                                   hyper=cfg.hyper, hetero=hsparse, model=cfg.model,
+                                                                   device=device, dtype=dtype)
             else:
                 cond_ll = evaluate.chain_conditional_loglik(cfg.model, hist, xd, yd, device=device, dtype=dtype)
             loo = evaluate.psis_loo(cond_ll)

@@ -76,11 +76,14 @@ def test_cli_on_a_sim_pickle_matches_run_subject(tmp_path, capsys):
         np.testing.assert_allclose(summary[k], w, rtol=1e-10, err_msg=k)
 
 
-@pytest.mark.parametrize("flag,value", [("--model", "snmgp_sparse"), ("--model", "gnmgp_hetero_sparse"),
-                                        ("--sampler", "rmhmc"), ("--sampler", "smc")])
-def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flag, value):
+@pytest.mark.parametrize("flag,value,rest", [
+    # every model is ported: the sparse tiers' cases now refuse the samplers that are not
+    ("--model", "snmgp_sparse", ["--sampler", "pathfinder"]), ("--model", "gnmgp_hetero_sparse", ["--sampler", "smc"]),
+    ("--sampler", "rmhmc", []), ("--sampler", "smc", []),
+], ids=["--model-snmgp_sparse", "--model-gnmgp_hetero_sparse", "--sampler-rmhmc", "--sampler-smc"])
+def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flag, value, rest):
     with pytest.raises(SystemExit) as ei:
-        cli.main(ARGS + [flag, value, "--out", str(tmp_path)], device="cpu")
+        cli.main(ARGS + [flag, value, *rest, "--out", str(tmp_path)], device="cpu")
     assert ei.value.code != 0
     assert "not yet ported" in capsys.readouterr().err
 

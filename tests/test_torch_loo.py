@@ -113,11 +113,17 @@ def test_observation_cov_matches_jax(rng, n, m):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-14)
 
 
-@pytest.mark.parametrize("model,match", [("snmgp_sparse", "not yet ported"), ("lmc_sparse", "not yet ported"),
-                                         ("gnmgp_hetero_sparse", "not yet ported"), ("gp", "unknown model")])
+@pytest.mark.parametrize("model,match", [
+    # a sparse model's covariance is never formed, in either package: its LOO
+    # conditionals come from chain_conditional_loglik_sparse
+    ("snmgp_sparse", "chain_conditional_loglik_sparse"), ("lmc_sparse", "chain_conditional_loglik_sparse"),
+    ("gnmgp_hetero_sparse", "chain_conditional_loglik_sparse"), ("gp", "unknown model"),
+])
 def test_observation_cov_refuses_other_models(model, match):
     with pytest.raises(ValueError, match=match):
         evaluate.observation_cov(model, torch.zeros(3, dtype=T64), torch.zeros(1, dtype=T64), 1, 1)
+    with pytest.raises(ValueError, match="unknown model"):
+        jevaluate.observation_cov(model, jnp.zeros(3), jnp.zeros(1), 1, 1)
 
 
 def _brute_force(cov, y, keep):

@@ -91,8 +91,8 @@ def test_engine_errors_name_what_is_not_ported(store_root):
     eng = PredictEngine(store_root, device="cpu")
     with pytest.raises(KeyError, match="no stored HMC chain"):
         eng.predict("0", [0.5], mode="sample")
-    with pytest.raises(ValueError, match="model 'lmc_sparse' is not yet ported"):
-        PredictEngine(store_root, model="lmc_sparse", device="cpu")
+    with pytest.raises(ValueError, match="unknown model 'lmc_sparse_hadamard'"):  # every model of JAX's engine serves
+        PredictEngine(store_root, model="lmc_sparse_hadamard", device="cpu")
     with pytest.raises(KeyError):
         eng.predict("nope", [0.5])
     with pytest.raises(ValueError, match="1-D"):
@@ -202,3 +202,35 @@ def test_port_and_chip_smoke_import_no_jax():
         assert os.path.join(PORT_PKG, new) in files, new
     bad = {f: sorted({n for n in _imports(f) if _forbidden(n)}) for f in files}
     assert {f: n for f, n in bad.items() if n} == {}
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its ``main`` runs only as a script)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32"])
+def test_chip_smoke_check_grad_floors_a_subnormal_scale(dtype_name):
+    """Where the autograd reference's largest |entry| is subnormal, a relative
+    bound falls under one subnormal step: a pair a few steps apart, which the
+    old rule (``GRAD_TOL · scale``) refused, passes against the floor of
+    ``GRAD_TINY`` smallest normals; a pair at a normal scale off by more than
+    the relative bound is refused by both rules."""
+    smoke = _chip_smoke()
+    dtype = getattr(torch, dtype_name)
+    tiny, step = torch.finfo(dtype).tiny, torch.finfo(dtype).smallest_normal * torch.finfo(dtype).eps
+    want = torch.tensor([3 * step, -step, 0.0], dtype=dtype)
+    got = torch.tensor([5 * step, -2 * step, step], dtype=dtype)
+    diff, scale = (got - want).abs().max().item(), want.abs().max().item()
+    assert 0 < scale < tiny and diff > smoke.GRAD_TOL[dtype_name] * scale  # the old rule refused it
+    assert smoke.check_grad(torch, "subnormal", [got], [want], dtype_name) == diff
+    want = torch.tensor([1.0, -0.5], dtype=dtype)
+    got = want + torch.tensor([30 * smoke.GRAD_TOL[dtype_name], 0.0], dtype=dtype)
+    assert (got - want).abs().max().item() > smoke.GRAD_TOL[dtype_name] * 1.0  # the old rule refused it too
+    with pytest.raises(AssertionError, match="off by"):
+        smoke.check_grad(torch, "normal", [got], [want], dtype_name)

@@ -146,8 +146,11 @@ def test_chain_conditional_loglik_sparse_with_a_mask_matches_jax(case):
     assert (got[:, np.tile(~mask, M)] == 0.0).all()
 
 
-@pytest.mark.parametrize("kw", [dict(hetero=True), dict(model="snmgp_sparse"), dict(model="lmc_sparse")])
+@pytest.mark.parametrize("kw", [dict(hetero=True, model="snmgp_sparse"), dict(hetero=True, model="lmc_sparse"),
+                                dict(model="gp_sparse")])
 def test_other_sparse_conditionals_are_refused(case, kw):
+    """Every sparse model's conditionals are ported; ``hetero=True`` with a
+    separable model's name (JAX refuses it too) and an unknown name are not."""
     x, y, _, chain, _, _, _, ops = case
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="GNMGP sparse family only|unknown sparse model"):
         evaluate.chain_conditional_loglik_sparse(chain, FullData(_t(x), _t(y)), ops, device="cpu", **kw)

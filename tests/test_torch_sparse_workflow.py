@@ -190,7 +190,7 @@ def test_cli_runs_the_sparse_model(tmp_path, capsys, monkeypatch, approx):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("model", "snmgp_sparse", "not yet ported"), ("model", "lmc_sparse", "not yet ported"),
+    ("model", "snmgp_sparse_hadamard", "unknown model"), ("model", "lmc_sparse_hadamard", "unknown model"),
     ("refine_z", 2, "K1 in the inputs"), ("sparse_approx", "dtc", "sparse_approx must be"),
 ])
 def test_pipeline_config_refuses_the_rest_of_the_sparse_tier(field, value, match):
