@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS, Hadamard-layout, mixed-precision, other-sampler and sparse-tier paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS, Hadamard-layout, mixed-precision, other-sampler, sparse-tier and sparse Hadamard paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--phases kernels,sparse]
 
-``--phases`` runs the named phases (comma-separated, of 2-15 below) and
+``--phases`` runs the named phases (comma-separated, of 2-16 below) and
 those whose results they take (drift takes serving's; chain and precision
 hmc's; nuts models'; samplers hmc's and models'), in the order below; the
 default is every phase.  The summary then lists what those phases measured.
@@ -104,7 +104,7 @@ Phases, each printing its lines:
                card against the CPU at rtol 1e-6, its gradient evaluations
                per second and a profile of one gradient;
                ``run_subject(do_hmc=True, do_loo=True)`` into a store with
-               the default chain, its stage times, acceptance, DIC and LOO,
+               a chain of MODEL_CHAIN_DRAWS draws, its stage times, acceptance, DIC and LOO,
                and each kernel's launches counted exactly in the chain (per
                gradient), the DIC and the LOO stage (per draw);
                ``mode="map"`` and ``mode="sample"`` over HTTP from that store
@@ -123,7 +123,7 @@ Phases, each printing its lines:
                ``chiprun_out/cli_nuts``.  (b) at N=1000, M=2, f64 from a MAP
                at ``n_opt=30``: GNMGP through ``run_subject(sampler="nuts",
                whiten="prior", do_loo=True)`` with 10 warmup and 10 kept
-               draws (max_depth 8), and LMC, SNMGP and the hetero GNMGP
+               draws (max_depth 6), and LMC, SNMGP and the hetero GNMGP
                through ``nuts_sample`` on their prior-whitened potentials
                with 10 + 10 draws at max_depth 6 (the hetero model also
                with 50 warmup draws, cut from run_subject's default 100), all at the
@@ -142,7 +142,7 @@ Phases, each printing its lines:
                gradient and gradient evaluations per second, and a profile
                of one GNMGP gradient; for LMC, SNMGP and GNMGP
                ``run_subject_hadamard(do_hmc=True, do_loo=True,
-               n_opt=30)`` with the default chain, and GNMGP once more with
+               n_opt=30)`` with MODEL_CHAIN_DRAWS draws, and GNMGP once more with
                ``sampler="nuts", whiten="prior"`` and 10 + 10 draws: stage
                times, gradients/s, acceptance, LOO, the test scores by the
                MAP and by the chain, and K1's launches counted exactly in
@@ -220,8 +220,8 @@ Phases, each printing its lines:
                of one gradient; K1's self form, cross form and their
                backward kernels at the SNMGP path's own inputs against their
                plain versions; ``run_subject(do_hmc=True, do_loo=True,
-               n_opt=30)`` into a store (the SNMGP with the default chain,
-               the other two with 25 draws) with the launches of its chain,
+               n_opt=30)`` into a store (each with 25 draws) with the
+               launches of its chain,
                DIC and LOO stages counted exactly; warm ``POST /predict`` at
                201 points, mode="map" for each and mode="sample" for the
                separable tiers (exact launches), the hetero tier's sample
@@ -232,7 +232,21 @@ Phases, each printing its lines:
                the LOO conditionals at 1e-8); one SNMGP gradient under
                NMGP_PRECISION=mixed against f64; the CLI with ``--model
                snmgp_sparse`` at N=200 into ``chiprun_out/cli_snmgp_sparse``.
-16. summary  — one JSON line listing every kernel, the card's name and power
+16. sparse_hadamard — (the sparse models in the Hadamard layout, no device
+               named) the hadamard phase's subject at N=2000 times (about
+               3,000 observations, 2,240 training, tied times), m_z=64, f64,
+               for ``gnmgp_sparse``, ``snmgp_sparse`` and ``lmc_sparse``:
+               FITC and VFE gradients with their exact launches, gradient
+               evaluations per second and a profile; K1's cross form (bit
+               for bit) and its backward kernel at the path's tied inputs
+               against their plain versions;
+               ``run_subject_hadamard(do_hmc=True, do_loo=True, n_opt=30)``
+               (the GNMGP tier with the default chain, the others with 25
+               draws) with every stage's launches counted exactly; one GNMGP
+               gradient under NMGP_PRECISION=mixed against f64; the card
+               against the CPU at 200 times, m_z=16 (values, gradients,
+               MAPs, predictions, LOO conditionals, chain-sample draws).
+17. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -397,8 +411,13 @@ CHAIN_LOO_RTOL, KRIGE_ATOL = 1e-8, 5e-7
 #: draw of a mode="sample" request (K1's self and cross forms both count as
 #: gibbs_gram); every other kernel must launch 0 times there.  The card's
 #: predict_sample is held against the CPU's over MODELS_CHECK_DRAWS draws;
-#: the CLI samples CHAIN_CLI_HMC draws.
+#: the CLI samples CHAIN_CLI_HMC draws.  The run_subject(do_hmc=True) chains
+#: of this phase and of the hadamard phase take MODEL_CHAIN_DRAWS draws of 20
+#: leapfrog steps (501 gradients), cut from the default 100 to keep the smoke
+#: well inside its time limit on a slow host; the hmc phase and the sparse
+#: phases' GNMGP tiers keep the default chain.
 MODEL_FAMILIES = ("lmc", "snmgp", "gnmgp_hetero")
+MODEL_CHAIN_DRAWS = 25
 MODEL_LAUNCHES = {
     "lmc": {"gradient": {"gibbs_gram": 1, "gibbs_gram_backward": 1}, "dic": {"gibbs_gram": 1},
             "loo": {"gibbs_gram": 1}, "map_request": {}, "sample_draw": {}},
@@ -416,9 +435,9 @@ MODELS_CHECK_DRAWS = 4
 #: the CLI's max(100, n_hmc) warmup draws, which at the default max_depth 8
 #: ran most of their trees to 255 leaves and took 115-170 s: the CLI has no
 #: depth flag, so its sampler's max_depth is cut to NUTS_CLI_DEPTH); at N=TRAIN_N each model's chain takes
-#: NUTS_WARMUP + NUTS_DRAWS draws, the models sampled through nuts_sample at
-#: max_depth NUTS_MODEL_DEPTH (GNMGP through run_subject keeps the default
-#: 8), and the hetero model once more with NUTS_HETERO_WARMUP warmup draws
+#: NUTS_WARMUP + NUTS_DRAWS draws at max_depth NUTS_MODEL_DEPTH (GNMGP
+#: through run_subject too: at the default 8 its trees ran to 255 leaves and
+#: the chain took 32-64 s), and the hetero model once more with NUTS_HETERO_WARMUP warmup draws
 #: (cut from run_subject's default 100 when the sparse phase joined the
 #: smoke: at 100 its chain took 27.7-37.7 s).  Each leaf is one gradient, so each chain
 #: launches the kernels of its model's gradient 1 + Σ n_leapfrog times.
@@ -1918,7 +1937,8 @@ def phase_models(torch, np, gk, seed) -> dict:
     mode="map" and mode="sample" over HTTP from that store; run_subject at
     N=CHECK_N card vs CPU.  Then the CLI with --model gnmgp_hetero.  Returns
     each kernel's launches by model and stage, and each model's subject (x,
-    y), its MAP vector on the CPU, its chain's mean acceptance and seconds."""
+    y), its MAP vector on the CPU, its chain's mean acceptance and gradients
+    per second."""
     from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, workflows
     from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline
     from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
@@ -1971,7 +1991,8 @@ def phase_models(torch, np, gk, seed) -> dict:
             log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
 
         # (b) run_subject(do_hmc=True, do_loo=True), no device named, into a store
-        cfg = workflows.PipelineConfig(model=model, n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True)
+        cfg = workflows.PipelineConfig(model=model, n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True,
+                                       n_hmc=MODEL_CHAIN_DRAWS)
         n_grads = 1 + (cfg.n_hmc + cfg.hmc_warmup) * cfg.hmc_leapfrog
         stages: dict = {}
 
@@ -2073,7 +2094,7 @@ def phase_models(torch, np, gk, seed) -> dict:
             if thread.is_alive():
                 raise AssertionError("server thread did not stop")
         map_vec = res["map_vec"].cpu()
-        subjects[model] = (x, y, map_vec, res["hmc_accept"], res["timings"]["hmc"])
+        subjects[model] = (x, y, map_vec, res["hmc_accept"], n_grads / res["timings"]["hmc"])
         ref = pred.predict_map(map_vec, FullData(x, y), xs, device="cpu", dtype=f64)
         for k, w in (("mean", ref.mean), ("std", ref.std), ("lower", ref.percentiles[:, 0]),
                      ("upper", ref.percentiles[:, 2])):
@@ -2235,7 +2256,7 @@ def phase_nuts(torch, np, gk, seed, subjects) -> dict:
         return out
 
     def kept_result(*args, **kwargs):
-        chain["res"] = nuts_sample(*args, **kwargs)
+        chain["res"] = nuts_sample(*args, **kwargs, max_depth=NUTS_MODEL_DEPTH)
         return chain["res"]
 
     workflows._run_chain, nuts.nuts_sample = counted_chain, kept_result
@@ -2254,9 +2275,9 @@ def phase_nuts(torch, np, gk, seed, subjects) -> dict:
     log("nuts", f"gnmgp run_subject N={TRAIN_N} M=2 f64 n_opt={TRAIN_N_OPT} sampler=nuts whiten=prior do_loo on "
         f"{res['hmc_samples'].device} (no device named): {wall:.3f} s; stages (s): "
         + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items()))
-    log("nuts", f"gnmgp chain: {NUTS_WARMUP} warmup + {NUTS_DRAWS} draws at step {step} (max_depth 8): "
-        f"{n_draws / t_chain:.3f} draws/s, {n_grads / t_chain:.3f} gradients/s ({n_grads} gradients in "
-        f"{t_chain:.3f} s); " + nuts_stats(torch, nres, NUTS_WARMUP, 8) + f"; hmc_accept {res['hmc_accept']:.6f}; "
+    log("nuts", f"gnmgp chain: {NUTS_WARMUP} warmup + {NUTS_DRAWS} draws at step {step} (max_depth "
+        f"{NUTS_MODEL_DEPTH}): {n_draws / t_chain:.3f} draws/s, {n_grads / t_chain:.3f} gradients/s ({n_grads} "
+        f"gradients in {t_chain:.3f} s); " + nuts_stats(torch, nres, NUTS_WARMUP, NUTS_MODEL_DEPTH) + f"; hmc_accept {res['hmc_accept']:.6f}; "
         f"DIC {res['dic']:.6e}; loo " + ", ".join(f"{k} {v:.6g}" for k, v in loo.items()))
     launched = check_nuts_launches("gnmgp", chain["launches"], nres)
     log("nuts", f"gnmgp launches: chain {launched} = 1 + Σ n_leapfrog; the whole run {run_launches}")
@@ -2447,16 +2468,17 @@ def phase_hadamard(torch, np, gk, seed) -> dict:
     map_mod.fit_map = counted("map", originals[0])
     workflows._run_chain = counted("chain", originals[1])
     evaluate.chain_conditional_loglik_hadamard = counted("loo", originals[2])
-    workflows._hadamard_predictors = lambda cfg: [counted(k, p) for k, p in
-                                                 zip(("pred_grid", "pred_test", "pred_test_sample"), predictors(cfg))]
+    workflows._hadamard_predictors = lambda *a: [counted(k, p) for k, p in
+                                                zip(("pred_grid", "pred_test", "pred_test_sample"), predictors(*a))]
     nuts.nuts_sample = kept_result
-    runs = [(model, {}) for model in HADAMARD_MODELS]
+    runs = [(model, {"n_hmc": MODEL_CHAIN_DRAWS}) for model in HADAMARD_MODELS]
     runs.append(("gnmgp", dict(sampler="nuts", whiten="prior", n_hmc=NUTS_DRAWS, hmc_warmup=NUTS_WARMUP)))
     try:
         for model, extra in runs:
             cfg = workflows.PipelineConfig(model=model, n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True,
                                            test_size=HADAMARD_TEST_SIZE, **extra)
-            label = model if not extra else f"{model}_nuts"
+            with_nuts = extra.get("sampler") == "nuts"
+            label = f"{model}_nuts" if with_nuts else model
             stages.clear()
             chain.clear()
             torch.cuda.reset_peak_memory_stats()
@@ -2467,7 +2489,7 @@ def phase_hadamard(torch, np, gk, seed) -> dict:
             wall = time.perf_counter() - t0
             run_launches = gk.launches()  # the main path ends here
             s = res["hmc_samples"].shape[0]
-            n_grads = (1 + int(chain["res"].n_leapfrog.sum()) if extra
+            n_grads = (1 + int(chain["res"].n_leapfrog.sum()) if with_nuts
                        else 1 + (cfg.n_hmc + cfg.hmc_warmup) * cfg.hmc_leapfrog)
             t_chain = res["timings"]["hmc"]
             loo = res["loo"]
@@ -2476,7 +2498,7 @@ def phase_hadamard(torch, np, gk, seed) -> dict:
                 f"(s): " + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items())
                 + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
             sampler = (f"NUTS, whiten=prior, {cfg.hmc_warmup} warmup + {cfg.n_hmc} draws (max_depth 8): "
-                       + nuts_stats(torch, chain["res"], cfg.hmc_warmup, 8) if extra else
+                       + nuts_stats(torch, chain["res"], cfg.hmc_warmup, 8) if with_nuts else
                        f"{cfg.n_hmc} draws x {cfg.hmc_leapfrog} leapfrog steps at {cfg.hmc_step_size}")
             log("hadamard", f"{label} chain: {sampler}; {(cfg.n_hmc + cfg.hmc_warmup) / t_chain:.3f} draws/s, "
                 f"{n_grads / t_chain:.3f} gradients/s ({n_grads} gradients in {t_chain:.3f} s); mean acceptance "
@@ -2979,7 +3001,7 @@ def phase_samplers(torch, np, gk, seed, hmc_res, subjects) -> dict:
     n_descent = inspect.signature(init_mod.multichain_starts).parameters["descent_iters"].default
     default = workflows.PipelineConfig()
     fixed_grads = 1 + (default.n_hmc + default.hmc_warmup) * default.hmc_leapfrog
-    fixed_rate = {"gnmgp": fixed_grads / hmc_res["timings"]["hmc"], "lmc": fixed_grads / subjects["lmc"][4]}
+    fixed_rate = {"gnmgp": fixed_grads / hmc_res["timings"]["hmc"], "lmc": subjects["lmc"][4]}
     n_total = SAMPLER_WARMUP + SAMPLER_DRAWS
     counts: dict = {}
     kept: dict = {}
@@ -3502,15 +3524,16 @@ def phase_sparse(torch, np, gk, seed) -> dict:
 #: the separable tiers K1's self form for K_zz and its cross form for K_xz
 #: (K_gz too in a request), with the self-form and cross-form backward
 #: kernels (σ and ℓ on both sides); the hetero tier the sparse GNMGP's.  Every
-#: other kernel must launch 0 times.  Each run_subject takes the default
-#: chain (SPARSE_TIER_DRAWS None) or that many draws of 20 leapfrog steps.
+#: other kernel must launch 0 times.  Each run_subject takes that many draws
+#: of 20 leapfrog steps (the SNMGP's cut from the default 100 with the other
+#: phases' chains, MODEL_CHAIN_DRAWS).
 SPARSE_TIERS = ("snmgp_sparse", "lmc_sparse", "gnmgp_hetero_sparse")
 _K1_SEPARABLE = {"gradient": {"gibbs_gram": 2, "gibbs_gram_backward": 1, "gibbs_gram_cross_backward": 1},
                  "value": {"gibbs_gram": 2}, "request": {"gibbs_gram": 3}}
 SPARSE_TIER_LAUNCHES = {"snmgp_sparse": _K1_SEPARABLE, "lmc_sparse": _K1_SEPARABLE,
                         "gnmgp_hetero_sparse": {"gradient": SPARSE_GRADIENT, "value": SPARSE_VALUE,
                                                 "request": SPARSE_REQUEST}}
-SPARSE_TIER_DRAWS = {"snmgp_sparse": None, "lmc_sparse": 25, "gnmgp_hetero_sparse": 25}
+SPARSE_TIER_DRAWS = {"snmgp_sparse": 25, "lmc_sparse": 25, "gnmgp_hetero_sparse": 25}
 #: The dense model whose subject (and truth) each tier takes.
 SPARSE_TIER_BASE = {"snmgp_sparse": "snmgp", "lmc_sparse": "lmc", "gnmgp_hetero_sparse": "gnmgp_hetero"}
 SPARSE_TIER_CHECK_DRAWS = 4
@@ -3859,10 +3882,321 @@ def phase_sparse_models(torch, np, gk, seed) -> dict:
         f"{CHAIN_CLI_HMC} on the card: {time.perf_counter() - t0:.3f} s; summary {summary}")
     return counts
 
+
+#: The sparse models in the Hadamard layout (``run_subject_hadamard`` with
+#: a sparse model): the Hadamard phase's ``sim_mnts`` subject at N=SPARSE_N
+#: times, M=2, each (time, channel) cell dropped with probability
+#: HADAMARD_DROP (about 3,000 observations, HADAMARD_TEST_SIZE held out),
+#: m_z=SPARSE_M_Z, f64.  Each tier launches per gradient, per value (a LOO
+#: draw, the MAP's last value) and per prediction (a map call, each draw of
+#: the chain-sample scoring) what its full layout does: the GNMGP tier K1's
+#: cross form and K3, with their backward kernels; the separable tiers K1's
+#: self and cross forms, with both backward kernels.  Every other kernel
+#: must launch 0 times.  Each run takes the default chain (None) or that many
+#: draws of 20 leapfrog steps.  The card against the CPU at
+#: SPARSE_HADAMARD_CHECK_TIMES times (about 225 training observations) with
+#: m_z=SPARSE_CHECK_M_Z and SPARSE_HADAMARD_CHECK_DRAWS draws.
+SPARSE_HADAMARD_MODELS = ("gnmgp_sparse", "snmgp_sparse", "lmc_sparse")
+SPARSE_HADAMARD_LAUNCHES = {"gnmgp_sparse": {"gradient": SPARSE_GRADIENT, "value": SPARSE_VALUE,
+                                             "request": SPARSE_REQUEST},
+                            "snmgp_sparse": _K1_SEPARABLE, "lmc_sparse": _K1_SEPARABLE}
+SPARSE_HADAMARD_DRAWS = {"gnmgp_sparse": None, "snmgp_sparse": 25, "lmc_sparse": 25}
+SPARSE_HADAMARD_CHECK_TIMES, SPARSE_HADAMARD_CHECK_DRAWS = 200, 4
+
+
+def sparse_hadamard_start(torch, np, model: str, vecs: dict, x_tr, z):
+    """A tier's vector at Z from ``hadamard_subject``'s truth (the training
+    observations' layout, raw L-vectors): each inducing input takes the
+    latents of the first training observation at its time; the LMC vector
+    is N-free."""
+    if model == "lmc_sparse":
+        return vecs["lmc"]
+    n = len(x_tr)
+    idx = torch.as_tensor(np.searchsorted(x_tr, z.cpu().numpy()))  # x_tr is sorted and holds Z
+    if model == "snmgp_sparse":
+        v = vecs["snmgp"]
+        return torch.cat([v[:n][idx], v[n:2 * n][idx], v[2 * n:]])
+    v = vecs["gnmgp"]
+    return torch.cat([v[:n][idx], v[n:4 * n].reshape(n, 3)[idx].reshape(-1), v[4 * n:]])
+
+
+def sparse_hadamard_noise(torch, model: str, gen, s: int, g: int):
+    """The normals of ``predict_test_hadamard_sample`` over ``s`` draws at
+    ``g`` points: the GNMGP tier's grid sampler's (ℓ̃, the L-entries, y),
+    the separable tiers' one y normal a point."""
+    f64 = torch.float64
+    if model == "gnmgp_sparse":
+        return tuple(torch.randn(s, *shape, generator=gen, dtype=f64) for shape in ((g,), (3, g), (g, 2)))
+    return torch.randn(s, g, generator=gen, dtype=f64)
+
+
+def check_k1_sparse_hadamard(torch, np, gk, tiers: dict, x) -> None:
+    """K1's cross form and its backward kernel at the path's own inputs (the
+    training observations, tied times, against Z): the GNMGP tier's (σ = 1,
+    the kriged ℓ) and the SNMGP tier's (the kriged σ and ℓ), each against its
+    plain version, with their warm times.  These launches come before the
+    path's counts are reset."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp_sparse, snmgp_sparse
+
+    with torch.no_grad():
+        _, ops, v = tiers["gnmgp_sparse"]
+        p = gnmgp_sparse.unpack(v, ops.z.shape[0], 2)
+        tl_x, _ = gnmgp_sparse.latents_at_data(p, ops, 2, gnmgp_sparse.HADAMARD_DEFAULT_HYPERS)
+        ones_x, ones_z = torch.ones_like(x), torch.ones_like(ops.z)
+        inputs = {"gnmgp_sparse": (ops.z, ones_x, torch.exp(tl_x), ones_z, torch.exp(p.tilde_l_z))}
+        _, ops, v = tiers["snmgp_sparse"]
+        p = snmgp_sparse.unpack(v, ops.z.shape[0], 2)
+        tl_x, ts_x = snmgp_sparse.latents_at_data(p, ops)
+        inputs["snmgp_sparse"] = (ops.z, torch.exp(ts_x), torch.exp(tl_x), torch.exp(p.tilde_sigma_z),
+                                  torch.exp(p.tilde_l_z))
+    gen = torch.Generator().manual_seed(9)
+    ties = x.shape[0] - torch.unique(x).shape[0]
+    for model, (z, sx, lx, sz, lz) in inputs.items():
+        kbar = torch.randn(x.shape[0], z.shape[0], generator=gen, dtype=torch.float64).to(DEVICE)
+        fwd = lambda: gk.gibbs_gram(x, sx, lx, z, sz, lz)
+        plain = lambda: gk.gibbs_gram_plain(x, sx, lx, z, sz, lz)
+        bwd = lambda: gk.gibbs_gram_cross_backward(x, sx, lx, z, sz, lz, kbar)
+        k = fwd()
+        if not torch.equal(k, plain()):
+            raise AssertionError(f"K1 cross form at the {model} Hadamard path's inputs differs from its plain version "
+                                 f"(max err {(k - plain()).abs().max().item():.3e})")
+        got, want = bwd(), gk.gibbs_gram_cross_backward_plain(x, sx, lx, z, sz, lz, kbar)
+        err = check_grad(torch, f"K1 cross-form backward, {model} Hadamard", got, want, "float64")
+        rel = max((torch.where(w_ != 0, (g_ - w_).abs() / w_.abs(), 0.0)).max().item() for g_, w_ in zip(got, want))
+        log("sparse_hadamard", f"K1 cross form at the {model} path's inputs ({x.shape[0]} x {z.shape[0]}, {ties} "
+            f"tied times, f64): equal to its plain version, warm {time_ms(torch, fwd):.5f} ms (plain "
+            f"{time_ms(torch, plain):.5f} ms); its backward kernel (σ̄, ℓ̄ both sides) max abs err {err:.3e} "
+            f"(elementwise max rel err {rel:.3e}) against autograd of the plain version, warm "
+            f"{time_ms(torch, bwd):.5f} ms")
+
+
+def phase_sparse_hadamard(torch, np, gk, seed) -> dict:
+    """The sparse models in the Hadamard layout at SPARSE_N times (about
+    2,250 training observations), m_z=SPARSE_M_Z, M=2, f64, no device named:
+    (a) FITC and VFE gradients of each tier's Hadamard objective with their
+    exact launches, gradient evaluations/s and a profile of one gradient;
+    (b) K1's cross form and its backward kernel at the path's tied inputs
+    against their plain versions; (c) ``run_subject_hadamard(do_hmc=True,
+    do_loo=True, n_opt=TRAIN_N_OPT)`` for each tier, each stage's launches
+    counted exactly; (d) one GNMGP FITC gradient under NMGP_PRECISION=mixed
+    against float64; (e) the card against the CPU at
+    SPARSE_HADAMARD_CHECK_TIMES times: values and gradients under both
+    approximations, run_subject_hadamard's MAP, grid prediction and scores,
+    the test predictions, the LOO conditionals and the chain-sample draws
+    given the same noise.  Returns each kernel's launches by label."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import evaluate, settings, workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import map as map_mod
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import as_hadamard_data
+    from nonstationary_multivariate_gaussian_process_tpu_torch.ops import mixed
+
+    f64 = torch.float64
+    value_and_grad = map_mod.value_and_grad
+    (x, indx, y), vecs, (x_tr, i_tr, y_tr), (x_te, i_te, _) = hadamard_subject(torch, np, seed + 150, SPARSE_N)
+    log("sparse_hadamard", f"sim_mnts N={SPARSE_N} M=2, each cell dropped with probability {HADAMARD_DROP}: "
+        f"{len(x)} observations at {len(np.unique(x))} times; {len(x_tr)} train ({len(x_tr) - len(np.unique(x_tr))} "
+        f"tied), {len(x_te)} test")
+    data = as_hadamard_data(x_tr, i_tr, y_tr, device=DEVICE, dtype=f64)
+    expect = lambda model, per, times: {k: SPARSE_HADAMARD_LAUNCHES[model][per].get(k, 0) * times
+                                        for k in gk.launches()}
+    counts: dict = {}
+    rates: dict = {}
+    tiers: dict = {}
+
+    # (a) FITC and VFE: launches per gradient, gradient evaluations/s, a profile
+    for model in SPARSE_HADAMARD_MODELS:
+        for approx in ("fitc", "vfe"):
+            nlp, ops = workflows._MODELS[model].make_objective_hadamard(data, 2, n_inducing=SPARSE_M_Z, approx=approx)
+            v = sparse_hadamard_start(torch, np, model, vecs, x_tr, ops.z).to(DEVICE)
+            if approx == "fitc":
+                tiers[model] = (nlp, ops, v)
+            gk.reset_launches()
+            val, grad = value_and_grad(nlp, v)
+            torch.cuda.synchronize()
+            counts[f"{model}_gradient_{approx}"] = gk.launches()
+            if gk.launches() != expect(model, "gradient", 1):
+                raise AssertionError(f"{model} {approx} Hadamard: one gradient launched {gk.launches()}, expected "
+                                     f"{expect(model, 'gradient', 1)}")
+            if not (torch.isfinite(val) and torch.isfinite(grad).all()):
+                raise AssertionError(f"{model} {approx} Hadamard: non-finite objective or gradient")
+            per_s = gradient_rate(torch, value_and_grad, nlp, v)
+            rates[f"{model} {approx}"] = statistics.median(per_s)
+            wall, device_ms, kinds, top = device_profile(torch, lambda: value_and_grad(nlp, v))
+            log("sparse_hadamard", f"{model} {approx} Hadamard N_obs={len(x_tr)} m_z={ops.z.shape[0]} M=2 f64 "
+                f"(P={v.shape[0]}): objective {val.item():.10e}; {rates[f'{model} {approx}']:.3f} gradient "
+                f"evaluations/s (median of {RATE_BATCHES} batches of {RATE_EVALS}; min {min(per_s):.3f}, max "
+                f"{max(per_s):.3f}); one gradient launched {SPARSE_HADAMARD_LAUNCHES[model]['gradient']}")
+            log("profile", f"one {model} {approx} Hadamard gradient N_obs={len(x_tr)}: wall {wall:.3f} ms, device "
+                f"{device_ms:.3f} ms (busy share {device_ms / wall:.3f}), {kinds} kernel kinds")
+            for ms, count, key in top:
+                log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+
+    # (b) K1's cross form and its backward kernel at the path's tied inputs
+    check_k1_sparse_hadamard(torch, np, gk, tiers, data.x)
+
+    # (c) run_subject_hadamard, no device named, each stage's launches counted exactly
+    stages: dict = {}
+
+    def counted(name, fn):
+        def wrapped(*args, **kwargs):
+            before = gk.launches()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[name] = ({k: v_ - before[k] for k, v_ in gk.launches().items()}, time.perf_counter() - t0)
+            return res
+        return wrapped
+
+    predictors = workflows._hadamard_predictors
+    originals = (map_mod.fit_map, workflows._run_chain, evaluate.chain_conditional_loglik_sparse_hadamard)
+    map_mod.fit_map = counted("map", originals[0])
+    workflows._run_chain = counted("chain", originals[1])
+    evaluate.chain_conditional_loglik_sparse_hadamard = counted("loo", originals[2])
+    workflows._hadamard_predictors = lambda *a: [counted(k, p) for k, p in zip(
+        ("pred_grid", "pred_test", "pred_test_sample"), predictors(*a))]
+    try:
+        for model in SPARSE_HADAMARD_MODELS:
+            draws = SPARSE_HADAMARD_DRAWS[model]
+            cfg = workflows.PipelineConfig(model=model, n_inducing=SPARSE_M_Z, n_opt=TRAIN_N_OPT, do_hmc=True,
+                                           do_loo=True, test_size=HADAMARD_TEST_SIZE,
+                                           **({} if draws is None else {"n_hmc": draws}))
+            stages.clear()
+            torch.cuda.reset_peak_memory_stats()
+            gk.reset_launches()  # the main path starts here
+            t0 = time.perf_counter()
+            res = workflows.run_subject_hadamard(x, indx, y, 2, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_launches = gk.launches()  # the main path ends here
+            samples = res["hmc_samples"]
+            s = samples.shape[0]
+            n_grads = 1 + (cfg.n_hmc + cfg.hmc_warmup) * cfg.hmc_leapfrog
+            grads_map = stages["map"][0]["gibbs_gram_cross_backward"]
+            want = {"map": {k: a + b for (k, a), b in zip(expect(model, "gradient", grads_map).items(),
+                                                          expect(model, "value", 1).values())},
+                    "chain": expect(model, "gradient", n_grads), "loo": expect(model, "value", min(s, cfg.loo_draws)),
+                    "pred_grid": expect(model, "request", 1), "pred_test": expect(model, "request", 1),
+                    "pred_test_sample": expect(model, "request", s)}
+            for stage, w in want.items():
+                counts[f"{model}_{stage}"] = stages[stage][0]
+                if stages[stage][0] != w:
+                    raise AssertionError(f"{model} Hadamard: the {stage} stage launched {stages[stage][0]}, "
+                                         f"expected {w}")
+            counts[f"{model}_run_subject"] = run_launches
+            summed = {k: sum(stages[st][0][k] for st in want) for k in run_launches}
+            if run_launches != summed or grads_map < 1:
+                raise AssertionError(f"{model} Hadamard: the run launched {run_launches}, its stages {summed}")
+            loo = res["loo"]
+            scores = [res[k] for k in ("test_rmse", "test_lpd", "test_sample_rmse", "test_sample_lpd")]
+            m_z = tiers[model][1].z.shape[0]  # the same training half and n_inducing
+            if (tuple(samples.shape) != (cfg.n_hmc, workflows.n_params(model, m_z, 2))
+                    or samples.device.type != torch.device(DEVICE).type or not torch.isfinite(samples).all()
+                    or not np.isfinite(scores + [loo["elpd_loo"], loo["looic"]]).all()
+                    or not 0.0 < res["hmc_accept"] <= 1.0
+                    or tuple(res["pred_grid"].percentiles.shape) != (cfg.n_grid, 3, 2)):
+                raise AssertionError(f"{model} Hadamard: draws {tuple(samples.shape)} on {samples.device}, or "
+                                     "non-finite LOO or scores, or no draw accepted")
+            t_chain = res["timings"]["hmc"]
+            log("sparse_hadamard", f"run_subject_hadamard {model} N_obs={len(x)} (train {res['n']}) m_z={m_z} "
+                f"M=2 f64 n_opt={TRAIN_N_OPT} do_hmc do_loo on {samples.device} (no device named): {wall:.3f} s; "
+                "stages (s): " + ", ".join(f"{k} {v_:.3f}" for k, v_ in res["timings"].items())
+                + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            log("sparse_hadamard", f"{model} chain: {cfg.n_hmc} draws x {cfg.hmc_leapfrog} leapfrog steps at "
+                f"{cfg.hmc_step_size}: {cfg.n_hmc / t_chain:.3f} draws/s, {n_grads / t_chain:.3f} gradients/s "
+                f"({n_grads} gradients); mean acceptance {res['hmc_accept']:.6f}; loo "
+                + ", ".join(f"{k} {v_:.6g}" for k, v_ in loo.items() if k != "pointwise")
+                + "; " + ", ".join(f"{k} {res[k]:.6f}" for k in ("test_rmse", "test_lpd", "test_sample_rmse",
+                                                                "test_sample_lpd")))
+            nonzero = lambda c: {k: v_ for k, v_ in c.items() if v_}
+            log("sparse_hadamard", f"{model} launches by stage: " + "; ".join(
+                f"{k} {nonzero(v_[0])}" for k, v_ in stages.items()) + f" (MAP: {grads_map} gradients and one value); "
+                f"the whole run {nonzero(run_launches)}")
+    finally:
+        map_mod.fit_map, workflows._run_chain, evaluate.chain_conditional_loglik_sparse_hadamard = originals
+        workflows._hadamard_predictors = predictors
+
+    # (d) one GNMGP FITC gradient under NMGP_PRECISION=mixed against float64
+    nlp, _, v = tiers["gnmgp_sparse"]
+    calls = []
+    real = mixed.mixed_logdet_quad
+    mixed.mixed_logdet_quad = lambda *a: calls.append(1) or real(*a)
+    settings.mixed_solves = True
+    try:
+        val_m, grad_m = value_and_grad(nlp, v)
+    finally:
+        settings.mixed_solves = False
+        mixed.mixed_logdet_quad = real
+    val_f, grad_f = value_and_grad(nlp, v)
+    if not calls:
+        raise AssertionError("gnmgp_sparse Hadamard: the mixed objective did not take the mixed route")
+    rel_v, _ = held(np, [val_m.item()], [val_f.item()], MIXED_VALUE_RTOL)
+    g_err = (grad_m - grad_f).abs().max().item() / grad_f.abs().max().item()
+    if not g_err <= MIXED_GRAD_TOL:
+        raise AssertionError(f"gnmgp_sparse Hadamard: the mixed gradient is off by {g_err:.3e} of its scale")
+    log("sparse_hadamard", f"gnmgp_sparse fitc Hadamard N_obs={len(x_tr)} NMGP_PRECISION=mixed vs f64: value "
+        f"{val_m.item():.12e} vs {val_f.item():.12e} (rel {rel_v:.3e}), gradient off by {g_err:.3e} of its scale: ok "
+        f"at {MIXED_VALUE_RTOL} and {MIXED_GRAD_TOL}")
+
+    # (e) the card against the CPU at SPARSE_HADAMARD_CHECK_TIMES times
+    (xc, ic, yc), cvecs, (xc_tr, ic_tr, yc_tr), (xc_te, ic_te, _) = hadamard_subject(
+        torch, np, seed + 151, SPARSE_HADAMARD_CHECK_TIMES)
+    datas = {dev: as_hadamard_data(xc_tr, ic_tr, yc_tr, device=dev, dtype=f64) for dev in (DEVICE, "cpu")}
+    gen = torch.Generator().manual_seed(seed + 152)
+    for model in SPARSE_HADAMARD_MODELS:
+        mod = workflows._MODELS[model]
+        worst = []
+        for approx in ("fitc", "vfe"):
+            vg = {}
+            for dev in (DEVICE, "cpu"):
+                nlp_c, ops_c = mod.make_objective_hadamard(datas[dev], 2, n_inducing=SPARSE_CHECK_M_Z, approx=approx)
+                vg[dev] = [t_.cpu() for t_ in value_and_grad(
+                    nlp_c, sparse_hadamard_start(torch, np, model, cvecs, xc_tr, ops_c.z).to(dev))]
+            worst.append(held(np, [vg[DEVICE][0].item()], [vg["cpu"][0].item()], OBJECTIVE_RTOL))
+            worst.append(held(np, vg[DEVICE][1].numpy(), vg["cpu"][1].numpy(), OBJECTIVE_RTOL))
+        rel_o = max(r for r, _ in worst)
+        cfg = workflows.PipelineConfig(model=model, n_inducing=SPARSE_CHECK_M_Z, n_opt=CHECK_N_OPT,
+                                       test_size=HADAMARD_TEST_SIZE, sparse_approx="vfe")
+        out = {dev: workflows.run_subject_hadamard(xc, ic, yc, 2, cfg, device=dev, dtype=f64)
+               for dev in (DEVICE, "cpu")}
+        rel_m, frac_m = held(np, out[DEVICE]["map_vec"].cpu().numpy(), out["cpu"]["map_vec"].numpy(), OBJECTIVE_RTOL)
+        grids = {dev: out[dev]["pred_grid"] for dev in (DEVICE, "cpu")}
+        worst = [held(np, getattr(grids[DEVICE], k).cpu().numpy(), getattr(grids["cpu"], k).numpy(), SERVED_RTOL)
+                 for k in ("percentiles", "mean", "std")]
+        worst += [held(np, [out[DEVICE][k]], [out["cpu"][k]], OBJECTIVE_RTOL) for k in ("test_rmse", "test_lpd")]
+        # the test predictions, the LOO conditionals and the chain-sample draws at one vector and one chain, the
+        # CPU's ops on both devices
+        _, ops_c = mod.make_objective_hadamard(datas["cpu"], 2, n_inducing=SPARSE_CHECK_M_Z, approx="vfe")
+        vec = out["cpu"]["map_vec"]
+        chain = vec + 0.01 * torch.randn(SPARSE_HADAMARD_CHECK_DRAWS, vec.shape[0], generator=gen, dtype=f64)
+        noise = sparse_hadamard_noise(torch, model, gen, SPARSE_HADAMARD_CHECK_DRAWS, len(xc_te))
+        pred = workflows._PREDICT[model]
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            ops_d = ops_to(ops_c, dev)
+            mean, var = pred.predict_test_hadamard(vec, datas[dev], ops_d, 2, xc_te, ic_te, approx="vfe", device=dev,
+                                                   dtype=f64)
+            draws = pred.predict_test_hadamard_sample(None, chain, datas[dev], ops_d, 2, xc_te, ic_te, approx="vfe",
+                                                      device=dev, dtype=f64, noise=noise)
+            cond = evaluate.chain_conditional_loglik_sparse_hadamard(chain, datas[dev], ops_d, 2, approx="vfe",
+                                                                     model=model, device=dev, dtype=f64)
+            got[dev] = [t_.cpu().numpy() for t_ in (mean, var, draws)] + [cond]
+        worst += [held(np, g_, w_, SERVED_RTOL) for g_, w_ in zip(got[DEVICE][:3], got["cpu"][:3])]
+        rel_c, frac_c = held(np, got[DEVICE][3], got["cpu"][3], CHAIN_LOO_RTOL)
+        log("sparse_hadamard", f"{model} N_obs={len(xc)} (train {len(xc_tr)}) m_z<={SPARSE_CHECK_M_Z} card vs CPU: "
+            f"FITC and VFE values and gradients max rel err {rel_o:.3e}; run_subject_hadamard (vfe, n_opt="
+            f"{CHECK_N_OPT}) map_vec max rel err {rel_m:.3e} (max err {frac_m:.3e} of its scale): ok at rtol "
+            f"{OBJECTIVE_RTOL}; grid and test predictions, test scores and {SPARSE_HADAMARD_CHECK_DRAWS}-draw "
+            f"chain-sample draws with the same noise max rel err {max(r for r, _ in worst):.3e}, max err "
+            f"{max(f_ for _, f_ in worst):.3e} of their scale: ok at rtol {SERVED_RTOL}; LOO conditionals max rel err "
+            f"{rel_c:.3e}, max err {frac_c:.3e} of the scale: ok at {CHAIN_LOO_RTOL}")
+    log("summary", f"sparse Hadamard gradient evaluations/s at N_obs={len(x_tr)}, m_z={SPARSE_M_Z}: "
+        + ", ".join(f"{k}: {v_:.3f}" for k, v_ in rates.items()))
+    return counts
+
+
 #: The phases after the build, in the order they run, and the phases whose
 #: results each takes (a named phase runs those too).
 PHASES = ("kernels", "serving", "drift", "objective", "training", "hmc", "chain", "models", "nuts", "hadamard",
-          "precision", "samplers", "sparse", "sparse_models")
+          "precision", "samplers", "sparse", "sparse_models", "sparse_hadamard")
 PHASE_NEEDS = {"drift": ("serving",), "chain": ("hmc",), "nuts": ("models",), "precision": ("hmc",),
                "samplers": ("hmc", "models")}
 
@@ -3943,6 +4277,7 @@ def main() -> int:
     run("samplers", lambda torch, np, gk: phase_samplers(torch, np, gk, args.seed, res["hmc"][1], res["models"][1]))
     run("sparse", phase_sparse, args.seed)
     run("sparse_models", phase_sparse_models, args.seed)
+    run("sparse_hadamard", phase_sparse_hadamard, args.seed)
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -3988,8 +4323,9 @@ def main() -> int:
         # whitened NUTS chains at N=1000; the Hadamard layout by stage; the
         # sampling stages of DRHMC, ChEES and tempering; the sparse tier per
         # gradient, its run_subject and stages, NUTS and requests; the other
-        # sparse tiers likewise, by tier
-        for phase in ("models", "nuts", "hadamard", "samplers", "sparse", "sparse_models"):
+        # sparse tiers likewise, by tier; the sparse tiers in the Hadamard
+        # layout per gradient, their run_subject_hadamard and its stages
+        for phase in ("models", "nuts", "hadamard", "samplers", "sparse", "sparse_models", "sparse_hadamard"):
             if phase in res:
                 counts = res[phase][0] if phase == "models" else res[phase]
                 row[f"launches_{phase}"] = {label: c[name] for label, c in counts.items()}
@@ -4008,7 +4344,8 @@ def main() -> int:
                               ("hadamard", "in run_subject_hadamard by model and stage", any_value),
                               ("precision", "under mixed", bool), ("samplers", "in the samplers' stages", bool),
                               ("sparse", "on the sparse path", bool),
-                              ("sparse_models", "on the other sparse tiers' paths", bool)):
+                              ("sparse_models", "on the other sparse tiers' paths", bool),
+                              ("sparse_hadamard", "on the sparse tiers' Hadamard paths", bool)):
         if phase in res:
             log("summary", f"launches {what}: " + joined(res[phase][0] if phase == "models" else res[phase], keep))
     if "objective" in res:

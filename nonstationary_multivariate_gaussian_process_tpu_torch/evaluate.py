@@ -10,7 +10,8 @@ per draw.  The dense LOO conditionals cover ``lmc``, ``snmgp``, ``gnmgp``
 and ``gnmgp_hetero``, in the Hadamard layout ``lmc``, ``snmgp`` and
 ``gnmgp``, and the sparse ones ``gnmgp_sparse``, ``gnmgp_hetero_sparse``,
 ``snmgp_sparse`` and ``lmc_sparse`` (from their Woodbury factors, never the
-dense precision); the G/P/D scores, ``loo_compare`` and
+dense precision), the first, third and fourth in the Hadamard layout too;
+the G/P/D scores, ``loo_compare`` and
 ``stacking_weights`` are not ported yet.
 """
 
@@ -30,6 +31,9 @@ from .ops import chol, kernels
 #: (:func:`chain_conditional_loglik_sparse`); their observation covariance is
 #: never formed.
 SPARSE_MODELS = ("gnmgp_sparse", "gnmgp_hetero_sparse", "snmgp_sparse", "lmc_sparse")
+#: The sparse models with a Hadamard-layout objective
+#: (:func:`chain_conditional_loglik_sparse_hadamard`).
+HADAMARD_SPARSE_MODELS = ("gnmgp_sparse", "snmgp_sparse", "lmc_sparse")
 
 def mse(a, b, axis=None):
     """Mean squared error (utils.py:165-172)."""
@@ -228,12 +232,44 @@ def chain_conditional_loglik_sparse(
             return lmc_sparse._woodbury(lmc_sparse.unpack(v, m), data, ops, m, approx, mask)
         return gnmgp_sparse._woodbury(gnmgp_sparse.unpack(v, m_z, m), data, ops, m, approx, hyper, mask)
 
-    out = np.empty((hist.shape[0], n * m))
+    return _loo_rows(hist, woodbury, n * m, mask_tm, chunk)
+
+
+def _loo_rows(hist: torch.Tensor, woodbury, n_slots: int, mask_flat, chunk: int) -> np.ndarray:
+    """(S, n_slots) LOO conditionals from each draw's Woodbury factors
+    ``woodbury(v)``, one draw at a time; ``chunk`` draws' rows are copied to
+    the host together."""
+    out = np.empty((hist.shape[0], n_slots))
     with torch.no_grad():
         for start in range(0, hist.shape[0], chunk):
-            rows = [_loo_from_woodbury(woodbury(v), mask_tm) for v in hist[start : start + chunk]]
+            rows = [_loo_from_woodbury(woodbury(v), mask_flat) for v in hist[start : start + chunk]]
             out[start : start + len(rows)] = torch.stack(rows).cpu().numpy()
     return out
+
+
+def chain_conditional_loglik_sparse_hadamard(
+    hist_vecs, data, ops, m: int, approx: str = "fitc", hyper=None, mask=None, chunk: int = 8,
+    model: str = "gnmgp_sparse", device=None, dtype=None,
+) -> np.ndarray:
+    """(S, N) exact LOO-conditional log densities of a sparse model in the
+    Hadamard layout (``data`` a ``HadamardData`` with ``m`` tasks), as numpy
+    float64: :func:`chain_conditional_loglik_sparse` with the model's
+    ``_woodbury_hadamard`` (``"gnmgp_sparse"``, ``"snmgp_sparse"`` or
+    ``"lmc_sparse"``; another name raises).  Device, dtype and ``chunk`` as
+    there."""
+    if model not in HADAMARD_SPARSE_MODELS:
+        raise ValueError(f"model {model!r} has no sparse Hadamard layout (want one of {HADAMARD_SPARSE_MODELS})")
+    device = settings.resolve_device(device)
+    dtype = dtype or settings.dtype
+    hist = torch.as_tensor(hist_vecs, dtype=dtype, device=device)
+    m_z = ops.z.shape[0]
+    mask_b = None if mask is None else torch.as_tensor(mask, dtype=torch.bool, device=device)
+    if model == "lmc_sparse":
+        woodbury = lambda v: lmc_sparse._woodbury_hadamard(lmc_sparse.unpack(v, m), data, ops, m, approx, mask)
+    else:
+        mod = gnmgp_sparse if model == "gnmgp_sparse" else snmgp_sparse
+        woodbury = lambda v: mod._woodbury_hadamard(mod.unpack(v, m_z, m), data, ops, m, approx, hyper, mask)
+    return _loo_rows(hist, woodbury, data.y.shape[0], mask_b, chunk)
 
 
 def _loo_from_woodbury(w, mask_flat=None) -> torch.Tensor:

@@ -31,8 +31,17 @@ likelihood :func:`_loglik_separable` (``models/snmgp_sparse.py`` and
 never materialized, with ``K_zz`` from K1's self form and ``K_xz`` from its
 cross form, σ and ℓ on both sides, each with its backward kernel), and the
 heteroscedastic tier (``gnmgp_hetero_sparse``: a per-(input, task) noise GP
-at Z, kriged to the data, with the per-slot VFE penalty).  The Hadamard and
-inducing-refinement parts of the JAX module are not ported yet.
+at Z, kriged to the data, with the per-slot VFE penalty).
+
+The Hadamard layout (one observation per (input, task) pair, so a channel
+may be missing at any time) has its own objective here
+(:func:`make_objective_hadamard`): the per-input Cholesky vectors enter raw,
+with no exp on their diagonals, under :data:`HADAMARD_DEFAULT_HYPERS`; each
+observation row of ``K_nm`` takes its own task's row of ``L_x``.  The same
+kernels carry it: K3 for ``K_mm``, K1's cross form for ``K_xz``, each with
+its backward kernel.  The separable tiers' Hadamard likelihood is
+:func:`_loglik_separable_hadamard`.  The inducing-refinement part of the
+JAX module is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,8 +53,8 @@ import torch
 
 from .. import dists, settings
 from ..ops import chol, gram_kernels, kernels, transforms
-from .base import FullData, check_full_data, check_vec, task_major
-from .gnmgp import DEFAULT_HYPERS
+from .base import FullData, HadamardData, check_full_data, check_vec, task_major
+from .gnmgp import DEFAULT_HYPERS, HADAMARD_HYPERS
 
 
 class SparseParams(NamedTuple):
@@ -338,6 +347,67 @@ def _loglik_separable(b_f, k_zz, k_xz, k_x_diag, y_nm, noise, approx: str, mask=
     return res
 
 
+def task_onehot(indx: torch.Tensor, m: int, dtype) -> torch.Tensor:
+    """(N, M) one-hot rows of the observations' tasks.  A selection from an
+    (M,) or (M, M) object is then a product with it, whose backward is a
+    product too (an ``index_select``'s backward adds N rows into M with
+    atomics, in no fixed order)."""
+    return torch.nn.functional.one_hot(indx, m).to(dtype)
+
+
+def task_rows(ls: torch.Tensor, indx: torch.Tensor) -> torch.Tensor:
+    """(N, M): each observation's own task row ``L_i[indx_i, :]`` of the (N,
+    M, M) factors ``ls``, gathered (the backward writes each slot once)."""
+    return torch.gather(ls, 1, indx[:, None, None].expand(-1, 1, ls.shape[-1]))[:, 0, :]
+
+
+def _loglik_separable_hadamard(b_f, k_zz, k_xz, k_x_diag, indx, y, noise, approx: str, mask=None) -> torch.Tensor:
+    """The Hadamard-layout counterpart of :func:`_loglik_separable`.
+
+    Each observation row selects its task, so the solved cross factor is a
+    Khatri-Rao column product ``b[:, i] = B_b[:, indx_i] ⊗ B_k[:, i]``; the
+    inner Gram still assembles per task, ``I + Σ_a (B_b[:,a] B_b[:,a]ᵀ) ⊗
+    (B_k diag(w·[indx = a]) B_kᵀ)``, as M batched (m_z × N × m_z) products.
+    ``k_x_diag`` (N,) is ``K_x``'s diagonal at the observations, ``indx``
+    (N,) their tasks and ``y`` (N,) their values; ``mask`` (N,) excludes
+    padded rows exactly."""
+    m, m_z = b_f.shape[0], k_zz.shape[0]
+    dtype, device = k_zz.dtype, k_zz.device
+    rel = 1e-8 if dtype == torch.float64 else 1e-5
+    eye = lambda k: torch.eye(k, dtype=dtype, device=device)
+    lb = chol.robust_cholesky_small(b_f + rel * torch.mean(torch.diagonal(b_f)) * eye(m))
+    lk = chol.robust_cholesky_small(k_zz + rel * torch.mean(torch.diagonal(k_zz)) * eye(m_z))
+    bb = chol.tri_solve_small(lb, b_f)  # (M, M)
+    bk = chol.tri_solve_small(lk, k_xz.T)  # (m_z, N)
+    onehot = task_onehot(indx, m, dtype)  # (N, M)
+    qb = torch.sum(bb * bb, dim=0)  # (M,)
+    qk = torch.sum(bk * bk, dim=0)  # (N,)
+    corr = torch.clamp((onehot @ torch.diagonal(b_f)) * k_x_diag - (onehot @ qb) * qk, min=0.0)
+    if approx == "fitc":
+        lam = corr + noise
+    elif approx == "vfe":
+        lam = torch.as_tensor(noise, dtype=dtype, device=device).expand(corr.shape)
+    else:
+        raise ValueError(f"approx must be 'fitc' or 'vfe', got {approx!r}")
+    mv = None if mask is None else torch.as_tensor(mask, device=device).to(dtype)
+    if mv is not None:
+        lam = torch.where(mv > 0, lam, 1.0)
+        y = y * mv
+    w = 1.0 / lam if mv is None else mv / lam  # (N,)
+    dd = torch.sum(y * y / lam)
+    bb_g = bb @ onehot.T  # (M, N): each observation's task column of B_b
+    u = (bb_g @ (bk * (y / lam)[None, :]).T).reshape(-1)  # (M·m_z,), index c·m_z + j
+    g = (bk[None] * (onehot.T * w[None, :])[:, None, :]) @ bk.T  # (M, m_z, m_z)
+    bb2 = bb[:, None, :] * bb[None, :, :]  # (c, d, a)
+    inner = torch.einsum("cda,ajk->cjdk", bb2, g).reshape(m * m_z, m * m_z) + eye(m * m_z)
+    ld_in, quad_in = _inner_logdet_quad(inner, u)
+    res = -0.5 * (torch.sum(torch.log(lam)) + ld_in) - 0.5 * (dd - quad_in)
+    if approx == "vfe":
+        c = corr if mv is None else corr * mv
+        res = res - 0.5 * torch.sum(c) / noise
+    return res
+
+
 def log_lik(p: SparseParams, data: FullData, ops: SparseOps, approx: str = "fitc", hyper=None,
             mask=None) -> torch.Tensor:
     """Sparse marginal log-likelihood (unnormalized, reference convention).
@@ -411,6 +481,109 @@ def init_from_empirical(emp_vec, n: int, m_z: int, m: int, x, z) -> torch.Tensor
     idx = torch.as_tensor(nearest, device=emp_vec.device)
     t = transforms.tri_size(m)
     return torch.cat([p.tilde_l[idx], p.ul_vecs.reshape(n, t)[idx].reshape(-1), p.tilde_sigma2_err.reshape(1)])
+
+
+# ---------------------------------------------------------------------------
+# The Hadamard layout: one observation per (input, task) pair.
+# ---------------------------------------------------------------------------
+
+#: The Hadamard defaults, the exact Hadamard SVC's (logpos.py:566-585).
+HADAMARD_DEFAULT_HYPERS = HADAMARD_HYPERS
+
+
+def make_ops_hadamard(x: torch.Tensor, z, hyper: dict | None = None) -> SparseOps:
+    """:func:`make_ops` under :data:`HADAMARD_DEFAULT_HYPERS`."""
+    return make_ops(x, z, {**HADAMARD_DEFAULT_HYPERS, **(hyper or {})})
+
+
+def _assemble_hadamard(p: SparseParams, data: HadamardData, ops: SparseOps, m: int, hyper=None, mask=None):
+    """Hadamard-layout cross pieces ``(k_mm, k_nm, k_diag, y, mv)``.
+
+    The reference's Hadamard-SVC conventions (``models.gnmgp.
+    log_posterior_hadamard``): the per-input Cholesky vectors enter raw, no
+    exp on their diagonals, so ``p.ul_vecs_z`` holds plain L-vectors at Z
+    and their kriged field is used as it is.  Row i of ``K_nm`` is
+    ``K_xz[i, j]·(Lx_i Lz_jᵀ)[indx_i, c]`` at column ``c·m_z + j``."""
+    hp = {**HADAMARD_DEFAULT_HYPERS, **(hyper or {})}
+    x, indx, y = data
+    m_z = ops.z.shape[0]
+    tl_x, l_x = latents_at_data(p, ops, m, hp)  # the raw L-vectors, kriged
+    lz = transforms.vec_to_tril(p.ul_vecs_z.reshape(m_z, -1), m)  # (m_z, M, M)
+    rows = task_rows(transforms.vec_to_tril(l_x, m), indx)  # (N, M) observed task rows
+    ell_z = torch.exp(p.tilde_l_z)
+    k_mm = inducing_gram(ops.z, ell_z, lz)  # (mM, mM), kernel K3
+    k_xz = kernels.nonstationary_rbf_cov(x, ell1=torch.exp(tl_x), x2=ops.z, ell2=ell_z)  # kernel K1, cross form
+    b3 = torch.einsum("ib,jcb->icj", rows, lz)  # (N, M, m_z)
+    k_nm = (k_xz[:, None, :] * b3).reshape(y.shape[0], m * m_z)  # columns as k_mm's
+    k_diag = (1.0 + settings.jitter) * torch.sum(rows * rows, dim=-1)
+    mv = None if mask is None else torch.as_tensor(mask, device=y.device).to(y.dtype)
+    return k_mm, k_nm, k_diag, y, mv
+
+
+def _woodbury_hadamard(p: SparseParams, data: HadamardData, ops: SparseOps, m: int, approx: str, hyper=None,
+                       mask=None) -> _Woodbury:
+    """Hadamard-layout Woodbury factors (see :func:`_assemble_hadamard`)."""
+    k_mm, k_nm, k_diag, y, mv = _assemble_hadamard(p, data, ops, m, hyper, mask)
+    return _woodbury_core(k_mm, k_nm, k_diag, y, torch.exp(p.tilde_sigma2_err), approx, mv)
+
+
+def log_lik_hadamard(p: SparseParams, data: HadamardData, ops: SparseOps, m: int, approx: str = "fitc", hyper=None,
+                     mask=None) -> torch.Tensor:
+    """Sparse Hadamard marginal log-likelihood (see :func:`log_lik`)."""
+    pieces = _assemble_hadamard(p, data, ops, m, hyper, mask)
+    return _loglik_pieces(pieces, torch.exp(p.tilde_sigma2_err), approx)
+
+
+def log_posterior_hadamard(p: SparseParams, data: HadamardData, ops: SparseOps, m: int, approx: str = "fitc",
+                           hyper=None, prior: bool = True, mask=None):
+    """Sparse Hadamard log-posterior: the exact Hadamard SVC's priors over the
+    Z-latents (GP priors on ℓ̃ and the raw L-vector columns, the
+    unnormalized inverse-gamma noise prior and its exp Jacobian;
+    ``models.gnmgp.log_posterior_hadamard``).  Returns ``(logpos,
+    components)``."""
+    hp = {**HADAMARD_DEFAULT_HYPERS, **(hyper or {})}
+    m_z = ops.z.shape[0]
+    loglik = log_lik_hadamard(p, data, ops, m, approx=approx, hyper=hp, mask=mask)
+    sigma2_err = torch.exp(p.tilde_sigma2_err)
+    lp_l = dists.mvn_logpdf_chol(p.tilde_l_z, hp["mu_tilde_l"], ops.pc_l_z)
+    lp_L = torch.sum(dists.mvn_logpdf_chol(p.ul_vecs_z.reshape(m_z, -1).T, hp["mu_L"], ops.pc_ul_z))
+    lp_s2 = dists.inverse_gamma_logpdf_u(sigma2_err, alpha=hp["a"], beta=hp["b"])
+    res = loglik
+    if prior:
+        res = res + lp_l + lp_L + lp_s2 + p.tilde_sigma2_err
+    comps = {"loglik": loglik, "log_prior_tilde_l": lp_l, "log_prior_L_vecs": lp_L, "log_prior_sigma2_err": lp_s2}
+    return res, comps
+
+
+def hadamard_inducing(data: HadamardData, z, n_inducing: int, mask=None) -> torch.Tensor:
+    """``z``, or by default ``choose_inducing`` over the real (unmasked)
+    inputs.  The Hadamard layout repeats a time once per observed channel
+    and ``choose_inducing`` keeps one of each, so m_z can come back below
+    ``n_inducing``."""
+    if z is not None:
+        return z
+    x_real = data.x if mask is None else data.x[: int(torch.as_tensor(mask).sum())]
+    return choose_inducing(x_real, min(n_inducing, x_real.shape[0]))
+
+
+def make_objective_hadamard(data: HadamardData, m: int, z=None, n_inducing: int = 64, hyper: dict | None = None,
+                            approx: str = "fitc", prior: bool = True, mask=None):
+    """Sparse Hadamard negative-log-posterior closure: ``(nlp, ops)`` as
+    :func:`make_objective`, for a :class:`~.base.HadamardData` with ``m``
+    tasks; the vector has ``n_params(m_z, m)`` slots for the m_z inducing
+    inputs that come back in ``ops.z``."""
+    if approx not in ("fitc", "vfe"):
+        raise ValueError(f"approx must be 'fitc' or 'vfe', got {approx!r}")
+    hp = {**HADAMARD_DEFAULT_HYPERS, **(hyper or {})}
+    ops = make_ops(data.x, hadamard_inducing(data, z, n_inducing, mask), hp)
+    m_z = ops.z.shape[0]
+
+    def nlp(vec: torch.Tensor) -> torch.Tensor:
+        res, _ = log_posterior_hadamard(unpack(vec, m_z, m), data, ops, m, approx=approx, hyper=hp, prior=prior,
+                                        mask=mask)
+        return -res
+
+    return nlp, ops
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,13 @@ backward kernels.  The likelihood never forms the Kronecker products
 products); :func:`_assemble` forms them for prediction and the LOO
 conditionals, with ``torch.kron``'s column order ``c·m_z + j``, JAX's.
 
-The Hadamard part of the JAX module is not ported yet.
+The Hadamard layout (:func:`make_objective_hadamard`) takes the reference's
+Hadamard conventions: the task-Cholesky vector enters raw, no exp on its
+diagonal.  The inducing latents are the full task set at Z, ``K_mm = B_f ⊗
+K_x(Z, Z)``, while each observation row selects its task, ``K_nm[i, (c, j)]
+= B_f[indx_i, c]·K_x(x_i, z_j)``; the likelihood never forms either
+(``gnmgp_sparse._loglik_separable_hadamard``), and the same two K1 forms and
+backward kernels carry it.
 """
 
 from __future__ import annotations
@@ -30,8 +36,9 @@ import torch
 from .. import dists, settings
 from ..ops import chol, kernels, transforms
 from . import snmgp
-from .base import FullData, check_full_data, check_vec, task_major
-from .gnmgp_sparse import _loglik_separable, _woodbury_core, choose_inducing
+from .base import FullData, HadamardData, check_full_data, check_vec, task_major
+from .gnmgp_sparse import (_loglik_separable, _loglik_separable_hadamard, _woodbury_core, choose_inducing,
+                           hadamard_inducing, task_onehot)
 from .lmc import task_cov
 from .snmgp import DEFAULT_HYPERS
 
@@ -92,9 +99,17 @@ def latents_at_data(p: SparseParams, ops: SparseOps, hyper=None):
     return tl_x, ts_x
 
 
-def _factors(p: SparseParams, data: FullData, ops: SparseOps, m: int, hyper=None):
+def raw_task_cov(l_vec: torch.Tensor, m: int) -> torch.Tensor:
+    """``B_f = L Lᵀ`` from a raw task-Cholesky vector (the Hadamard
+    convention: no exp on the diagonal)."""
+    l_mat = transforms.vec_to_tril(l_vec, m)
+    return l_mat @ l_mat.T
+
+
+def _factors(p: SparseParams, data, ops: SparseOps, m: int, hyper=None, raw: bool = False):
     """The separable factors ``(b_f, k_zz, k_xz, k_x_diag)`` that ``K_** =
-    B_f ⊗ K_x(·,·)`` is built from."""
+    B_f ⊗ K_x(·,·)`` is built from; ``raw`` reads the task vector as the
+    Hadamard objective does."""
     tl_x, ts_x = latents_at_data(p, ops, hyper)
     sig_x, sig_z = torch.exp(ts_x), torch.exp(p.tilde_sigma_z)
     ell_z = torch.exp(p.tilde_l_z)
@@ -102,7 +117,8 @@ def _factors(p: SparseParams, data: FullData, ops: SparseOps, m: int, hyper=None
     k_xz = kernels.nonstationary_rbf_cov(data.x, sigma1=sig_x, ell1=torch.exp(tl_x), x2=ops.z, sigma2=sig_z,
                                          ell2=ell_z)  # kernel K1, cross form
     # the Gibbs self-covariance's diagonal is σ_n² (+ the additive jitter)
-    return task_cov(p.ul_vec, m), k_zz, k_xz, sig_x * sig_x + settings.jitter
+    b_f = raw_task_cov(p.ul_vec, m) if raw else task_cov(p.ul_vec, m)
+    return b_f, k_zz, k_xz, sig_x * sig_x + settings.jitter
 
 
 def kron_pieces(b_f, k_zz, k_xz, k_x_diag, y: torch.Tensor, mask=None):
@@ -175,6 +191,85 @@ def make_objective(data: FullData, z=None, n_inducing: int = 64, hyper: dict | N
 
     def nlp(vec: torch.Tensor) -> torch.Tensor:
         res, _ = log_posterior(unpack(vec, m_z, m), data, ops, approx=approx, hyper=hp, prior=prior, mask=mask)
+        return -res
+
+    return nlp, ops
+
+
+# ---------------------------------------------------------------------------
+# The Hadamard layout: one observation per (input, task) pair.
+# ---------------------------------------------------------------------------
+
+
+def hadamard_pieces(b_f, k_zz, k_xz, k_x_diag, indx, y, mask=None):
+    """The materialized Hadamard cross pieces ``(k_mm, k_nm, k_diag, y, mv)``
+    of a separable tier (prediction and the LOO conditionals): ``K_mm = B_f
+    ⊗ K_zz``, ``K_nm[i, (c, j)] = B_f[indx_i, c]·K_xz[i, j]``."""
+    m, m_z = b_f.shape[0], k_zz.shape[0]
+    onehot = task_onehot(indx, m, b_f.dtype)
+    k_nm = (k_xz[:, None, :] * (onehot @ b_f)[:, :, None]).reshape(y.shape[0], m * m_z)
+    k_diag = (onehot @ torch.diagonal(b_f)) * k_x_diag
+    mv = None if mask is None else torch.as_tensor(mask, device=y.device).to(y.dtype)
+    return torch.kron(b_f, k_zz), k_nm, k_diag, y, mv
+
+
+def _assemble_hadamard(p: SparseParams, data: HadamardData, ops: SparseOps, m: int, hyper=None, mask=None):
+    """The materialized Hadamard cross pieces (prediction and the LOO
+    conditionals; the likelihood stays factored)."""
+    return hadamard_pieces(*_factors(p, data, ops, m, hyper, raw=True), data.indx, data.y, mask)
+
+
+def _woodbury_hadamard(p: SparseParams, data: HadamardData, ops: SparseOps, m: int, approx: str, hyper=None,
+                       mask=None):
+    """Hadamard-layout Woodbury factors (see :func:`hadamard_pieces`)."""
+    k_mm, k_nm, k_diag, y, mv = _assemble_hadamard(p, data, ops, m, hyper, mask)
+    return _woodbury_core(k_mm, k_nm, k_diag, y, torch.exp(p.tilde_sigma2_err), approx, mv)
+
+
+def log_lik_hadamard(p: SparseParams, data: HadamardData, ops: SparseOps, m: int, approx: str = "fitc", hyper=None,
+                     mask=None) -> torch.Tensor:
+    """Sparse Hadamard marginal log-likelihood (see :func:`log_lik`), the
+    Kronecker ``K_mm`` never formed (``gnmgp_sparse.
+    _loglik_separable_hadamard``)."""
+    return _loglik_separable_hadamard(*_factors(p, data, ops, m, hyper, raw=True), data.indx, data.y,
+                                      torch.exp(p.tilde_sigma2_err), approx, mask)
+
+
+def log_posterior_hadamard(p: SparseParams, data: HadamardData, ops: SparseOps, m: int, approx: str = "fitc",
+                           hyper=None, prior: bool = True, mask=None):
+    """Sparse Hadamard log-posterior: the exact Hadamard SNMGP's priors over
+    the Z-latents (N(0, c) on the raw task vector, the unnormalized
+    inverse-gamma noise prior and its exp Jacobian; ``models.snmgp.
+    log_posterior_hadamard``).  Returns ``(logpos, components)``."""
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    loglik = log_lik_hadamard(p, data, ops, m, approx=approx, hyper=hp, mask=mask)
+    sigma2_err = torch.exp(p.tilde_sigma2_err)
+    lp_l = dists.mvn_logpdf_chol(p.tilde_l_z, hp["mu_tilde_l"], ops.pc_l_z)
+    lp_sigma = dists.mvn_logpdf_chol(p.tilde_sigma_z, hp["mu_tilde_sigma"], ops.pc_sigma_z)
+    lp_l_vec = torch.sum(dists.normal_logpdf(p.ul_vec, 0.0, hp["c"]))
+    lp_s2 = dists.inverse_gamma_logpdf_u(sigma2_err, alpha=hp["a"], beta=hp["b"])
+    res = loglik
+    if prior:
+        res = res + lp_l + lp_sigma + lp_l_vec + lp_s2 + p.tilde_sigma2_err
+    comps = {"loglik": loglik, "log_prior_tilde_l": lp_l, "log_prior_tilde_sigma": lp_sigma,
+             "log_prior_L_vec": lp_l_vec, "log_prior_sigma2_err": lp_s2}
+    return res, comps
+
+
+def make_objective_hadamard(data: HadamardData, m: int, z=None, n_inducing: int = 64, hyper: dict | None = None,
+                            approx: str = "fitc", prior: bool = True, mask=None):
+    """Sparse Hadamard negative-log-posterior closure: ``(nlp, ops)``, the
+    vector of ``n_params(m_z, m)`` slots for the m_z inducing inputs that
+    come back in ``ops.z`` (``gnmgp_sparse.hadamard_inducing``)."""
+    if approx not in ("fitc", "vfe"):
+        raise ValueError(f"approx must be 'fitc' or 'vfe', got {approx!r}")
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    ops = make_ops(data.x, hadamard_inducing(data, z, n_inducing, mask), hp)
+    m_z = ops.z.shape[0]
+
+    def nlp(vec: torch.Tensor) -> torch.Tensor:
+        res, _ = log_posterior_hadamard(unpack(vec, m_z, m), data, ops, m, approx=approx, hyper=hp, prior=prior,
+                                        mask=mask)
         return -res
 
     return nlp, ops

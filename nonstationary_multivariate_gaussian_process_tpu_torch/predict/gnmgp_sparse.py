@@ -14,7 +14,10 @@ RBF priors.  On CUDA the (G, m_z) cross-covariance ``K_gz`` is kernel K1's
 cross form (no gradient) and each draw's ``K_mm`` kernel K3.  The
 heteroscedastic tier (``predict_map_hetero``, ``predict_test_hetero``)
 serves the MAP only, as JAX's does: its predictive noise is kriged from the
-noise field at Z.
+noise field at Z.  The Hadamard layout's predictors (``*_hadamard``) take
+the raw L-vectors of ``models.gnmgp_sparse.make_objective_hadamard``, all
+tasks at each grid point, or at indexed test points (x*, task*) each
+point's own task.
 
 Randomness comes from an explicit ``torch.Generator`` or from ``noise=``,
 the standard normals the JAX function draws, so a caller can replay JAX's
@@ -29,11 +32,13 @@ from .. import settings
 from ..models import gnmgp_sparse as model
 from ..models.base import FullData
 from ..models.gnmgp import DEFAULT_HYPERS
-from ..ops import chol as chol_ops
 from ..ops import kernels, transforms
 from .gnmgp import GridPredictionSVC
+from .hadamard import _select_indexed
+from .hadamard import _setup as hadamard_setup
 from .latent import krige_proj
 from .snmgp import band, normals, setup
+from .snmgp_sparse import star_moments
 
 
 def _hp(hyper):
@@ -53,22 +58,27 @@ def _latents_at(p: model.SparseParams, z, grid, hp, m: int):
     return tl_g, l_vec_g, transforms.vec_to_tril(l_vec_g, m)
 
 
-def _conditional(p: model.SparseParams, w, z, grid, ell_g, ls_g, m: int, noise=None):
-    """Predictive ``(mu (G, M), s2_y (G, M))`` at ``grid`` from the Woodbury
-    factors ``w`` and the latent values there (``ell_g`` (G,), ``ls_g`` (G,
-    M, M)); the observation noise is ``exp(p.tilde_sigma2_err)`` or, for
-    the hetero tier, ``noise`` (G, M)."""
+def _conditional(p: model.SparseParams, w, z, grid, ell_g, ls_g, m: int, noise=None, lz=None, indx_grid=None):
+    """Predictive ``(mu, s2_y)`` at ``grid`` from the Woodbury factors ``w``
+    and the latent values there (``ell_g`` (G,), ``ls_g`` (G, M, M)): (G,
+    M) each, or with ``indx_grid`` (G,) each point's own task's, (G,).  The
+    inducing factors ``lz`` default to the full layout's; the observation
+    noise is ``exp(p.tilde_sigma2_err)`` or, for the hetero tier, ``noise``
+    (G, M)."""
     g = grid.shape[0]
-    m_z = z.shape[0]
-    lz = model.chol_factors(p.ul_vecs_z.reshape(m_z, -1), m)
+    if lz is None:
+        lz = model.chol_factors(p.ul_vecs_z.reshape(z.shape[0], -1), m)
     k_gz = kernels.nonstationary_rbf_cov(grid, ell1=ell_g, x2=z, ell2=torch.exp(p.tilde_l_z))  # kernel K1, cross form
-    k_gm = model.cross_gram(k_gz, ls_g, lz)  # (GM, mM)
-    t_star = chol_ops.tri_solve(w.c_mm, k_gm.T)  # (mM, GM)
-    w_star = chol_ops.tri_solve(w.c_in, t_star)
-    v = chol_ops.tri_solve(w.c_in, w.a @ w.d)  # (mM,)
-    mu = (w_star.T @ v).reshape(m, g).T  # (G, M) from task-major flat
-    k_star_diag = ((1.0 + settings.jitter) * torch.sum(ls_g * ls_g, dim=-1)).T.reshape(-1)
-    var = (k_star_diag - torch.sum(t_star * t_star, dim=0) + torch.sum(w_star * w_star, dim=0)).reshape(m, g).T
+    if indx_grid is None:
+        k_gm = model.cross_gram(k_gz, ls_g, lz)  # (GM, mM), task-major rows
+        k_star_diag = ((1.0 + settings.jitter) * torch.sum(ls_g * ls_g, dim=-1)).T.reshape(-1)
+    else:
+        rows = model.task_rows(ls_g, indx_grid)  # (G, M)
+        k_gm = (k_gz[:, None, :] * torch.einsum("ib,jcb->icj", rows, lz)).reshape(g, -1)
+        k_star_diag = (1.0 + settings.jitter) * torch.sum(rows * rows, dim=-1)
+    mu, var = star_moments(w, k_gm, k_star_diag)
+    if indx_grid is None:
+        mu, var = mu.reshape(m, g).T, var.reshape(m, g).T  # (G, M) from task-major flat
     sigma2_err = torch.exp(p.tilde_sigma2_err) if noise is None else noise
     return mu, torch.maximum(var + sigma2_err, sigma2_err)  # the noise floor (see predict/snmgp)
 
@@ -142,6 +152,117 @@ def predict_sample(generator: torch.Generator | None, hist_vecs, data: FullData,
         mu, s2 = _conditional(p, w, ops.z, grid, torch.exp(tl), model.chol_factors(ul.T, m), m)
         ys.append(mu + torch.sqrt(s2) * z_y[i])
     return torch.stack(ys, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# The Hadamard layout: the raw L-vectors of ``make_objective_hadamard``.
+# ---------------------------------------------------------------------------
+
+
+def _hadamard_hp(hyper):
+    return {**model.HADAMARD_DEFAULT_HYPERS, **(hyper or {})}
+
+
+def _latents_at_hadamard(p: model.SparseParams, z, grid, hp, m: int):
+    """Kriged latent fields Z → grid under the Hadamard conventions (raw
+    L-vectors): ``(tilde_l* (G,), l_vecs* (G, T), ls* (G, M, M))``."""
+    proj_l, _ = krige_proj(z, grid, hp["alpha_tilde_l"], hp["beta_tilde_l"])
+    proj_ul, _ = krige_proj(z, grid, hp["alpha_L"], hp["beta_L"])
+    tl_g = hp["mu_tilde_l"] + (p.tilde_l_z - hp["mu_tilde_l"]) @ proj_l
+    l_g = (hp["mu_L"] + (p.ul_vecs_z.reshape(z.shape[0], -1).T - hp["mu_L"]) @ proj_ul).T  # (G, T) raw
+    return tl_g, l_g, transforms.vec_to_tril(l_g, m)
+
+
+def _raw_lz(p: model.SparseParams, m_z: int, m: int) -> torch.Tensor:
+    return transforms.vec_to_tril(p.ul_vecs_z.reshape(m_z, -1), m)
+
+
+def _moments_hadamard(vec, data, ops: model.SparseOps, m: int, grid, indx_grid=None, hyper=None, approx: str = "fitc",
+                      mask=None, device=None, dtype=None):
+    """Sparse Hadamard predictive moments: per task at every grid point ((G,
+    M) each), or with task indices each point's own task's ((G,) each, for
+    test scoring; reference prediction.py:585-708).  Returns ``(mu, s2_y,
+    l_vecs (G, T))``."""
+    data, grid, as_t = hadamard_setup(data, grid, device, dtype)
+    hp = _hadamard_hp(hyper)
+    m_z = ops.z.shape[0]
+    p = model.unpack(as_t(vec), m_z, m)
+    w = model._woodbury_hadamard(p, data, ops, m, approx, hp, mask)
+    tl_g, l_g, ls_g = _latents_at_hadamard(p, ops.z, grid, hp, m)
+    if indx_grid is not None:
+        indx_grid = torch.as_tensor(indx_grid, dtype=torch.long, device=grid.device)
+    mu, s2 = _conditional(p, w, ops.z, grid, torch.exp(tl_g), ls_g, m, lz=_raw_lz(p, m_z, m), indx_grid=indx_grid)
+    return mu, s2, l_g
+
+
+@torch.no_grad()
+def predict_map_hadamard(vec, data, ops: model.SparseOps, m: int, grid, hyper=None, approx: str = "fitc", mask=None,
+                         device=None, dtype=None) -> GridPredictionSVC:
+    """Plug-in MAP grid prediction, every task at every point (the sparse
+    analogue of ``predict.hadamard.svc_predict_map``).  ``vec``, ``data``
+    (a ``HadamardData``) and ``grid`` may be numpy arrays or tensors; they
+    are moved to ``device`` (default ``cuda``, raising when there is none)
+    in ``dtype`` (default ``settings.dtype``), where ``ops`` must already
+    lie."""
+    mu, s2, l_g = _moments_hadamard(vec, data, ops, m, grid, None, hyper, approx, mask, device, dtype)
+    pct, sd = band(mu, s2)
+    return GridPredictionSVC(percentiles=pct, mean=mu, std=sd, l_vecs=l_g)
+
+
+@torch.no_grad()
+def predict_test_hadamard(vec, data, ops: model.SparseOps, m: int, x_test, indx_test, hyper=None,
+                          approx: str = "fitc", mask=None, device=None, dtype=None):
+    """Held-out ``(mean (G,), var (G,))`` at each test point's own task, for
+    RMSE/LPD.  Device and dtype as in :func:`predict_map_hadamard`."""
+    mu, s2, _ = _moments_hadamard(vec, data, ops, m, x_test, indx_test, hyper, approx, mask, device, dtype)
+    return mu, s2
+
+
+@torch.no_grad()
+def predict_sample_hadamard(generator: torch.Generator | None, hist_vecs, data, ops: model.SparseOps, m: int, grid,
+                            hyper=None, approx: str = "fitc", mask=None, n_sample: int | None = None, device=None,
+                            dtype=None, noise=None) -> torch.Tensor:
+    """Chain-sample sparse Hadamard prediction: (G, S, M) y-draws.  Per draw
+    the latent fields are drawn at the grid from their kriging conditionals
+    (mean and marginal variance under the RBF priors at Z), the Woodbury
+    factors give the f-conditional and the observation noise is added.  The
+    normals come from ``generator`` or from ``noise = (z_l (S, G), z_ul (S,
+    T, G), z_y (S, G, M))``, JAX's ``split(k, 3)`` per draw."""
+    data, grid, as_t = hadamard_setup(data, grid, device, dtype)
+    hp = _hadamard_hp(hyper)
+    m_z = ops.z.shape[0]
+    hist = as_t(hist_vecs)
+    if n_sample is not None:
+        hist = hist[-n_sample:]
+    s, g, t = hist.shape[0], grid.shape[0], transforms.tri_size(m)
+    if noise is None:
+        draw = lambda *shape: normals(generator, (s,) + shape, grid.device, grid.dtype)
+        noise = (draw(g), draw(t, g), draw(g, m))
+    z_l, z_ul, z_y = (as_t(a) for a in noise)
+    proj_l, var_l = krige_proj(ops.z, grid, hp["alpha_tilde_l"], hp["beta_tilde_l"])
+    proj_ul, var_ul = krige_proj(ops.z, grid, hp["alpha_L"], hp["beta_L"])
+    ys = []
+    for i, vec in enumerate(hist):
+        p = model.unpack(vec, m_z, m)
+        tl = hp["mu_tilde_l"] + (p.tilde_l_z - hp["mu_tilde_l"]) @ proj_l + torch.sqrt(var_l) * z_l[i]
+        lv = (hp["mu_L"] + (p.ul_vecs_z.reshape(m_z, t).T - hp["mu_L"]) @ proj_ul
+              + torch.sqrt(var_ul)[None, :] * z_ul[i])  # (T, G), raw
+        w = model._woodbury_hadamard(p, data, ops, m, approx, hp, mask)
+        mu, s2 = _conditional(p, w, ops.z, grid, torch.exp(tl), transforms.vec_to_tril(lv.T, m), m,
+                              lz=_raw_lz(p, m_z, m))
+        ys.append(mu + torch.sqrt(s2) * z_y[i])
+    return torch.stack(ys, dim=1)
+
+
+def predict_test_hadamard_sample(generator: torch.Generator | None, hist_vecs, data, ops: model.SparseOps, m: int,
+                                 x_test, indx_test, hyper=None, approx: str = "fitc", mask=None,
+                                 n_sample: int | None = None, device=None, dtype=None, noise=None) -> torch.Tensor:
+    """(G_test, S) indexed chain-sample draws: :func:`predict_sample_hadamard`
+    at the test points, then each point's own task (the sample-based scoring
+    path, reference prediction.py:678-708)."""
+    ys = predict_sample_hadamard(generator, hist_vecs, data, ops, m, x_test, hyper, approx, mask, n_sample, device,
+                                 dtype, noise)
+    return _select_indexed(ys, indx_test)
 
 
 # ---------------------------------------------------------------------------

@@ -23,15 +23,16 @@ the Hadamard layout (one observation per (input, task) pair, so a channel
 may be missing at any time): MAP on the model's Hadamard objective, grid
 prediction, the chain (either sampler, any ``whiten``), LOO, and held-out
 test scoring by the MAP and by the chain, for ``lmc``, ``snmgp`` and
-``gnmgp``.
+``gnmgp`` and the sparse ``gnmgp_sparse``, ``snmgp_sparse`` and
+``lmc_sparse`` (FITC or VFE at the inducing inputs chosen among the
+subject's times; their whiteners and LOO at those inputs).
 
 Not ported yet, and refused with ``ValueError``: inducing-input refinement
-(``refine_z > 0``, which needs K1's gradient in the inputs), every sparse
-model in the Hadamard layout, the
-heteroscedastic GNMGP in the Hadamard layout (the JAX package has no
-Hadamard objective for it), and the samplers ``"rmhmc"`` (it needs second-
-and third-order derivatives of the Gram kernels K1 and K3), ``"smc"`` and
-``"pathfinder"``.
+(``refine_z > 0``, which needs K1's gradient in the inputs), and the
+samplers ``"rmhmc"`` (it needs second- and third-order derivatives of the
+Gram kernels K1 and K3), ``"smc"`` and ``"pathfinder"``.  The
+heteroscedastic GNMGPs, dense or sparse, have no Hadamard objective in the
+JAX package either, and ``run_subject_hadamard`` refuses them.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ MODELS = tuple(_MODELS)
 SPARSE_MODELS = ("gnmgp_sparse", "gnmgp_hetero_sparse", "snmgp_sparse", "lmc_sparse")
 SPARSE_APPROXES = ("fitc", "vfe")
 #: The models with a Hadamard-layout objective.
-HADAMARD_MODELS = ("lmc", "snmgp", "gnmgp")
+HADAMARD_MODELS = ("lmc", "snmgp", "gnmgp", "gnmgp_sparse", "snmgp_sparse", "lmc_sparse")
 HMC_MASSES = ("none", "pilot", "window")
 SAMPLERS = ("hmc", "nuts", "drhmc", "chees")
 #: The JAX package's samplers that the port refuses, and why.
@@ -611,10 +612,24 @@ def _hadamard_start(seed: int, dim: int, device, dtype) -> torch.Tensor:
     return v0.to(device=device, dtype=dtype)
 
 
-def _hadamard_predictors(cfg: PipelineConfig):
-    """The model's ``predict_map``, ``predict_test`` and ``predict_test_sample``
-    from ``predict.hadamard``, with ``cfg.hyper`` bound where the JAX
-    workflow passes it (not to LMC's)."""
+def _hadamard_predictors(cfg: PipelineConfig, sp_ops=None):
+    """The model's ``predict_map``, ``predict_test`` (mean and std) and
+    ``predict_test_sample`` from ``predict.hadamard``, with ``cfg.hyper``
+    bound where the JAX workflow passes it (not to LMC's); for a sparse
+    model its ``*_hadamard`` predictors with its ``sp_ops``, ``cfg.hyper``
+    and the approximation bound."""
+    if cfg.model in SPARSE_MODELS:
+        pred = _PREDICT[cfg.model]
+        kw = {"hyper": cfg.hyper, "approx": cfg.sparse_approx}
+
+        def predict_test(vec, data, x_test, indx_test, m, **dev):
+            mean, var = pred.predict_test_hadamard(vec, data, sp_ops, m, x_test, indx_test, **kw, **dev)
+            return mean, torch.sqrt(var)
+
+        return [lambda vec, data, grid, m, **dev: pred.predict_map_hadamard(vec, data, sp_ops, m, grid, **kw, **dev),
+                predict_test,
+                lambda gen, hist, data, x_test, indx_test, m, **dev: pred.predict_test_hadamard_sample(
+                    gen, hist, data, sp_ops, m, x_test, indx_test, **kw, **dev)]
     name = {"lmc": "lmc", "snmgp": "snmgp", "gnmgp": "svc"}[cfg.model]
     fns = [getattr(pred_h, f"{name}_{kind}") for kind in ("predict_map", "predict_test", "predict_test_sample")]
     if cfg.model == "lmc":
@@ -631,7 +646,9 @@ def run_subject_hadamard(x, indx, y, m: int, cfg: PipelineConfig | None = None, 
 
     The training half is sorted by ``x`` with ``np.argsort``, as in JAX, so
     tied times keep one order.  MAP runs on the model's Hadamard objective
-    from :func:`_hadamard_start`; then grid prediction, with ``do_hmc`` the
+    from :func:`_hadamard_start` (a sparse model's at the m_z inducing
+    inputs its objective chooses among the training times, fewer than
+    ``n_inducing`` where times tie); then grid prediction, with ``do_hmc`` the
     chain (drawn from the stream JAX derives as ``fold_in(key, 3)``, seeded
     from ``SeedSequence([seed, 3])``) and with ``do_loo`` WAIC and PSIS-LOO
     from it, and with ``test_size`` > 0 the held-out scores by the MAP and,
@@ -639,6 +656,9 @@ def run_subject_hadamard(x, indx, y, m: int, cfg: PipelineConfig | None = None, 
     result dict (tensors where it has arrays) and the stage ``timings``.
     """
     cfg = cfg or PipelineConfig()
+    if cfg.model == "gnmgp_hetero_sparse":
+        raise ValueError("gnmgp_hetero_sparse has no Hadamard objective — use model='gnmgp_sparse' (or the "
+                         "full-layout hetero pipeline)")
     if cfg.model not in HADAMARD_MODELS:
         raise ValueError(
             f"model {cfg.model!r} has no Hadamard-layout objective in the torch package "
@@ -658,12 +678,20 @@ def run_subject_hadamard(x, indx, y, m: int, cfg: PipelineConfig | None = None, 
     x, indx, y = x[order], indx[order], y[order]
     n = x.shape[0]
     data = as_hadamard_data(x, indx, y, device, dtype)
-    predict_map, predict_test, predict_test_sample = _hadamard_predictors(cfg)
     out: dict = {"n": n, "m": m, "timings": {}}
 
     t0 = time.time()
-    nlp = _MODELS[cfg.model].make_objective_hadamard(data, m, hyper=cfg.hyper)
-    res = map_mod.fit_map(nlp, _hadamard_start(cfg.seed, n_params(cfg.model, n, m), device, dtype),
+    sparse = cfg.model in SPARSE_MODELS
+    sp_ops = None
+    if sparse:
+        nlp, sp_ops = _MODELS[cfg.model].make_objective_hadamard(data, m, n_inducing=cfg.n_inducing,
+                                                                 approx=cfg.sparse_approx, hyper=cfg.hyper)
+        n_lat, x_lat = sp_ops.z.shape[0], sp_ops.z  # the latent processes live at Z
+    else:
+        nlp = _MODELS[cfg.model].make_objective_hadamard(data, m, hyper=cfg.hyper)
+        n_lat, x_lat = n, data.x
+    predict_map, predict_test, predict_test_sample = _hadamard_predictors(cfg, sp_ops)
+    res = map_mod.fit_map(nlp, _hadamard_start(cfg.seed, n_params(cfg.model, n_lat, m), device, dtype),
                           n_iters=cfg.n_opt, lr=cfg.lr, err_opt=cfg.err_opt, method=cfg.map_method)
     out["timings"]["map"] = time.time() - t0
     out["map_vec"] = res.vec
@@ -678,7 +706,7 @@ def run_subject_hadamard(x, indx, y, m: int, cfg: PipelineConfig | None = None, 
 
     if cfg.do_hmc:
         t0 = time.time()
-        whitener = _make_sampling_whitener(nlp, res.vec, cfg, data.x, n, m, hadamard=True)
+        whitener = _make_sampling_whitener(nlp, res.vec, cfg, x_lat, n_lat, m, hadamard=True)
         samples, accept = _run_chain(nlp, res.vec, cfg, _pilot_generator(cfg.seed, 3, device), whitener=whitener)
         out["timings"]["hmc"] = time.time() - t0
         out["hmc_samples"] = samples
@@ -689,9 +717,14 @@ def run_subject_hadamard(x, indx, y, m: int, cfg: PipelineConfig | None = None, 
             if hist.shape[0] > cfg.loo_draws:
                 idx = np.linspace(0, hist.shape[0] - 1, cfg.loo_draws).astype(int)
                 hist = hist[torch.as_tensor(idx, device=hist.device)]
-            cond_ll = evaluate.chain_conditional_loglik_hadamard(
-                cfg.model, hist, data.x, data.indx, data.y, m, device=device, dtype=dtype
-            )
+            if sparse:
+                cond_ll = evaluate.chain_conditional_loglik_sparse_hadamard(
+                    hist, data, sp_ops, m, approx=cfg.sparse_approx, hyper=cfg.hyper, model=cfg.model,
+                    device=device, dtype=dtype)
+            else:
+                cond_ll = evaluate.chain_conditional_loglik_hadamard(
+                    cfg.model, hist, data.x, data.indx, data.y, m, device=device, dtype=dtype
+                )
             loo = evaluate.psis_loo(cond_ll)
             wa = evaluate.waic(cond_ll)
             out["loo"] = {

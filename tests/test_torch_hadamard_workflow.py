@@ -33,6 +33,7 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.predict import hadama
 
 from test_torch_hadamard_models import hadamard_subject
 from test_torch_hadamard_predict import NAME, close, jax_noise
+from test_torch_hmc import jit_jax_map
 
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
@@ -49,23 +50,28 @@ def subject():
 
 def _record_jax_stages(mp, model: str, calls: dict):
     """Record the inputs and outputs of the prediction and LOO stages of
-    JAX's run in ``calls``.  The chain-sample predictor runs ``jax.jit``ted
-    (op by op it costs seconds), as JAX's ``predict_test_sample`` is: the
-    grid draws of ``predict_sample``, then each point's own task."""
+    JAX's run in ``calls``.  The MAP objective and the predictors run
+    ``jax.jit``ted (op by op they cost seconds), the chain-sample predictor
+    as JAX's ``predict_test_sample`` is: the grid draws of
+    ``predict_sample``, then each point's own task."""
     name = NAME[model]
+    jit_jax_map(mp)
 
-    def spy(mod, fn, stage):
+    def spy(mod, fn, stage, jit=False):
         orig = getattr(mod, fn)
 
         def recorded(*args, **kwargs):
-            out = orig(*args, **kwargs)
+            if jit:  # the vector traced, the rest (the kriging's host inputs among them) closed over
+                out = jax.jit(lambda v: orig(v, *args[1:], **kwargs))(args[0])
+            else:
+                out = orig(*args, **kwargs)
             calls.setdefault(stage, (args, out))  # the workflow's own call, not one inside another
             return out
 
         mp.setattr(mod, fn, recorded)
 
-    spy(jpred_h, f"{name}_predict_map", "map")
-    spy(jpred_h, f"{name}_predict_test", "test")
+    spy(jpred_h, f"{name}_predict_map", "map", jit=True)
+    spy(jpred_h, f"{name}_predict_test", "test", jit=True)
     spy(jevaluate, "chain_conditional_loglik_hadamard", "loo")
     sample = getattr(jpred_h, f"{name}_predict_sample")
 

@@ -25,6 +25,8 @@ are held at rtol 1e-8.  The chain summaries take the same numpy steps
 from its own generator), so it is held to where JAX's chain stays.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,7 @@ from nonstationary_multivariate_gaussian_process_tpu.inference import diagnostic
 from nonstationary_multivariate_gaussian_process_tpu.inference import empirical as jempirical
 from nonstationary_multivariate_gaussian_process_tpu.inference import hmc as jhmc
 from nonstationary_multivariate_gaussian_process_tpu.inference import init as jinit
+from nonstationary_multivariate_gaussian_process_tpu.inference import map as jmap
 from nonstationary_multivariate_gaussian_process_tpu.inference import warmup as jwarmup
 from nonstationary_multivariate_gaussian_process_tpu.models import gnmgp as jgnmgp
 from nonstationary_multivariate_gaussian_process_tpu.models.base import FullData as JFullData
@@ -81,6 +84,59 @@ def jax_noise(key, n_total: int, p: int):
     """``(z (n_total, P), u (n_total,))`` that JAX's sampler draws from ``key``."""
     z, u = _jax_draw_noise(jax.random.split(key, n_total), jnp.zeros(p))
     return np.array(z), np.array(u)
+
+
+def jit_jax_map(mp):
+    """Put the JAX MAP stage's objective on ``jax.jit`` (``fit_map`` and
+    ``multi_start_map`` score each start's last iterate op by op)."""
+    multi, fit = jmap.multi_start_map, jmap.fit_map
+    mp.setattr(jmap, "multi_start_map", lambda objective, inits, **kw: multi(jax.jit(objective), inits, **kw))
+    mp.setattr(jmap, "fit_map", lambda objective, v0, **kw: fit(jax.jit(objective), v0, **kw))
+
+
+def jit_jax_stages(mp, model: str = "gnmgp"):
+    """Put a JAX ``run_subject``'s evaluations of ``model``'s objective,
+    deviance (the MAP's, AIC's, BIC's and DIC's) and plug-in predictor on
+    ``jax.jit``.  Op by op every primitive compiles on its first call in each
+    test module, hundreds of small compiles a run; jitted, each program
+    compiles once.  The values agree with the op-by-op ones to rounding."""
+    mod, pred = jworkflows._MODELS[model], jworkflows._PREDICT[model]
+    jit_jax_map(mp)
+    jitted = {}
+
+    def once(fn):
+        if fn not in jitted:
+            jitted[fn] = jax.jit(fn)
+        return jitted[fn]
+
+    for name in ("get_aic", "get_bic", "get_dic"):
+        mp.setattr(jevaluate, name, functools.partial(
+            lambda orig, first, fn, *a, **k: orig(first, once(fn), *a, **k), getattr(jevaluate, name)))
+    hetero_sparse = model == "gnmgp_hetero_sparse"
+    if model.endswith("_sparse"):
+        for name in ("log_lik_hetero",) if hetero_sparse else ("log_lik",):
+            mp.setattr(mod, name, _jitted_log_lik(getattr(mod, name)))
+    else:
+        mp.setattr(mod, "deviance", jax.jit(mod.deviance))
+    for name in ("predict_map_hetero",) if hetero_sparse else ("predict_map",):
+        mp.setattr(pred, name, functools.partial(
+            lambda orig, vec, *a, **kw: jax.jit(lambda v: orig(v, *a, **kw))(vec), getattr(pred, name)))
+
+
+def _jitted_log_lik(log_lik):
+    """``log_lik(p, data, ops, approx, hyper, mask)`` jitted once per
+    approximation and hyper set (the sparse deviance's)."""
+    cache = {}
+
+    def jitted(p, data, ops, approx="fitc", hyper=None, mask=None):
+        if mask is not None:
+            return log_lik(p, data, ops, approx=approx, hyper=hyper, mask=mask)
+        key = (approx, repr(sorted((hyper or {}).items())))
+        if key not in cache:
+            cache[key] = jax.jit(lambda p_, d_, o_: log_lik(p_, d_, o_, approx=approx, hyper=hyper))
+        return cache[key](p, data, ops)
+
+    return jitted
 
 
 def assert_chains_match(got, want, rtol, fields=FIELDS):
@@ -390,7 +446,12 @@ def hmc_runs(tmp_path_factory):
     x, y = np.asarray(d.x), np.asarray(d.y)
     # no assertion reads the grid prediction (pred_grid), so neither run makes one
     kw = dict(n_opt=N_OPT, do_hmc=True, n_hmc=N_HMC, hmc_leapfrog=N_LEAPFROG, do_pred_grid=False)
-    want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**kw))
+    mp = pytest.MonkeyPatch()
+    try:
+        jit_jax_stages(mp)
+        want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**kw))
+    finally:
+        mp.undo()
     root = str(tmp_path_factory.mktemp("hmc_store"))
     got = workflows.run_subject(x, y, workflows.PipelineConfig(**kw), store=ArtifactStore(root),
                                 dataset="sim", device="cpu")

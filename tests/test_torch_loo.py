@@ -31,7 +31,7 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
 from nonstationary_multivariate_gaussian_process_tpu_torch.ops import gram_kernels
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
-from test_torch_hmc import jax_sim
+from test_torch_hmc import jax_sim, jit_jax_stages
 
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
@@ -237,14 +237,18 @@ def loo_runs(tmp_path_factory):
     d = jax_sim(jax.random.PRNGKey(3), n=16)
     x, y = np.asarray(d.x), np.asarray(d.y)
     jroot = str(tmp_path_factory.mktemp("jax_loo"))
-    want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**LOO_CFG), store=JaxStore(jroot))
+    mp = pytest.MonkeyPatch()
+    try:
+        jit_jax_stages(mp)
+        want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**LOO_CFG), store=JaxStore(jroot))
+    finally:
+        mp.undo()
     chain = np.array(want["hmc_samples"])
 
     def jax_chain(nlp, map_vec, cfg, generator, whitener=None):
         return torch.as_tensor(chain, dtype=map_vec.dtype, device=map_vec.device), want["hmc_accept"]
 
     root = str(tmp_path_factory.mktemp("port_loo"))
-    mp = pytest.MonkeyPatch()
     mp.setattr(workflows, "_run_chain", jax_chain)
     try:
         got = workflows.run_subject(x, y, workflows.PipelineConfig(**LOO_CFG), store=ArtifactStore(root),

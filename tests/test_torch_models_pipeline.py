@@ -32,6 +32,8 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.data import sim
 from nonstationary_multivariate_gaussian_process_tpu_torch.examples import run_sim_pipeline as cli
 from nonstationary_multivariate_gaussian_process_tpu_torch.serving import PredictEngine
 
+from test_torch_hmc import jit_jax_stages
+
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
 MODELS = ("lmc", "snmgp", "gnmgp_hetero")
@@ -55,10 +57,14 @@ def runs(request, tmp_path_factory):
     d = gen(jax.random.PRNGKey(5), n=N)
     x, y = np.asarray(d.x), np.asarray(d.y)
     jroot = str(tmp_path_factory.mktemp(f"jax_{model}"))
-    want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(model=model, **CFG), store=JaxStore(jroot),
-                                  dataset="sim")
-    chain = np.array(want["hmc_samples"])
     mp = pytest.MonkeyPatch()
+    try:
+        jit_jax_stages(mp, model)
+        want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(model=model, **CFG), store=JaxStore(jroot),
+                                      dataset="sim")
+    finally:
+        mp.undo()
+    chain = np.array(want["hmc_samples"])
     mp.setattr(workflows, "_run_chain",
                lambda nlp, v, cfg, gen, whitener=None: (torch.as_tensor(chain, dtype=v.dtype, device=v.device),
                                                         want["hmc_accept"]))

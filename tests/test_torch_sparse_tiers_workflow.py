@@ -40,7 +40,7 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.predict import snmgp_
 from nonstationary_multivariate_gaussian_process_tpu_torch.serving import engine
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
-from test_torch_hmc import jax_noise, jax_sim
+from test_torch_hmc import jax_noise, jax_sim, jit_jax_stages
 
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
@@ -77,8 +77,13 @@ def runs(request, tmp_path_factory):
     x, y = np.asarray(d.x), np.asarray(d.y)
     cfg = dict(CFG, model=model, do_hmc=model in CHAINED)
     jroot = str(tmp_path_factory.mktemp("jax_" + model))
-    want = convert.result_to_numpy(jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**cfg),
-                                                          store=JaxStore(jroot), dataset="sim"))
+    mp = pytest.MonkeyPatch()
+    try:
+        jit_jax_stages(mp, model)
+        want = convert.result_to_numpy(jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**cfg),
+                                                              store=JaxStore(jroot), dataset="sim"))
+    finally:
+        mp.undo()
     key = jax.random.PRNGKey(0)  # JAX's HMC stage draws from PRNGKey(cfg.seed)
     sample = hmc.hmc_sample
 
@@ -86,7 +91,6 @@ def runs(request, tmp_path_factory):
         return sample(pot, q0, n, noise=jax_noise(key, n + kw.get("n_warmup", 0), q0.shape[0]), **kw)
 
     root = str(tmp_path_factory.mktemp("port_" + model))
-    mp = pytest.MonkeyPatch()
     mp.setattr(hmc, "hmc_sample", jax_keyed)
     try:
         got = workflows.run_subject(x, y, workflows.PipelineConfig(**cfg), store=ArtifactStore(root), dataset="sim",

@@ -30,7 +30,7 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.predict import gnmgp_
 from nonstationary_multivariate_gaussian_process_tpu_torch.serving import engine
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
-from test_torch_hmc import jax_noise, jax_sim
+from test_torch_hmc import jax_noise, jax_sim, jit_jax_stages
 
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
@@ -57,8 +57,13 @@ def runs(tmp_path_factory):
     d = jax_sim(jax.random.PRNGKey(3), n=N)
     x, y = np.asarray(d.x), np.asarray(d.y)
     jroot = str(tmp_path_factory.mktemp("jax_sparse"))
-    want = convert.result_to_numpy(jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**CFG),
-                                                          store=JaxStore(jroot), dataset="sim"))
+    mp = pytest.MonkeyPatch()
+    try:
+        jit_jax_stages(mp, "gnmgp_sparse")
+        want = convert.result_to_numpy(jworkflows.run_subject(x, y, jworkflows.PipelineConfig(**CFG),
+                                                              store=JaxStore(jroot), dataset="sim"))
+    finally:
+        mp.undo()
     key = jax.random.PRNGKey(0)  # JAX's HMC stage draws from PRNGKey(cfg.seed)
     sample = hmc.hmc_sample
 
@@ -66,7 +71,6 @@ def runs(tmp_path_factory):
         return sample(pot, q0, n, noise=jax_noise(key, n + kw.get("n_warmup", 0), q0.shape[0]), **kw)
 
     root = str(tmp_path_factory.mktemp("port_sparse"))
-    mp = pytest.MonkeyPatch()
     mp.setattr(hmc, "hmc_sample", jax_keyed)
     try:
         got = workflows.run_subject(x, y, workflows.PipelineConfig(**CFG), store=ArtifactStore(root), dataset="sim",
@@ -199,10 +203,12 @@ def test_pipeline_config_refuses_the_rest_of_the_sparse_tier(field, value, match
 
 
 def test_hadamard_layout_still_refuses_the_sparse_model():
+    """The sparse hetero model has no Hadamard objective (in JAX neither);
+    the other sparse models run there (``test_torch_sparse_hadamard_workflow.py``)."""
     x = np.linspace(0, 1, 12)
-    with pytest.raises(ValueError, match="no Hadamard-layout objective"):
+    with pytest.raises(ValueError, match="gnmgp_hetero_sparse has no Hadamard objective"):
         workflows.run_subject_hadamard(x, np.arange(12) % 2, np.sin(x), 2,
-                                       workflows.PipelineConfig(model="gnmgp_sparse"), device="cpu")
+                                       workflows.PipelineConfig(model="gnmgp_hetero_sparse"), device="cpu")
 
 
 def test_run_subject_reads_a_stored_map_at_its_own_inducing_inputs(runs, tmp_path):

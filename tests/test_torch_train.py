@@ -42,7 +42,7 @@ from nonstationary_multivariate_gaussian_process_tpu_torch.postprocess import an
 from nonstationary_multivariate_gaussian_process_tpu_torch.serving import PredictEngine
 from nonstationary_multivariate_gaussian_process_tpu_torch.utils.artifacts import ArtifactStore
 
-from test_torch_hmc import jax_sim
+from test_torch_hmc import jax_sim, jit_jax_stages
 
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
@@ -306,7 +306,12 @@ def runs(request, subject, tmp_path_factory):
     split); the port writes to a store."""
     x, y = subject
     ts = request.param
-    want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(n_opt=N_OPT, test_size=ts))
+    mp = pytest.MonkeyPatch()
+    try:
+        jit_jax_stages(mp)
+        want = jworkflows.run_subject(x, y, jworkflows.PipelineConfig(n_opt=N_OPT, test_size=ts))
+    finally:
+        mp.undo()
     root = str(tmp_path_factory.mktemp("store"))
     got = workflows.run_subject(x, y, workflows.PipelineConfig(n_opt=N_OPT, test_size=ts),
                                 store=ArtifactStore(root), dataset="sim", device="cpu")
