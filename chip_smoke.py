@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS, Hadamard-layout, mixed-precision, other-sampler, sparse-tier and sparse Hadamard paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, HMC, chain-consumer, other-model, whitened-NUTS, Hadamard-layout, mixed-precision, other-sampler, sparse-tier, sparse Hadamard and tempered-SMC paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--phases kernels,sparse]
 
-``--phases`` runs the named phases (comma-separated, of 2-16 below) and
+``--phases`` runs the named phases (comma-separated, of 2-17 below) and
 those whose results they take (drift takes serving's; chain and precision
 hmc's; nuts models'; samplers hmc's and models'), in the order below; the
 default is every phase.  The summary then lists what those phases measured.
@@ -246,7 +246,35 @@ Phases, each printing its lines:
                gradient under NMGP_PRECISION=mixed against f64; the card
                against the CPU at 200 times, m_z=16 (values, gradients,
                MAPs, predictions, LOO conditionals, chain-sample draws).
-17. summary  — one JSON line listing every kernel, the card's name and power
+17. smc      — (tempered SMC, no device named) (a) K3 and its backward over a
+               batch at (B, N, M) = (256, 200, 2) and (16, 1000, 2) and the
+               generic route at (8, 200, 9), float64 and float32: equal to
+               B single launches bit for bit and within KERNEL_TOL /
+               GRAD_TOL of the per-member plain versions, timed beside the
+               loop of B single launches and the plain versions, with their
+               bound; one call of each profiled first, at (256, 200, 2) f64
+               (one device kernel forward, two backward).  (b) The batched
+               GNMGP objective at B=256, N=200, M=2 against the per-vector
+               one on the card, member by member, values and gradients
+               within 1e-10, a member on the jitter rung and one failing
+               (NaN alone) among them; one population gradient launches each
+               batched kernel once and peaks at most ``gnmgp.BATCH_COPIES``
+               Grams a member above its inputs; its profile; the chunked
+               route (8 members at N=1000, 3 a chunk) against the whole
+               batch within 1e-10, with two forward launches and one
+               backward a chunk.  (c) The slice's path:
+               ``run_subject(sampler="smc", whiten="prior", do_hmc=True,
+               do_loo=True, n_opt=30)`` at N=200 with the default smc_*
+               fields (256 particles, 5 × 10 sweeps, metric "full"): β = 1, a
+               finite evidence, one batched K3 forward a population value or
+               gradient and one backward a gradient, no single-member K3 in
+               the sampler; stages, particle gradients/s, accept, step; one
+               stage profiled.  (d) The row route: SNMGP's ``smc_sample``
+               (16 particles, 2 stages) with K1's launches counted against
+               rows × evaluations, and ``run_subject_hadamard(sampler=
+               "smc")`` on a subject of 60 times (16 particles, 2 × 5
+               sweeps).
+18. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -1044,12 +1072,22 @@ def check_answer(np, out, g):
     return arr
 
 
+#: Profiles of a call taken before device_profile gives up on recording a
+#: device kernel, and the cycles of the spin kernel that opens each profile
+#: (late in the whole smoke the profiler recorded no device kernel for a
+#: short call it recorded alone, unless a kernel of PyTorch's ran first in
+#: the profile: PERF.md §7).
+PROFILE_TRIES, PROFILE_SPIN_CYCLES = 3, 2_000_000
+
+
 def device_profile(torch, fn, reps: int = 3, top_n: int | None = 12, per_call: bool = True):
     """``fn`` warm, timed on the host clock (ending in a synchronize), then
     under torch.profiler: ``(wall ms, device ms, kernel kinds, the top_n
     kernel rows (every row where None))`` per call; a row's launches are per
     call (floored), or the records in all ``reps`` calls where not
-    ``per_call``."""
+    ``per_call``.  Each profile opens with a spin kernel, queued ahead of
+    the calls and left out of the rows; one that records no device kernel
+    is taken again, up to PROFILE_TRIES profiles, then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1060,22 +1098,30 @@ def device_profile(torch, fn, reps: int = 3, top_n: int | None = 12, per_call: b
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     self_dev = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-    # device-side rows only: an aten op row repeats the time of the kernels it launched
-    rows = sorted(
-        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev(e) > 0),
-        key=self_dev, reverse=True,
-    )
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # device-side rows only: an aten op row repeats the time of the kernels it launched
+        rows = sorted(
+            (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev(e) > 0
+             and "spin_kernel" not in e.key),
+            key=self_dev, reverse=True,
+        )
+        if rows:
+            break
+        log("profile", f"profile {attempt + 1} of {PROFILE_TRIES} recorded no device kernel")
+    else:
+        raise AssertionError(f"the profiler recorded no device kernel in {PROFILE_TRIES} profiles of {reps} calls")
     device_ms = sum(self_dev(e) for e in rows) / 1e3 / reps
     top = [(self_dev(e) / 1e3 / reps, e.count // reps if per_call else e.count, e.key[:90]) for e in rows[:top_n]]
     return wall_ms, device_ms, len(rows), top
 
 
-def one_call_kernels(torch, label: str, fn, want: int, reps: int = 10) -> int:
+def one_call_kernels(torch, label: str, fn, want: int, reps: int = 10):
     """One call of ``fn`` launches ``want`` device kernels, each once: of
     ``reps`` profiled calls, ``want`` kernel kinds, each with ``reps``
     records or ``reps`` − 1 (the profiler has been seen to drop the record
@@ -4193,10 +4239,419 @@ def phase_sparse_hadamard(torch, np, gk, seed) -> dict:
     return counts
 
 
+#: Tempered SMC (slice 21): K3 over a batch at SMC_KERNEL_SHAPES (B, N, M) in
+#: both types against B single launches (bit for bit) and the per-member
+#: plain versions, timed at each and profiled at the first (the slice's
+#: population: 256 particles at the JAX package's SMC scale N=200, M=2); the
+#: batched GNMGP objective at B=SMC_POPULATION, N=SMC_N against the
+#: per-vector one within SMC_OBJECTIVE_RTOL; the slice's path,
+#: run_subject(sampler="smc", whiten="prior") with the default smc_* fields;
+#: the row route once, SNMGP's smc_sample with SMC_ROW_PARTICLES particles
+#: and SMC_ROW_STAGES stages at N=SMC_N, and run_subject_hadamard(sampler=
+#: "smc") on a subject of SMC_HADAMARD_N times with SMC_HADAMARD_PARTICLES
+#: particles and SMC_HADAMARD_SWEEPS (sweeps, leapfrog steps) a stage: at the
+#: default 5 × 10 its row route ran 5,301 gradients in 58.3 s of a 165.5 s
+#: phase (PERF.md §6), so its depth is cut to keep the smoke inside its
+#: limit.
+SMC_KERNEL_SHAPES = ((256, 200, 2), (16, 1000, 2), (8, 200, 9))
+SMC_N, SMC_M, SMC_POPULATION, SMC_OBJECTIVE_RTOL = 200, 2, 256, 1e-10
+SMC_ROW_PARTICLES, SMC_ROW_STAGES, SMC_HADAMARD_N, SMC_HADAMARD_PARTICLES = 16, 2, 60, 16
+SMC_HADAMARD_SWEEPS = (2, 5)
+#: The chunked route of the batched objective: a population of SMC_CHUNK_B
+#: members at N=SMC_CHUNK_N evaluated SMC_CHUNK_ROWS members a chunk.
+SMC_CHUNK_N, SMC_CHUNK_B, SMC_CHUNK_ROWS = 1000, 8, 3
+SMC_KERNELS = ("svc_gram_tiled_batched", "svc_gram_tiled_batched_backward")
+
+
+def smc_kernel_inputs(torch, gen, b, n, m, dtype, dev):
+    """Shared x, and per member the lengthscales of ``kernel_inputs`` and a
+    lower-triangular L with diagonal about 2, and a cotangent K̄."""
+    f64 = torch.float64
+    x = torch.sort(torch.rand(n, generator=gen, dtype=f64)).values
+    ell = torch.exp(3.0 * (x - 1.0) ** 3 - 3.0 + 0.2 * torch.randn(b, n, generator=gen, dtype=f64))
+    ls = torch.tril(torch.randn(b, n, m, m, generator=gen, dtype=f64)) + 2.0 * torch.eye(m, dtype=f64)
+    kbar = torch.randn(b, n * m, n * m, generator=gen, dtype=f64)
+    return [t.to(device=dev, dtype=dtype).contiguous() for t in (x, ell, ls, kbar)]
+
+
+def smc_kernels(torch, np, gk, settings, seed) -> dict:
+    """(a) K3 and its backward over a batch: each shape and type against B
+    single launches bit for bit and against the per-member plain versions;
+    ms, the single-launch loop's ms, the plain versions' ms and the bound;
+    one call of each profiled first, at the first shape in float64.  Returns
+    the kernels line's numbers from that shape."""
+    jit = settings.jitter
+    b, n, m = SMC_KERNEL_SHAPES[0]
+    x, ell, ls, kbar = smc_kernel_inputs(torch, torch.Generator().manual_seed(seed + 2106), b, n, m, torch.float64,
+                                         DEVICE)
+    label = f"B={b} N={n} M={m} float64"
+    kinds = {name: one_call_kernels(torch, f"{name} {label}", fn, want) for name, fn, want in (
+        ("svc_gram_tiled_batched", lambda: gk.svc_gram_tiled_batched(x, ell, ls, jit), 1),
+        ("svc_gram_tiled_batched_backward", lambda: gk.svc_gram_tiled_batched_backward(x, ell, ls, kbar, jit), 2))}
+    del x, ell, ls, kbar
+    gen = torch.Generator().manual_seed(seed + 2100)
+    rows = {}
+    for b, n, m in SMC_KERNEL_SHAPES:
+        for dn in ("float64", "float32"):
+            dtype = getattr(torch, dn)
+            size = torch.tensor([], dtype=dtype).element_size()
+            x, ell, ls, kbar = smc_kernel_inputs(torch, gen, b, n, m, dtype, DEVICE)
+            label = f"B={b} N={n} M={m} {dn}"
+            fwd = lambda: gk.svc_gram_tiled_batched(x, ell, ls, jit)
+            fwd_loop = lambda: [gk.svc_gram_tiled(x, ell[i], ls[i], jit) for i in range(b)]
+            fwd_plain = lambda: gk.svc_gram_tiled_batched_plain(x, ell, ls, jit)
+            bwd = lambda: gk.svc_gram_tiled_batched_backward(x, ell, ls, kbar, jit)
+            bwd_loop = lambda: [gk.svc_gram_tiled_backward(x, ell[i], ls[i], kbar[i], jit) for i in range(b)]
+            bwd_plain = lambda: gk.svc_gram_tiled_batched_backward_plain(x, ell, ls, jit, kbar)
+            got = fwd()
+            if not torch.equal(got, torch.stack(fwd_loop())):
+                raise AssertionError(f"svc_gram_tiled_batched {label}: differs from {b} single launches")
+            err_f = check_close(torch, f"svc_gram_tiled_batched {label}", got, fwd_plain(), dn)
+            singles = bwd_loop()
+            got_b = bwd()
+            for k, part in enumerate(("ell_bar", "ls_bar")):
+                if not torch.equal(got_b[k], torch.stack([s[k] for s in singles])):
+                    raise AssertionError(f"svc_gram_tiled_batched_backward {label}: {part} differs from {b} "
+                                         "single launches")
+            err_b = max(check_grad(torch, f"svc_gram_tiled_batched_backward {label} member {i}",
+                                   (got_b[0][i], got_b[1][i]), w, dn)
+                        for i, w in enumerate(zip(*bwd_plain())))
+            del got, got_b, singles
+            torch.cuda.synchronize()
+            slow = 3 if b * (n * m) ** 2 > 2**25 or m > gk.K3_MAX_M else 5
+            times = {"ms": time_ms(torch, fwd), "loop_ms": time_ms(torch, fwd_loop, 3, slow),
+                     "plain_ms": time_ms(torch, fwd_plain, 3, 3),
+                     "bwd_ms": time_ms(torch, bwd), "bwd_loop_ms": time_ms(torch, bwd_loop, 3, slow),
+                     "bwd_plain_ms": time_ms(torch, bwd_plain, 3, 1)}
+            gram = b * (n * m) ** 2
+            inputs = (n + b * n + b * n * m * m) * size
+            bound = {
+                "svc_gram_tiled_batched": (gram * size + inputs, b * n * n * 12 + gram * 2 * m),
+                "svc_gram_tiled_batched_backward": (
+                    gram * size + inputs + b * (n + n * m * m) * size,
+                    b * n * n * 25 + gram * ((2 * m + 1) if m > gk.K3_MAX_M else (4 * m + 3))),
+            }
+            for name, (ms_k, loop_k, plain_k, err) in {
+                    "svc_gram_tiled_batched": ("ms", "loop_ms", "plain_ms", err_f),
+                    "svc_gram_tiled_batched_backward": ("bwd_ms", "bwd_loop_ms", "bwd_plain_ms", err_b)}.items():
+                nbytes, ops = bound[name]
+                bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dn] * 1e3
+                row = {"ms": times[ms_k], "plain_ms": times[plain_k], "max_abs_err": err,
+                       "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                       "single_launch_loop_ms": times[loop_k]}
+                log("smc", f"{name} {label}: equal to {b} single launches bit for bit; max_abs_err vs plain "
+                    f"{err:.3e}; ms={row['ms']:.5f} (the {b} single launches {row['single_launch_loop_ms']:.5f}, "
+                    f"x{row['single_launch_loop_ms'] / row['ms']:.2f}) plain_ms={row['plain_ms']:.5f} "
+                    f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; bytes {bytes_ms:.5f}, operations "
+                    f"{ops_ms:.5f}), {100 * row['bound_ms'] / row['ms']:.1f}% of it")
+                if (b, n, m) == SMC_KERNEL_SHAPES[0] and dn == "float64":
+                    rows[name] = {**row, "device_kernels_per_call": kinds[name]}
+            del x, ell, ls, kbar
+    return rows
+
+
+def smc_population(torch, gvec, n: int, b: int, gen):
+    """B GNMGP vectors around ``gvec`` (perturbed by 0.05 normals) with row 1
+    a member whose plain factor fails (every L_n = [[1, 0], [1, e^-40]]:
+    the rows (n, 0) and (n, 1) of its Gram are equal bit for bit, and the
+    noise e^-60 is lost beside them) and row 2 a member whose factor fails
+    on both rungs (lengthscales e^1000 = inf: NaN Gram)."""
+    v = gvec[None, :] + 0.05 * torch.randn(b, gvec.shape[0], generator=gen, dtype=torch.float64)
+    v[1, :n] = 0.0
+    v[1, n : 4 * n] = torch.tensor([0.0, 1.0, -40.0], dtype=torch.float64).repeat(n)
+    v[1, -1] = -60.0
+    v[2, :n] = 1000.0
+    return v
+
+
+def population_gradient(torch, fb, vs):
+    """The values (B,) and gradients (B, P) of batched objective ``fb`` at
+    ``vs``: the gradient of the rows' sum."""
+    vs = vs.detach().requires_grad_(True)
+    val = fb(vs)
+    (g,) = torch.autograd.grad(val.sum(), vs)
+    return val.detach(), g
+
+
+def smc_objective(torch, np, gk, settings, seed) -> tuple[dict, dict]:
+    """(b) The batched GNMGP objective at B=SMC_POPULATION, N=SMC_N against
+    the per-vector objective on the card, member by member: values and
+    gradients within SMC_OBJECTIVE_RTOL (gradients of the row's largest
+    entry), the jitter-rung member included, the failing member NaN alone;
+    one population gradient launches each batched K3 kernel once, and its
+    peak device memory over the inputs, in Grams a member, is at most
+    ``gnmgp.BATCH_COPIES`` (what sizes the chunks).  Then the population
+    gradient's wall and device time and its kernels, and the chunked route
+    (:func:`smc_chunks`).  Returns the launch counts of one population
+    gradient and the numbers for the log."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference.map import value_and_grad
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    f64 = torch.float64
+    n, b = SMC_N, SMC_POPULATION
+    x, y, gvec, _ = training_subject(torch, seed + 2101, n)
+    data = FullData(*(torch.as_tensor(a, dtype=f64, device=DEVICE) for a in (x, y)))
+    f, fb = gnmgp.make_objective(data), gnmgp.make_objective_batched(data)
+    v = smc_population(torch, gvec, n, b, torch.Generator().manual_seed(seed + 2102)).to(DEVICE)
+
+    pop_grad = lambda vs: population_gradient(torch, fb, vs)
+    # the jitter member's plain factor fails on both routes: the single factor and in the batch
+    p1 = gnmgp.unpack(v[1], n, SMC_M)
+    g1 = gk.svc_gram_tiled(data.x, torch.exp(p1.tilde_l), gnmgp.chol_process(p1.ul_vecs, n, SMC_M), settings.jitter)
+    g1 = torch.diagonal_scatter(g1, torch.diagonal(g1) + torch.exp(p1.tilde_sigma2_err))
+    info_single = int(torch.linalg.cholesky_ex(g1)[1])
+    info_batch = int(torch.linalg.cholesky_ex(torch.stack([g1, g1, g1]))[1][1])
+    if info_single == 0 or info_batch == 0:
+        raise AssertionError(f"the jitter member's plain factor did not fail (info {info_single}, {info_batch})")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    vals, grads = pop_grad(v)
+    torch.cuda.synchronize()
+    counts = {k: c for k, c in gk.launches().items() if c}
+    copies = (torch.cuda.max_memory_allocated() - base) / (b * (n * SMC_M) ** 2 * 8)
+    if counts != {"svc_gram_tiled_batched": 1, "svc_gram_tiled_batched_backward": 1}:
+        raise AssertionError(f"one population gradient launched {counts}")
+    log("smc", f"one population gradient B={b} N={n} M={SMC_M} f64: peak device memory over its inputs "
+        f"{copies:.4f} Grams a member (gnmgp.BATCH_COPIES {gnmgp.BATCH_COPIES})")
+    if copies > gnmgp.BATCH_COPIES:
+        raise AssertionError(f"a population gradient peaked at {copies:.4f} Grams a member, over BATCH_COPIES")
+    worst_v = worst_g = 0.0
+    for i in range(b):
+        val_i, grad_i = value_and_grad(f, v[i])
+        if i == 2:
+            if not (torch.isnan(vals[2]) and torch.isnan(val_i) and torch.isnan(grads[2]).all()
+                    and torch.isnan(grad_i).all()):
+                raise AssertionError("the failing member is not NaN in both objectives")
+            continue
+        if not (torch.isfinite(vals[i]) and torch.isfinite(grads[i]).all()):
+            raise AssertionError(f"member {i}: non-finite batched value or gradient")
+        rel_v = abs(vals[i].item() - val_i.item()) / abs(val_i.item())
+        rel_g = ((grads[i] - grad_i).abs().max() / grad_i.abs().max()).item()
+        if not (rel_v <= SMC_OBJECTIVE_RTOL and rel_g <= SMC_OBJECTIVE_RTOL):
+            raise AssertionError(f"member {i}: value off by {rel_v:.3e}, gradient by {rel_g:.3e} of its scale")
+        worst_v, worst_g = max(worst_v, rel_v), max(worst_g, rel_g)
+    log("smc", f"batched GNMGP objective B={b} N={n} M={SMC_M} f64 against the per-vector one, member by member: "
+        f"values max rel err {worst_v:.3e}, gradients max err {worst_g:.3e} of each row's scale (ok at "
+        f"{SMC_OBJECTIVE_RTOL}); the jitter member's plain factor failed (info {info_single} single, "
+        f"{info_batch} batched) and both took the retry; the failing member is NaN alone; one population "
+        f"gradient launched {counts}")
+    wall_ms, device_ms, kinds, top = device_profile(torch, lambda: pop_grad(v), top_n=None)
+    k3_ms = sum(ms for ms, _, key in top if "svc_gram_tiled" in key)
+    log("profile", f"one population gradient B={b} N={n} M={SMC_M} f64: wall {wall_ms:.3f} ms, device "
+        f"{device_ms:.3f} ms (busy share {device_ms / wall_ms:.3f}), {b / wall_ms * 1e3:.1f} particle "
+        f"gradients/s, {kinds} kernel kinds; the batched K3 kernels {k3_ms:.4f} ms (a share "
+        f"{k3_ms / device_ms:.3f} of the device time)")
+    for ms, count, key in top[:12]:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+    smc_chunks(torch, gk, seed)
+    return counts, {"wall_ms": wall_ms, "device_ms": device_ms, "k3_ms": k3_ms, "worst_value": worst_v,
+                    "worst_gradient": worst_g, "copies": copies}
+
+
+def smc_chunks(torch, gk, seed) -> None:
+    """The batched objective's chunked route on the card: a population of
+    SMC_CHUNK_B members at N=SMC_CHUNK_N, M=2 (f64) whose gradient is taken
+    whole and then SMC_CHUNK_ROWS members a chunk (``gnmgp.batch_rows``
+    forced): the rows within SMC_OBJECTIVE_RTOL of the whole batch's; the
+    chunked gradient launches the batched forward twice a chunk (the
+    forward and its recomputation in the backward pass) and the backward
+    once a chunk; the peak memory of each."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    n, b, step = SMC_CHUNK_N, SMC_CHUNK_B, SMC_CHUNK_ROWS
+    x, y, gvec, _ = training_subject(torch, seed + 2107, n)
+    data = FullData(*(torch.as_tensor(a, dtype=torch.float64, device=DEVICE) for a in (x, y)))
+    fb = gnmgp.make_objective_batched(data)
+    gen = torch.Generator().manual_seed(seed + 2108)
+    v = (gvec[None, :] + 0.05 * torch.randn(b, gvec.shape[0], generator=gen, dtype=torch.float64)).to(DEVICE)
+    out, peaks, launched = {}, {}, {}
+    batch_rows = gnmgp.batch_rows
+    for route in ("whole", "chunked"):
+        if route == "chunked":
+            gnmgp.batch_rows = lambda *args: step
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            gk.reset_launches()
+            out[route] = population_gradient(torch, fb, v)
+            torch.cuda.synchronize()
+            launched[route] = {k: c for k, c in gk.launches().items() if c}
+            peaks[route] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        finally:
+            gnmgp.batch_rows = batch_rows
+    chunks = -(-b // step)
+    want = {"svc_gram_tiled_batched": 2 * chunks, "svc_gram_tiled_batched_backward": chunks}
+    (wv, wg), (cv, cg) = out["whole"], out["chunked"]
+    rel_v = ((cv - wv).abs() / wv.abs()).max().item()
+    rel_g = ((cg - wg).abs().amax(dim=1) / wg.abs().amax(dim=1)).max().item()
+    log("smc", f"chunked population gradient B={b} N={n} M=2 f64, {step} members a chunk ({chunks} chunks): values "
+        f"max rel err {rel_v:.3e}, gradients {rel_g:.3e} of each row's scale against the whole batch; launched "
+        f"{launched['chunked']} (whole: {launched['whole']}); peak device memory {peaks['chunked']:.3f} GiB "
+        f"(whole: {peaks['whole']:.3f} GiB)")
+    if launched["whole"] != {k: 1 for k in want} or launched["chunked"] != want:
+        raise AssertionError(f"the chunked gradient launched {launched['chunked']}, expected {want}")
+    if not (torch.isfinite(cv).all() and torch.isfinite(cg).all()) or max(rel_v, rel_g) > SMC_OBJECTIVE_RTOL:
+        raise AssertionError(f"the chunked rows are off the whole batch's: {rel_v:.3e}, {rel_g:.3e}")
+
+
+def smc_path(torch, np, gk, seed) -> dict:
+    """(c) The slice's path: run_subject(model="gnmgp", sampler="smc",
+    whiten="prior", do_hmc=True, do_loo=True) on the card, no device named,
+    at N=SMC_N, M=2 with the default smc_* fields; the sampling stage's
+    launches and population evaluations counted; then one stage profiled."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import smc, whiten
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    x, y, _, _ = training_subject(torch, seed + 2103, SMC_N)
+    cfg = workflows.PipelineConfig(n_opt=TRAIN_N_OPT, do_hmc=True, do_loo=True, sampler="smc", whiten="prior")
+    calls = {"gradient": 0, "value": 0}
+    make_batched, run_smc = gnmgp.make_objective_batched, workflows._run_chain_smc
+    stage: dict = {}
+
+    def counted_objective(*args, **kwargs):
+        fn = make_batched(*args, **kwargs)
+
+        def wrapped(vecs):
+            calls["gradient" if torch.is_grad_enabled() and vecs.requires_grad else "value"] += 1
+            return fn(vecs)
+        return wrapped
+
+    def counted_stage(*args, **kwargs):
+        before = gk.launches()
+        out = run_smc(*args, **kwargs)
+        torch.cuda.synchronize()
+        stage.update({k: v - before[k] for k, v in gk.launches().items()})
+        return out
+
+    gnmgp.make_objective_batched, workflows._run_chain_smc = counted_objective, counted_stage
+    try:
+        gk.reset_launches()  # the main path starts here
+        t0 = time.perf_counter()
+        res = workflows.run_subject(x, y, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gk.launches()  # the main path ends here
+    finally:
+        gnmgp.make_objective_batched, workflows._run_chain_smc = make_batched, run_smc
+    s = res["sampling"]
+    t_smc = res["timings"]["hmc"]
+    pop = s["n_particles"]
+    log("smc", f"run_subject gnmgp N={SMC_N} M={SMC_M} f64 sampler=smc whiten=prior n_opt={TRAIN_N_OPT} "
+        f"do_loo=True on the card (no device named): {wall:.3f} s; stages (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items()))
+    log("smc", f"SMC: {pop} particles, {cfg.smc_mutations} x {cfg.smc_leapfrog} sweeps, metric {cfg.smc_metric}: "
+        f"{s['n_stages']} stages, beta_final {s['beta_final']}, log_evidence {s['log_evidence']:.6f}, final "
+        f"accept {s['final_accept']:.6f}, step size {s['step_size']:.6e}; {calls['gradient']} population "
+        f"gradients and {calls['value']} population values in {t_smc:.3f} s: "
+        f"{calls['gradient'] * pop / t_smc:.1f} particle gradients/s, {t_smc / s['n_stages']:.3f} s a stage")
+    log("smc", f"sampling stage launched {stage}; the whole run launched {launches}")
+    if s["beta_final"] != 1.0 or not np.isfinite(s["log_evidence"]):
+        raise AssertionError(f"SMC did not reach beta = 1 with a finite evidence: {s}")
+    samples = res["hmc_samples"]
+    if tuple(samples.shape) != (cfg.n_hmc, gnmgp.n_params(SMC_N, SMC_M)) or not torch.isfinite(samples).all():
+        raise AssertionError(f"hmc_samples {tuple(samples.shape)} or non-finite")
+    if not np.isfinite(res["loo"]["elpd_loo"]):
+        raise AssertionError("non-finite elpd_loo")
+    want = {"svc_gram_tiled_batched": calls["gradient"] + calls["value"],
+            "svc_gram_tiled_batched_backward": calls["gradient"], "svc_gram_tiled": 0, "svc_gram_tiled_backward": 0}
+    got = {k: stage[k] for k in want}
+    if got != want or calls["gradient"] == 0:
+        raise AssertionError(f"the sampling stage launched {got}, expected {want}: one batched K3 forward a "
+                             "population evaluation, one backward a population gradient, no single-member K3")
+    # one stage from the prior, profiled: where a stage's time goes
+    xd, yd = (torch.as_tensor(a, dtype=torch.float64, device=DEVICE) for a in (x, y))
+    w = whiten.make_whitener("gnmgp", xd, SMC_N, SMC_M, cfg.hyper)
+    pot = w.wrap(gnmgp.make_objective_batched(FullData(xd, yd), hyper=cfg.hyper))
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    one = lambda: smc.smc_sample(pot, w.n_params, gen, pop, max_stages=1, metric=cfg.smc_metric,
+                                 potential_batched=True)
+    wall_ms, device_ms, kinds, top = device_profile(torch, one, reps=1)
+    log("profile", f"one SMC stage ({pop} particles, {cfg.smc_mutations} sweeps of {cfg.smc_leapfrog} leapfrog "
+        f"steps, from the prior): wall {wall_ms:.3f} ms, device {device_ms:.3f} ms (busy share "
+        f"{device_ms / wall_ms:.3f}), {kinds} kernel kinds")
+    for ms, count, key in top[:12]:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+    return {"launches": got, "calls": calls, "sampling": s, "seconds": t_smc, "stage_busy": device_ms / wall_ms,
+            "stage_wall_ms": wall_ms, "whole_run": launches}
+
+
+def smc_rows(torch, np, gk, seed) -> dict:
+    """(d) The row route, driven once: SNMGP's smc_sample (whitened) with
+    SMC_ROW_PARTICLES particles and SMC_ROW_STAGES stages, K1 and its
+    backward counted against rows × evaluations; run_subject_hadamard(model=
+    "gnmgp", sampler="smc") on a small Hadamard subject."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import smc, whiten
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import snmgp
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    x, y, _, _ = training_subject(torch, seed + 2104, SMC_N)
+    xd, yd = (torch.as_tensor(a, dtype=torch.float64, device=DEVICE) for a in (x, y))
+    w = whiten.make_whitener("snmgp", xd, SMC_N, SMC_M)
+    nlp = snmgp.make_objective(FullData(xd, yd))
+    calls = {"gradient": 0, "value": 0}
+
+    def counted(v):
+        calls["gradient" if torch.is_grad_enabled() and v.requires_grad else "value"] += 1
+        return nlp(v)
+
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    r = smc.smc_sample(w.wrap(counted), w.n_params, torch.Generator(DEVICE).manual_seed(seed),
+                       SMC_ROW_PARTICLES, max_stages=SMC_ROW_STAGES, metric="full")
+    torch.cuda.synchronize()
+    t_rows = time.perf_counter() - t0
+    got = {k: c for k, c in gk.launches().items() if c}
+    want = {"gibbs_gram": calls["gradient"] + calls["value"], "gibbs_gram_backward": calls["gradient"]}
+    log("smc", f"row route: SNMGP smc_sample N={SMC_N} {SMC_ROW_PARTICLES} particles, {int(r.n_stages)} stages "
+        f"(beta {float(r.beta_final):.6f}): {calls['gradient']} row gradients and {calls['value']} row values in "
+        f"{t_rows:.3f} s ({calls['gradient'] / t_rows:.1f} gradients/s); launched {got}")
+    if got != want or not torch.isfinite(r.particles).all():
+        raise AssertionError(f"the row route launched {got}, expected {want}, or non-finite particles")
+
+    (xh, ih, yh), _, _, _ = hadamard_subject(torch, np, seed + 2105, SMC_HADAMARD_N)
+    cfg = workflows.PipelineConfig(model="gnmgp", n_opt=20, do_hmc=True, sampler="smc", whiten="prior",
+                                   smc_particles=SMC_HADAMARD_PARTICLES, n_hmc=SMC_HADAMARD_PARTICLES,
+                                   smc_mutations=SMC_HADAMARD_SWEEPS[0], smc_leapfrog=SMC_HADAMARD_SWEEPS[1])
+    gk.reset_launches()
+    out = workflows.run_subject_hadamard(xh, ih, yh, 2, cfg)
+    torch.cuda.synchronize()
+    hl = {k: c for k, c in gk.launches().items() if c}
+    log("smc", f"run_subject_hadamard gnmgp sampler=smc whiten=prior, {len(xh)} observations, "
+        f"{SMC_HADAMARD_PARTICLES} particles, {cfg.smc_mutations} x {cfg.smc_leapfrog} sweeps: stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in out["timings"].items())
+        + f"; accept {out['hmc_accept']:.6f}; launched {hl}")
+    if not torch.isfinite(out["hmc_samples"]).all() or out["hmc_samples"].shape[0] != SMC_HADAMARD_PARTICLES:
+        raise AssertionError("run_subject_hadamard(sampler='smc'): bad samples")
+    if hl.get("gibbs_gram", 0) <= 0 or hl.get("gibbs_gram_backward", 0) <= 0 or any(k in hl for k in SMC_KERNELS):
+        raise AssertionError(f"run_subject_hadamard(sampler='smc') launched {hl}")
+    return {"snmgp_rows": got, "hadamard": hl}
+
+
+def phase_smc(torch, np, gk, seed) -> dict:
+    """Tempered SMC on the card: (a) the batched K3 kernels, (b) the batched
+    objective, (c) the slice's path, (d) the row route."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import settings
+
+    rows = smc_kernels(torch, np, gk, settings, seed)
+    counts, objective = smc_objective(torch, np, gk, settings, seed)
+    path = smc_path(torch, np, gk, seed)
+    for name in SMC_KERNELS:
+        rows[name]["launches_per_population_gradient"] = counts[name]
+        rows[name]["launches_smc_run"] = path["launches"][name]
+    return {"kernels": rows, "objective": objective, "path": path, "rows": smc_rows(torch, np, gk, seed)}
+
+
 #: The phases after the build, in the order they run, and the phases whose
 #: results each takes (a named phase runs those too).
 PHASES = ("kernels", "serving", "drift", "objective", "training", "hmc", "chain", "models", "nuts", "hadamard",
-          "precision", "samplers", "sparse", "sparse_models", "sparse_hadamard")
+          "precision", "samplers", "sparse", "sparse_models", "sparse_hadamard", "smc")
 PHASE_NEEDS = {"drift": ("serving",), "chain": ("hmc",), "nuts": ("models",), "precision": ("hmc",),
                "samplers": ("hmc", "models")}
 
@@ -4278,6 +4733,7 @@ def main() -> int:
     run("sparse", phase_sparse, args.seed)
     run("sparse_models", phase_sparse_models, args.seed)
     run("sparse_hadamard", phase_sparse_hadamard, args.seed)
+    run("smc", phase_smc, args.seed)
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -4330,6 +4786,15 @@ def main() -> int:
                 counts = res[phase][0] if phase == "models" else res[phase]
                 row[f"launches_{phase}"] = {label: c[name] for label, c in counts.items()}
         kernels.append(row)
+    for name in SMC_KERNELS if "smc" in res else ():
+        # the batched K3 kernels, on the SMC path (slice 21): the TPU kernel took one Gram
+        r = res["smc"]["kernels"][name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"nonstationary_multivariate_gaussian_process_tpu_torch/csrc/{gk.SOURCES[name]}.cu",
+                        "replaces": replaces["svc_gram_tiled"], "launches": r["launches_smc_run"],
+                        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+                        "library_ms": None, "single_launch_loop_ms": r["single_launch_loop_ms"],
+                        "launches_per_population_gradient": r["launches_per_population_gradient"]})
     joined = lambda counts, keep=bool: "; ".join(
         f"{label}: " + ", ".join(f"{k} {v}" for k, v in c.items() if keep(v)) for label, c in counts.items())
     if "serving" in res:
@@ -4354,6 +4819,11 @@ def main() -> int:
         log("summary", f"GNMGP f64 prediction at N={PREDICT_N}, M={PREDICT_M}: " + ", ".join(
             f"{mode} device {r['device_ms']:.3f} ms, K2 {r['k2_ms']:.4f} ms, launches {r['launches']}"
             for mode, r in res["objective"]["prediction"].items() if mode != "seconds"))
+    if "smc" in res:
+        sp = res["smc"]["path"]
+        log("summary", f"SMC at N={SMC_N}, {sp['sampling']['n_particles']} particles: {sp['sampling']['n_stages']} "
+            f"stages in {sp['seconds']:.3f} s, {sp['calls']['gradient']} population gradients; the sampling stage "
+            f"launched {sp['launches']}; the row route {res['smc']['rows']}")
     log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -116,6 +116,18 @@
 //   Bound: the bytes of Kbar, (N M)^2 w; its (N M)^2 M fma stay under that up
 //   to M ~ 32 in float64.
 //
+// Batches (new: the TPU kernel took one Gram; a population sampler needs
+// one per particle).  The batched entry points take B members over shared
+// x: ell (B, N), L (B, N, M, M), the output and Kbar (B, N M, N M).  One
+// launch serves the whole batch: the forward takes the member from the
+// grid's y (z on the generic route), its blocks walking that member's items
+// as a single launch's do; the backward's pair walk and row reduce run over
+// (member, pair) and (member, row), member-major, with each member's arrays
+// and partials at its own offset.  Each member is computed exactly as a
+// single launch computes it, the same items, pairs, slots and summation
+// order, hence the same bits.  The generic backward runs its three launches
+// once per member.
+//
 // Built without fast math and with -fmad=false: the forward's task sum runs
 // b = 0..M-1 in the plain version's order, each operation rounded on its own,
 // so the forward matches the plain PyTorch version bit for bit.  The backward
@@ -260,7 +272,11 @@ __device__ __forceinline__ void stage_L(T* dst, int s0, int n, const T* __restri
   for (int i = lane; i < F::STRIP; i += 32) dst[(i % M) * (32 * M) + i / M] = i < valid ? src[i] : T(0);
 }
 
-// One warp per item (rows x 32 input pairs); see the header.
+// One warp per item (rows x 32 input pairs); see the header.  A batch:
+// member blockIdx.y walks its items as a single launch does, with its ell,
+// ls and out at its own offset and x shared (0 for one Gram); every output
+// is kx * bsum of its own (n, a, p, c) either way, so a member's Gram equals
+// a single launch's bit for bit.
 template <typename T, int M>
 __global__ void __launch_bounds__(kFwdMaxThreads)
 svc_gram_tiled_fwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
@@ -272,6 +288,9 @@ svc_gram_tiled_fwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
   const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int n_strips = (n + 31) / 32;
   const size_t nm = static_cast<size_t>(n) * M;
+  ell += static_cast<size_t>(blockIdx.y) * n;
+  ls += static_cast<size_t>(blockIdx.y) * n * F::MM;
+  out += static_cast<size_t>(blockIdx.y) * nm * nm;
   T* Ls = reinterpret_cast<T*>(smem_raw) + warp * F::STRIP;  // shared-memory route: the warp's strip
   for (int item = blockIdx.x * warps + warp; item < n_items; item += gridDim.x * warps) {
     const int n0 = item / n_strips * rows;
@@ -354,6 +373,10 @@ svc_gram_tiled_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell
   __shared__ int rn_s[kGenTile], cp_s[kGenTile];      // each row's (column's) input, from the tile's first
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int nm = n * m;
+  // a batch: member blockIdx.z, its ell, ls and out at their offsets (0 for one Gram)
+  ell += static_cast<size_t>(blockIdx.z) * n;
+  ls += static_cast<size_t>(blockIdx.z) * nm * m;
+  out += static_cast<size_t>(blockIdx.z) * nm * nm;
   const int R0 = blockIdx.y * kGenTile, C0 = blockIdx.x * kGenTile;
   const int n0 = R0 / m, p0 = C0 / m;
   if (tid < kGenTile) {
@@ -407,8 +430,9 @@ svc_gram_tiled_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell
 }
 
 template <typename T, int M>
-int launch_forward_m(const T* x, const T* ell, const T* ls, int n, int rows, int n_items, T jitter,
+int launch_forward_m(const T* x, const T* ell, const T* ls, int n, int rows, int n_items, int n_batch, T jitter,
                      int warps, int grid, T* out, cudaStream_t stream) {
+  const dim3 blocks(static_cast<unsigned>(grid), static_cast<unsigned>(n_batch));
   using F = Fwd<T, M>;
   const size_t smem = F::REGS ? 0 : sizeof(T) * F::STRIP * warps;
   if (smem > 48 * 1024) {
@@ -417,8 +441,8 @@ int launch_forward_m(const T* x, const T* ell, const T* ls, int n, int rows, int
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  svc_gram_tiled_fwd_kernel<T, M><<<grid, warps * 32, smem, stream>>>(x, ell, ls, n, rows, n_items,
-                                                                       jitter, out);
+  svc_gram_tiled_fwd_kernel<T, M><<<blocks, warps * 32, smem, stream>>>(x, ell, ls, n, rows, n_items, jitter,
+                                                                         out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,9 +455,11 @@ int store_width(long long k) {
 // For m <= 8, vec must be the store width of (T, m), and 1 <= warps <=
 // kFwdMaxThreads / 32 and 1 <= grid.  For m > 8 (the generic route) vec must
 // be the store width of (T, n m), rows = kGenTile, warps = kGenFwdThreads /
-// 32 and grid = tiles^2.
+// 32 and grid = tiles^2.  n_batch Grams, member b from ell + b n, ls + b n m
+// m into out + b (n m)^2, the member along the grid's y (M <= 8: grid blocks
+// a member) or z (the generic route).
 template <typename T>
-int launch_forward(const void* x_, const void* ell_, const void* ls_, int n, int m,
+int launch_forward(const void* x_, const void* ell_, const void* ls_, int n, int m, int n_batch,
                    double jitter_, int vec, int rows, int warps, int grid, void* out_,
                    void* stream_) {
   const T* x = static_cast<const T*>(x_);
@@ -442,15 +468,15 @@ int launch_forward(const void* x_, const void* ell_, const void* ls_, int n, int
   const T jitter = static_cast<T>(jitter_);
   T* out = static_cast<T*>(out_);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || m < 1 || n_batch < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (m > kMaxM) {
     // N M must fit an int, and (16 M)^2 too (the first generic route's limit, kept)
     const long long nm = static_cast<long long>(n) * m;
     const long long tiles = (nm + kGenTile - 1) / kGenTile;
-    if (nm > 0x7fffffff || 16 * m > 46340 || tiles > 65535 || vec != store_width<T>(nm) || rows != kGenTile ||
-        warps * 32 != kGenFwdThreads || static_cast<long long>(grid) != tiles * tiles)
+    if (nm > 0x7fffffff || 16 * m > 46340 || tiles > 65535 || n_batch > 65535 || vec != store_width<T>(nm) ||
+        rows != kGenTile || warps * 32 != kGenFwdThreads || static_cast<long long>(grid) != tiles * tiles)
       return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 blocks(static_cast<unsigned>(tiles), static_cast<unsigned>(tiles));
+    const dim3 blocks(static_cast<unsigned>(tiles), static_cast<unsigned>(tiles), static_cast<unsigned>(n_batch));
     switch (vec) {
       case 1:
         svc_gram_tiled_generic_kernel<T, 1><<<blocks, kGenFwdThreads, 0, stream>>>(x, ell, ls, n, m, jitter, out);
@@ -464,21 +490,25 @@ int launch_forward(const void* x_, const void* ell_, const void* ls_, int n, int
     }
     return static_cast<int>(cudaGetLastError());
   }
-  if (vec != store_width<T>(m) || rows < 1 || warps < 1 || warps * 32 > kFwdMaxThreads || grid < 1)
+  if (vec != store_width<T>(m) || rows < 1 || warps < 1 || warps * 32 > kFwdMaxThreads || grid < 1 ||
+      n_batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long items = static_cast<long long>((n + rows - 1) / rows) * ((n + 31) / 32);
   if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const int n_items = static_cast<int>(items);
+#define K3_FWD_CASE(M_) \
+  return launch_forward_m<T, M_>(x, ell, ls, n, rows, n_items, n_batch, jitter, warps, grid, out, stream)
   switch (m) {
-    case 1: return launch_forward_m<T, 1>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
-    case 2: return launch_forward_m<T, 2>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
-    case 3: return launch_forward_m<T, 3>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
-    case 4: return launch_forward_m<T, 4>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
-    case 5: return launch_forward_m<T, 5>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
-    case 6: return launch_forward_m<T, 6>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
-    case 7: return launch_forward_m<T, 7>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
-    default: return launch_forward_m<T, 8>(x, ell, ls, n, rows, n_items, jitter, warps, grid, out, stream);
+    case 1: K3_FWD_CASE(1);
+    case 2: K3_FWD_CASE(2);
+    case 3: K3_FWD_CASE(3);
+    case 4: K3_FWD_CASE(4);
+    case 5: K3_FWD_CASE(5);
+    case 6: K3_FWD_CASE(6);
+    case 7: K3_FWD_CASE(7);
+    default: K3_FWD_CASE(8);
   }
+#undef K3_FWD_CASE
 }
 
 // ---------------------------------------------------------------------------
@@ -599,14 +629,25 @@ __device__ __forceinline__ void stage_pair(T* st, int I, int J, int n, const T* 
   stage_strip<T, TILE, M>(st + 2 * S::KB + S::STRIP, J * TILE, n, x, ell, ls, tid);
 }
 
+// Pair q of a walk over n_batch members' tile pairs, member-major: member
+// mb = q / n_pairs, its pair q % n_pairs (one member: mb = 0).
+__device__ __forceinline__ void walk_pair(int q, int n_pairs, int n_tiles, bool batch, int& mb, int& I, int& J) {
+  mb = batch ? q / n_pairs : 0;
+  tile_pair(q - mb * n_pairs, n_tiles, I, J);
+}
+
 // One block walks tile pairs q = blockIdx.x, + gridDim.x, ...; thread
 // (ty, tx) takes the input pair (n, p) = (I*T + ty, J*T + tx).  Writes
-// partial[slot][row][0..M*M) = Lbar's share and [M*M] = lbar's share.
+// partial[slot][row][0..M*M) = Lbar's share and [M*M] = lbar's share.  The
+// walk covers n_batch members' pairs (walk_pair; one Gram: n_batch = 1),
+// each member's ell, ls, kbar and partials at its own offset and x shared;
+// a member's pairs, sums and slots are a single launch's, so its result is
+// too.
 template <typename T, int TILE, int M>
 __global__ void __launch_bounds__(TILE * TILE)
 svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
-                          const T* __restrict__ ls, int n, T jitter,
-                          const T* __restrict__ kbar, T* __restrict__ partial) {
+                          const T* __restrict__ ls, int n, int n_batch, T jitter,
+                          const T* __restrict__ kbar, T* __restrict__ partial_all) {
   using S = Bwd<T, TILE, M>;
   constexpr int MM = S::MM, K = S::K, KP = S::KP, LP = S::LP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -619,17 +660,24 @@ svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
   const int lane = tid & 31, warp = tid >> 5;
   const int n_tiles = (n + TILE - 1) / TILE;
   const int n_pairs = n_tiles * (n_tiles + 1) / 2;
+  const int n_walk = n_batch * n_pairs;
+  const bool batch = n_batch > 1;
+  const size_t nm = static_cast<size_t>(n) * M;
+  // a member's strides: ell, ls, kbar and its partials
+  const size_t s_ell = n, s_ls = static_cast<size_t>(n) * MM, s_kb = nm * nm;
+  const size_t s_part = static_cast<size_t>(n_tiles) * n * K;
 
-  int q = blockIdx.x, I, J;
-  tile_pair(q, n_tiles, I, J);
-  stage_pair<T, TILE, M>(stages, I, J, n, x, ell, ls, kbar, tid);
+  int q = blockIdx.x, I, J, mb;
+  walk_pair(q, n_pairs, n_tiles, batch, mb, I, J);
+  stage_pair<T, TILE, M>(stages, I, J, n, x, ell + mb * s_ell, ls + mb * s_ls, kbar + mb * s_kb, tid);
   __pipeline_commit();
-  for (int it = 0; q < n_pairs; ++it, q += gridDim.x) {
+  for (int it = 0; q < n_walk; ++it, q += gridDim.x) {
     const T* st = stages + (it & 1) * S::STAGE;
-    int In = 0, Jn = 0;
-    if (q + gridDim.x < n_pairs) {
-      tile_pair(q + gridDim.x, n_tiles, In, Jn);
-      stage_pair<T, TILE, M>(stages + ((it + 1) & 1) * S::STAGE, In, Jn, n, x, ell, ls, kbar, tid);
+    int In = 0, Jn = 0, mbn = 0;
+    if (q + gridDim.x < n_walk) {
+      walk_pair(q + gridDim.x, n_pairs, n_tiles, batch, mbn, In, Jn);
+      stage_pair<T, TILE, M>(stages + ((it + 1) & 1) * S::STAGE, In, Jn, n, x, ell + mbn * s_ell,
+                             ls + mbn * s_ls, kbar + mbn * s_kb, tid);
     }
     __pipeline_commit();
     __pipeline_wait_prior(1);  // this pair's copies have landed
@@ -715,6 +763,7 @@ svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
     __syncthreads();  // also: every thread is done with this stage
 
     const int n0 = I * TILE, p0 = J * TILE;
+    T* partial = partial_all + mb * s_part;
     for (int i = tid; i < TILE * K; i += S::THREADS) {
       const int l = i / K;
       T rs = red_row[i * S::RP];
@@ -732,19 +781,25 @@ svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
     }
     I = In;
     J = Jn;
+    mb = mbn;
   }
 }
 
 // Sums each row's slots in one fixed order: one warp per row, lane j adds
 // slots j, j + 32, ... in turn, then a fixed shuffle tree adds the lanes.
-// Writes ls_bar (N, M, M) and ell_bar (N,).
+// Writes ls_bar (N, M, M) and ell_bar (N,); for n_batch members, their
+// rows member-major, each member's slots at its own offset, ls_bar (B, N,
+// M, M) and ell_bar (B, N).
 template <typename T, int M>
-__global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_slots, int n,
+__global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_slots, int n, int n_batch,
                                           T* __restrict__ ls_bar, T* __restrict__ ell_bar) {
   constexpr int MM = M * M, K = MM + 1;
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int grow = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (row >= n) return;  // whole warps leave together
+  if (grow >= n_batch * n) return;  // whole warps leave together
+  const int mb = n_batch > 1 ? grow / n : 0;
+  const int row = grow - mb * n;
+  partial += static_cast<size_t>(mb) * n_slots * n * K;
   T s[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) s[k] = T(0);
@@ -760,8 +815,8 @@ __global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_s
   }
   if (lane == 0) {  // every lane holds the same sums
 #pragma unroll
-    for (int k = 0; k < MM; ++k) ls_bar[static_cast<size_t>(row) * MM + k] = s[k];
-    ell_bar[row] = s[MM];
+    for (int k = 0; k < MM; ++k) ls_bar[static_cast<size_t>(grow) * MM + k] = s[k];
+    ell_bar[grow] = s[MM];
   }
 }
 
@@ -1040,6 +1095,7 @@ struct BwdArgs {
   const T* ell;
   const T* ls;
   int n;
+  int n_batch;
   T jitter;
   const T* kbar;
   int grid;
@@ -1059,59 +1115,82 @@ int launch_backward_m(const BwdArgs<T>& a) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   svc_gram_tiled_bwd_kernel<T, TILE, M><<<a.grid, S::THREADS, S::SMEM, a.stream>>>(
-      a.x, a.ell, a.ls, a.n, a.jitter, a.kbar, a.partial);
+      a.x, a.ell, a.ls, a.n, a.n_batch, a.jitter, a.kbar, a.partial);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows_per_block = kThreads / 32;
-  svc_gram_tiled_bwd_reduce<T, M><<<(a.n + rows_per_block - 1) / rows_per_block, kThreads, 0, a.stream>>>(
-      a.partial, (a.n + TILE - 1) / TILE, a.n, a.ls_bar, a.ell_bar);
+  const int rows = a.n_batch * a.n;
+  svc_gram_tiled_bwd_reduce<T, M><<<(rows + rows_per_block - 1) / rows_per_block, kThreads, 0, a.stream>>>(
+      a.partial, (a.n + TILE - 1) / TILE, a.n, a.n_batch, a.ls_bar, a.ell_bar);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// M > 8 (the generic route), one Gram: tile = kGenTile rows of the
+// flattened index, 1 <= grid <= its tile pairs, and partial holds ceil(n m /
+// kGenTile) (m + ceil(m / kGenBB)) n m doubles.
+template <typename T>
+int launch_backward_generic(const void* x, const void* ell, const void* ls, int n, int m, double jitter,
+                            const void* kbar, int tile, int grid, void* partial, void* ls_bar, void* ell_bar,
+                            cudaStream_t st) {
+  const long long nm = static_cast<long long>(n) * m;
+  const long long n_tiles = (nm + kGenTile - 1) / kGenTile;
+  if (nm > 0x7fffffff || tile != kGenTile || n_tiles > 46340 || grid < 1 || grid > n_tiles * (n_tiles + 1) / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Lf joins the stages where both still fit a block's shared memory
+  const bool stage_l = GenBwd<T>::smem(m, true) <= kMaxSmem;
+  const size_t smem = GenBwd<T>::smem(m, stage_l);
+  cudaError_t err = cudaFuncSetAttribute(svc_gram_tiled_bwd_generic_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  svc_gram_tiled_bwd_generic_kernel<T><<<grid, kGenBwdThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n, m,
+      static_cast<T>(jitter), stage_l, static_cast<const T*>(kbar), static_cast<double*>(partial));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long ks = m + (m + kGenBB - 1) / kGenBB;
+  const long long blocks = (nm * ks + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  svc_gram_tiled_bwd_generic_reduce<T><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      static_cast<double*>(partial), static_cast<int>(n_tiles), n, m, static_cast<T*>(ls_bar));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  svc_gram_tiled_bwd_generic_finish<T><<<(n + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
+      static_cast<const double*>(partial), n, m, static_cast<T*>(ell_bar));
   return static_cast<int>(cudaGetLastError());
 }
 
 // For m <= 8, tile must be the backward's tile side for m (16 for m <= 4,
-// else 8), and 1 <= grid <= the number of tile pairs, which must fit an
-// int.  For m > 8 (the generic route), tile = kGenTile rows of the flattened
-// index, 1 <= grid <= its tile pairs, and partial holds ceil(n m / kGenTile)
-// (m + ceil(m / kGenBB)) n m doubles.
+// else 8), and 1 <= grid <= the number of tile pairs of all n_batch
+// members, which must fit an int; partial holds n_batch ceil(n/tile) n (m m
+// + 1) values.  For m > 8 see launch_backward_generic; its launches run once
+// per member, one after another on the stream, with one member's partial
+// reused.
 template <typename T>
-int launch_backward(const void* x, const void* ell, const void* ls, int n, int m,
+int launch_backward(const void* x, const void* ell, const void* ls, int n, int m, int n_batch,
                     double jitter, const void* kbar, int tile, int grid, void* partial,
                     void* ls_bar, void* ell_bar, void* stream) {
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || m < 1 || n_batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m > kMaxM) {
-    const long long nm = static_cast<long long>(n) * m;
-    const long long n_tiles = (nm + kGenTile - 1) / kGenTile;
-    if (nm > 0x7fffffff || tile != kGenTile || n_tiles > 46340 || grid < 1 || grid > n_tiles * (n_tiles + 1) / 2)
-      return static_cast<int>(cudaErrorInvalidValue);
-    // Lf joins the stages where both still fit a block's shared memory
-    const bool stage_l = GenBwd<T>::smem(m, true) <= kMaxSmem;
-    const size_t smem = GenBwd<T>::smem(m, stage_l);
-    cudaError_t err = cudaFuncSetAttribute(svc_gram_tiled_bwd_generic_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    svc_gram_tiled_bwd_generic_kernel<T><<<grid, kGenBwdThreads, smem, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n, m,
-        static_cast<T>(jitter), stage_l, static_cast<const T*>(kbar), static_cast<double*>(partial));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long ks = m + (m + kGenBB - 1) / kGenBB;
-    const long long blocks = (nm * ks + kThreads - 1) / kThreads;
-    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-    svc_gram_tiled_bwd_generic_reduce<T><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        static_cast<double*>(partial), static_cast<int>(n_tiles), n, m, static_cast<T*>(ls_bar));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    svc_gram_tiled_bwd_generic_finish<T><<<(n + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
-        static_cast<const double*>(partial), n, m, static_cast<T*>(ell_bar));
-    return static_cast<int>(cudaGetLastError());
+    const size_t nm = static_cast<size_t>(n) * m, sz = sizeof(T);
+    for (size_t b = 0; b < static_cast<size_t>(n_batch); ++b) {
+      const int err = launch_backward_generic<T>(
+          static_cast<const char*>(x), static_cast<const char*>(ell) + b * n * sz,
+          static_cast<const char*>(ls) + b * nm * m * sz, n, m, jitter, static_cast<const char*>(kbar) + b * nm * nm * sz,
+          tile, grid, partial, static_cast<char*>(ls_bar) + b * nm * m * sz,
+          static_cast<char*>(ell_bar) + b * n * sz, st);
+      if (err != 0) return err;
+    }
+    return 0;
   }
   const int n_tiles = (n + tile - 1) / tile;
-  if (tile != (m <= 4 ? 16 : 8) || n_tiles > 46340 || grid < 1 || grid > n_tiles * (n_tiles + 1) / 2)
+  const long long pairs = static_cast<long long>(n_tiles) * (n_tiles + 1) / 2 * n_batch;
+  if (tile != (m <= 4 ? 16 : 8) || n_tiles > 46340 || pairs > 0x7fffffff || grid < 1 || grid > pairs ||
+      static_cast<long long>(n) * n_batch > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n,
+  const BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n, n_batch,
                      static_cast<T>(jitter), static_cast<const T*>(kbar), grid, static_cast<T*>(partial),
-                     static_cast<T*>(ls_bar), static_cast<T*>(ell_bar), static_cast<cudaStream_t>(stream)};
+                     static_cast<T*>(ls_bar), static_cast<T*>(ell_bar), st};
   switch (m) {
     case 1: return launch_backward_m<T, 16, 1>(a);
     case 2: return launch_backward_m<T, 16, 2>(a);
@@ -1133,13 +1212,13 @@ extern "C" {
 int svc_gram_tiled_f32(const void* x, const void* ell, const void* ls, int n, int m,
                        double jitter, int vec, int rows, int warps, int grid, void* out,
                        void* stream) {
-  return launch_forward<float>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, out, stream);
+  return launch_forward<float>(x, ell, ls, n, m, 1, jitter, vec, rows, warps, grid, out, stream);
 }
 
 int svc_gram_tiled_f64(const void* x, const void* ell, const void* ls, int n, int m,
                        double jitter, int vec, int rows, int warps, int grid, void* out,
                        void* stream) {
-  return launch_forward<double>(x, ell, ls, n, m, jitter, vec, rows, warps, grid, out, stream);
+  return launch_forward<double>(x, ell, ls, n, m, 1, jitter, vec, rows, warps, grid, out, stream);
 }
 
 // partial: ceil(n/tile) * n * (m*m + 1) scratch values of the input's type,
@@ -1148,15 +1227,47 @@ int svc_gram_tiled_f64(const void* x, const void* ell, const void* ls, int n, in
 int svc_gram_tiled_backward_f32(const void* x, const void* ell, const void* ls, int n, int m,
                                 double jitter, const void* kbar, int tile, int grid,
                                 void* partial, void* ls_bar, void* ell_bar, void* stream) {
-  return launch_backward<float>(x, ell, ls, n, m, jitter, kbar, tile, grid, partial,
-                                ls_bar, ell_bar, stream);
+  return launch_backward<float>(x, ell, ls, n, m, 1, jitter, kbar, tile, grid, partial,
+                                       ls_bar, ell_bar, stream);
 }
 
 int svc_gram_tiled_backward_f64(const void* x, const void* ell, const void* ls, int n, int m,
                                 double jitter, const void* kbar, int tile, int grid,
                                 void* partial, void* ls_bar, void* ell_bar, void* stream) {
-  return launch_backward<double>(x, ell, ls, n, m, jitter, kbar, tile, grid, partial,
-                                 ls_bar, ell_bar, stream);
+  return launch_backward<double>(x, ell, ls, n, m, 1, jitter, kbar, tile, grid, partial,
+                                        ls_bar, ell_bar, stream);
+}
+
+// A batch of b Grams over shared x (n,): ell (b, n), ls (b, n, m, m), out
+// (b, n m, n m).  vec, rows, warps, grid: gram_kernels.k3_forward_schedule(n,
+// m, dtype, batch=b).
+int svc_gram_tiled_batched_f32(const void* x, const void* ell, const void* ls, int n, int m, int b,
+                               double jitter, int vec, int rows, int warps, int grid, void* out,
+                               void* stream) {
+  return launch_forward<float>(x, ell, ls, n, m, b, jitter, vec, rows, warps, grid, out, stream);
+}
+
+int svc_gram_tiled_batched_f64(const void* x, const void* ell, const void* ls, int n, int m, int b,
+                               double jitter, int vec, int rows, int warps, int grid, void* out,
+                               void* stream) {
+  return launch_forward<double>(x, ell, ls, n, m, b, jitter, vec, rows, warps, grid, out, stream);
+}
+
+// kbar (b, n m, n m); partial: b times a single Gram's (m <= 8), one
+// Gram's (m > 8); ls_bar (b, n, m, m); ell_bar (b, n).  tile, grid:
+// gram_kernels.k3_backward_schedule(n, m, batch=b).
+int svc_gram_tiled_batched_backward_f32(const void* x, const void* ell, const void* ls, int n, int m, int b,
+                                        double jitter, const void* kbar, int tile, int grid,
+                                        void* partial, void* ls_bar, void* ell_bar, void* stream) {
+  return launch_backward<float>(x, ell, ls, n, m, b, jitter, kbar, tile, grid, partial,
+                                      ls_bar, ell_bar, stream);
+}
+
+int svc_gram_tiled_batched_backward_f64(const void* x, const void* ell, const void* ls, int n, int m, int b,
+                                        double jitter, const void* kbar, int tile, int grid,
+                                        void* partial, void* ls_bar, void* ell_bar, void* stream) {
+  return launch_backward<double>(x, ell, ls, n, m, b, jitter, kbar, tile, grid, partial,
+                                       ls_bar, ell_bar, stream);
 }
 
 }  // extern "C"

@@ -13,9 +13,10 @@ figures, artifacts and a JSON summary on stdout.
         --model gnmgp --n 200 --n-opt 1000 --out res/sim_nonseparable
 
 It runs on ``cuda``.  The arguments are the JAX CLI's, and ``--sampler``
-takes ``hmc``, ``nuts``, ``drhmc`` and ``chees``; the samplers this package
-does not have yet (``rmhmc``, ``smc`` and ``pathfinder``) exit with an error
-that says so.
+takes ``hmc``, ``nuts``, ``drhmc``, ``chees`` and ``smc`` (with ``--smc-ref
+prior``); the samplers this package does not have yet (``rmhmc`` and
+``pathfinder``) and SMC's pathfinder reference exit with an error that says
+so.
 """
 
 from __future__ import annotations
@@ -69,6 +70,8 @@ def main(argv=None, device=None) -> dict:
     args = ap.parse_args(argv)
     if args.sampler in workflows.UNPORTED_SAMPLERS:
         ap.error(f"--sampler {args.sampler} {workflows.UNPORTED_SAMPLERS[args.sampler]}")
+    if args.smc_ref == "pathfinder":
+        ap.error("--smc-ref pathfinder is not yet ported to the torch package (it needs the pathfinder sampler)")
     device = settings.resolve_device(device)
 
     os.makedirs(args.out, exist_ok=True)
@@ -86,7 +89,8 @@ def main(argv=None, device=None) -> dict:
         model=args.model, n_opt=args.n_opt, do_hmc=args.n_hmc > 0,
         map_method=args.map_method,
         n_hmc=max(args.n_hmc, 1), test_size=args.test_size, hyper=hyper,
-        seed=args.seed, sampler=args.sampler, whiten=False if args.whiten == "off" else args.whiten,
+        seed=args.seed, sampler=args.sampler, smc_ref=args.smc_ref,
+        whiten=False if args.whiten == "off" else args.whiten,
         hmc_step_size=args.hmc_step_size, n_inducing=args.n_inducing, sparse_approx=args.sparse_approx,
     )
     store = ArtifactStore(args.out)

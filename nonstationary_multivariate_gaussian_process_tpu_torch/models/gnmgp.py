@@ -17,6 +17,12 @@ with K_x the σ≡1 Gibbs kernel of (x, ℓ).  Two layouts of it serve two paths
   and the Gaussian log-likelihood is invariant under it, so both layouts give
   the same value.
 
+:func:`make_objective_batched` evaluates the objective for a population of
+vectors at once (B, P) → (B,), as ``jax.vmap`` of JAX's objective does:
+one launch of the batched K3 (``gram_kernels.svc_gram_tiled_batched``) and
+a batched Cholesky with its jitter ladder per member, so that a particle
+sampler's whole population takes one forward and one backward launch.
+
 The Hadamard variant (:func:`log_posterior_hadamard`, one observation per
 (input, task) pair; reference ``logpos_hadamard_SVC``) gathers each
 observation's task row of its L_n: its Gram ``K_x ∘ (R Rᵀ)`` is N_obs ×
@@ -29,6 +35,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import dists, settings
 from ..ops import chol, gram_kernels, kernels, transforms
@@ -70,9 +77,9 @@ def pack(p: Params) -> torch.Tensor:
 
 
 def chol_process(ul_vecs: torch.Tensor, n: int, m: int) -> torch.Tensor:
-    """(N*T,) unconstrained vectors → (N, M, M) lower-triangular factors."""
+    """(..., N*T) unconstrained vectors → (..., N, M, M) lower-triangular factors."""
     t = transforms.tri_size(m)
-    l_vecs = transforms.ulvec_to_lvec(ul_vecs.reshape(n, t), m)
+    l_vecs = transforms.ulvec_to_lvec(ul_vecs.reshape(*ul_vecs.shape[:-1], n, t), m)
     return transforms.vec_to_tril(l_vecs, m)
 
 
@@ -116,9 +123,9 @@ def log_lik(p: Params, data: FullData, mask: torch.Tensor | None = None) -> torc
 
 
 def _l_process_prior(ul_mat: torch.Tensor, mu_L, prior_chol) -> torch.Tensor:
-    """Sum of T independent GP log-priors over the columns of (N, T) ``ul_mat``
-    (logpos.py:362-365), batched against one prior factor."""
-    return torch.sum(dists.mvn_logpdf_chol(ul_mat.T, mu_L, prior_chol))
+    """Sum of T independent GP log-priors over the columns of (..., N, T)
+    ``ul_mat`` (logpos.py:362-365), batched against one prior factor."""
+    return torch.sum(dists.mvn_logpdf_chol(ul_mat.transpose(-1, -2), mu_L, prior_chol), dim=-1)
 
 
 def log_posterior(
@@ -198,6 +205,82 @@ def make_objective(data: FullData, hyper: dict | None = None, prior: bool = True
         return -res
 
     return nlp
+
+
+#: The (NM, NM) Grams' worth of memory a member of the batched objective
+#: takes at its peak across its value and gradient, for sizing its chunks:
+#: one population gradient at (B, N, M) = (256, 200, 2) in float64 peaked
+#: 7.02 Grams a member above its inputs on an H100, rounded up here
+#: (``chip_smoke.py``'s smc phase measures it and fails above this); and the
+#: bytes a chunk may take on the CPU.
+BATCH_COPIES = 8
+CPU_BATCH_BYTES = 1 << 30
+
+
+def batch_rows(b: int, nm: int, dtype: torch.dtype, device: torch.device) -> int:
+    """Members of a (B, NM, NM) batch that one chunk of the batched objective
+    takes: half the device's free memory (the CPU: ``CPU_BATCH_BYTES``) over
+    ``BATCH_COPIES`` Grams a member, at least 1."""
+    per = BATCH_COPIES * nm * nm * torch.tensor([], dtype=dtype).element_size()
+    budget = torch.cuda.mem_get_info(device)[0] // 2 if device.type == "cuda" else CPU_BATCH_BYTES
+    return max(1, min(b, budget // per))
+
+
+def make_objective_batched(data: FullData, hyper: dict | None = None, prior: bool = True):
+    """:func:`make_objective` over a population: ``vecs`` (B, P) → (B,),
+    row ``i`` the negative log posterior of ``vecs[i]`` (``jax.vmap`` of the
+    JAX objective).  The Gram of every row is one launch of the batched K3
+    (and its gradient one of the batched backward), the logdet and
+    quadratic form one batched Cholesky with the jitter ladder per member
+    (``ops.chol.psd_logdet_quad_batched``), and the priors run over the
+    leading axis.  Nothing mixes rows: a row whose factor fails is NaN
+    alone, and the gradient of the rows' sum is each row's gradient.
+
+    Float64 or float32; ``NMGP_PRECISION=mixed`` has no batched form (its
+    callers evaluate row by row).  A population whose Grams would not fit
+    the device's free memory (:func:`batch_rows`) is evaluated in chunks,
+    with the gradient of each chunk recomputed in its backward pass
+    (``torch.utils.checkpoint``); the rows' values do not change.
+    """
+    check_full_data(data, "gnmgp")
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    n, m = data.y.shape
+    t = transforms.tri_size(m)
+    pc_l = chol.prior_rbf_inv(data.x, hp["alpha_tilde_l"], hp["beta_tilde_l"])
+    pc_L = chol.prior_rbf_inv(data.x, hp["alpha_L"], hp["beta_L"])
+    x = data.x.contiguous()
+    y = data.y.reshape(-1)  # row-major: entry (n, a) at n·M + a
+
+    def rows(vecs: torch.Tensor) -> torch.Tensor:
+        tilde_l, ul_vecs, tilde_s2 = vecs[:, :n], vecs[:, n : n + n * t], vecs[:, -1]
+        ls = chol_process(ul_vecs, n, m)
+        sigma2_err = torch.exp(tilde_s2)
+        cov = gram_kernels.svc_gram_tiled_batched(x, torch.exp(tilde_l).contiguous(), ls.contiguous(),
+                                                  settings.jitter)
+        cov = torch.diagonal_scatter(cov, torch.diagonal(cov, dim1=-2, dim2=-1) + sigma2_err[:, None],
+                                     dim1=-2, dim2=-1)
+        logdet, quad = chol.psd_logdet_quad_batched(cov, y)
+        res = -0.5 * logdet - 0.5 * quad
+        if prior:
+            lp_l = dists.mvn_logpdf_chol(tilde_l, hp["mu_tilde_l"], pc_l)
+            lp_ul = _l_process_prior(ul_vecs.reshape(-1, n, t), hp["mu_L"], pc_L)
+            lp_s2 = dists.inverse_gamma_logpdf(sigma2_err, alpha=hp["a"], beta=hp["b"])
+            res = res + lp_l + lp_ul + lp_s2 + tilde_s2
+        return -res
+
+    def nlp_batched(vecs: torch.Tensor) -> torch.Tensor:
+        if vecs.dim() != 2 or vecs.shape[1] != n + n * t + 1:
+            raise ValueError(f"gnmgp: the batched objective takes (B, {n + n * t + 1}) vectors "
+                             f"[tilde_l({n}), uL_vecs({n}·{t}), tilde_sigma2_err] for N={n}, M={m}; "
+                             f"got shape {tuple(vecs.shape)}")
+        step = batch_rows(vecs.shape[0], n * m, vecs.dtype, vecs.device)
+        if step >= vecs.shape[0]:
+            return rows(vecs)
+        graph = torch.is_grad_enabled() and vecs.requires_grad
+        return torch.cat([checkpoint(rows, c, use_reentrant=False) if graph else rows(c)
+                          for c in torch.split(vecs, step)])
+
+    return nlp_batched
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``ops/chol.py`` (``safe_cholesky``,
 ``tri_solve``, ``chol_solve``, ``chol_logdet``, ``psd_logdet_quad``,
-``psd_solve``, the host-side prior factors ``prior_cholesky``,
+``psd_solve``, their batched forms over a leading member axis
+(``safe_cholesky_batched``, ``psd_logdet_quad_batched``: JAX's functions
+under ``vmap``), the host-side prior factors ``prior_cholesky``,
 ``prior_rbf_cholesky``, ``prior_rbf_inv``, and the precision tier's routes:
 the blocked product-based factor and solves behind ``NMGP_BLOCKED_CHOL=1``,
 the loop-free small factors behind ``NMGP_UNROLLED_CHOL``, and the mixed
@@ -135,6 +137,55 @@ def safe_cholesky(a: torch.Tensor, force_robust: bool = False) -> torch.Tensor:
         # the positive-definite region then ends non-finite and is rejected
         chol = a * float("nan")
     return chol
+
+
+def safe_cholesky_batched(a: torch.Tensor, force_robust: bool = False) -> torch.Tensor:
+    """:func:`safe_cholesky` of each member of a batch ``a`` (B, n, n), with
+    the ladder per member, as JAX's ``safe_cholesky`` runs under ``vmap``:
+    a member whose plain factor succeeds keeps it (its retry jitter is 0);
+    a failed one is refactored alone with jitter ``fallback · mean(diag)``
+    of its own diagonal; one that fails again comes back as NaNs, its
+    gradient NaN too, and no other member changes.
+
+    The plain factors of the whole batch are one ``cholesky_ex`` and its
+    ``info`` is read once; only the failed members are factored again.
+    Their plain factors are partial matrices, whose autograd terms are
+    replaced by zeros (they take no part in the result) so that no NaN of
+    theirs reaches the gradient of the input.  No blocked route.
+    """
+    a_in = a.view_as(a) if a.requires_grad else a
+    chol, info = torch.linalg.cholesky_ex(a_in)
+    bad = info != 0
+    idx = torch.nonzero(bad).flatten()  # the one read of info
+    if idx.numel() == 0:
+        return chol
+    if a_in.requires_grad:
+        zero_bad = lambda g: torch.where(bad[:, None, None], torch.zeros_like(g), g)
+        a_in.register_hook(zero_bad)
+    sub = a[idx]
+    if settings.robust_cholesky or force_robust:
+        scale = torch.mean(torch.diagonal(sub, dim1=-2, dim2=-1), dim=-1)
+        eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+        retry, info2 = torch.linalg.cholesky_ex(sub + (_fallback(a) * scale)[:, None, None] * eye)
+        # NaNs, and NaN gradients, where the retry failed too (a product,
+        # not a where: the untaken side of a where would send its zero
+        # cotangent through a NaN factor into the members that succeeded)
+        ones = torch.ones_like(scale)
+        retry = retry * torch.where(info2 != 0, ones * float("nan"), ones)[:, None, None]
+    else:
+        retry = sub * float("nan")
+    return chol.index_put((idx,), retry)
+
+
+def psd_logdet_quad_batched(a: torch.Tensor, y: torch.Tensor):
+    """``(logdet A_i, yᵀ A_i⁻¹ y)`` (each (B,)) for a batch ``a`` (B, n, n)
+    and one ``y`` (n,) or one per member (B, n), through
+    :func:`safe_cholesky_batched`: :func:`psd_logdet_quad` of each member
+    (never the mixed route)."""
+    c = safe_cholesky_batched(a)
+    rhs = y.expand(a.shape[:-1]).unsqueeze(-1)
+    sol = torch.linalg.solve_triangular(c, rhs, upper=False)[..., 0]
+    return chol_logdet(c), torch.sum(sol * sol, dim=-1)
 
 
 def tri_solve(l: torch.Tensor, b: torch.Tensor, trans: bool = False) -> torch.Tensor:

@@ -20,6 +20,11 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
 * :func:`gibbs_gram_backward`, :func:`gibbs_gram_cross_backward` and
   :func:`svc_gram_tiled_backward` — the backward kernels of K1's self and
   cross forms and of K3 (new: the TPU had none).
+* :func:`svc_gram_tiled_batched` and :func:`svc_gram_tiled_batched_backward`
+  — K3 and its backward over a batch of B members sharing ``x`` (new: the
+  TPU kernel took one Gram), one launch for the batch, each member equal to
+  a single launch bit for bit; the Gram of the batched GNMGP objective that
+  a population sampler (``inference/smc.py``) evaluates.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 launches its kernel for a CUDA tensor, on the current stream (:func:`_launch`),
@@ -67,6 +72,7 @@ SOURCES = {
     "gibbs_gram": "gibbs_gram", "gibbs_gram_backward": "gibbs_gram",
     "gibbs_gram_cross_backward": "gibbs_gram", "svc_gram": "svc_gram",
     "svc_gram_tiled": "svc_gram_tiled", "svc_gram_tiled_backward": "svc_gram_tiled",
+    "svc_gram_tiled_batched": "svc_gram_tiled", "svc_gram_tiled_batched_backward": "svc_gram_tiled",
 }
 #: Each entry point: the wrapper that launches it (and counts its launches),
 #: and its arguments before the stream, which every one takes last.
@@ -79,6 +85,9 @@ _ENTRY_POINTS = {
     "svc_gram": ("svc_gram", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _I, _I, _I, _P]),
     "svc_gram_tiled": ("svc_gram_tiled", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
     "svc_gram_tiled_backward": ("svc_gram_tiled_backward", [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P]),
+    "svc_gram_tiled_batched": ("svc_gram_tiled_batched", [_P, _P, _P, _I, _I, _I, _D, _I, _I, _I, _I, _P]),
+    "svc_gram_tiled_batched_backward": ("svc_gram_tiled_batched_backward",
+                                        [_P, _P, _P, _I, _I, _I, _D, _P, _I, _I, _P, _P, _P]),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns: dict = {}  # (name, dtype) -> bound ctypes function
@@ -149,10 +158,10 @@ def _strip_rows(n_rows: int, n_strips: int, sms: int, warps_per_sm: int) -> int:
     return next((r for r in (8, 4, 2) if -(-n_rows // r) * n_strips >= warps_per_sm * sms), 1)
 
 
-def _strip_grid(n_items: int, warps: int, sms: int) -> int:
-    """A persistent grid of at most 16 blocks per SM, never more blocks
-    than the items fill."""
-    return max(1, min(-(-n_items // warps), 16 * sms))
+def _strip_grid(n_items: int, warps: int, sms: int, batch: int = 1) -> int:
+    """A member's persistent grid: of at most 16 blocks per SM over the
+    ``batch`` members, never more blocks than the member's items fill."""
+    return max(1, min(-(-n_items // warps), -(-16 * sms // batch)))
 
 
 class _Strips:
@@ -922,6 +931,11 @@ class K3ForwardSchedule(_Strips):
     block's shared memory as the kernel sizes it: the warps' strips of L for
     M = 5..8, none for M ≤ 4, and for the generic route a size that does not
     depend on M.
+
+    A batch of ``batch`` Grams (:func:`svc_gram_tiled_batched`): the
+    member is the grid's y (M ≤ 8; ``grid`` blocks a member, each walking
+    the member's items as above) or z (the generic route, ``grid`` tiles² a
+    member); for M ≤ 8 ``rows`` and ``grid`` are chosen for the whole batch.
     """
 
     n: int
@@ -932,6 +946,7 @@ class K3ForwardSchedule(_Strips):
     warps: int
     grid: int
     smem_bytes: int
+    batch: int = 1
 
     strip = 32
 
@@ -952,22 +967,24 @@ class K3ForwardSchedule(_Strips):
 _K3_FWD_WARPS_PER_SM = 16
 
 
-def k3_forward_schedule(n: int, m: int, dtype: torch.dtype, sms: int = 132) -> K3ForwardSchedule:
+def k3_forward_schedule(n: int, m: int, dtype: torch.dtype, sms: int = 132, batch: int = 1) -> K3ForwardSchedule:
     """For M ≤ 8 the store route and width, the rows of an item (the most of
-    8, 4, 2, 1 that still gives every SM 16 warps' items), 4 warps a block
-    and a grid of at most 16 blocks per SM, never more blocks than the items
-    fill; for M > 8 the generic route's tiles and store width."""
+    8, 4, 2, 1 that still gives every SM 16 warps' items over the batch),
+    4 warps a block and a grid of at most 16 blocks per SM over the batch,
+    never more blocks than a member's items fill; for M > 8 the generic
+    route's tiles and store width."""
     size = torch.tensor([], dtype=dtype).element_size()
     if m > K3_MAX_M:
         tiles = -(-n * m // K3_GENERIC_TILE)
         smem = size * (2 * _K3_GEN_FWD_K * _K3_GEN_FWD_PITCH + _K3_GENERIC_SPAN**2) + 4 * 2 * K3_GENERIC_TILE
-        return K3ForwardSchedule(n, m, "generic", _store_width(n * m, dtype), K3_GENERIC_TILE, 8, tiles * tiles, smem)
+        return K3ForwardSchedule(n, m, "generic", _store_width(n * m, dtype), K3_GENERIC_TILE, 8, tiles * tiles, smem,
+                                 batch)
     vec = _store_width(m, dtype)
-    rows = _strip_rows(n, -(-n // 32), sms, _K3_FWD_WARPS_PER_SM)
+    rows = _strip_rows(n, -(-n // 32) * batch, sms, _K3_FWD_WARPS_PER_SM)
     warps = 4
     smem = 0 if m <= 4 else size * 32 * m * m * warps
-    sched = K3ForwardSchedule(n, m, "vector" if vec > 1 else "scalar", vec, rows, warps, 1, smem)
-    return dataclasses.replace(sched, grid=_strip_grid(sched.n_items, sched.warps, sms))
+    sched = K3ForwardSchedule(n, m, "vector" if vec > 1 else "scalar", vec, rows, warps, 1, smem, batch)
+    return dataclasses.replace(sched, grid=_strip_grid(sched.n_items, warps, sms, batch))
 
 
 def _svc_gram_tiled_forward(x, ell, ls, jitter) -> torch.Tensor:
@@ -1041,6 +1058,14 @@ class K3BackwardSchedule(_TilePairs):
     slots in order (L̄, and the ℓ̄ shares back into slot 0); a third sums ℓ̄
     by one warp per input, lane ``l`` adding terms ``l, l + 32, ...`` of
     ``j = a·(b blocks) + b block``, then a shuffle tree.
+
+    A batch of ``batch`` members (:func:`svc_gram_tiled_batched_backward`):
+    the tiled route's blocks walk ``batch`` × ``n_pairs`` pairs,
+    member-major (pair ``q`` of the walk is pair ``q % n_pairs`` of member
+    ``q // n_pairs``), each member's partials at its own offset, and its
+    second launch sums ``batch`` × N rows; ``grid`` is chosen for the whole
+    walk.  The generic route runs its three launches once per member with
+    one member's ``grid`` and partials.
     """
 
     n: int
@@ -1048,6 +1073,7 @@ class K3BackwardSchedule(_TilePairs):
     route: str
     tile: int
     grid: int
+    batch: int = 1
 
     @property
     def n_tiles(self) -> int:
@@ -1061,9 +1087,11 @@ class K3BackwardSchedule(_TilePairs):
 
     @property
     def partial_numel(self) -> int:
+        """The partials of the launch: a member's (generic: the members run
+        one after another and reuse them), else ``batch`` members'."""
         if self.route == "generic":
             return self.n_tiles * (self.m + self.n_bblocks) * self.n * self.m
-        return self.n_tiles * self.n * (self.m * self.m + 1)
+        return self.batch * self.n_tiles * self.n * (self.m * self.m + 1)
 
     def partial_dtype(self, dtype: torch.dtype) -> torch.dtype:
         """The partials' type: the input's (tiled), float64 (generic)."""
@@ -1089,16 +1117,16 @@ class K3BackwardSchedule(_TilePairs):
         return self.smem_bytes(dtype, True) <= _H100_SMEM
 
 
-def k3_backward_schedule(n: int, m: int, sms: int = 132) -> K3BackwardSchedule:
+def k3_backward_schedule(n: int, m: int, sms: int = 132, batch: int = 1) -> K3BackwardSchedule:
     """The route; the tile side (16 inputs for M ≤ 4, else 8; 64 flattened
     rows for M > 8), the persistent grid (4 blocks per SM for M ≤ 8, one for
-    M > 8, never more blocks than tile pairs) and, through the result's
-    properties, the pairs and the partials' size."""
+    M > 8, never more blocks than the walk's tile pairs) and, through the
+    result's properties, the pairs and the partials' size."""
     if m > K3_MAX_M:
-        sched = K3BackwardSchedule(n, m, "generic", K3_GENERIC_TILE, 1)
+        sched = K3BackwardSchedule(n, m, "generic", K3_GENERIC_TILE, 1, batch)
         return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs, sms)))
-    sched = K3BackwardSchedule(n, m, "tiled", 16 if m <= 4 else 8, 1)
-    return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs, 4 * sms)))
+    sched = K3BackwardSchedule(n, m, "tiled", 16 if m <= 4 else 8, 1, batch)
+    return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs * batch, 4 * sms)))
 
 
 def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float):
@@ -1145,6 +1173,116 @@ class _SvcGramTiled(torch.autograd.Function):
         return None, ell_bar, ls_bar, None
 
 
+# ---------------------------------------------------------------------------
+# K3 over a batch
+# ---------------------------------------------------------------------------
+
+
+def svc_gram_tiled_batched_plain(x, ell, ls, jitter: float) -> torch.Tensor:
+    """Plain version of the batched K3: :func:`svc_gram_tiled_plain` of each
+    member, stacked."""
+    return torch.stack([svc_gram_tiled_plain(x, e, l, jitter) for e, l in zip(ell, ls)])
+
+
+def _check_svc_batched(name, x, ell, ls):
+    tensors = {"x": x, "ell": ell, "ls": ls}
+    device, dtype = _check_cuda(name, tensors, {"x": 1, "ell": 2, "ls": 4})
+    b, n, m = ls.shape[0], ls.shape[1], ls.shape[2]
+    if x.shape[0] != n or tuple(ell.shape) != (b, n) or ls.shape[3] != m:
+        raise ValueError(
+            f"{name}: want x (N,), ell (B, N), ls (B, N, M, M); got {tuple(x.shape)}, "
+            f"{tuple(ell.shape)}, {tuple(ls.shape)}"
+        )
+    if n > _MAX_ROWS or b > 65535:
+        raise ValueError(f"{name}: N={n}, B={b} exceeds the launch grid")
+    return device, dtype, b, n, m
+
+
+def _svc_gram_tiled_batched_forward(x, ell, ls, jitter) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return svc_gram_tiled_batched_plain(x, ell, ls, jitter)
+    device, dtype, b, n, m = _check_svc_batched("svc_gram_tiled_batched", x, ell, ls)
+    out = torch.empty((b, n * m, n * m), dtype=dtype, device=device)
+    if b == 0 or n == 0 or m == 0:
+        return out
+    sched = k3_forward_schedule(n, m, dtype, sm_count(device), batch=b)
+    _launch("svc_gram_tiled_batched", dtype, device, x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m, b,
+            float(jitter), sched.vec, sched.rows, sched.warps, sched.grid, out.data_ptr())
+    svc_gram_tiled_batched.launches += 1
+    return out
+
+
+def svc_gram_tiled_batched(x, ell, ls, jitter: float) -> torch.Tensor:
+    """K3 for a batch of B members sharing the inputs: ``x`` (N,), ``ell``
+    (B, N), ``ls`` (B, N, M, M) → (B, NM, NM), member ``i`` equal to
+    ``svc_gram_tiled(x, ell[i], ls[i], jitter)`` bit for bit, in one launch.
+    Differentiable in ``ell`` and ``ls`` (through
+    :func:`svc_gram_tiled_batched_backward`)."""
+    if _needs_grad(x, ell, ls):
+        if x.requires_grad:
+            raise NotImplementedError("svc_gram_tiled_batched: no gradient with respect to x (x is data)")
+        return _SvcGramTiledBatched.apply(x, ell, ls, float(jitter))
+    return _svc_gram_tiled_batched_forward(x, ell, ls, jitter)
+
+
+svc_gram_tiled_batched.launches = 0
+
+
+def svc_gram_tiled_batched_backward_plain(x, ell, ls, jitter: float, kbar):
+    """Plain version of the batched K3 backward: each member's
+    :func:`svc_gram_tiled_backward_plain`, stacked."""
+    bars = [svc_gram_tiled_backward_plain(x, e, l, jitter, k) for e, l, k in zip(ell, ls, kbar)]
+    if not bars:
+        return torch.zeros_like(ell), torch.zeros_like(ls)
+    return torch.stack([e for e, _ in bars]), torch.stack([l for _, l in bars])
+
+
+def svc_gram_tiled_batched_backward(x, ell, ls, kbar, jitter: float):
+    """``(ℓ̄ (B, N), L̄ (B, N, M, M))`` of the batched K3 for the cotangent
+    ``kbar`` (B, NM, NM), member ``i`` equal to
+    ``svc_gram_tiled_backward(x, ell[i], ls[i], kbar[i], jitter)`` bit for
+    bit; one launch of the pair walk and one of the row sums for the batch
+    (M ≤ 8), the generic route's three once per member (M > 8)."""
+    if x.device.type == "cpu":
+        return svc_gram_tiled_batched_backward_plain(x, ell, ls, jitter, kbar)
+    device, dtype, b, n, m = _check_svc_batched("svc_gram_tiled_batched_backward", x, ell, ls)
+    if kbar.device != device or kbar.dtype != dtype or tuple(kbar.shape) != (b, n * m, n * m):
+        raise ValueError(f"svc_gram_tiled_batched_backward: kbar must be ({b}, {n * m}, {n * m}) {dtype} on {device}")
+    if not kbar.is_contiguous():
+        raise ValueError("svc_gram_tiled_batched_backward: kbar must be contiguous")
+    ell_bar = torch.empty((b, n), dtype=dtype, device=device)
+    ls_bar = torch.empty((b, n, m, m), dtype=dtype, device=device)
+    if b == 0 or n == 0:
+        return ell_bar, ls_bar
+    sched = k3_backward_schedule(n, m, sm_count(device), batch=b)
+    partial = torch.empty(sched.partial_numel, dtype=sched.partial_dtype(dtype), device=device)
+    _launch("svc_gram_tiled_batched_backward", dtype, device, x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m, b,
+            float(jitter), kbar.data_ptr(), sched.tile, sched.grid, partial.data_ptr(), ls_bar.data_ptr(),
+            ell_bar.data_ptr())
+    svc_gram_tiled_batched_backward.launches += 1
+    return ell_bar, ls_bar
+
+
+svc_gram_tiled_batched_backward.launches = 0
+
+
+class _SvcGramTiledBatched(torch.autograd.Function):
+    """The batched K3 with its batched backward kernel, first order only."""
+
+    @staticmethod
+    def forward(ctx, x, ell, ls, jitter):
+        ctx.save_for_backward(x, ell, ls)
+        ctx.jitter = jitter
+        return _svc_gram_tiled_batched_forward(x, ell, ls, jitter)
+
+    @staticmethod
+    @first_order_only
+    def backward(ctx, kbar):
+        x, ell, ls = ctx.saved_tensors
+        ell_bar, ls_bar = svc_gram_tiled_batched_backward(x, ell, ls, kbar.contiguous(), ctx.jitter)
+        return None, ell_bar, ls_bar, None
+
+
 _WRAPPERS = {
     "gibbs_gram": gibbs_gram,
     "gibbs_gram_backward": gibbs_gram_backward,
@@ -1152,6 +1290,8 @@ _WRAPPERS = {
     "svc_gram": svc_gram,
     "svc_gram_tiled": svc_gram_tiled,
     "svc_gram_tiled_backward": svc_gram_tiled_backward,
+    "svc_gram_tiled_batched": svc_gram_tiled_batched,
+    "svc_gram_tiled_batched_backward": svc_gram_tiled_batched_backward,
 }
 
 

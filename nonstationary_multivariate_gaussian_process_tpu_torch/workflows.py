@@ -9,12 +9,15 @@ tiers ``gnmgp_sparse``, ``gnmgp_hetero_sparse``, ``snmgp_sparse`` and
 LOO at the inducing inputs, the sparse GNMGP's latent analysis there too),
 with the reference-contract HMC
 sampler (``sampler="hmc"``, any ``hmc_mass``), adaptive NUTS
-(``sampler="nuts"``), delayed-rejection HMC (``sampler="drhmc"``) or
-many-chain ChEES-HMC (``sampler="chees"``), any of them in the natural
-space or whitened (``whiten=True``/``"prior"``, or ``"pncp"`` retuned from a
+(``sampler="nuts"``), delayed-rejection HMC (``sampler="drhmc"``),
+many-chain ChEES-HMC (``sampler="chees"``) or adaptive tempered SMC
+(``sampler="smc"``, its evidence estimate in ``result["sampling"]``; the
+dense GNMGP's population is one batched evaluation,
+``gnmgp.make_objective_batched``, every other objective's one evaluation a
+particle), any of them in the natural space or whitened (``whiten=True``/``"prior"``, or ``"pncp"`` retuned from a
 pilot chain), and, with ``do_loo``, WAIC and PSIS-LOO from the chain.  The
 stages, their order, the result dict and the artifacts written (``data``,
-``map``, ``map_ckpt``, ``hmc``, ``sampling`` for ChEES, ``pred_grid``,
+``map``, ``map_ckpt``, ``hmc``, ``sampling`` for ChEES and SMC, ``pred_grid``,
 ``scores``, ``loo``) are the JAX package's, so a store written here serves
 from either package's engine.
 
@@ -28,9 +31,10 @@ test scoring by the MAP and by the chain, for ``lmc``, ``snmgp`` and
 subject's times; their whiteners and LOO at those inputs).
 
 Not ported yet, and refused with ``ValueError``: inducing-input refinement
-(``refine_z > 0``, which needs K1's gradient in the inputs), and the
-samplers ``"rmhmc"`` (it needs second- and third-order derivatives of the
-Gram kernels K1 and K3), ``"smc"`` and ``"pathfinder"``.  The
+(``refine_z > 0``, which needs K1's gradient in the inputs), the samplers
+``"rmhmc"`` (it needs second- and third-order derivatives of the Gram
+kernels K1 and K3) and ``"pathfinder"``, and SMC's pathfinder reference
+(``smc_ref="pathfinder"``).  The
 heteroscedastic GNMGPs, dense or sparse, have no Hadamard objective in the
 JAX package either, and ``run_subject_hadamard`` refuses them.
 """
@@ -56,6 +60,7 @@ from .inference import hmc
 from .inference import init as init_mod
 from .inference import map as map_mod
 from .inference import nuts
+from .inference import smc as smc_mod
 from .inference import whiten as whiten_mod
 from .models import gnmgp, gnmgp_hetero, gnmgp_sparse, lmc, lmc_sparse, snmgp, snmgp_sparse
 from .models.base import FullData, as_hadamard_data
@@ -82,13 +87,15 @@ SPARSE_APPROXES = ("fitc", "vfe")
 #: The models with a Hadamard-layout objective.
 HADAMARD_MODELS = ("lmc", "snmgp", "gnmgp", "gnmgp_sparse", "snmgp_sparse", "lmc_sparse")
 HMC_MASSES = ("none", "pilot", "window")
-SAMPLERS = ("hmc", "nuts", "drhmc", "chees")
+SAMPLERS = ("hmc", "nuts", "drhmc", "chees", "smc")
 #: The JAX package's samplers that the port refuses, and why.
 UNPORTED_SAMPLERS = {
     "rmhmc": "needs second- and third-order derivatives of K1 and K3 (not yet ported)",
-    "smc": "is not yet ported to the torch package",
     "pathfinder": "is not yet ported to the torch package",
 }
+#: SMC's references: the port runs "prior"; JAX's "pathfinder" waits for the
+#: pathfinder sampler.
+SMC_REFS = ("prior", "pathfinder")
 #: The stream of ChEES's multichain starts (``_pilot_generator``'s tag).
 CHEES_START_TAG = 13
 
@@ -127,7 +134,23 @@ class PipelineConfig:
     #                        warmup, inference/nuts.py) | "drhmc" (delayed
     #                        rejection, inference/drhmc.py) | "chees"
     #                        (lockstep chains with cross-chain adaptive
-    #                        trajectory lengths, inference/chees.py)
+    #                        trajectory lengths, inference/chees.py) | "smc"
+    #                        (adaptive tempered SMC from the prior to the
+    #                        posterior, inference/smc.py; its evidence
+    #                        estimate in result["sampling"]["log_evidence"])
+    smc_particles: int = 0  # smc population size (0 = max(256, n_hmc))
+    smc_mutations: int = 5  # smc batched-HMC decorrelation sweeps per stage
+    smc_leapfrog: int = 10  # smc leapfrog steps per mutation sweep
+    smc_cess: float = 0.5  # smc conditional-ESS target for the beta schedule
+    smc_dr: float = 0.0  # smc >0: delayed-rejection sweeps at eps/this
+    smc_polish: int = 0  # smc extra mutation-only stages at beta=1
+    smc_resample_ess: float = 1.0  # smc <1: resample only when the carried-
+    #                                weight ESS fraction drops below this
+    smc_resample: str = "systematic"  # systematic | stratified | residual | multinomial
+    smc_ref: str = "prior"  # SMC reference: "prior" (N(0, I) in the whitened
+    #                         space); "pathfinder" is not yet ported
+    smc_waste_free: int = 0  # >=2: waste-free SMC with chains of this length
+    smc_metric: str = "full"  # mutation metric: "full" population covariance or "diag"
     dr_stages: int = 3  # drhmc proposal stages (1 = plain HMC)
     dr_reduction: float = 4.0  # drhmc per-stage step-size reduction
     hmc_step_size: float = 1e-4
@@ -165,6 +188,11 @@ class PipelineConfig:
                              f"runs {SAMPLERS})")
         if self.sampler not in SAMPLERS:
             raise ValueError(f"sampler {self.sampler!r} is not yet ported to the torch package (it runs {SAMPLERS})")
+        if self.smc_ref not in SMC_REFS:
+            raise ValueError(f"unknown smc_ref {self.smc_ref!r} (want 'prior' or 'pathfinder')")
+        if self.smc_ref == "pathfinder":
+            raise ValueError("smc_ref='pathfinder' (the multipathfinder reference) is not yet ported to the torch "
+                             "package: it needs the pathfinder sampler")
         if self.hmc_mass not in HMC_MASSES:
             raise ValueError(f"hmc_mass must be one of {HMC_MASSES}, got {self.hmc_mass!r}")
         if self.map_method not in map_mod.METHODS:
@@ -283,21 +311,25 @@ def _pilot_generator(seed: int, tag: int, device) -> torch.Generator:
     return torch.Generator(device).manual_seed(int(state))
 
 
-def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch.Generator, whitener=None):
+def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch.Generator, whitener=None,
+               nlp_batched=None):
     """Posterior sampling stage (JAX ``_run_chain``): the reference-contract
-    HMC, adaptive NUTS, delayed-rejection HMC or ChEES.  Returns ``(samples
-    on the chain's device, mean acceptance)``: (n_hmc, P), or ChEES's
-    chain-major (K·n_hmc, P).  The acceptance is HMC's mean over every draw,
-    warmup included, NUTS's mean leaf acceptance statistic over the kept
-    draws, DRHMC's share of kept draws accepted at any stage, ChEES's mean
-    accept probability over the kept draws of every chain.
+    HMC, adaptive NUTS, delayed-rejection HMC, ChEES or SMC.  Returns
+    ``(samples on the chain's device, mean acceptance)``: (n_hmc, P), or
+    ChEES's chain-major (K·n_hmc, P).  The acceptance is HMC's mean over
+    every draw, warmup included, NUTS's mean leaf acceptance statistic over
+    the kept draws, DRHMC's share of kept draws accepted at any stage,
+    ChEES's mean accept probability over the kept draws of every chain,
+    SMC's last stage's mean accept probability.
     ``cfg.hmc_mass`` picks HMC's preconditioning: "pilot" is the reference's
     pilot-covariance recipe, "window" Stan-style windowed warmup.  With a
     ``whitener`` the chain runs in the whitened space and its samples are
-    mapped back."""
+    mapped back.  ``nlp_batched``, (B, P) → (B,), evaluates SMC's population
+    at once (:func:`_run_chain_smc`)."""
     if whitener is not None:
         samples, accept = _run_chain(
-            whitener.wrap(nlp), whitener.to_white(map_vec), dataclasses.replace(cfg, whiten=False), generator
+            whitener.wrap(nlp), whitener.to_white(map_vec), dataclasses.replace(cfg, whiten=False), generator,
+            nlp_batched=None if nlp_batched is None else whitener.wrap(nlp_batched),
         )
         return whitener.from_white_batch(samples), accept
     if cfg.sampler == "nuts":
@@ -313,6 +345,9 @@ def _run_chain(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch
         return chain.samples, float(torch.mean((chain.accept_stage[n_warm:] > 0).double()))
     if cfg.sampler == "chees":
         samples, accept, _ = _run_chain_chees(nlp, map_vec, cfg, generator)
+        return samples, accept
+    if cfg.sampler == "smc":
+        samples, accept, _ = _run_chain_smc(nlp, map_vec, cfg, generator, nlp_batched=nlp_batched)
         return samples, accept
     mass = None
     if cfg.hmc_mass == "pilot":
@@ -373,8 +408,59 @@ def _run_chain_chees(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator:
     return flat, accept, sampling
 
 
+def _run_chain_smc(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, generator: torch.Generator, whitener=None,
+                   nlp_batched=None):
+    """Adaptive tempered SMC sampling stage (JAX ``_run_chain_smc``, with
+    ``smc_ref="prior"``): a population of ``max(cfg.smc_particles or 256,
+    cfg.n_hmc)`` follows the prior-to-posterior path (``inference/smc.py``)
+    with the config's ``smc_*`` settings, drawn from ``generator``.
+
+    Returns ``(samples, accept, sampling)``: the first ``cfg.n_hmc``
+    natural-space particles (exchangeable, so a valid draw matrix) on the
+    population's device, the last stage's mean accept probability, and the
+    sampler's record (JAX's keys): the population, stages, final beta, the
+    log evidence (``logz``, plus ``Whitener.logdet()`` when whitened), the
+    final accept rate and step size.
+
+    With ``nlp_batched`` ((B, P) → (B,), the dense GNMGP's
+    ``make_objective_batched``) the population is one evaluation
+    (``potential_batched=True``), wrapped by the whitener when there is one;
+    under ``NMGP_PRECISION=mixed``, and for every other objective, each
+    particle is its own evaluation of ``nlp``."""
+    pot = nlp if whitener is None else whitener.wrap(nlp)
+    batched = nlp_batched is not None and not settings.mixed_solves
+    if batched:
+        pot = nlp_batched if whitener is None else whitener.wrap(nlp_batched)
+    # never return fewer draws than asked: the population at least n_hmc
+    n_particles = max(cfg.smc_particles or 256, cfg.n_hmc)
+    r = smc_mod.smc_sample(
+        pot, int(map_vec.shape[0]), generator, n_particles,
+        n_mutations=cfg.smc_mutations, n_leapfrog=cfg.smc_leapfrog,
+        target_cess=cfg.smc_cess, dr_reduction=cfg.smc_dr,
+        metric=cfg.smc_metric, n_polish=cfg.smc_polish,
+        waste_free=cfg.smc_waste_free, resample_ess=cfg.smc_resample_ess,
+        resample=cfg.smc_resample, potential_batched=batched,
+        dtype=map_vec.dtype, device=map_vec.device,
+    )
+    parts = r.particles if whitener is None else whitener.from_white_batch(r.particles)
+    ns = int(r.n_stages)
+    logz = float(r.logz)
+    # n_stages counts tempering and polish stages; the histories hold max_stages
+    last = min(max(ns - 1, 0), int(r.accept.shape[0]) - 1)
+    sampling = {
+        "sampler": "smc",
+        "n_particles": int(n_particles),
+        "n_stages": ns,
+        "beta_final": float(r.beta_final),
+        "log_evidence": logz if whitener is None else logz + float(whitener.logdet()),
+        "final_accept": float(r.accept[last]),
+        "step_size": float(r.step_sizes[last]),
+    }
+    return parts[: cfg.n_hmc], sampling["final_accept"], sampling
+
+
 def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: torch.Tensor, n: int, m: int,
-                            hadamard: bool = False):
+                            hadamard: bool = False, nlp_batched=None):
     """The sampling stage's whitener for ``cfg.whiten`` (JAX
     ``_make_sampling_whitener``), or None; ``hadamard`` takes the Hadamard
     objective's prior defaults (``whiten.make_whitener``).  The sparse
@@ -385,7 +471,8 @@ def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: 
     non-centered, a prior-whitened eigen-mode pilot chain of
     ``cfg.pncp_pilot`` draws estimates every eigendirection's posterior
     scale and ``whiten.retune`` rebuilds the map around it; the pilot draws
-    from the stream JAX derives as ``fold_in(key, 11)``.
+    from the stream JAX derives as ``fold_in(key, 11)`` (an SMC pilot's
+    population evaluates through ``nlp_batched`` where given).
     """
     if not cfg.whiten:
         return None
@@ -394,7 +481,7 @@ def _make_sampling_whitener(nlp, map_vec: torch.Tensor, cfg: PipelineConfig, x: 
     if cfg.whiten == "pncp":
         w = whiten_mod.make_whitener(model_name, x, n, m, cfg.hyper, hadamard=hadamard, mode="eig")
         pilot, _ = _run_chain(nlp, map_vec, dataclasses.replace(cfg, n_hmc=cfg.pncp_pilot, whiten=False),
-                              _pilot_generator(cfg.seed, 11, map_vec.device), whitener=w)
+                              _pilot_generator(cfg.seed, 11, map_vec.device), whitener=w, nlp_batched=nlp_batched)
         return whiten_mod.retune(w, pilot, interp=cfg.pncp_interp)
     if cfg.whiten in (True, "prior"):
         return whiten_mod.make_whitener(model_name, x, n, m, cfg.hyper, hadamard=hadamard)
@@ -507,11 +594,18 @@ def run_subject(
 
     if cfg.do_hmc and map_vec is not None:
         t0 = time.time()
+        # SMC's population of the dense GNMGP is one batched evaluation
+        nlp_b = gnmgp.make_objective_batched(data, hyper=cfg.hyper) if (
+            cfg.sampler == "smc" and cfg.model == "gnmgp") else None
         # the sparse layout is the dense one at the inducing inputs
-        whitener = _make_sampling_whitener(nlp, map_vec, cfg, sp_z if sparse else xd, m_z if sparse else n, m)
+        whitener = _make_sampling_whitener(nlp, map_vec, cfg, sp_z if sparse else xd, m_z if sparse else n, m,
+                                           nlp_batched=nlp_b)
         generator = torch.Generator(device).manual_seed(cfg.seed)
         if cfg.sampler == "chees":
             samples, accept, result["sampling"] = _run_chain_chees(nlp, map_vec, cfg, generator, whitener=whitener)
+        elif cfg.sampler == "smc":
+            samples, accept, result["sampling"] = _run_chain_smc(nlp, map_vec, cfg, generator, whitener=whitener,
+                                                                 nlp_batched=nlp_b)
         else:
             samples, accept = _run_chain(nlp, map_vec, cfg, generator, whitener=whitener)
         result["timings"]["hmc"] = time.time() - t0

@@ -77,9 +77,10 @@ def test_cli_on_a_sim_pickle_matches_run_subject(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,value,rest", [
-    # every model is ported: the sparse tiers' cases now refuse the samplers that are not
-    ("--model", "snmgp_sparse", ["--sampler", "pathfinder"]), ("--model", "gnmgp_hetero_sparse", ["--sampler", "smc"]),
-    ("--sampler", "rmhmc", []), ("--sampler", "smc", []),
+    # every model is ported: the sparse tiers' cases refuse the samplers that are not;
+    # SMC runs, its pathfinder reference does not
+    ("--model", "snmgp_sparse", ["--sampler", "pathfinder"]), ("--model", "gnmgp_hetero_sparse", ["--sampler", "rmhmc"]),
+    ("--sampler", "rmhmc", []), ("--sampler", "smc", ["--smc-ref", "pathfinder"]),
 ], ids=["--model-snmgp_sparse", "--model-gnmgp_hetero_sparse", "--sampler-rmhmc", "--sampler-smc"])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flag, value, rest):
     with pytest.raises(SystemExit) as ei:
