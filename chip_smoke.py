@@ -119,14 +119,14 @@ Phases, each printing its lines:
                chain of 6 draws at max_depth 5 on the card and on the CPU
                with the same injected noise: equal tree depths, leaf counts
                and divergence flags, draws at rtol 1e-6; then the CLI with
-               ``--sampler nuts --whiten prior`` at N=48, max_depth 5, into
+               ``--sampler nuts --whiten prior`` at N=48, max_depth 4, into
                ``chiprun_out/cli_nuts``.  (b) at N=1000, M=2, f64 from a MAP
                at ``n_opt=30``: GNMGP through ``run_subject(sampler="nuts",
-               whiten="prior", do_loo=True)`` with 10 warmup and 10 kept
+               whiten="prior", do_loo=True)`` with 5 warmup and 10 kept
                draws (max_depth 6), and LMC, SNMGP and the hetero GNMGP
                through ``nuts_sample`` on their prior-whitened potentials
-               with 10 + 10 draws at max_depth 6 (the hetero model also
-               with 50 warmup draws, cut from run_subject's default 100), all at the
+               with 5 + 10 draws at max_depth 6 (the hetero model also
+               with 30 warmup draws, cut from run_subject's default 100), all at the
                default step (1e-4) and target: draws/s, gradients/s, tree depths,
                divergences, acceptance, the adapted step and the distinct
                kept draws; K3 and its backward (GNMGP, hetero) or K1 and its
@@ -198,7 +198,7 @@ Phases, each printing its lines:
                do_loo=True, n_opt=30)`` with the default chain into a store,
                its stages, acceptance, elpd_loo and the launches of its
                chain, DIC and LOO stages counted exactly; prior-whitened NUTS
-               from that MAP (10 + 10 draws, max_depth 6); ``mode="map"`` and
+               from that MAP (5 + 10 draws, max_depth 6); ``mode="map"`` and
                ``mode="sample"`` over HTTP at 201 points (warm latencies,
                exact launches, the map answer against the CPU); one gradient
                under NMGP_PRECISION=mixed against f64; the card against the
@@ -270,11 +270,30 @@ Phases, each printing its lines:
                gradient and one backward a gradient, no single-member K3 in
                the sampler; stages, particle gradients/s, accept, step; one
                stage profiled.  (d) The row route: SNMGP's ``smc_sample``
-               (16 particles, 2 stages) with K1's launches counted against
+               (8 particles, 2 stages) with K1's launches counted against
                rows × evaluations, and ``run_subject_hadamard(sampler=
                "smc")`` on a subject of 60 times (16 particles, 2 × 5
                sweeps).
-18. summary  — one JSON line listing every kernel, the card's name and power
+18. refine   — (inducing-input refinement, no device named) (a) the
+               backward kernels with x̄ (K1's self form at N=1000 and 64, its
+               cross form at 2000×64, K3 at (1000, 2), (64, 2) and (1000, 9), f64,
+               and untimed at other tiles, column groups and in f32): x̄
+               within GRAD_TOL of the plain version, the other outputs
+               bit-equal to the launch without x̄; timed with and without
+               x̄ in turns, the plain version and the bound.  (b)
+               ``run_subject(model="gnmgp_sparse", refine_z=2)`` and
+               ``run_subject(model="snmgp_sparse", refine_z=1)`` at N=2000,
+               m_z=64: the refine stage's seconds and launches, exactly: a
+               Z-step one K1 cross form and K3 (the GNMGP) or K1's self and
+               cross forms (the separable tier), their backwards asked for x̄,
+               and the same launches without x̄ a refit gradient, their
+               forwards a value; the Z-gradients/s at the refined Z and a
+               profile.
+               (c) ``refine_inducing`` on the card against the CPU at N=200,
+               m_z=16 (10 Z-steps, 20 refit iterations) for the four sparse
+               models in the full layout and three in the Hadamard layout:
+               Z and the vector within 1e-6.
+19. summary  — one JSON line listing every kernel, the card's name and power
                limit, and the final JSON line.
 
 Any failed check raises and exits non-zero.  With no CUDA device, or without
@@ -462,16 +481,19 @@ MODELS_CHECK_DRAWS = 4
 #: draws, max_depth); the CLI at N=NUTS_CLI_N with NUTS_CLI_HMC draws (and
 #: the CLI's max(100, n_hmc) warmup draws, which at the default max_depth 8
 #: ran most of their trees to 255 leaves and took 115-170 s: the CLI has no
-#: depth flag, so its sampler's max_depth is cut to NUTS_CLI_DEPTH); at N=TRAIN_N each model's chain takes
+#: depth flag, so its sampler's max_depth is cut to NUTS_CLI_DEPTH, 4 since the
+#: refine phase joined the smoke: at 5 it took 30-45 s); at N=TRAIN_N each model's chain takes
 #: NUTS_WARMUP + NUTS_DRAWS draws at max_depth NUTS_MODEL_DEPTH (GNMGP
 #: through run_subject too: at the default 8 its trees ran to 255 leaves and
 #: the chain took 32-64 s), and the hetero model once more with NUTS_HETERO_WARMUP warmup draws
 #: (cut from run_subject's default 100 when the sparse phase joined the
-#: smoke: at 100 its chain took 27.7-37.7 s).  Each leaf is one gradient, so each chain
-#: launches the kernels of its model's gradient 1 + Σ n_leapfrog times.
+#: smoke: at 100 its chain took 27.7-37.7 s; to 30 from 50, and every
+#: chain's warmup from 10 draws to 5, when the refine phase joined it).  Each
+#: leaf is one gradient, so each chain launches the kernels of its model's
+#: gradient 1 + Σ n_leapfrog times.
 NUTS_CHECK_N, NUTS_CHECK_WARMUP, NUTS_CHECK_DRAWS, NUTS_CHECK_DEPTH = 200, 3, 3, 5
-NUTS_CLI_N, NUTS_CLI_HMC, NUTS_CLI_DEPTH = 48, 4, 5
-NUTS_WARMUP, NUTS_DRAWS, NUTS_MODEL_DEPTH, NUTS_HETERO_WARMUP = 10, 10, 6, 50
+NUTS_CLI_N, NUTS_CLI_HMC, NUTS_CLI_DEPTH = 48, 4, 4
+NUTS_WARMUP, NUTS_DRAWS, NUTS_MODEL_DEPTH, NUTS_HETERO_WARMUP = 5, 10, 6, 30
 NUTS_KERNELS = {"gnmgp": HMC_KERNELS, "gnmgp_hetero": HMC_KERNELS,
                 "lmc": ("gibbs_gram", "gibbs_gram_backward"), "snmgp": ("gibbs_gram", "gibbs_gram_backward")}
 
@@ -2507,8 +2529,8 @@ def phase_hadamard(torch, np, gk, seed) -> dict:
     originals = (map_mod.fit_map, workflows._run_chain, evaluate.chain_conditional_loglik_hadamard, predictors)
     chain: dict = {}
 
-    def kept_result(*args, **kwargs):
-        chain["res"] = nuts_sample(*args, **kwargs)
+    def kept_result(*args, **kwargs):  # at max_depth NUTS_MODEL_DEPTH (8, run_subject's, took 21-35 s)
+        chain["res"] = nuts_sample(*args, **kwargs, max_depth=NUTS_MODEL_DEPTH)
         return chain["res"]
 
     map_mod.fit_map = counted("map", originals[0])
@@ -2543,8 +2565,8 @@ def phase_hadamard(torch, np, gk, seed) -> dict:
                 f"{TRAIN_N_OPT} do_hmc do_loo on {res['hmc_samples'].device} (no device named): {wall:.3f} s; stages "
                 f"(s): " + ", ".join(f"{k} {v:.3f}" for k, v in res["timings"].items())
                 + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-            sampler = (f"NUTS, whiten=prior, {cfg.hmc_warmup} warmup + {cfg.n_hmc} draws (max_depth 8): "
-                       + nuts_stats(torch, chain["res"], cfg.hmc_warmup, 8) if with_nuts else
+            sampler = (f"NUTS, whiten=prior, {cfg.hmc_warmup} warmup + {cfg.n_hmc} draws (max_depth {NUTS_MODEL_DEPTH}): "
+                       + nuts_stats(torch, chain["res"], cfg.hmc_warmup, NUTS_MODEL_DEPTH) if with_nuts else
                        f"{cfg.n_hmc} draws x {cfg.hmc_leapfrog} leapfrog steps at {cfg.hmc_step_size}")
             log("hadamard", f"{label} chain: {sampler}; {(cfg.n_hmc + cfg.hmc_warmup) / t_chain:.3f} draws/s, "
                 f"{n_grads / t_chain:.3f} gradients/s ({n_grads} gradients in {t_chain:.3f} s); mean acceptance "
@@ -4252,10 +4274,11 @@ def phase_sparse_hadamard(torch, np, gk, seed) -> dict:
 #: particles and SMC_HADAMARD_SWEEPS (sweeps, leapfrog steps) a stage: at the
 #: default 5 × 10 its row route ran 5,301 gradients in 58.3 s of a 165.5 s
 #: phase (PERF.md §6), so its depth is cut to keep the smoke inside its
-#: limit.
+#: limit; the SNMGP row route took 26.0 s at 16 particles, cut to 8 when the
+#: refine phase joined the smoke.
 SMC_KERNEL_SHAPES = ((256, 200, 2), (16, 1000, 2), (8, 200, 9))
 SMC_N, SMC_M, SMC_POPULATION, SMC_OBJECTIVE_RTOL = 200, 2, 256, 1e-10
-SMC_ROW_PARTICLES, SMC_ROW_STAGES, SMC_HADAMARD_N, SMC_HADAMARD_PARTICLES = 16, 2, 60, 16
+SMC_ROW_PARTICLES, SMC_ROW_STAGES, SMC_HADAMARD_N, SMC_HADAMARD_PARTICLES = 8, 2, 60, 16
 SMC_HADAMARD_SWEEPS = (2, 5)
 #: The chunked route of the batched objective: a population of SMC_CHUNK_B
 #: members at N=SMC_CHUNK_N evaluated SMC_CHUNK_ROWS members a chunk.
@@ -4648,10 +4671,318 @@ def phase_smc(torch, np, gk, seed) -> dict:
     return {"kernels": rows, "objective": objective, "path": path, "rows": smc_rows(torch, np, gk, seed)}
 
 
+#: The refine phase's backward kernels with x̄ (K1's self and cross forms,
+#: K3 on its tiled and generic routes), at the kernel table's shapes: timed
+#: with and without x̄.  Then untimed shapes that take the other tiles,
+#: column groups and the float32 build.
+REFINE_K1_N, REFINE_K1X, REFINE_K3 = (1000, 64), (2000, 64), ((1000, 2), (64, 2), (1000, 9))
+REFINE_UNTIMED = (("k1", 257, "float64"), ("k1x", (1000, 256), "float64"), ("k3", (257, 5), "float64"),
+                  ("k3", (40, 9), "float64"), ("k1", 600, "float32"), ("k1x", (300, 64), "float32"),
+                  ("k3", (200, 2), "float32"), ("k3", (64, 12), "float32"))
+REFINE_KERNELS = ("gibbs_gram_backward", "gibbs_gram_cross_backward", "svc_gram_tiled_backward")
+
+
+def refine_kernel_case(torch, gk, settings, gen, kind, shape, dn):
+    """One backward case with x̄: ``(label, kernel name, with x̄, without,
+    plain with x̄, bytes, operations)``, the inputs drawn from ``gen``."""
+    dtype, jit = getattr(torch, dn), settings.jitter
+    size = torch.tensor([], dtype=dtype).element_size()
+    if kind == "k1":
+        n = shape
+        x, s, l = kernel_inputs(torch, gen, n, dtype, DEVICE)
+        kb = torch.randn(n, n, generator=gen, dtype=torch.float64).to(DEVICE, dtype)
+        return (f"gibbs_gram_backward N={n} {dn}", "gibbs_gram_backward",
+                lambda: gk.gibbs_gram_backward(x, s, l, kb, jit, input_grad=True),
+                lambda: gk.gibbs_gram_backward(x, s, l, kb, jit),
+                lambda: gk.gibbs_gram_backward_plain(x, s, l, jit, kb, input_grad=True),
+                # K̄ and x, σ, ℓ read once, σ̄, ℓ̄, x̄ written once; ~34 operations an unordered pair
+                (n * n + 6 * n) * size, n * n * 17)
+    if kind == "k1x":
+        n1, n2 = shape
+        x1, s1, l1 = kernel_inputs(torch, gen, n1, dtype, DEVICE)
+        x2, s2, l2 = kernel_inputs(torch, gen, n2, dtype, DEVICE)
+        kb = torch.randn(n1, n2, generator=gen, dtype=torch.float64).to(DEVICE, dtype)
+        args = (x1, s1, l1, x2, s2, l2, kb)
+        return (f"gibbs_gram_cross_backward {n1}x{n2} {dn}", "gibbs_gram_cross_backward",
+                lambda: gk.gibbs_gram_cross_backward(*args, input_grad=True),
+                lambda: gk.gibbs_gram_cross_backward(*args),
+                lambda: gk.gibbs_gram_cross_backward_plain(*args, input_grad=True),
+                n1 * n2 * size + 6 * (n1 + n2) * size, n1 * n2 * 36)
+    n, m = shape
+    x, ell, ls, kb = smc_kernel_inputs(torch, gen, 1, n, m, dtype, DEVICE)
+    ell, ls, kb = ell[0], ls[0], kb[0]
+    nm = n * m
+    ops = n * n * 30 + nm * nm * ((2 * m + 1) if m > gk.K3_MAX_M else (4 * m + 3))
+    return (f"svc_gram_tiled_backward N={n} M={m} {dn}", "svc_gram_tiled_backward",
+            lambda: gk.svc_gram_tiled_backward(x, ell, ls, kb, jit, input_grad=True),
+            lambda: gk.svc_gram_tiled_backward(x, ell, ls, kb, jit),
+            lambda: gk.svc_gram_tiled_backward_plain(x, ell, ls, jit, kb, input_grad=True),
+            (nm * nm + 3 * n + 2 * n * m * m) * size, ops)
+
+
+def refine_kernels(torch, np, gk, settings, seed) -> dict:
+    """(a) The backward kernels with x̄ on the card: each case against its
+    plain version (x̄ and the other outputs within the backward checks'
+    tolerance), the outputs it shares with the launch without x̄ equal to
+    that launch's bit for bit, and both launches bit-equal on a repeat; at
+    the table's shapes (float64) the times with and without x̄ (in turns),
+    the plain version's and the bound.  Returns the kernels line's numbers
+    by kernel, at the refine path's shapes."""
+    gen = torch.Generator().manual_seed(seed + 2200)
+    timed = ([("k1", n, "float64") for n in REFINE_K1_N] + [("k1x", REFINE_K1X, "float64")]
+             + [("k3", s, "float64") for s in REFINE_K3])
+    # the refine paths' shapes: K_zz and K_mm at m_z, K_xz at N x m_z
+    path_labels = {"gibbs_gram_backward": f"gibbs_gram_backward N={SPARSE_M_Z} float64",
+                   "gibbs_gram_cross_backward": f"gibbs_gram_cross_backward {REFINE_K1X[0]}x{REFINE_K1X[1]} float64",
+                   "svc_gram_tiled_backward": f"svc_gram_tiled_backward N={SPARSE_M_Z} M=2 float64"}
+    rows, table = {}, {}
+    for kind, shape, dn in timed + list(REFINE_UNTIMED):
+        label, name, with_x, without, plain, nbytes, ops = refine_kernel_case(torch, gk, settings, gen, kind,
+                                                                              shape, dn)
+        got, base = with_x(), without()
+        k = len(base)
+        if len(got) != k + (2 if kind == "k1x" else 1):
+            raise AssertionError(f"{label}: {len(got)} outputs with x̄")
+        for i in range(k):
+            if not torch.equal(got[i], base[i]):
+                raise AssertionError(f"{label}: output {i} differs from the launch without x̄")
+        again = with_x()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: two launches with x̄ differ")
+        want = plain()
+        err = check_grad(torch, f"{label} (with x̄)", got, want, dn)
+        err_x = check_grad(torch, f"{label} x̄", got[k:], want[k:], dn)
+        del got, base, again, want
+        torch.cuda.synchronize()
+        if (kind, shape, dn) not in timed:
+            log("refine", f"{label}: x̄ within {err_x:.3e} of the plain version; the other outputs bit-equal to "
+                "the launch without x̄")
+            continue
+        # in turns: without, with, with, without
+        t = [time_ms(torch, f) for f in (without, with_x, with_x, without)]
+        ms, ms_without = statistics.mean(t[1:3]), statistics.mean((t[0], t[3]))
+        slow = kind == "k3" and shape[1] > gk.K3_MAX_M
+        plain_ms = time_ms(torch, plain, 3, 1) if slow or kind != "k3" else time_ms(torch, plain, 3, 3)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dn] * 1e3
+        row = {"ms": ms, "ms_without_x": ms_without, "plain_ms": plain_ms, "max_abs_err": err,
+               "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        table[label] = row
+        log("refine", f"{label}: x̄ within {err_x:.3e} of the plain version, the other outputs bit-equal to the "
+            f"launch without x̄; ms with x̄ {ms:.5f} ({t[1]:.5f}, {t[2]:.5f}), without {ms_without:.5f} "
+            f"({t[0]:.5f}, {t[3]:.5f}), x{ms / ms_without:.3f}; plain_ms={plain_ms:.5f} "
+            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; bytes {bytes_ms:.5f}, operations "
+            f"{ops_ms:.5f}), {100 * row['bound_ms'] / ms:.1f}% of it")
+    for name, label in path_labels.items():
+        rows[name] = {**table[label], "shape": label}
+    return {"rows": rows, "table": table}
+
+
+#: (b) the refine path: run_subject(model="gnmgp_sparse", refine_z=REFINE_ROUNDS) at N=SPARSE_N,
+#: m_z=SPARSE_M_Z (the JAX tier's headline shape) with the default Z-steps a
+#: round; (c) card against CPU: refine_inducing at N=SPARSE_CHECK_N,
+#: m_z=SPARSE_CHECK_M_Z, one round of REFINE_CHECK_ITERS (Z-steps, refit
+#: iterations), every model in the full layout and the three in the
+#: Hadamard layout.
+REFINE_ROUNDS, REFINE_CHECK_ITERS, REFINE_CHECK_RTOL, REFINE_RATE_STEPS = 2, (10, 20), 1e-6, 10
+#: The refine paths, (model, rounds), with each kernel's launches in one
+#: Z-step (a gradient in z, each backward asked for x̄), which is also one
+#: refit gradient's (no x̄) and, forwards alone, one value's: the sparse
+#: GNMGP takes K3 for K_mm and K1's cross form for K_xz; the separable tier
+#: takes K1's self form for K_zz and its cross form for K_xz.  The separable
+#: tier's one round is the path on which K1's self form gives x̄.
+REFINE_PATHS = (("gnmgp_sparse", REFINE_ROUNDS), ("snmgp_sparse", 1))
+REFINE_Z_STEP = {"gnmgp_sparse": {"gibbs_gram": 1, "gibbs_gram_cross_backward": 1, "svc_gram_tiled": 1,
+                                  "svc_gram_tiled_backward": 1},
+                 "snmgp_sparse": {"gibbs_gram": 2, "gibbs_gram_backward": 1, "gibbs_gram_cross_backward": 1}}
+REFINE_FORWARDS = ("gibbs_gram", "svc_gram_tiled")
+
+
+def refine_subject(np, seed: int, n: int, hadamard: bool):
+    """Two smooth tasks with noise (numpy, sorted x); with ``hadamard`` each
+    (time, channel) cell kept with probability 0.7: x, indx, y."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(size=n))
+    y = np.stack([np.sin(8 * x), np.cos(5 * x) * (1 + x)], axis=1) + 0.1 * rng.normal(size=(n, 2))
+    if not hadamard:
+        return x, y
+    ti, indx = np.nonzero(rng.uniform(size=(n, 2)) < 0.7)
+    return x[ti], indx, y[ti, indx]
+
+
+def refine_start(np, model: str, m_z: int, seed: int):
+    """A start vector of ``model`` at m_z inducing inputs (M=2): short smooth
+    latents, small task factors, noise variance e^-3."""
+    rng = np.random.default_rng(seed)
+    parts = {"gnmgp_sparse": [-1.5 + 0.1 * rng.normal(size=m_z), 0.3 * rng.normal(size=3 * m_z), [-3.0]],
+             "gnmgp_hetero_sparse": [-1.5 + 0.1 * rng.normal(size=m_z), 0.3 * rng.normal(size=3 * m_z),
+                                     -3.0 + 0.1 * rng.normal(size=2 * m_z)],
+             "snmgp_sparse": [-1.5 + 0.1 * rng.normal(size=m_z), 0.1 * rng.normal(size=m_z), 0.3 * rng.normal(size=3),
+                              [-3.0]],
+             "lmc_sparse": [[-1.5, 0.0], 0.3 * rng.normal(size=3), [-3.0]]}[model]
+    return np.concatenate(parts)
+
+
+def refine_path(torch, np, gk, seed, model: str, rounds: int) -> dict:
+    """(b) ``run_subject(model=model, refine_z=rounds)`` at N=SPARSE_N,
+    m_z=SPARSE_M_Z, no device named: the refine stage's wall seconds and
+    launches (the counts set to 0 as the stage starts and read as it ends),
+    held exactly to REFINE_Z_STEP a Z-step (the backwards' launches asked
+    for x̄ are the Z-steps') plus a Z-step's launches a refit gradient and
+    its forwards a value (the refit's objective counted by a wrapper); then
+    the Z-gradients/s of the traced objective at the refined Z."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.inference import map as map_mod
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp_sparse
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+    x, y = refine_subject(np, seed + 2210, SPARSE_N, False)
+    cfg = workflows.PipelineConfig(model=model, n_inducing=SPARSE_M_Z, n_opt=TRAIN_N_OPT, do_hmc=False,
+                                   refine_z=rounds)
+    calls = {"gradient": 0, "value": 0}
+    stage: dict = {}
+    fit_map, refine = map_mod.fit_map, gnmgp_sparse.refine_inducing
+
+    def counted_fit_map(nlp, *args, **kwargs):  # the refit's evaluations, by kind
+        def f(v):
+            calls["gradient" if torch.is_grad_enabled() and v.requires_grad else "value"] += 1
+            return nlp(v)
+        return fit_map(f, *args, **kwargs)
+
+    def counted_refine(*args, **kwargs):
+        gk.reset_launches()  # the refine stage starts here
+        t0 = time.perf_counter()
+        map_mod.fit_map = counted_fit_map
+        try:
+            out = refine(*args, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            map_mod.fit_map = fit_map
+        stage["launches"], stage["input_grad"] = gk.launches(), gk.input_grad_launches()  # and ends here
+        stage["seconds"] = time.perf_counter() - t0
+        return out
+
+    gnmgp_sparse.refine_inducing = counted_refine
+    try:
+        t0 = time.perf_counter()
+        res = workflows.run_subject(x, y, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gnmgp_sparse.refine_inducing = refine
+    steps = rounds * cfg.refine_z_iters
+    # each round closes with one value of the refit objective (refine_inducing's final_nlp)
+    values = calls["value"] + rounds
+    z_step = REFINE_Z_STEP[model]
+    want = {k: z_step.get(k, 0) * (steps + calls["gradient"] + (values if k in REFINE_FORWARDS else 0))
+            for k in gk.launches()}
+    want_x = {k: steps if k in z_step else 0 for k in gk.input_grad_launches()}
+    if stage["launches"] != want or stage["input_grad"] != want_x:
+        raise AssertionError(f"refine {model}: the refine stage launched {stage['launches']} ({stage['input_grad']} "
+                             f"asked for x̄); expected {want} ({want_x}) for {steps} Z-steps, {calls['gradient']} "
+                             f"refit gradients and {values} values")
+    z = torch.as_tensor(res["refined_z"], dtype=torch.float64, device=DEVICE)
+    if z.shape != (SPARSE_M_Z,) or not bool(torch.isfinite(z).all()) or not bool((z[1:] > z[:-1]).all()):
+        raise AssertionError(f"refine {model}: refined Z {res['refined_z']} is not {SPARSE_M_Z} sorted finite inputs")
+    if not all(np.isfinite(float(res[k])) for k in ("deviance", "aic", "bic")) \
+            or not bool(torch.isfinite(res["map_vec"]).all()):
+        raise AssertionError(f"refine {model}: non-finite scores or MAP after refinement")
+    # the Z-gradient rate of the traced objective at the refined Z
+    data = FullData(torch.as_tensor(x, device=DEVICE), torch.as_tensor(y, device=DEVICE))
+    _, nlp_z, _ = gnmgp_sparse._z_objective(data, SPARSE_M_Z, None, None, cfg.sparse_approx, True, None, None, model)
+    vec = res["map_vec"].detach()
+
+    def z_grad():
+        with torch.enable_grad():
+            zc = z.detach().requires_grad_(True)
+            return torch.autograd.grad(nlp_z(zc, vec), zc)[0]
+
+    rates = []
+    for _ in range(3):
+        z_grad()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REFINE_RATE_STEPS):
+            z_grad()
+        torch.cuda.synchronize()
+        rates.append(REFINE_RATE_STEPS / (time.perf_counter() - t0))
+    gk.reset_launches()
+    g = z_grad()
+    torch.cuda.synchronize()
+    one = {k: v for k, v in gk.launches().items() if v}
+    if one != z_step or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"refine {model}: one Z-gradient launched {one}, expected {z_step}")
+    wall_ms, device_ms, kinds, top = device_profile(torch, z_grad)
+    log("refine", f"run_subject({model}, refine_z={rounds}, refine_z_iters={cfg.refine_z_iters}) N={SPARSE_N} "
+        f"m_z={SPARSE_M_Z} M=2 f64: {wall:.3f} s, the refine stage {res['timings']['refine_z']:.3f} s ({steps} "
+        f"Z-steps, {calls['gradient']} refit gradients, {values} values); its launches {stage['launches']}, asked "
+        f"for x̄ {stage['input_grad']} (exact)")
+    log("refine", f"{model} Z-gradients/s at the refined Z: {statistics.median(rates):.3f} (median of 3 batches of "
+        f"{REFINE_RATE_STEPS}; min {min(rates):.3f}, max {max(rates):.3f}); one Z-gradient launched {one}; wall "
+        f"{wall_ms:.3f} ms, device {device_ms:.3f} ms (busy share {device_ms / wall_ms:.3f}), {kinds} kernel kinds")
+    for ms, count, key in top:
+        log("profile", f"  {ms:9.4f} ms x{count:<3d} {key}")
+    return {"seconds": res["timings"]["refine_z"], "wall": wall, "z_gradients_per_s": statistics.median(rates),
+            "launches": stage["launches"], "input_grad": stage["input_grad"], "steps": steps}
+
+
+def refine_check(torch, np, gk, seed) -> None:
+    """(c) ``refine_inducing`` on the card against the CPU for every sparse
+    model in the full layout and the three in the Hadamard layout, at
+    N=SPARSE_CHECK_N, m_z=SPARSE_CHECK_M_Z, one round of REFINE_CHECK_ITERS:
+    the refined Z and vector within REFINE_CHECK_RTOL (a floor of it times
+    the largest |entry|)."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import workflows
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp_sparse
+    from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData, as_hadamard_data
+
+    z_iters, vec_iters = REFINE_CHECK_ITERS
+    cases = [(m, False) for m in workflows.SPARSE_MODELS] + [(m, True) for m in ("gnmgp_sparse", "snmgp_sparse",
+                                                                                  "lmc_sparse")]
+    for i, (model, hadamard) in enumerate(cases):
+        sub = refine_subject(np, seed + 2220 + i, SPARSE_CHECK_N, hadamard)
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            if hadamard:
+                data = as_hadamard_data(*sub, device=dev, dtype=torch.float64)
+            else:
+                data = FullData(*(torch.as_tensor(a, dtype=torch.float64, device=dev) for a in sub))
+            z0 = gnmgp_sparse.choose_inducing(data.x, SPARSE_CHECK_M_Z)
+            vec0 = torch.as_tensor(refine_start(np, model, z0.shape[0], seed + i), dtype=torch.float64, device=dev)
+            t0 = time.perf_counter()
+            z, vec, _, final = gnmgp_sparse.refine_inducing(data, z0, vec0, n_rounds=1, z_iters=z_iters,
+                                                            vec_iters=vec_iters, m=2 if hadamard else None,
+                                                            model=model)
+            out[dev] = (z.cpu().numpy(), vec.cpu().numpy(), final, time.perf_counter() - t0)
+        (zg, vg, fg, tg), (zc, vc, fc, tc) = out[DEVICE], out["cpu"]
+        z_err, vec_err = held(np, zg, zc, REFINE_CHECK_RTOL), held(np, vg, vc, REFINE_CHECK_RTOL)
+        if not abs(fg - fc) <= REFINE_CHECK_RTOL * abs(fc):
+            raise AssertionError(f"refine {model}: final objective {fg!r} on the card, {fc!r} on the CPU")
+        if np.allclose(zg, gnmgp_sparse.choose_inducing(torch.as_tensor(sub[0]), SPARSE_CHECK_M_Z).numpy()):
+            raise AssertionError(f"refine {model}: Z did not move")
+        log("refine", f"{model} {'Hadamard' if hadamard else 'full'} layout, N={SPARSE_CHECK_N} m_z={zg.shape[0]}, "
+            f"{z_iters} Z-steps, {vec_iters} refit iterations: card vs CPU z within {z_err[0]:.3e} (rel), vec within "
+            f"{vec_err[0]:.3e}, final objective {fg:.10e} vs {fc:.10e}; {tg:.3f} s on the card, {tc:.3f} s on the CPU")
+
+
+def phase_refine(torch, np, gk, seed) -> dict:
+    """Inducing-input refinement on the card: (a) the backward kernels with
+    x̄, (b) the refine paths, (c) card against CPU for every model."""
+    from nonstationary_multivariate_gaussian_process_tpu_torch import settings
+
+    kernels = refine_kernels(torch, np, gk, settings, seed)
+    paths = {model: refine_path(torch, np, gk, seed, model, rounds) for model, rounds in REFINE_PATHS}
+    refine_check(torch, np, gk, seed)
+    for name, row in kernels["rows"].items():
+        # launches asked for x̄ in the refine stages of (b), by model
+        row["launches_refine"] = {model: p["input_grad"][name] for model, p in paths.items()}
+        row["launches"] = sum(row["launches_refine"].values())
+    return {"kernels": kernels, "paths": paths}
+
+
 #: The phases after the build, in the order they run, and the phases whose
 #: results each takes (a named phase runs those too).
 PHASES = ("kernels", "serving", "drift", "objective", "training", "hmc", "chain", "models", "nuts", "hadamard",
-          "precision", "samplers", "sparse", "sparse_models", "sparse_hadamard", "smc")
+          "precision", "samplers", "sparse", "sparse_models", "sparse_hadamard", "smc", "refine")
 PHASE_NEEDS = {"drift": ("serving",), "chain": ("hmc",), "nuts": ("models",), "precision": ("hmc",),
                "samplers": ("hmc", "models")}
 
@@ -4734,6 +5065,7 @@ def main() -> int:
     run("sparse_models", phase_sparse_models, args.seed)
     run("sparse_hadamard", phase_sparse_hadamard, args.seed)
     run("smc", phase_smc, args.seed)
+    run("refine", phase_refine, args.seed)
 
     pallas = "nonstationary_multivariate_gaussian_process_tpu/ops/pallas_kernels.py"
     # a backward kernel names the TPU kernel whose gradient it computes (the
@@ -4795,6 +5127,16 @@ def main() -> int:
                         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
                         "library_ms": None, "single_launch_loop_ms": r["single_launch_loop_ms"],
                         "launches_per_population_gradient": r["launches_per_population_gradient"]})
+    for name, r in res["refine"]["kernels"]["rows"].items() if "refine" in res else ():
+        # the backward kernels asked for x̄ (slice 22): the gradient in the
+        # inputs that inducing-input refinement takes, one more output of
+        # the same launch
+        kernels.append({"name": f"{name}+input_grad", "route": "cuda",
+                        "source": f"nonstationary_multivariate_gaussian_process_tpu_torch/csrc/{gk.SOURCES[name]}.cu",
+                        "replaces": replaces[name], "launches": r["launches"],
+                        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+                        "library_ms": None, "ms_without_input_grad": r["ms_without_x"], "shape": r["shape"],
+                        "launches_refine": r["launches_refine"]})
     joined = lambda counts, keep=bool: "; ".join(
         f"{label}: " + ", ".join(f"{k} {v}" for k, v in c.items() if keep(v)) for label, c in counts.items())
     if "serving" in res:
@@ -4824,6 +5166,10 @@ def main() -> int:
         log("summary", f"SMC at N={SMC_N}, {sp['sampling']['n_particles']} particles: {sp['sampling']['n_stages']} "
             f"stages in {sp['seconds']:.3f} s, {sp['calls']['gradient']} population gradients; the sampling stage "
             f"launched {sp['launches']}; the row route {res['smc']['rows']}")
+    for model, rp in res["refine"]["paths"].items() if "refine" in res else ():
+        log("summary", f"refine {model} at N={SPARSE_N}, m_z={SPARSE_M_Z}: the refine stage {rp['seconds']:.3f} s, "
+            f"{rp['z_gradients_per_s']:.3f} Z-gradients/s, {rp['steps']} Z-steps; its launches {rp['launches']}, "
+            f"asked for x̄ {rp['input_grad']}")
     log("summary", f"the smoke took {time.perf_counter() - t_smoke:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

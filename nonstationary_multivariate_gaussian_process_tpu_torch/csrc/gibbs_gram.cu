@@ -50,7 +50,15 @@
 //   lbar_i = sum_j S_ij s_i s_j g_ij f_ij,  f_ij = 1/(2 l_i) - l_i/A + 2 l_i D/A^2
 //
 // with A = l_i^2 + l_j^2, D = (x_i - x_j)^2; f is 0 at j == i and the
-// jitter carries no gradient.  What bounds it: the bytes of Kbar, read once,
+// jitter carries no gradient.  Where the caller asks for it (inducing-input
+// refinement moves x), also
+//
+//   xbar_i = sum_j S_ij s_i s_j g_ij e_ij,  e_ij = -2 (x_i - x_j) / A
+//
+// (dK_ij/dx_i = e_ij K_ij = -dK_ij/dx_j), one more share a pair adds to both
+// rows, with slots and sums of its own in the same order as sbar's.  It is a
+// compile-time variant of the pair kernel (X), launched where xbar is asked
+// for, so the launch without it runs the kernel and registers it ran before.  What bounds it: the bytes of Kbar, read once,
 // n*n*sizeof(T) (8 MB at N=1000 float64, about 2.4 us at 3.35 TB/s on an
 // H100 SXM); the rest is O(n).  Beside that read, each unordered pair costs
 // one float64 exp and one rsqrt and some 20 other operations, and on an
@@ -102,6 +110,16 @@
 //   s1bar_i = sum_j Kbar_ij s2_j g_ij     l1bar_i = sum_j Kbar_ij K_ij f1_ij
 //   s2bar_j = sum_i Kbar_ij s1_i g_ij     l2bar_j = sum_i Kbar_ij K_ij f2_ij
 //
+// and, where the caller asks for them (inducing-input refinement moves the
+// column strip z, the data side too in the Hadamard layout's tests), with e_ij
+// = -2 (x1_i - x2_j) / A,
+//
+//   x1bar_i = sum_j Kbar_ij K_ij e_ij     x2bar_j = -sum_i Kbar_ij K_ij e_ij
+//
+// a third row sum and column sum in the same walk, with slots of their own
+// after the others and summed in a fixed order too: a compile-time variant
+// of the kernel (X), launched where x1bar and x2bar are asked for, so the
+// launch without them runs the kernel and registers it ran before.
 // What bounds it: the bytes of Kbar, read once, n1 n2 sizeof(T) (1 MB at the
 // sparse path's 2000 x 64 float64, 0.31 us at 3.35 TB/s; 10.2 MB, 3.06 us at
 // the N = 20,000 rate's 20,000 x 64).  A term's float64 exp, rsqrt and some
@@ -423,15 +441,19 @@ struct StripIn {
 };
 
 // One block walks tile pairs q = blockIdx.x, + gridDim.x, ...; writes
-// partial[slot][row][0] = sbar's share, [1] = lbar's.
-template <typename T, int TILE>
+// partial[slot][row][0] = sbar's share, [1] = lbar's, and with X (xbar
+// asked for) partial_x[slot][row] = xbar's.
+template <typename T, int TILE, bool X>
 __global__ void __launch_bounds__(kBwdThreads)
 gibbs_gram_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s, const T* __restrict__ l,
-                      int n, const T* __restrict__ kbar, T* __restrict__ partial) {
+                      int n, const T* __restrict__ kbar, T* __restrict__ partial, T* __restrict__ partial_x) {
   using B = Bwd<TILE>;
   __shared__ BwdStage<T, TILE> stages[2];
   __shared__ T red_row[TILE][2];
   __shared__ T red_col[kBwdWarps][TILE][2];
+  __shared__ T red_row_x[X ? TILE : 1];
+  __shared__ T red_col_x[kBwdWarps][X ? TILE : 1];
+  constexpr bool want_x = X;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int c = tid % TILE, r0 = tid / TILE;
@@ -464,11 +486,11 @@ gibbs_gram_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s, const T*
     const bool diag = I == J;
     const T (*kt)[B::PITCH] = st.kb[diag ? 0 : 1];  // kt[c][r] = Kbar[J*TILE + c][I*TILE + r]
     const T xj = st.x[1][c], sj = st.s[1][c], lj = st.l[1][c], hj = st.h[1][c], uj = st.u[1][c];
-    T col_s = T(0), col_l = T(0);
+    T col_s = T(0), col_l = T(0), col_x = T(0);
 #pragma unroll
     for (int k = 0; k < B::ROWS; ++k) {
       const int r = r0 + k * B::STEP;
-      T row_s = T(0), row_l = T(0);
+      T row_s = T(0), row_l = T(0), row_x = T(0);
       if (!diag || r <= c) {
         const T xi = st.x[0][r], si = st.s[0][r], li = st.l[0][r], hi = st.h[0][r], ui = st.u[0][r];
         const T dx = xi - xj;
@@ -484,6 +506,11 @@ gibbs_gram_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s, const T*
           row_l = wss * fma(li, e, hi);
           col_s = fma(w, si, col_s);
           col_l = fma(wss, fma(lj, e, hj), col_l);
+          if constexpr (want_x) {  // e_ij S_ij K_ij to row i, its negative to row j
+            const T ex = T(-2) * dx * ra;
+            row_x = ex * wss;
+            col_x = fma(-ex, wss, col_x);
+          }
         }
       }
       // the row's shares over its TILE lanes; each of them ends with the sum
@@ -496,6 +523,11 @@ gibbs_gram_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s, const T*
         red_row[r][0] = row_s;
         red_row[r][1] = row_l;
       }
+      if constexpr (want_x) {
+#pragma unroll
+        for (int off = TILE / 2; off > 0; off >>= 1) row_x += __shfl_xor_sync(0xffffffffu, row_x, off);
+        if (c == 0) red_row_x[r] = row_x;
+      }
     }
     // the column's shares over the warp's rows, then (below) over the warps
 #pragma unroll
@@ -506,6 +538,11 @@ gibbs_gram_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s, const T*
     if ((tid & 31) < TILE) {
       red_col[warp][c][0] = col_s;
       red_col[warp][c][1] = col_l;
+    }
+    if constexpr (want_x) {
+#pragma unroll
+      for (int off = TILE; off < 32; off <<= 1) col_x += __shfl_xor_sync(0xffffffffu, col_x, off);
+      if ((tid & 31) < TILE) red_col_x[warp][c] = col_x;
     }
     if (more) strip.store(next, tid);
     __syncthreads();  // also: every thread is done with this stage
@@ -523,6 +560,18 @@ gibbs_gram_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s, const T*
         if (ri < n) partial[(static_cast<size_t>(J) * n + ri) * 2 + v] = rs;
         if (ci < n) partial[(static_cast<size_t>(I) * n + ci) * 2 + v] = cs;
       }
+    } else if (want_x && tid < 3 * TILE) {  // xbar's shares, summed as sbar's are
+      const int i = tid - 2 * TILE;
+      T cs = red_col_x[0][i];
+#pragma unroll
+      for (int w = 1; w < kBwdWarps; ++w) cs += red_col_x[w][i];
+      const int ri = I * TILE + i, ci = J * TILE + i;
+      if (diag) {
+        if (ri < n) partial_x[static_cast<size_t>(I) * n + ri] = red_row_x[i] + cs;
+      } else {
+        if (ri < n) partial_x[static_cast<size_t>(J) * n + ri] = red_row_x[i];
+        if (ci < n) partial_x[static_cast<size_t>(I) * n + ci] = cs;
+      }
     }
     I = In;
     J = Jn;
@@ -535,7 +584,8 @@ gibbs_gram_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s, const T*
 // until that grid has finished and its partials are visible.
 template <typename T>
 __global__ void gibbs_gram_bwd_reduce(const T* __restrict__ partial, int n_slots, int n,
-                                      T* __restrict__ s_bar, T* __restrict__ l_bar) {
+                                      T* __restrict__ s_bar, T* __restrict__ l_bar,
+                                      const T* __restrict__ partial_x, T* __restrict__ x_bar) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -555,13 +605,20 @@ __global__ void gibbs_gram_bwd_reduce(const T* __restrict__ partial, int n_slots
     s_bar[row] = vs;
     l_bar[row] = vl;
   }
+  if (x_bar == nullptr) return;
+  T vx = T(0);  // xbar: its slots in the same order
+  for (int slot = lane; slot < n_slots; slot += 32) vx += partial_x[static_cast<size_t>(slot) * n + row];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) vx += __shfl_xor_sync(0xffffffffu, vx, off);
+  if (lane == 0) x_bar[row] = vx;
 }
 
 // Launches gibbs_gram_bwd_reduce over n rows of n_slots slots as a
 // programmatic dependent of the kernel just launched on st: its launch
 // overlaps that kernel's tail instead of following its end.
 template <typename T>
-int launch_reduce(const T* partial, int n_slots, int n, T* s_bar, T* l_bar, cudaStream_t st) {
+int launch_reduce(const T* partial, int n_slots, int n, T* s_bar, T* l_bar, const T* partial_x, T* x_bar,
+                  cudaStream_t st) {
   constexpr int rows_per_block = 256 / 32;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -572,25 +629,31 @@ int launch_reduce(const T* partial, int n_slots, int n, T* s_bar, T* l_bar, cuda
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, gibbs_gram_bwd_reduce<T>, partial, n_slots, n, s_bar, l_bar);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, gibbs_gram_bwd_reduce<T>, partial, n_slots, n, s_bar, l_bar, partial_x, x_bar);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// With x_bar, partial holds xbar's slots after the ceil(n / TILE) n 2 of
+// sbar's and lbar's.
 template <typename T, int TILE>
 int launch_backward_tile(const T* x, const T* s, const T* l, int n, const T* kbar, int grid,
-                         T* partial, T* s_bar, T* l_bar, cudaStream_t st) {
-  gibbs_gram_bwd_kernel<T, TILE><<<grid, kBwdThreads, 0, st>>>(x, s, l, n, kbar, partial);
+                         T* partial, T* s_bar, T* l_bar, T* x_bar, cudaStream_t st) {
+  const int n_slots = (n + TILE - 1) / TILE;
+  T* partial_x = x_bar == nullptr ? nullptr : partial + static_cast<size_t>(n_slots) * n * 2;
+  if (x_bar == nullptr) gibbs_gram_bwd_kernel<T, TILE, false><<<grid, kBwdThreads, 0, st>>>(x, s, l, n, kbar, partial, nullptr);
+  else gibbs_gram_bwd_kernel<T, TILE, true><<<grid, kBwdThreads, 0, st>>>(x, s, l, n, kbar, partial, partial_x);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_reduce<T>(partial, (n + TILE - 1) / TILE, n, s_bar, l_bar, st);
+  return launch_reduce<T>(partial, n_slots, n, s_bar, l_bar, partial_x, x_bar, st);
 }
 
 // tile is 16 or 32, and 1 <= grid <= the number of tile pairs, which must
 // fit an int.
 template <typename T>
 int launch_backward(const void* x, const void* s, const void* l, int n, const void* kbar,
-                    int tile, int grid, void* partial, void* s_bar, void* l_bar, void* stream) {
+                    int tile, int grid, void* partial, void* s_bar, void* l_bar, void* x_bar, void* stream) {
   const int n_tiles = tile > 0 ? (n + tile - 1) / tile : 0;
   if (n < 1 || (tile != 16 && tile != 32) || n_tiles > 46340 || grid < 1 ||
       grid > n_tiles * (n_tiles + 1) / 2)
@@ -602,9 +665,10 @@ int launch_backward(const void* x, const void* s, const void* l, int n, const vo
   auto* pt = static_cast<T*>(partial);
   auto* sb = static_cast<T*>(s_bar);
   auto* lb = static_cast<T*>(l_bar);
+  auto* xb = static_cast<T*>(x_bar);
   const cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  if (tile == 16) return launch_backward_tile<T, 16>(xt, st, lt, n, kt, grid, pt, sb, lb, strm);
-  return launch_backward_tile<T, 32>(xt, st, lt, n, kt, grid, pt, sb, lb, strm);
+  if (tile == 16) return launch_backward_tile<T, 16>(xt, st, lt, n, kt, grid, pt, sb, lb, xb, strm);
+  return launch_backward_tile<T, 32>(xt, st, lt, n, kt, grid, pt, sb, lb, xb, strm);
 }
 
 // ---------------------------------------------------------------------------
@@ -618,6 +682,7 @@ constexpr int kXCols = 2;                      // columns a lane takes in a chun
 constexpr int kXChunk = 32 * kXCols;           // columns of a chunk
 constexpr int kXMaxRows = kXThreads;           // the tallest strip: a thread stages at most one row
 constexpr int kXSmemPerRow = 7;                // x, s, l, 1/(2 l), sqrt(sqrt(2) l) and the two row sums
+                                               // (and x1bar's where it is asked for)
 constexpr int kXSlotBatch = 32;                // slots the last block loads at once
 static_assert(2 * kXChunk <= kXThreads, "a thread for each (column, sum) of a chunk");
 static_assert(kXWarps * 2 * kXChunk >= 4 * kXThreads, "red holds 4 accumulators a thread");
@@ -673,6 +738,13 @@ __device__ __forceinline__ void load_group(T (&kb)[kXGroup][kXCols], const T* __
   }
 }
 
+// x1bar's and x2bar's slots, after the column slots and (with several
+// column groups) the row slots of sbar and lbar.
+template <typename T>
+__device__ __forceinline__ T* x_slots(T* slots, unsigned int n_strips, int n1, int n2, int col_groups) {
+  return slots + static_cast<size_t>(n_strips) * n2 * 2 + (col_groups > 1 ? static_cast<size_t>(col_groups) * n1 * 2 : 0);
+}
+
 // One ticket of n: atomicInc (wrapping to 0 after the last) with release and
 // acquire at device scope, taken after the barrier that follows the block's
 // slot writes: it publishes them and, for the last, makes every other
@@ -703,14 +775,19 @@ __device__ __forceinline__ bool take_ticket(unsigned int* ticket, unsigned int n
 // s] of strip s's col_groups blocks): a strip's last sums its row slots in
 // group order, a group's last its column slots in strip order (below).  No
 // floating-point atomics: the result does not depend on which block
-// finishes last.
-template <typename T>
+// finishes last.  With x1_bar and x2_bar (both or neither): x1bar's row
+// shares as sbar1's (lane_sum of the group's four rows), its row slots
+// xslots_r[g][row]; x2bar's column shares in red[warp][2 kXChunk + column],
+// summed over the warps in order into xslots[s][column]; the last blocks sum
+// them as below, slots in order.
+template <typename T, bool X = false>
 __global__ void __launch_bounds__(kXThreads)
 gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, const T* __restrict__ l1, int n1,
                             const T* __restrict__ x2, const T* __restrict__ s2, const T* __restrict__ l2, int n2,
                             const T* __restrict__ kbar, int rows, int col_groups, T* __restrict__ slots,
                             unsigned int* __restrict__ tickets, T* __restrict__ s1_bar, T* __restrict__ l1_bar,
-                            T* __restrict__ s2_bar, T* __restrict__ l2_bar) {
+                            T* __restrict__ s2_bar, T* __restrict__ l2_bar, T* __restrict__ x1_bar,
+                            T* __restrict__ x2_bar) {
   extern __shared__ __align__(16) unsigned char x_smem[];
   T* const sx = reinterpret_cast<T*>(x_smem);
   T* const ss = sx + rows;
@@ -719,8 +796,11 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
   T* const su = sh + rows;
   T* const srs = su + rows;  // the strip's sbar1
   T* const srl = srs + rows;  // and lbar1
-  __shared__ T red[kXWarps][2 * kXChunk];  // the warps' column shares of a chunk, [warp][2 column + t]
+  T* const srx = srl + rows;  // and x1bar (asked for)
+  __shared__ T red[kXWarps][(X ? 3 : 2) * kXChunk];  // the warps' column shares of a chunk, [warp][2 column + t],
+                                                      // then (X) x2bar's
   __shared__ bool last_col, last_row;
+  constexpr bool want_x = X;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int strip = blockIdx.x / col_groups, cgrp = blockIdx.x % col_groups;
   const int r0 = strip * rows;
@@ -759,7 +839,7 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
   column_setup();
   __syncthreads();  // the strip is staged (its setup ran beside the columns')
   for (int c0 = c_begin; c0 < c_end; c0 += kXChunk) {
-    T col_s[kXCols] = {}, col_l[kXCols] = {};
+    T col_s[kXCols] = {}, col_l[kXCols] = {}, col_x[kXCols] = {};
     const bool next_chunk = c0 + kXChunk < c_end;
     for (int g0 = w0; g0 < w0 + per_warp; g0 += kXGroup) {
       T kn[kXGroup][kXCols];
@@ -770,12 +850,12 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
         load_group(kn, kbar, r0 + w0, n1, c0 + kXChunk, n2, lane);
         load_cols(cx, cs, cl, x2, s2, l2, c0 + kXChunk, n2, lane);
       }
-      T part[2 * kXGroup];
+      T part[2 * kXGroup], part_x[kXGroup];
 #pragma unroll
       for (int g = 0; g < kXGroup; ++g) {
         const int r = g0 + g;
         const T xi = sx[r], si = ss[r], li = sl[r], hi = sh[r], ui = su[r];
-        T ps = T(0), pl = T(0);
+        T ps = T(0), pl = T(0), px = T(0);
 #pragma unroll
         for (int v = 0; v < kXCols; ++v) {
           const T dx = xi - xj[v];
@@ -789,9 +869,15 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
           pl = fma(wss, fma(li, e, hi), pl);
           col_s[v] = fma(w, si, col_s[v]);
           col_l[v] = fma(wss, fma(lj[v], e, hj[v]), col_l[v]);
+          if constexpr (want_x) {  // e_ij Kbar_ij K_ij to x1bar_i, its negative to x2bar_j
+            const T ex = T(-2) * dx * ra;
+            px = fma(ex, wss, px);
+            col_x[v] = fma(-ex, wss, col_x[v]);
+          }
         }
         part[2 * g] = ps;
         part[2 * g + 1] = pl;
+        part_x[g] = px;
       }
       const T sum = lane_sum(part, lane);
       constexpr int kSpread = 32 / (2 * kXGroup);  // lanes between two of the 2 kXGroup sums
@@ -799,6 +885,13 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
         const int q = lane / kSpread, r = g0 + (q >> 1);
         T* acc = (q & 1) ? srl : srs;
         acc[r] = c0 == c_begin ? sum : acc[r] + sum;
+      }
+      if constexpr (want_x) {  // lanes 0, 8, 16, 24 hold the four rows' x1bar shares
+        const T sum_x = lane_sum(part_x, lane);
+        if (lane % (32 / kXGroup) == 0) {
+          const int r = g0 + lane / (32 / kXGroup);
+          srx[r] = c0 == c_begin ? sum_x : srx[r] + sum_x;
+        }
       }
       if (next_group || next_chunk) {
 #pragma unroll
@@ -811,6 +904,7 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
     for (int v = 0; v < kXCols; ++v) {
       red[warp][2 * (32 * v + lane)] = col_s[v];
       red[warp][2 * (32 * v + lane) + 1] = col_l[v];
+      if constexpr (want_x) red[warp][2 * kXChunk + 32 * v + lane] = col_x[v];
     }
     if (next_chunk) column_setup();  // the next chunk's columns, beside this one's combine
     __syncthreads();
@@ -822,10 +916,21 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
       for (int w = 1; w < kXWarps; ++w) acc += red[w][tid];
       slots[(static_cast<size_t>(strip) * n2 + j) * 2 + (tid & 1)] = acc;
     }
+    if constexpr (want_x) {  // threads 2 kXChunk .. 3 kXChunk - 1: x2bar's column shares
+      const int jx = c0 + tid - 2 * kXChunk;
+      if (tid >= 2 * kXChunk && tid < 3 * kXChunk && jx < n2) {
+        T acc = red[0][tid];
+#pragma unroll
+        for (int w = 1; w < kXWarps; ++w) acc += red[w][tid];
+        x_slots(slots, gridDim.x / col_groups, n1, n2, col_groups)[static_cast<size_t>(strip) * n2 + jx] = acc;
+      }
+    }
     __syncthreads();  // red is free for the next chunk, and the row sums are whole after the last
   }
   const unsigned int n_strips = gridDim.x / col_groups;
   T* const rslots = slots + static_cast<size_t>(n_strips) * n2 * 2;  // [column group][row][2]
+  T* const xslots = x_slots(slots, n_strips, n1, n2, col_groups);    // x2bar's [strip][column], then x1bar's
+  T* const rxslots = xslots + static_cast<size_t>(n_strips) * n2;    // [column group][row]
   if (st_in) {
     if (col_groups == 1) {
       s1_bar[i_st] = srs[tid];
@@ -834,6 +939,7 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
       rslots[(static_cast<size_t>(cgrp) * n1 + i_st) * 2] = srs[tid];
       rslots[(static_cast<size_t>(cgrp) * n1 + i_st) * 2 + 1] = srl[tid];
     }
+    if constexpr (want_x) (col_groups == 1 ? x1_bar : rxslots + static_cast<size_t>(cgrp) * n1)[i_st] = srx[tid];
   }
   if (col_groups > 1) __syncthreads();  // the row slots are written before the tickets
   if (tid == 0) {
@@ -849,8 +955,20 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
       for (int g = 1; g < col_groups; ++g) a += __ldcg(rslots + static_cast<size_t>(g) * n1 * 2 + at);
       ((p & 1) ? l1_bar : s1_bar)[r0 + (p >> 1)] = a;
     }
+    for (int p = tid; want_x && p < rows && r0 + p < n1; p += kXThreads) {  // x1bar's, in group order
+      T a = __ldcg(rxslots + r0 + p);
+      for (int g = 1; g < col_groups; ++g) a += __ldcg(rxslots + static_cast<size_t>(g) * n1 + r0 + p);
+      x1_bar[r0 + p] = a;
+    }
   }
   if (!last_col) return;
+  // x2bar's column slots: a thread a column, slot s to accumulator s % 4 in
+  // strip order, then (a0 + a1) + (a2 + a3)
+  for (int p = tid; want_x && c_begin + p < c_end; p += kXThreads) {
+    T a[4] = {T(0), T(0), T(0), T(0)};
+    for (unsigned int s = 0; s < n_strips; ++s) a[s % 4] += __ldcg(xslots + static_cast<size_t>(s) * n2 + c_begin + p);
+    x2_bar[c_begin + p] = (a[0] + a[1]) + (a[2] + a[3]);
+  }
   // the group's column slots: where its 2 (c_end - c_begin) values leave
   // threads idle, H thread groups (a power of two, at most 8) take the
   // batches of kXSlotBatch slots in turn, batch b to group b % H; slot s
@@ -899,7 +1017,8 @@ gibbs_gram_cross_bwd_kernel(const T* __restrict__ x1, const T* __restrict__ s1, 
 template <typename T>
 int launch_cross_backward(const void* x1, const void* s1, const void* l1, int n1, const void* x2, const void* s2,
                           const void* l2, int n2, const void* kbar, int rows, int col_groups, int grid, void* slots,
-                          void* tickets, void* s1_bar, void* l1_bar, void* s2_bar, void* l2_bar, void* stream) {
+                          void* tickets, void* s1_bar, void* l1_bar, void* s2_bar, void* l2_bar, void* x1_bar,
+                          void* x2_bar, void* stream) {
   constexpr int unit = kXWarps * kXGroup;
   const bool rows_ok = rows >= unit && rows <= kXMaxRows && rows % unit == 0;
   if (n1 < 1 || n2 < 1 || n2 >= (1 << 30) || !rows_ok || col_groups < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -909,12 +1028,15 @@ int launch_cross_backward(const void* x1, const void* s1, const void* l1, int n1
   if (col_groups > chunks || (chunks + per - 1) / per != col_groups || grid != strips * col_groups ||
       strips * rows >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(kXSmemPerRow) * rows * sizeof(T);
-  gibbs_gram_cross_bwd_kernel<T><<<grid, kXThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  if ((x1_bar == nullptr) != (x2_bar == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(kXSmemPerRow + (x1_bar != nullptr)) * rows * sizeof(T);
+  auto* const kernel = x1_bar == nullptr ? gibbs_gram_cross_bwd_kernel<T> : gibbs_gram_cross_bwd_kernel<T, true>;
+  kernel<<<grid, kXThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x1), static_cast<const T*>(s1), static_cast<const T*>(l1), n1,
       static_cast<const T*>(x2), static_cast<const T*>(s2), static_cast<const T*>(l2), n2,
       static_cast<const T*>(kbar), rows, col_groups, static_cast<T*>(slots), static_cast<unsigned int*>(tickets),
-      static_cast<T*>(s1_bar), static_cast<T*>(l1_bar), static_cast<T*>(s2_bar), static_cast<T*>(l2_bar));
+      static_cast<T*>(s1_bar), static_cast<T*>(l1_bar), static_cast<T*>(s2_bar), static_cast<T*>(l2_bar),
+      static_cast<T*>(x1_bar), static_cast<T*>(x2_bar));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -949,39 +1071,43 @@ int gibbs_gram_threads_f64(const void* x1, const void* s1, const void* l1, int n
   return launch_threads<double>(x1, s1, l1, n1, x2, s2, l2, n2, jitter, grid, out, stream);
 }
 
-// Self-form backward.  partial: ceil(n/tile) * n * 2 scratch values; s_bar,
-// l_bar (n,).  tile, grid: gram_kernels.k1_backward_schedule(n).
+// Self-form backward.  partial: ceil(n/tile) * n * 2 scratch values, and
+// with x_bar ceil(n/tile) * n more; s_bar, l_bar (n,); x_bar (n,) or null
+// (no gradient in x).  tile, grid: gram_kernels.k1_backward_schedule(n).
 int gibbs_gram_backward_f32(const void* x, const void* s, const void* l, int n,
                             const void* kbar, int tile, int grid, void* partial, void* s_bar,
-                            void* l_bar, void* stream) {
-  return launch_backward<float>(x, s, l, n, kbar, tile, grid, partial, s_bar, l_bar, stream);
+                            void* l_bar, void* x_bar, void* stream) {
+  return launch_backward<float>(x, s, l, n, kbar, tile, grid, partial, s_bar, l_bar, x_bar, stream);
 }
 
 int gibbs_gram_backward_f64(const void* x, const void* s, const void* l, int n,
                             const void* kbar, int tile, int grid, void* partial, void* s_bar,
-                            void* l_bar, void* stream) {
-  return launch_backward<double>(x, s, l, n, kbar, tile, grid, partial, s_bar, l_bar, stream);
+                            void* l_bar, void* x_bar, void* stream) {
+  return launch_backward<double>(x, s, l, n, kbar, tile, grid, partial, s_bar, l_bar, x_bar, stream);
 }
 
 // Cross-form backward, one launch.  slots: grid / col_groups * n2 * 2
-// scratch values, then (with col_groups > 1) col_groups * n1 * 2; tickets:
-// col_groups unsigned ints, then (with col_groups > 1) one a strip, 0 before
-// the launch and after it; s1_bar, l1_bar (n1,), s2_bar, l2_bar (n2,).
-// rows, col_groups, grid: gram_kernels.k1_cross_backward_schedule(n1, n2).
+// scratch values, then (with col_groups > 1) col_groups * n1 * 2, and with
+// x1_bar, x2_bar grid / col_groups * n2 more, then (with col_groups > 1)
+// col_groups * n1; tickets: col_groups unsigned ints, then (with col_groups
+// > 1) one a strip, 0 before the launch and after it; s1_bar, l1_bar (n1,),
+// s2_bar, l2_bar (n2,); x1_bar (n1,) and x2_bar (n2,), or both null (no
+// gradient in x).  rows, col_groups, grid:
+// gram_kernels.k1_cross_backward_schedule(n1, n2).
 int gibbs_gram_cross_backward_f32(const void* x1, const void* s1, const void* l1, int n1, const void* x2,
                                   const void* s2, const void* l2, int n2, const void* kbar, int rows, int col_groups,
                                   int grid, void* slots, void* tickets, void* s1_bar, void* l1_bar, void* s2_bar,
-                                  void* l2_bar, void* stream) {
+                                  void* l2_bar, void* x1_bar, void* x2_bar, void* stream) {
   return launch_cross_backward<float>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, rows, col_groups, grid, slots, tickets,
-                                      s1_bar, l1_bar, s2_bar, l2_bar, stream);
+                                      s1_bar, l1_bar, s2_bar, l2_bar, x1_bar, x2_bar, stream);
 }
 
 int gibbs_gram_cross_backward_f64(const void* x1, const void* s1, const void* l1, int n1, const void* x2,
                                   const void* s2, const void* l2, int n2, const void* kbar, int rows, int col_groups,
                                   int grid, void* slots, void* tickets, void* s1_bar, void* l1_bar, void* s2_bar,
-                                  void* l2_bar, void* stream) {
+                                  void* l2_bar, void* x1_bar, void* x2_bar, void* stream) {
   return launch_cross_backward<double>(x1, s1, l1, n1, x2, s2, l2, n2, kbar, rows, col_groups, grid, slots, tickets,
-                                       s1_bar, l1_bar, s2_bar, l2_bar, stream);
+                                       s1_bar, l1_bar, s2_bar, l2_bar, x1_bar, x2_bar, stream);
 }
 
 }  // extern "C"

@@ -75,6 +75,21 @@
 //   gsum[n,p]   = sum_{a,c} S[(n,a),(p,c)] B[n,a,p,c]
 //   f(l_n; l_p, D) = 1/(2 l_n) - l_n/A + 2 l_n D/A^2,   and f = 0 at p == n.
 //
+// Where the caller asks for it (inducing-input refinement moves x: the
+// sparse tiers' K_mm is this Gram at Z), also
+//
+//   xbar[n]     = sum_p gsum[n,p] kx[n,p] e(n, p),   e(n, p) = -2 (x_n - x_p)/A
+//
+// (dkx[n,p]/dx_n = e kx = -dkx[n,p]/dx_p; the jitter carries none): one more
+// share a pair adds to both rows from the gsum it already forms, with slots
+// and sums of its own in the same order as lbar's.  For M <= 2 (the models'
+// usual task count) the pair kernel and its row sums take it as a
+// compile-time variant (X), launched where xbar is asked for, so those
+// launches without it run the kernels and registers they ran before; above,
+// where a variant's build costs more (variants at every M took the source's
+// build from 39-46 s to 65-79 s on the H100's host), and on the generic
+// route, a null xbar is tested where it is needed.
+//
 // What bounds it: the bytes of Kbar, (N M)^2 * 8 B = 32 MB at N=1000, M=2,
 // float64 (9.6 us at 3.35 TB/s); everything else is O(N M^2).  The design
 // reads each element of Kbar exactly once:
@@ -151,6 +166,7 @@ constexpr int kGenBB = 3;                // backward: b values of a task
 constexpr int kGenKP = kGenTile + 1;     // backward: padded row of a staged Kbar tile and of S
 constexpr int kGenBwdThreads = 384;      // backward: 12 warps, one block per SM
 constexpr size_t kMaxSmem = 232448;      // a block's shared memory on the H100 (227 KB)
+constexpr int kXVariantMaxM = 2;         // backward, M <= this: xbar as a compile-time variant
 
 __device__ __forceinline__ float gexp(float v) { return expf(v); }
 __device__ __forceinline__ double gexp(double v) { return exp(v); }
@@ -538,6 +554,8 @@ struct Bwd {
   // the row-share buffer, then the column sums of each warp
   static constexpr int RED = TILE * K * RP + WARPS * TILE * K;
   static constexpr size_t SMEM = sizeof(T) * (2 * STAGE + RED);
+  // with xbar: its row shares [row][column] (RP), then each warp's column sums
+  static constexpr size_t SMEM_X = SMEM + sizeof(T) * (TILE * RP + WARPS * TILE);
   static_assert(THREADS % 32 == 0 && 32 % TILE == 0, "a warp holds whole tile rows");
 };
 
@@ -642,18 +660,24 @@ __device__ __forceinline__ void walk_pair(int q, int n_pairs, int n_tiles, bool 
 // walk covers n_batch members' pairs (walk_pair; one Gram: n_batch = 1),
 // each member's ell, ls, kbar and partials at its own offset and x shared;
 // a member's pairs, sums and slots are a single launch's, so its result is
-// too.
-template <typename T, int TILE, int M>
+// too.  With xbar asked for (one Gram, S::SMEM_X of shared memory):
+// partial_x[slot][row] = xbar's share, summed as lbar's.  For M <= 2 (the
+// models' usual task count) that is the compile-time variant X; above, where
+// a variant's build costs more, a null partial_x tested where it is needed.
+template <typename T, int TILE, int M, bool X = false>
 __global__ void __launch_bounds__(TILE * TILE)
 svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
                           const T* __restrict__ ls, int n, int n_batch, T jitter,
-                          const T* __restrict__ kbar, T* __restrict__ partial_all) {
+                          const T* __restrict__ kbar, T* __restrict__ partial_all, T* __restrict__ partial_x) {
   using S = Bwd<T, TILE, M>;
   constexpr int MM = S::MM, K = S::K, KP = S::KP, LP = S::LP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* stages = reinterpret_cast<T*>(smem_raw);
   T* red_row = stages + 2 * S::STAGE;    // TILE x K x RP: the row shares
   T* red_col = red_row + TILE * K * S::RP;  // WARPS x TILE x K
+  T* red_row_x = red_col + S::WARPS * TILE * K;  // with xbar: TILE x RP
+  T* red_col_x = red_row_x + TILE * S::RP;       // WARPS x TILE
+  const bool want_x = X || (M > kXVariantMaxM && partial_x != nullptr);
 
   const int tid = threadIdx.x;
   const int tx = tid % TILE, ty = tid / TILE;
@@ -693,7 +717,7 @@ svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
     const T* lc = xc + TILE;
     const T* Lc = lc + TILE;
 
-    T row[K], col[K];
+    T row[K], col[K], row_x = T(0), col_x = T(0);
 #pragma unroll
     for (int k = 0; k < K; ++k) row[k] = col[k] = T(0);
     if (!diag || ty <= tx) {
@@ -733,6 +757,10 @@ svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
       if (!self) {
         row[MM] = gk * fma(ln, g, lp * half_inv_b);
         col[MM] = gk * fma(lp, g, ln * half_inv_b);
+        if (want_x) {  // e(n, p) gsum kx to row n, its negative to row p
+          row_x = (T(-2) * dx * inv_a) * gk;
+          col_x = -row_x;
+        }
       } else {
 #pragma unroll
         for (int k = 0; k < MM; ++k) col[k] = T(0);
@@ -760,6 +788,14 @@ svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
 #pragma unroll
       for (int k = 0; k < K; ++k) red_col[(warp * TILE + lane) * K + k] = col[k];
     }
+    if (want_x) {  // xbar's shares, as lbar's
+#pragma unroll
+      for (int off = TILE / 2; off >= S::RC; off >>= 1) row_x += __shfl_xor_sync(0xffffffffu, row_x, off);
+      if (tx < S::RC) red_row_x[ty * S::RP + tx] = row_x;
+#pragma unroll
+      for (int off = TILE; off < 32; off <<= 1) col_x += __shfl_xor_sync(0xffffffffu, col_x, off);
+      if (lane < TILE) red_col_x[warp * TILE + lane] = col_x;
+    }
     __syncthreads();  // also: every thread is done with this stage
 
     const int n0 = I * TILE, p0 = J * TILE;
@@ -779,6 +815,20 @@ svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
         if (p0 + l < n) partial[(static_cast<size_t>(I) * n + p0) * K + i] = cs;
       }
     }
+    for (int l = tid; want_x && l < TILE; l += S::THREADS) {
+      T rs = red_row_x[l * S::RP];
+#pragma unroll
+      for (int j = 1; j < S::RC; ++j) rs += red_row_x[l * S::RP + j];
+      T cs = red_col_x[l];
+#pragma unroll
+      for (int w = 1; w < S::WARPS; ++w) cs += red_col_x[w * TILE + l];
+      if (diag) {
+        if (n0 + l < n) partial_x[static_cast<size_t>(I) * n + n0 + l] = rs + cs;
+      } else {
+        if (n0 + l < n) partial_x[static_cast<size_t>(J) * n + n0 + l] = rs;
+        if (p0 + l < n) partial_x[static_cast<size_t>(I) * n + p0 + l] = cs;
+      }
+    }
     I = In;
     J = Jn;
     mb = mbn;
@@ -790,9 +840,10 @@ svc_gram_tiled_bwd_kernel(const T* __restrict__ x, const T* __restrict__ ell,
 // Writes ls_bar (N, M, M) and ell_bar (N,); for n_batch members, their
 // rows member-major, each member's slots at its own offset, ls_bar (B, N,
 // M, M) and ell_bar (B, N).
-template <typename T, int M>
+template <typename T, int M, bool X = false>
 __global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_slots, int n, int n_batch,
-                                          T* __restrict__ ls_bar, T* __restrict__ ell_bar) {
+                                          T* __restrict__ ls_bar, T* __restrict__ ell_bar,
+                                          const T* __restrict__ partial_x, T* __restrict__ x_bar) {
   constexpr int MM = M * M, K = MM + 1;
   const int grow = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -817,6 +868,13 @@ __global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_s
 #pragma unroll
     for (int k = 0; k < MM; ++k) ls_bar[static_cast<size_t>(grow) * MM + k] = s[k];
     ell_bar[grow] = s[MM];
+  }
+  if (X || (M > kXVariantMaxM && x_bar != nullptr)) {  // one Gram: grow is the row
+    T sx = T(0);
+    for (int slot = lane; slot < n_slots; slot += 32) sx += partial_x[static_cast<size_t>(slot) * n + row];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sx += __shfl_xor_sync(0xffffffffu, sx, off);
+    if (lane == 0) x_bar[row] = sx;
   }
 }
 
@@ -846,7 +904,11 @@ __global__ void svc_gram_tiled_bwd_reduce(const T* __restrict__ partial, int n_s
 // order (svc_gram_tiled_bwd_generic_reduce, _finish).  The sums run in
 // double for either T: at large M, lbar is a small difference of large terms
 // (M = 130: sums of 10^4 terms of ~10^2 that cancel to ~50), which float32
-// sums would carry with errors of 1e-4 of it.
+// sums would carry with errors of 1e-4 of it.  With xbar asked for, two
+// more 9 x 9 tables follow W's, X = kx e(n, p) for the row side and its
+// negative for the column side, a task adds X t to a third sum, and k = M +
+// nbb + (b block) holds that block's xbar share sum_b Lf (X t); the reduce
+// and the finish sum them as lbar's.
 template <typename T>
 struct GenBwd {
   static constexpr int KB = kGenTile * kGenKP;  // one staged Kbar tile, [row][col]
@@ -904,15 +966,18 @@ __device__ __forceinline__ void gen_bwd_task(const double* __restrict__ S, const
                                              double* __restrict__ partial) {
   const int row = own0 + e;
   if (row >= nm) return;
+  const int nbb = (m + kGenBB - 1) / kGenBB;
+  const bool want_x = ks > m + nbb;              // xbar's shares after lbar's,
+  const double* x_s = w_s + 2 * GenBwd<T>::TAB;  // its table after W's
   const int own = row / m - own0 / m;  // the row's input, from its tile's first
   const int first = walk0 / m;         // the walked tile's first input
   const int wlim = min(kGenTile, nm - walk0);
   int bi[kGenBB];
 #pragma unroll
   for (int j = 0; j < kGenBB; ++j) bi[j] = min(bb * kGenBB + j, m - 1);  // past M: read in bounds, never stored
-  double acc[kGenBB], lacc[kGenBB];
+  double acc[kGenBB], lacc[kGenBB], xacc[kGenBB];
 #pragma unroll
-  for (int j = 0; j < kGenBB; ++j) acc[j] = lacc[j] = 0.0;
+  for (int j = 0; j < kGenBB; ++j) acc[j] = lacc[j] = xacc[j] = 0.0;
   int w = 0, seg = 0;
   for (int end = (first + 1) * m - walk0; w < wlim; end += m, ++seg) {  // one walked input a segment
     const int e1 = min(end, wlim);
@@ -933,24 +998,31 @@ __device__ __forceinline__ void gen_bwd_task(const double* __restrict__ S, const
       acc[j] = fma(kk, t[j], acc[j]);
       lacc[j] = fma(ww, t[j], lacc[j]);
     }
+    if (want_x) {
+      const double xx = x_s[tab];
+#pragma unroll
+      for (int j = 0; j < kGenBB; ++j) xacc[j] = fma(xx, t[j], xacc[j]);
+    }
   }
   double* dst = partial + static_cast<size_t>(slot) * ks * nm + row;
   const T* lr = Lown + e * m;
-  double lsum = 0.0;
+  double lsum = 0.0, xsum = 0.0;
 #pragma unroll
   for (int j = 0; j < kGenBB; ++j) {
     if (bb * kGenBB + j >= m) break;
     dst[static_cast<size_t>(bb * kGenBB + j) * nm] = acc[j];
     lsum = fma(static_cast<double>(lr[bi[j]]), lacc[j], lsum);
+    xsum = fma(static_cast<double>(lr[bi[j]]), xacc[j], xsum);
   }
   dst[static_cast<size_t>(m + bb) * nm] = lsum;
+  if (want_x) dst[static_cast<size_t>(m + nbb + bb) * nm] = xsum;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kGenBwdThreads, 1)
 svc_gram_tiled_bwd_generic_kernel(const T* __restrict__ x, const T* __restrict__ ell,
                                   const T* __restrict__ ls, int n, int m, T jitter, bool stage_l,
-                                  const T* __restrict__ kbar, double* __restrict__ partial) {
+                                  const T* __restrict__ kbar, double* __restrict__ partial, bool want_x) {
   using G = GenBwd<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int stage = G::stage(m, stage_l);
@@ -959,12 +1031,14 @@ svc_gram_tiled_bwd_generic_kernel(const T* __restrict__ x, const T* __restrict__
   double* kxj_s = Sbuf + (G::S_IN_PLACE ? 0 : G::KB);  // [row input][column input], from each tile's first
   double* wr_s = kxj_s + G::TAB;                       // kx f(l_n; l_p, D): the row side's W
   double* wc_s = wr_s + G::TAB;                        // kx f(l_p; l_n, D): the column side's W
+  double* xr_s = wc_s + G::TAB;                        // with xbar: kx e(n, p), the row side's X
+  double* xc_s = xr_s + G::TAB;                        // and the column side's, -kx e(n, p)
   const int tid = threadIdx.x;
   const int nm = n * m;
   const int n_tiles = (nm + kGenTile - 1) / kGenTile;
   const int n_pairs = n_tiles * (n_tiles + 1) / 2;
   const int nbb = (m + kGenBB - 1) / kGenBB;
-  const int ks = m + nbb;
+  const int ks = m + nbb * (want_x ? 2 : 1);
 
   int q = blockIdx.x, I, J;
   tile_pair(q, n_tiles, I, J);
@@ -1000,7 +1074,7 @@ svc_gram_tiled_bwd_generic_kernel(const T* __restrict__ x, const T* __restrict__
     }
     if (tid < G::TAB) {
       const int nn = I0 / m + tid / kGenSpan, pp = J0 / m + tid % kGenSpan;
-      double kxj = 0.0, wr = 0.0, wc = 0.0;
+      double kxj = 0.0, wr = 0.0, wc = 0.0, xr = 0.0;
       if (nn < n && pp < n) {
         const double ln = ell[nn], lp = ell[pp];
         const double dx = static_cast<double>(x[nn]) - static_cast<double>(x[pp]);
@@ -1011,11 +1085,16 @@ svc_gram_tiled_bwd_generic_kernel(const T* __restrict__ x, const T* __restrict__
           const double g = fma(2.0 * d, 1.0 / (a2 * a2), -1.0 / a2);  // -1/A + 2 D/A^2
           wr = kx * fma(ln, g, 0.5 / ln);
           wc = kx * fma(lp, g, 0.5 / lp);
+          xr = kx * (-2.0 * dx / a2);
         }
       }
       kxj_s[tid] = kxj;
       wr_s[tid] = wr;
       wc_s[tid] = wc;
+      if (want_x) {
+        xr_s[tid] = xr;
+        xc_s[tid] = -xr;
+      }
     }
     __syncthreads();
 
@@ -1046,9 +1125,9 @@ constexpr int kGenSlotBatch = 8;
 
 template <typename T>
 __global__ void svc_gram_tiled_bwd_generic_reduce(double* __restrict__ partial, int n_slots, int n, int m,
-                                                  T* __restrict__ ls_bar) {
+                                                  T* __restrict__ ls_bar, bool want_x) {
   const long long nm = static_cast<long long>(n) * m;
-  const int nbb = (m + kGenBB - 1) / kGenBB, ks = m + nbb;
+  const int nbb = (m + kGenBB - 1) / kGenBB, ks = m + nbb * (want_x ? 2 : 1);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= nm * ks) return;
   const long long k = i / nm, row = i % nm;
@@ -1073,7 +1152,7 @@ __global__ void svc_gram_tiled_bwd_generic_reduce(double* __restrict__ partial, 
 // shuffle tree adds the lanes.
 template <typename T>
 __global__ void svc_gram_tiled_bwd_generic_finish(const double* __restrict__ partial, int n, int m,
-                                                  T* __restrict__ ell_bar) {
+                                                  T* __restrict__ ell_bar, T* __restrict__ x_bar) {
   const long long nm = static_cast<long long>(n) * m;
   const int nbb = (m + kGenBB - 1) / kGenBB;
   const long long w = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -1087,6 +1166,12 @@ __global__ void svc_gram_tiled_bwd_generic_finish(const double* __restrict__ par
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) ell_bar[w] = static_cast<T>(acc);
+  if (x_bar == nullptr) return;
+  double xacc = 0.0;  // xbar: its shares, k = M + nbb + (b block), in the same order
+  for (int j = lane; j < m * nbb; j += 32) xacc += partial[(m + nbb + j % nbb) * nm + w * m + j / nbb];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) xacc += __shfl_xor_sync(0xffffffffu, xacc, off);
+  if (lane == 0) x_bar[w] = static_cast<T>(xacc);
 }
 
 template <typename T>
@@ -1102,60 +1187,77 @@ struct BwdArgs {
   T* partial;
   T* ls_bar;
   T* ell_bar;
+  T* x_bar;  // null: no xbar (always so for a batch)
   cudaStream_t stream;
 };
 
+// With a.x_bar (one Gram), partial holds xbar's ceil(n / TILE) n slots
+// after the others.
 template <typename T, int TILE, int M>
 int launch_backward_m(const BwdArgs<T>& a) {
   using S = Bwd<T, TILE, M>;
-  if (S::SMEM > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        svc_gram_tiled_bwd_kernel<T, TILE, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(S::SMEM));
+  const int n_slots = (a.n + TILE - 1) / TILE;
+  T* partial_x = a.x_bar == nullptr ? nullptr : a.partial + static_cast<size_t>(n_slots) * a.n * S::K;
+  const size_t smem = a.x_bar == nullptr ? S::SMEM : S::SMEM_X;
+  auto* kernel = svc_gram_tiled_bwd_kernel<T, TILE, M>;
+  auto* reduce = svc_gram_tiled_bwd_reduce<T, M>;
+  if constexpr (M <= kXVariantMaxM) {  // only here is the X variant instantiated
+    if (a.x_bar != nullptr) {
+      kernel = svc_gram_tiled_bwd_kernel<T, TILE, M, true>;
+      reduce = svc_gram_tiled_bwd_reduce<T, M, true>;
+    }
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  svc_gram_tiled_bwd_kernel<T, TILE, M><<<a.grid, S::THREADS, S::SMEM, a.stream>>>(
-      a.x, a.ell, a.ls, a.n, a.n_batch, a.jitter, a.kbar, a.partial);
+  kernel<<<a.grid, S::THREADS, smem, a.stream>>>(a.x, a.ell, a.ls, a.n, a.n_batch, a.jitter, a.kbar, a.partial,
+                                                  partial_x);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows_per_block = kThreads / 32;
   const int rows = a.n_batch * a.n;
-  svc_gram_tiled_bwd_reduce<T, M><<<(rows + rows_per_block - 1) / rows_per_block, kThreads, 0, a.stream>>>(
-      a.partial, (a.n + TILE - 1) / TILE, a.n, a.n_batch, a.ls_bar, a.ell_bar);
+  reduce<<<(rows + rows_per_block - 1) / rows_per_block, kThreads, 0, a.stream>>>(
+      a.partial, n_slots, a.n, a.n_batch, a.ls_bar, a.ell_bar, partial_x, a.x_bar);
   return static_cast<int>(cudaGetLastError());
 }
 
 // M > 8 (the generic route), one Gram: tile = kGenTile rows of the
 // flattened index, 1 <= grid <= its tile pairs, and partial holds ceil(n m /
-// kGenTile) (m + ceil(m / kGenBB)) n m doubles.
+// kGenTile) (m + ceil(m / kGenBB)) n m doubles, with x_bar ceil(n m /
+// kGenTile) (m + 2 ceil(m / kGenBB)) n m.
 template <typename T>
 int launch_backward_generic(const void* x, const void* ell, const void* ls, int n, int m, double jitter,
                             const void* kbar, int tile, int grid, void* partial, void* ls_bar, void* ell_bar,
-                            cudaStream_t st) {
+                            void* x_bar, cudaStream_t st) {
   const long long nm = static_cast<long long>(n) * m;
   const long long n_tiles = (nm + kGenTile - 1) / kGenTile;
   if (nm > 0x7fffffff || tile != kGenTile || n_tiles > 46340 || grid < 1 || grid > n_tiles * (n_tiles + 1) / 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  // Lf joins the stages where both still fit a block's shared memory
-  const bool stage_l = GenBwd<T>::smem(m, true) <= kMaxSmem;
-  const size_t smem = GenBwd<T>::smem(m, stage_l);
+  // Lf joins the stages where both still fit a block's shared memory (with
+  // xbar, beside its two tables)
+  const bool want_x = x_bar != nullptr;
+  const size_t x_tabs = want_x ? 2 * GenBwd<T>::TAB * sizeof(double) : 0;
+  const bool stage_l = GenBwd<T>::smem(m, true) <= kMaxSmem - x_tabs;
+  const size_t smem = GenBwd<T>::smem(m, stage_l) + x_tabs;
   cudaError_t err = cudaFuncSetAttribute(svc_gram_tiled_bwd_generic_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   svc_gram_tiled_bwd_generic_kernel<T><<<grid, kGenBwdThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n, m,
-      static_cast<T>(jitter), stage_l, static_cast<const T*>(kbar), static_cast<double*>(partial));
+      static_cast<T>(jitter), stage_l, static_cast<const T*>(kbar), static_cast<double*>(partial), want_x);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long ks = m + (m + kGenBB - 1) / kGenBB;
+  const long long ks = m + (m + kGenBB - 1) / kGenBB * (want_x ? 2 : 1);
   const long long blocks = (nm * ks + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   svc_gram_tiled_bwd_generic_reduce<T><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      static_cast<double*>(partial), static_cast<int>(n_tiles), n, m, static_cast<T*>(ls_bar));
+      static_cast<double*>(partial), static_cast<int>(n_tiles), n, m, static_cast<T*>(ls_bar), want_x);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   svc_gram_tiled_bwd_generic_finish<T><<<(n + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
-      static_cast<const double*>(partial), n, m, static_cast<T*>(ell_bar));
+      static_cast<const double*>(partial), n, m, static_cast<T*>(ell_bar), static_cast<T*>(x_bar));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1168,8 +1270,9 @@ int launch_backward_generic(const void* x, const void* ell, const void* ls, int 
 template <typename T>
 int launch_backward(const void* x, const void* ell, const void* ls, int n, int m, int n_batch,
                     double jitter, const void* kbar, int tile, int grid, void* partial,
-                    void* ls_bar, void* ell_bar, void* stream) {
-  if (n < 1 || m < 1 || n_batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+                    void* ls_bar, void* ell_bar, void* x_bar, void* stream) {
+  if (n < 1 || m < 1 || n_batch < 1 || (x_bar != nullptr && n_batch != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m > kMaxM) {
     const size_t nm = static_cast<size_t>(n) * m, sz = sizeof(T);
@@ -1178,7 +1281,7 @@ int launch_backward(const void* x, const void* ell, const void* ls, int n, int m
           static_cast<const char*>(x), static_cast<const char*>(ell) + b * n * sz,
           static_cast<const char*>(ls) + b * nm * m * sz, n, m, jitter, static_cast<const char*>(kbar) + b * nm * nm * sz,
           tile, grid, partial, static_cast<char*>(ls_bar) + b * nm * m * sz,
-          static_cast<char*>(ell_bar) + b * n * sz, st);
+          static_cast<char*>(ell_bar) + b * n * sz, x_bar, st);
       if (err != 0) return err;
     }
     return 0;
@@ -1190,7 +1293,7 @@ int launch_backward(const void* x, const void* ell, const void* ls, int n, int m
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(ell), static_cast<const T*>(ls), n, n_batch,
                      static_cast<T>(jitter), static_cast<const T*>(kbar), grid, static_cast<T*>(partial),
-                     static_cast<T*>(ls_bar), static_cast<T*>(ell_bar), st};
+                     static_cast<T*>(ls_bar), static_cast<T*>(ell_bar), static_cast<T*>(x_bar), st};
   switch (m) {
     case 1: return launch_backward_m<T, 16, 1>(a);
     case 2: return launch_backward_m<T, 16, 2>(a);
@@ -1221,21 +1324,23 @@ int svc_gram_tiled_f64(const void* x, const void* ell, const void* ls, int n, in
   return launch_forward<double>(x, ell, ls, n, m, 1, jitter, vec, rows, warps, grid, out, stream);
 }
 
-// partial: ceil(n/tile) * n * (m*m + 1) scratch values of the input's type,
-// or for m > 8 ceil(n m / tile) * (m + ceil(m / 3)) * n m doubles;
-// ls_bar (n, m, m); ell_bar (n,).  tile, grid: gram_kernels.k3_backward_schedule(n, m).
+// partial: ceil(n/tile) * n * (m*m + 1) scratch values of the input's type
+// (with x_bar, ceil(n/tile) * n more), or for m > 8 ceil(n m / tile) * (m +
+// ceil(m / 3)) * n m doubles (with x_bar, ceil(n m / tile) * ceil(m / 3) * n
+// m more); ls_bar (n, m, m); ell_bar (n,); x_bar (n,) or null (no gradient
+// in x).  tile, grid: gram_kernels.k3_backward_schedule(n, m).
 int svc_gram_tiled_backward_f32(const void* x, const void* ell, const void* ls, int n, int m,
                                 double jitter, const void* kbar, int tile, int grid,
-                                void* partial, void* ls_bar, void* ell_bar, void* stream) {
+                                void* partial, void* ls_bar, void* ell_bar, void* x_bar, void* stream) {
   return launch_backward<float>(x, ell, ls, n, m, 1, jitter, kbar, tile, grid, partial,
-                                       ls_bar, ell_bar, stream);
+                                       ls_bar, ell_bar, x_bar, stream);
 }
 
 int svc_gram_tiled_backward_f64(const void* x, const void* ell, const void* ls, int n, int m,
                                 double jitter, const void* kbar, int tile, int grid,
-                                void* partial, void* ls_bar, void* ell_bar, void* stream) {
+                                void* partial, void* ls_bar, void* ell_bar, void* x_bar, void* stream) {
   return launch_backward<double>(x, ell, ls, n, m, 1, jitter, kbar, tile, grid, partial,
-                                        ls_bar, ell_bar, stream);
+                                        ls_bar, ell_bar, x_bar, stream);
 }
 
 // A batch of b Grams over shared x (n,): ell (b, n), ls (b, n, m, m), out
@@ -1260,14 +1365,14 @@ int svc_gram_tiled_batched_backward_f32(const void* x, const void* ell, const vo
                                         double jitter, const void* kbar, int tile, int grid,
                                         void* partial, void* ls_bar, void* ell_bar, void* stream) {
   return launch_backward<float>(x, ell, ls, n, m, b, jitter, kbar, tile, grid, partial,
-                                      ls_bar, ell_bar, stream);
+                                      ls_bar, ell_bar, nullptr, stream);
 }
 
 int svc_gram_tiled_batched_backward_f64(const void* x, const void* ell, const void* ls, int n, int m, int b,
                                         double jitter, const void* kbar, int tile, int grid,
                                         void* partial, void* ls_bar, void* ell_bar, void* stream) {
   return launch_backward<double>(x, ell, ls, n, m, b, jitter, kbar, tile, grid, partial,
-                                       ls_bar, ell_bar, stream);
+                                       ls_bar, ell_bar, nullptr, stream);
 }
 
 }  // extern "C"

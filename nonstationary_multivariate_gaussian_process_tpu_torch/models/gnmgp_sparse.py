@@ -40,8 +40,15 @@ with no exp on their diagonals, under :data:`HADAMARD_DEFAULT_HYPERS`; each
 observation row of ``K_nm`` takes its own task's row of ``L_x``.  The same
 kernels carry it: K3 for ``K_mm``, K1's cross form for ``K_xz``, each with
 its backward kernel.  The separable tiers' Hadamard likelihood is
-:func:`_loglik_separable_hadamard`.  The inducing-refinement part of the
-JAX module is not ported yet.
+:func:`_loglik_separable_hadamard`.
+
+Inducing-input refinement (:func:`refine_inducing`, every sparse model in
+both layouts) moves Z down the objective: :func:`make_ops_traced` and
+:func:`make_ops_traced_hetero` build the kriging projections and prior
+factors in the graph, so the gradient in z runs through them, through K3 at
+z (``K_mm``, its backward kernel giving z̄ too) and through K1's cross form
+(``K_xz``, its backward kernel giving the column side's z̄); the separable
+tiers' ``K_zz`` takes K1's self form, whose backward kernel gives z̄ as well.
 """
 
 from __future__ import annotations
@@ -469,6 +476,33 @@ def make_objective(data: FullData, z=None, n_inducing: int = 64, hyper: dict | N
     return nlp, ops
 
 
+def _traced_pieces(x: torch.Tensor, z: torch.Tensor, alpha, beta):
+    """The kriging projection ``K_zz⁻¹ K_zx`` and the prior factor at Z of
+    one stationary RBF prior, in the graph (the robust traced factor)."""
+    sigma = kernels.rbf_cov(z, alpha=alpha, beta=beta)
+    k_cross = kernels.rbf_cov(z, x, alpha=alpha, beta=beta)
+    c = chol.safe_cholesky(sigma, force_robust=True)
+    return chol.chol_solve(c, k_cross), c
+
+
+def make_ops_traced(x: torch.Tensor, z: torch.Tensor, hyper: dict | None = None) -> SparseOps:
+    """Differentiable-in-Z :class:`SparseOps` for inducing refinement.
+
+    :func:`make_ops` builds the projections and prior factors once, in float64
+    on the host, outside the graph; this builds the same pieces in the graph
+    (stationary ``rbf_cov``, the robust factor, ``chol_solve``), so a
+    gradient in ``z`` flows through the kriging projections, the f-process's
+    Grams and the latent priors at Z.  The prior factors come back as plain
+    Cholesky factors, which ``dists.mvn_logpdf_chol`` takes as it takes a
+    :class:`~..dists.TriInv`.  Use only inside :func:`refine_inducing`'s
+    Z-steps; rebuild with :func:`make_ops` at the refined Z."""
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    z = torch.as_tensor(z, dtype=x.dtype, device=x.device)
+    proj_l, c_l = _traced_pieces(x, z, hp["alpha_tilde_l"], hp["beta_tilde_l"])
+    proj_ul, c_ul = _traced_pieces(x, z, hp["alpha_L"], hp["beta_L"])
+    return SparseOps(z, proj_l, proj_ul, c_l, c_ul)
+
+
 def init_from_empirical(emp_vec, n: int, m_z: int, m: int, x, z) -> torch.Tensor:
     """Subsample an exact-model empirical init (N-layout) onto the Z-layout:
     each inducing slot takes the latent values of its nearest data input.
@@ -705,3 +739,149 @@ def make_objective_hetero(data: FullData, z=None, n_inducing: int = 64, hyper: d
         return -res
 
     return nlp, ops_h
+
+
+def make_ops_traced_hetero(x: torch.Tensor, z: torch.Tensor, hyper: dict | None = None) -> SparseHeteroOps:
+    """Differentiable-in-Z :class:`SparseHeteroOps` (see
+    :func:`make_ops_traced`): the base pieces and the noise GP's kriging
+    projection and prior factor, all in the graph."""
+    hp = {**HETERO_DEFAULT_HYPERS, **(hyper or {})}
+    base = make_ops_traced(x, z, hp)
+    proj_err, c_err = _traced_pieces(x, base.z, hp["alpha_err"], hp["beta_err"])
+    return SparseHeteroOps(base, proj_err, c_err)
+
+
+# ---------------------------------------------------------------------------
+# Inducing-input refinement
+# ---------------------------------------------------------------------------
+
+
+def _refine_builders(model: str, hadamard: bool):
+    """Each sparse model's pieces for :func:`refine_inducing`:
+    ``(default_hypers, traced_ops(x, z, hp), unpack(vec, m_z, m),
+    logpost(p, data, ops, m, **kw), objective(data, m, **kw))``.
+
+    Every sparse model is differentiable in Z: the GNMGP family through its
+    traced kriging projections, the separable family through its traced
+    projections and K1 at Z, the stationary LMC directly (its ops are Z)."""
+    from . import lmc_sparse as lsp
+    from . import snmgp_sparse as ssp
+    from .lmc import DEFAULT_HYPERS as LMC_HYPERS
+    from .snmgp import DEFAULT_HYPERS as SNMGP_HYPERS
+
+    if model == "gnmgp_hetero_sparse":
+        if hadamard:
+            raise ValueError("gnmgp_hetero_sparse has no Hadamard objective")
+        return (HETERO_DEFAULT_HYPERS, make_ops_traced_hetero, unpack_hetero,
+                lambda p, d, o, m, **kw: log_posterior_hetero(p, d, o, **kw),
+                lambda d, m, **kw: make_objective_hetero(d, **kw))
+    # (default hypers, traced ops, unpack(vec, m_z, m), (log posterior, objective) of the full layout, of the
+    # Hadamard one)
+    tiers = {
+        "gnmgp_sparse": (HADAMARD_DEFAULT_HYPERS if hadamard else DEFAULT_HYPERS, make_ops_traced, unpack,
+                         (log_posterior, make_objective), (log_posterior_hadamard, make_objective_hadamard)),
+        "snmgp_sparse": (SNMGP_HYPERS, ssp.make_ops_traced, ssp.unpack, (ssp.log_posterior, ssp.make_objective),
+                         (ssp.log_posterior_hadamard, ssp.make_objective_hadamard)),
+        # the stationary tier's ops are the inducing set: traced as they are
+        "lmc_sparse": (LMC_HYPERS, lambda x, z, hp: lsp.SparseOps(z), lambda vec, m_z, m: lsp.unpack(vec, m),
+                       (lsp.log_posterior, lsp.make_objective), (lsp.log_posterior_hadamard,
+                                                                 lsp.make_objective_hadamard)),
+    }
+    if model not in tiers:
+        raise ValueError(f"unknown sparse model {model!r}")
+    hypers, traced, unpack_fn, full, had = tiers[model]
+    if hadamard:
+        return (hypers, traced, unpack_fn, *had)
+    logpost, objective = full
+    return (hypers, traced, unpack_fn, lambda p, d, o, m, **kw: logpost(p, d, o, **kw),
+            lambda d, m, **kw: objective(d, **kw))
+
+
+def _z_objective(data, m_z: int, m, hyper, approx: str, prior: bool, mask, hypers_base, model: str):
+    """``(m, nlp_z(z, vec), objective(data, m, **kw))``: the task count, the
+    traced negative log posterior as a function of Z (and the latents) that
+    :func:`refine_inducing` descends, and the model's objective builder."""
+    hadamard = isinstance(data, HadamardData)
+    base_default, traced_ops, unpack_fn, logpost_fn, objective_fn = _refine_builders(model, hadamard)
+    hp = {**(hypers_base if hypers_base is not None else base_default), **(hyper or {})}
+    if hadamard:
+        if m is None:
+            raise ValueError("refine_inducing on Hadamard data needs the task count m")
+        m = int(m)
+    else:
+        m = int(data.y.shape[1])
+
+    def nlp_z(z, vec):
+        res, _ = logpost_fn(unpack_fn(vec, m_z, m), data, traced_ops(data.x, z, hp), m, approx=approx, hyper=hp,
+                            prior=prior, mask=mask)
+        return -res
+
+    return m, nlp_z, objective_fn
+
+
+#: Adam's constants for the Z-steps (optax's ``adam`` defaults).
+_Z_B1, _Z_B2, _Z_EPS = 0.9, 0.999, 1e-8
+
+
+def refine_inducing(data, z0, vec0, n_rounds: int = 2, z_iters: int = 40, vec_iters: int = 200,
+                    lr_z: float = 5e-3, lr_vec: float = 2e-1, hyper: dict | None = None, approx: str = "fitc",
+                    prior: bool = True, mask=None, method: str = "adam", hypers_base: dict | None = None,
+                    m: int | None = None, model: str = "gnmgp_sparse"):
+    """Alternating inducing-input refinement: move Z down the objective.
+
+    The FITC/VFE objective is differentiable in Z (:func:`make_ops_traced` and
+    each model's counterpart, :func:`_refine_builders`), so at small m_z the
+    fidelity a fixed quantile grid loses can be bought back by moving the
+    inducing inputs rather than adding more.  Each round takes ``z_iters``
+    plain Adam steps on Z at fixed latents (optax's ``adam(lr_z)``; a
+    non-finite gradient entry counts as 0; Z clipped to the data's range),
+    one host-free loop on Z's device, then on the host re-sorts Z, pulls
+    apart inputs closer than ``1e-6·(max x − min x)``, rebuilds the
+    objective at the new Z and refits the latents by ``map.fit_map`` (the
+    standard, hoisted ops).  Returns ``(z, vec, ops, final_nlp)`` with
+    ``ops`` rebuilt at the refined Z.
+
+    ``model`` picks the sparse family (``gnmgp_sparse``,
+    ``gnmgp_hetero_sparse``, ``snmgp_sparse``, ``lmc_sparse``);
+    ``hypers_base`` replaces its default hyper table.  The layout is read
+    from ``data``'s type: :class:`~.base.HadamardData` (which needs ``m``)
+    or :class:`~.base.FullData`."""
+    from ..inference import map as map_mod
+
+    x = data.x
+    m, nlp_z, objective_fn = _z_objective(data, int(np.shape(z0)[0]), m, hyper, approx, prior, mask, hypers_base,
+                                          model)
+    lo, hi = float(x.min()), float(x.max())
+    z = torch.as_tensor(z0, dtype=x.dtype, device=x.device)
+    vec = torch.as_tensor(vec0, dtype=x.dtype, device=x.device).detach()
+    m_z = int(z.shape[0])
+
+    def z_descent(z_, vec_):
+        mu, nu = torch.zeros_like(z_), torch.zeros_like(z_)
+        for count in range(1, z_iters + 1):
+            with torch.enable_grad():
+                zc = z_.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(nlp_z(zc, vec_), zc)
+            g = torch.where(torch.isfinite(g), g, 0.0)
+            mu = (1 - _Z_B1) * g + _Z_B1 * mu
+            nu = (1 - _Z_B2) * g**2 + _Z_B2 * nu
+            upd = mu / (1 - _Z_B1**count) / (torch.sqrt(nu / (1 - _Z_B2**count)) + _Z_EPS) * -lr_z
+            z_ = torch.clamp(z_ + upd, lo, hi)
+        return z_
+
+    final_nlp = ops = None
+    for _ in range(max(1, int(n_rounds))):
+        # re-sort and de-collide: the kriging Gram at Z degenerates where two
+        # inducing inputs coincide
+        z_np = np.sort(z_descent(z, vec).cpu().numpy().astype(np.float64))
+        min_gap = 1e-6 * max(hi - lo, 1e-12)
+        for i in range(1, m_z):
+            if z_np[i] - z_np[i - 1] < min_gap:
+                z_np[i] = z_np[i - 1] + min_gap
+        z = torch.as_tensor(np.clip(z_np, lo, hi + m_z * min_gap), dtype=x.dtype, device=x.device)
+        nlp, ops = objective_fn(data, m, z=z, hyper=hyper, approx=approx, prior=prior, mask=mask)
+        res = map_mod.fit_map(nlp, vec, n_iters=vec_iters, lr=lr_vec, method=method)
+        vec = res.vec
+        with torch.no_grad():
+            final_nlp = float(nlp(vec))
+    return z, vec, ops, final_nlp

@@ -37,8 +37,8 @@ from .. import dists, settings
 from ..ops import chol, kernels, transforms
 from . import snmgp
 from .base import FullData, HadamardData, check_full_data, check_vec, task_major
-from .gnmgp_sparse import (_loglik_separable, _loglik_separable_hadamard, _woodbury_core, choose_inducing,
-                           hadamard_inducing, task_onehot)
+from .gnmgp_sparse import (_loglik_separable, _loglik_separable_hadamard, _traced_pieces, _woodbury_core,
+                           choose_inducing, hadamard_inducing, task_onehot)
 from .lmc import task_cov
 from .snmgp import DEFAULT_HYPERS
 
@@ -89,6 +89,19 @@ def make_ops(x: torch.Tensor, z, hyper: dict | None = None) -> SparseOps:
     proj_sigma, _ = krige_proj(z, x, hp["alpha_tilde_sigma"], hp["beta_tilde_sigma"])
     return SparseOps(z, proj_l, proj_sigma, chol.prior_rbf_inv(z, hp["alpha_tilde_l"], hp["beta_tilde_l"]),
                      chol.prior_rbf_inv(z, hp["alpha_tilde_sigma"], hp["beta_tilde_sigma"]))
+
+
+def make_ops_traced(x: torch.Tensor, z: torch.Tensor, hyper: dict | None = None) -> SparseOps:
+    """Differentiable-in-Z :class:`SparseOps` for inducing refinement (the
+    separable counterpart of ``gnmgp_sparse.make_ops_traced``): both latent
+    processes' kriging projections and prior factors in the graph, the
+    factors plain Cholesky factors.  Use only inside
+    ``gnmgp_sparse.refine_inducing``'s Z-steps."""
+    hp = {**DEFAULT_HYPERS, **(hyper or {})}
+    z = torch.as_tensor(z, dtype=x.dtype, device=x.device)
+    proj_l, c_l = _traced_pieces(x, z, hp["alpha_tilde_l"], hp["beta_tilde_l"])
+    proj_s, c_s = _traced_pieces(x, z, hp["alpha_tilde_sigma"], hp["beta_tilde_sigma"])
+    return SparseOps(z, proj_l, proj_s, c_l, c_s)
 
 
 def latents_at_data(p: SparseParams, ops: SparseOps, hyper=None):

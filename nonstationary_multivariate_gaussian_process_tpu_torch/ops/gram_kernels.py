@@ -39,9 +39,13 @@ through its forward's plain version.
 Gradients.  When an input of K1 (either form) or of K3 requires a gradient,
 the wrapper goes through a ``torch.autograd.Function`` whose forward is the
 forward kernel and whose backward is the backward kernel (on the CPU: the
-plain versions).  ``x`` is data and gets no gradient: asking for one (the
-sparse tier's inducing-input refinement would) raises.  A forward without
-gradients runs and counts exactly as before.
+plain versions).  A gradient in the inputs ``x`` (and ``x2``), which the
+sparse tiers' inducing-input refinement takes in Z, comes from the same
+backward launch (``input_grad=True``: one more sum in the same walk); a
+backward not asked for it runs the kernel it ran before (the x̄ sums are a
+compile-time variant, or on K3's costliest builds a null pointer tested
+where they are needed).  A forward without gradients runs and counts
+exactly as before.
 """
 
 from __future__ import annotations
@@ -79,12 +83,12 @@ SOURCES = {
 _ENTRY_POINTS = {
     "gibbs_gram_pairs": ("gibbs_gram", [_P, _P, _P, _I, _D, _I, _I, _P]),
     "gibbs_gram_threads": ("gibbs_gram", [_P, _P, _P, _I, _P, _P, _P, _I, _D, _I, _P]),
-    "gibbs_gram_backward": ("gibbs_gram_backward", [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P]),
+    "gibbs_gram_backward": ("gibbs_gram_backward", [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P]),
     "gibbs_gram_cross_backward": ("gibbs_gram_cross_backward",
-                                  [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+                                  [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
     "svc_gram": ("svc_gram", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _I, _I, _I, _P]),
     "svc_gram_tiled": ("svc_gram_tiled", [_P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P]),
-    "svc_gram_tiled_backward": ("svc_gram_tiled_backward", [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P]),
+    "svc_gram_tiled_backward": ("svc_gram_tiled_backward", [_P, _P, _P, _I, _I, _D, _P, _I, _I, _P, _P, _P, _P]),
     "svc_gram_tiled_batched": ("svc_gram_tiled_batched", [_P, _P, _P, _I, _I, _I, _D, _I, _I, _I, _I, _P]),
     "svc_gram_tiled_batched_backward": ("svc_gram_tiled_batched_backward",
                                         [_P, _P, _P, _I, _I, _I, _D, _P, _I, _I, _P, _P, _P]),
@@ -216,7 +220,7 @@ def gibbs_gram(x1, s1, l1, x2=None, s2=None, l2=None, jitter: float = 0.0) -> to
 
     Self form (``x2 is None``): the column strip is the row strip and
     ``jitter`` is added on the diagonal.  Cross form: ``jitter`` must be 0.
-    Returns (n1, n2).  Both forms are differentiable in σ and ℓ (through
+    Returns (n1, n2).  Both forms are differentiable in x, σ and ℓ (through
     :func:`gibbs_gram_backward` and :func:`gibbs_gram_cross_backward`, on
     both sides for the cross form).
 
@@ -231,11 +235,6 @@ def gibbs_gram(x1, s1, l1, x2=None, s2=None, l2=None, jitter: float = 0.0) -> to
     if cross and jitter:
         raise ValueError("gibbs_gram: jitter belongs to the self form (x2=None) only")
     if _needs_grad(x1, s1, l1, *((x2, s2, l2) if cross else ())):
-        if x1.requires_grad or (cross and x2.requires_grad):
-            raise NotImplementedError(
-                "gibbs_gram: no gradient with respect to x or x2 (x is data; the sparse tier's "
-                "inducing-input refinement, which needs one, is not yet ported)"
-            )
         if cross:
             return _GibbsGramCross.apply(x1, s1, l1, x2, s2, l2)
         return _GibbsGramSelf.apply(x1, s1, l1, float(jitter))
@@ -390,22 +389,32 @@ def k1_backward_schedule(n: int, sms: int = 132) -> K1BackwardSchedule:
     return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs, 4 * sms)))
 
 
-def gibbs_gram_backward_plain(x, s, l, jitter: float, kbar):
-    """Plain version of K1's self-form backward: ``(σ̄, ℓ̄)`` by
-    ``torch.autograd.grad`` through :func:`gibbs_gram_plain`."""
+def _grads(f, args, wanted, cotangent):
+    """``torch.autograd.grad`` of ``f(*args)`` with respect to the args whose
+    ``wanted`` flag is set, the others detached."""
     with torch.enable_grad():
-        s_ = s.detach().requires_grad_(True)
-        l_ = l.detach().requires_grad_(True)
-        k = gibbs_gram_plain(x.detach(), s_, l_, x.detach(), s_, l_, jitter)
-        return torch.autograd.grad(k, (s_, l_), kbar)
+        args = [a.detach().requires_grad_(w) for a, w in zip(args, wanted)]
+        return torch.autograd.grad(f(*args), [a for a, w in zip(args, wanted) if w], cotangent)
 
 
-def gibbs_gram_backward(x, s, l, kbar, jitter: float = 0.0):
+def gibbs_gram_backward_plain(x, s, l, jitter: float, kbar, input_grad: bool = False):
+    """Plain version of K1's self-form backward: ``(σ̄, ℓ̄)`` and, with
+    ``input_grad``, ``x̄``, by ``torch.autograd.grad`` through
+    :func:`gibbs_gram_plain`."""
+    f = lambda x_, s_, l_: gibbs_gram_plain(x_, s_, l_, x_, s_, l_, jitter)
+    if input_grad:
+        x_bar, s_bar, l_bar = _grads(f, (x, s, l), (True, True, True), kbar)
+        return s_bar, l_bar, x_bar
+    return _grads(f, (x, s, l), (False, True, True), kbar)
+
+
+def gibbs_gram_backward(x, s, l, kbar, jitter: float = 0.0, input_grad: bool = False):
     """``(σ̄, ℓ̄)`` of K1's self form for the cotangent ``kbar`` (n, n), which
-    need not be symmetric.  The jitter carries no gradient; it matters only
-    to the CPU's plain version, which rebuilds the forward."""
+    need not be symmetric, and with ``input_grad`` ``x̄`` after them (from
+    the same launch).  The jitter carries no gradient; it matters only to
+    the CPU's plain version, which rebuilds the forward."""
     if x.device.type == "cpu":
-        return gibbs_gram_backward_plain(x, s, l, jitter, kbar)
+        return gibbs_gram_backward_plain(x, s, l, jitter, kbar, input_grad)
     tensors = {"x": x, "s": s, "l": l, "kbar": kbar}
     device, dtype = _check_cuda("gibbs_gram_backward", tensors, {"x": 1, "s": 1, "l": 1, "kbar": 2})
     n = x.shape[0]
@@ -415,17 +424,27 @@ def gibbs_gram_backward(x, s, l, kbar, jitter: float = 0.0):
         raise ValueError(f"gibbs_gram_backward: N={n} exceeds the launch grid")
     s_bar = torch.empty(n, dtype=dtype, device=device)
     l_bar = torch.empty(n, dtype=dtype, device=device)
+    x_bar = torch.empty(n, dtype=dtype, device=device) if input_grad else None
+    outs = (s_bar, l_bar, x_bar) if input_grad else (s_bar, l_bar)
     if n == 0:
-        return s_bar, l_bar
+        return outs
     sched = k1_backward_schedule(n, sm_count(device))
-    partial = torch.empty(sched.partial_numel, dtype=dtype, device=device)
+    partial = torch.empty(sched.partial_numel + (sched.n_tiles * n if input_grad else 0), dtype=dtype, device=device)
     _launch("gibbs_gram_backward", dtype, device, x.data_ptr(), s.data_ptr(), l.data_ptr(), n,
-            kbar.data_ptr(), sched.tile, sched.grid, partial.data_ptr(), s_bar.data_ptr(), l_bar.data_ptr())
+            kbar.data_ptr(), sched.tile, sched.grid, partial.data_ptr(), s_bar.data_ptr(), l_bar.data_ptr(),
+            _ptr(x_bar))
     gibbs_gram_backward.launches += 1
-    return s_bar, l_bar
+    gibbs_gram_backward.input_grad_launches += input_grad
+    return outs
 
 
-gibbs_gram_backward.launches = 0
+gibbs_gram_backward.launches = gibbs_gram_backward.input_grad_launches = 0
+
+
+def _ptr(t: torch.Tensor | None):
+    """A kernel's pointer argument for ``t``, null for ``None`` (an output
+    that is not asked for)."""
+    return None if t is None else t.data_ptr()
 
 
 def first_order_only(backward):
@@ -463,6 +482,9 @@ class _GibbsGramSelf(torch.autograd.Function):
     @first_order_only
     def backward(ctx, kbar):
         x, s, l = ctx.saved_tensors
+        if ctx.needs_input_grad[0]:
+            s_bar, l_bar, x_bar = gibbs_gram_backward(x, s, l, kbar.contiguous(), ctx.jitter, input_grad=True)
+            return x_bar, s_bar, l_bar, None
         s_bar, l_bar = gibbs_gram_backward(x, s, l, kbar.contiguous(), ctx.jitter)
         return None, s_bar, l_bar, None
 
@@ -533,6 +555,12 @@ class K1CrossBackwardSchedule:
         return self.n_strips * self.n2 * 2 + (self.col_groups * self.n1 * 2 if self.col_groups > 1 else 0)
 
     @property
+    def input_slots_numel(self) -> int:
+        """With a gradient in the inputs: x̄2's column slots, then (with
+        several column groups) x̄1's row slots, after :attr:`slots_numel`."""
+        return self.slots_numel // 2
+
+    @property
     def n_tickets(self) -> int:
         """One a column group, then (with several) one a strip."""
         return self.col_groups + (self.n_strips if self.col_groups > 1 else 0)
@@ -561,21 +589,24 @@ def k1_cross_backward_schedule(n1: int, n2: int, sms: int = 132) -> K1CrossBackw
     return K1CrossBackwardSchedule(n1, n2, rows, k1x_column_groups(n_chunks, sms // strips))
 
 
-def gibbs_gram_cross_backward_plain(x1, s1, l1, x2, s2, l2, kbar):
-    """Plain version of K1's cross-form backward: ``(σ̄1, ℓ̄1, σ̄2, ℓ̄2)`` by
+def gibbs_gram_cross_backward_plain(x1, s1, l1, x2, s2, l2, kbar, input_grad: bool = False):
+    """Plain version of K1's cross-form backward: ``(σ̄1, ℓ̄1, σ̄2, ℓ̄2)`` and,
+    with ``input_grad``, ``(x̄1, x̄2)`` after them, by
     ``torch.autograd.grad`` through :func:`gibbs_gram_plain`."""
-    with torch.enable_grad():
-        args = [t.detach().requires_grad_(True) for t in (s1, l1, s2, l2)]
-        k = gibbs_gram_plain(x1.detach(), args[0], args[1], x2.detach(), args[2], args[3])
-        return torch.autograd.grad(k, args, kbar)
+    if input_grad:
+        x1_bar, s1_bar, l1_bar, x2_bar, s2_bar, l2_bar = _grads(gibbs_gram_plain, (x1, s1, l1, x2, s2, l2),
+                                                                (True,) * 6, kbar)
+        return s1_bar, l1_bar, s2_bar, l2_bar, x1_bar, x2_bar
+    return _grads(gibbs_gram_plain, (x1, s1, l1, x2, s2, l2), (False, True, True, False, True, True), kbar)
 
 
-def gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar):
+def gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar, input_grad: bool = False):
     """``(σ̄1, ℓ̄1, σ̄2, ℓ̄2)`` of K1's cross form for the cotangent ``kbar``
-    (n1, n2): the row strip's gradients (n1,) and the column strip's
-    (n2,)."""
+    (n1, n2): the row strip's gradients (n1,) and the column strip's (n2,);
+    with ``input_grad`` also ``(x̄1, x̄2)`` after them, from the same
+    launch."""
     if x1.device.type == "cpu":
-        return gibbs_gram_cross_backward_plain(x1, s1, l1, x2, s2, l2, kbar)
+        return gibbs_gram_cross_backward_plain(x1, s1, l1, x2, s2, l2, kbar, input_grad)
     tensors = {"x1": x1, "s1": s1, "l1": l1, "x2": x2, "s2": s2, "l2": l2, "kbar": kbar}
     device, dtype = _check_cuda("gibbs_gram_cross_backward", tensors, {**dict.fromkeys(tensors, 1), "kbar": 2})
     n1, n2 = x1.shape[0], x2.shape[0]
@@ -584,23 +615,28 @@ def gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar):
         raise ValueError("gibbs_gram_cross_backward: want x1, s1, l1 (N1,), x2, s2, l2 (N2,) and kbar (N1, N2)")
     if n1 >= 2**31 - 8 * _K1X_MAX_ROWS or n2 >= 2**30:
         raise ValueError(f"gibbs_gram_cross_backward: strips of {n1} x {n2} exceed the launch grid")
+    sizes = (n1, n1, n2, n2) + ((n1, n2) if input_grad else ())
     if n1 == 0 or n2 == 0:
-        return tuple(torch.zeros(n, dtype=dtype, device=device) for n in (n1, n1, n2, n2))
-    outs = _k1x_launch(k1_cross_backward_schedule(n1, n2, sm_count(device)), x1, s1, l1, x2, s2, l2, kbar)
+        return tuple(torch.zeros(n, dtype=dtype, device=device) for n in sizes)
+    outs = _k1x_launch(k1_cross_backward_schedule(n1, n2, sm_count(device)), x1, s1, l1, x2, s2, l2, kbar,
+                       input_grad)
     gibbs_gram_cross_backward.launches += 1
+    gibbs_gram_cross_backward.input_grad_launches += input_grad
     return outs
 
 
-def _k1x_launch(sched, x1, s1, l1, x2, s2, l2, kbar) -> tuple:
-    """K1's cross-form backward by ``sched`` into new (σ̄1, ℓ̄1, σ̄2, ℓ̄2);
-    counts nothing."""
+def _k1x_launch(sched, x1, s1, l1, x2, s2, l2, kbar, input_grad: bool = False) -> tuple:
+    """K1's cross-form backward by ``sched`` into new (σ̄1, ℓ̄1, σ̄2, ℓ̄2) and,
+    with ``input_grad``, (x̄1, x̄2); counts nothing."""
     dtype, device = x1.dtype, x1.device
-    outs = tuple(torch.empty(n, dtype=dtype, device=device) for n in (sched.n1, sched.n1, sched.n2, sched.n2))
-    slots = torch.empty(sched.slots_numel, dtype=dtype, device=device)
+    sizes = (sched.n1, sched.n1, sched.n2, sched.n2) + ((sched.n1, sched.n2) if input_grad else ())
+    outs = tuple(torch.empty(n, dtype=dtype, device=device) for n in sizes)
+    slots = torch.empty(sched.slots_numel + (sched.input_slots_numel if input_grad else 0), dtype=dtype,
+                        device=device)
     _launch("gibbs_gram_cross_backward", dtype, device, x1.data_ptr(), s1.data_ptr(), l1.data_ptr(), sched.n1,
             x2.data_ptr(), s2.data_ptr(), l2.data_ptr(), sched.n2, kbar.data_ptr(), sched.rows, sched.col_groups,
             sched.grid, slots.data_ptr(), _tickets_for(device, sched.n_tickets).data_ptr(),
-            *(o.data_ptr() for o in outs))
+            *(o.data_ptr() for o in outs[:4]), *(_ptr(o) for o in (outs[4:] or (None, None))))
     return outs
 
 
@@ -620,7 +656,7 @@ def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
     return _tickets[key]
 
 
-gibbs_gram_cross_backward.launches = 0
+gibbs_gram_cross_backward.launches = gibbs_gram_cross_backward.input_grad_launches = 0
 
 
 class _GibbsGramCross(torch.autograd.Function):
@@ -636,8 +672,13 @@ class _GibbsGramCross(torch.autograd.Function):
     @first_order_only
     def backward(ctx, kbar):
         x1, s1, l1, x2, s2, l2 = ctx.saved_tensors
-        s1_bar, l1_bar, s2_bar, l2_bar = gibbs_gram_cross_backward(x1, s1, l1, x2, s2, l2, kbar.contiguous())
-        return None, s1_bar, l1_bar, None, s2_bar, l2_bar
+        args = (x1, s1, l1, x2, s2, l2, kbar.contiguous())
+        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[3]):
+            s1_bar, l1_bar, s2_bar, l2_bar = gibbs_gram_cross_backward(*args)
+            return None, s1_bar, l1_bar, None, s2_bar, l2_bar
+        s1_bar, l1_bar, s2_bar, l2_bar, x1_bar, x2_bar = gibbs_gram_cross_backward(*args, input_grad=True)
+        return (x1_bar if ctx.needs_input_grad[0] else None, s1_bar, l1_bar,
+                x2_bar if ctx.needs_input_grad[3] else None, s2_bar, l2_bar)
 
 
 # ---------------------------------------------------------------------------
@@ -1005,12 +1046,10 @@ def svc_gram_tiled(x, ell, ls, jitter: float) -> torch.Tensor:
     """The GNMGP Gram ``(K_x + jitter·I)[n,p]·(L_n L_pᵀ)[a,c]`` in the
     input-major layout (row ``n·M + a``), (NM, NM).
 
-    ``x``, ``ell``: (N,); ``ls``: (N, M, M).  Differentiable in ``ell`` and
-    ``ls`` (through :func:`svc_gram_tiled_backward`).
+    ``x``, ``ell``: (N,); ``ls``: (N, M, M).  Differentiable in ``x``,
+    ``ell`` and ``ls`` (through :func:`svc_gram_tiled_backward`).
     """
     if _needs_grad(x, ell, ls):
-        if x.requires_grad:
-            raise NotImplementedError("svc_gram_tiled: no gradient with respect to x (x is data)")
         return _SvcGramTiled.apply(x, ell, ls, float(jitter))
     return _svc_gram_tiled_forward(x, ell, ls, jitter)
 
@@ -1018,14 +1057,14 @@ def svc_gram_tiled(x, ell, ls, jitter: float) -> torch.Tensor:
 svc_gram_tiled.launches = 0
 
 
-def svc_gram_tiled_backward_plain(x, ell, ls, jitter: float, kbar):
-    """Plain version of K3's backward: ``(ℓ̄, L̄)`` by ``torch.autograd.grad``
-    through :func:`svc_gram_tiled_plain`."""
-    with torch.enable_grad():
-        ell_ = ell.detach().requires_grad_(True)
-        ls_ = ls.detach().requires_grad_(True)
-        k = svc_gram_tiled_plain(x.detach(), ell_, ls_, jitter)
-        return torch.autograd.grad(k, (ell_, ls_), kbar)
+def svc_gram_tiled_backward_plain(x, ell, ls, jitter: float, kbar, input_grad: bool = False):
+    """Plain version of K3's backward: ``(ℓ̄, L̄)`` and, with ``input_grad``,
+    ``x̄``, by ``torch.autograd.grad`` through :func:`svc_gram_tiled_plain`."""
+    f = lambda x_, ell_, ls_: svc_gram_tiled_plain(x_, ell_, ls_, jitter)
+    if input_grad:
+        x_bar, ell_bar, ls_bar = _grads(f, (x, ell, ls), (True, True, True), kbar)
+        return ell_bar, ls_bar, x_bar
+    return _grads(f, (x, ell, ls), (False, True, True), kbar)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1093,6 +1132,15 @@ class K3BackwardSchedule(_TilePairs):
             return self.n_tiles * (self.m + self.n_bblocks) * self.n * self.m
         return self.batch * self.n_tiles * self.n * (self.m * self.m + 1)
 
+    @property
+    def input_partial_numel(self) -> int:
+        """With a gradient in x (one Gram): x̄'s partials after
+        :attr:`partial_numel` (generic: a ``K3_GENERIC_BB`` block's share
+        a row and slot, as ℓ̄'s)."""
+        if self.route == "generic":
+            return self.n_tiles * self.n_bblocks * self.n * self.m
+        return self.n_tiles * self.n
+
     def partial_dtype(self, dtype: torch.dtype) -> torch.dtype:
         """The partials' type: the input's (tiled), float64 (generic)."""
         return torch.float64 if self.route == "generic" else dtype
@@ -1129,12 +1177,13 @@ def k3_backward_schedule(n: int, m: int, sms: int = 132, batch: int = 1) -> K3Ba
     return dataclasses.replace(sched, grid=max(1, min(sched.n_pairs * batch, 4 * sms)))
 
 
-def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float):
+def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float, input_grad: bool = False):
     """``(ℓ̄, L̄)`` of K3 for the cotangent ``kbar`` (NM, NM), input-major,
-    which need not be symmetric.  ``L̄`` is (N, M, M), upper triangle
-    included.  The jitter rides ``K̄``'s weight on the diagonal blocks."""
+    which need not be symmetric, and with ``input_grad`` ``x̄`` after them
+    (from the same launches).  ``L̄`` is (N, M, M), upper triangle included.
+    The jitter rides ``K̄``'s weight on the diagonal blocks."""
     if x.device.type == "cpu":
-        return svc_gram_tiled_backward_plain(x, ell, ls, jitter, kbar)
+        return svc_gram_tiled_backward_plain(x, ell, ls, jitter, kbar, input_grad)
     device, dtype, n, m = _check_svc("svc_gram_tiled_backward", x, ell, ls)
     if kbar.device != device or kbar.dtype != dtype or tuple(kbar.shape) != (n * m, n * m):
         raise ValueError(f"svc_gram_tiled_backward: kbar must be ({n * m}, {n * m}) {dtype} on {device}")
@@ -1142,18 +1191,22 @@ def svc_gram_tiled_backward(x, ell, ls, kbar, jitter: float):
         raise ValueError("svc_gram_tiled_backward: kbar must be contiguous")
     ell_bar = torch.empty(n, dtype=dtype, device=device)
     ls_bar = torch.empty((n, m, m), dtype=dtype, device=device)
+    x_bar = torch.empty(n, dtype=dtype, device=device) if input_grad else None
+    outs = (ell_bar, ls_bar, x_bar) if input_grad else (ell_bar, ls_bar)
     if n == 0:
-        return ell_bar, ls_bar
+        return outs
     sched = k3_backward_schedule(n, m, sm_count(device))
-    partial = torch.empty(sched.partial_numel, dtype=sched.partial_dtype(dtype), device=device)
+    numel = sched.partial_numel + (sched.input_partial_numel if input_grad else 0)
+    partial = torch.empty(numel, dtype=sched.partial_dtype(dtype), device=device)
     _launch("svc_gram_tiled_backward", dtype, device, x.data_ptr(), ell.data_ptr(), ls.data_ptr(), n, m,
             float(jitter), kbar.data_ptr(), sched.tile, sched.grid, partial.data_ptr(),
-            ls_bar.data_ptr(), ell_bar.data_ptr())
+            ls_bar.data_ptr(), ell_bar.data_ptr(), _ptr(x_bar))
     svc_gram_tiled_backward.launches += 1
-    return ell_bar, ls_bar
+    svc_gram_tiled_backward.input_grad_launches += input_grad
+    return outs
 
 
-svc_gram_tiled_backward.launches = 0
+svc_gram_tiled_backward.launches = svc_gram_tiled_backward.input_grad_launches = 0
 
 
 class _SvcGramTiled(torch.autograd.Function):
@@ -1169,6 +1222,9 @@ class _SvcGramTiled(torch.autograd.Function):
     @first_order_only
     def backward(ctx, kbar):
         x, ell, ls = ctx.saved_tensors
+        if ctx.needs_input_grad[0]:
+            ell_bar, ls_bar, x_bar = svc_gram_tiled_backward(x, ell, ls, kbar.contiguous(), ctx.jitter, input_grad=True)
+            return x_bar, ell_bar, ls_bar, None
         ell_bar, ls_bar = svc_gram_tiled_backward(x, ell, ls, kbar.contiguous(), ctx.jitter)
         return None, ell_bar, ls_bar, None
 
@@ -1220,7 +1276,8 @@ def svc_gram_tiled_batched(x, ell, ls, jitter: float) -> torch.Tensor:
     :func:`svc_gram_tiled_batched_backward`)."""
     if _needs_grad(x, ell, ls):
         if x.requires_grad:
-            raise NotImplementedError("svc_gram_tiled_batched: no gradient with respect to x (x is data)")
+            raise NotImplementedError("svc_gram_tiled_batched: no gradient with respect to x (x is data: a "
+                                      "population sampler moves the latents, never the inducing inputs)")
         return _SvcGramTiledBatched.apply(x, ell, ls, float(jitter))
     return _svc_gram_tiled_batched_forward(x, ell, ls, jitter)
 
@@ -1295,12 +1352,26 @@ _WRAPPERS = {
 }
 
 
+#: The backward wrappers that also count the launches asked for x̄ (in
+#: ``.input_grad_launches``, a part of ``.launches``).
+_INPUT_GRAD_WRAPPERS = ("gibbs_gram_backward", "gibbs_gram_cross_backward", "svc_gram_tiled_backward")
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 (and the counts of launches
+    asked for x̄)."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    for name in _INPUT_GRAD_WRAPPERS:
+        _WRAPPERS[name].input_grad_launches = 0
 
 
 def launches() -> dict[str, int]:
     """Each kernel's launches since the last :func:`reset_launches`."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def input_grad_launches() -> dict[str, int]:
+    """The backward kernels' launches asked for x̄ since the last
+    :func:`reset_launches` (each also in :func:`launches`)."""
+    return {name: _WRAPPERS[name].input_grad_launches for name in _INPUT_GRAD_WRAPPERS}

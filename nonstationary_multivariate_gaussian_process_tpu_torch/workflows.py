@@ -28,10 +28,12 @@ prediction, the chain (either sampler, any ``whiten``), LOO, and held-out
 test scoring by the MAP and by the chain, for ``lmc``, ``snmgp`` and
 ``gnmgp`` and the sparse ``gnmgp_sparse``, ``snmgp_sparse`` and
 ``lmc_sparse`` (FITC or VFE at the inducing inputs chosen among the
-subject's times; their whiteners and LOO at those inputs).
+subject's times; their whiteners and LOO at those inputs).  With
+``refine_z > 0`` both pipelines move a sparse model's inducing inputs after
+MAP (``gnmgp_sparse.refine_inducing``) and condition every later stage on
+the refined set.
 
-Not ported yet, and refused with ``ValueError``: inducing-input refinement
-(``refine_z > 0``, which needs K1's gradient in the inputs), the samplers
+Not ported yet, and refused with ``ValueError``: the samplers
 ``"rmhmc"`` (it needs second- and third-order derivatives of the Gram
 kernels K1 and K3) and ``"pathfinder"``, and SMC's pathfinder reference
 (``smc_ref="pathfinder"``).  The
@@ -113,8 +115,12 @@ class PipelineConfig:
     #                       the data; the likelihood is O(N M (m_z M)^2))
     sparse_approx: str = "fitc"  # sparse models: "fitc" (diagonal-corrected)
     #                              or "vfe" (Titsias' bound)
-    refine_z: int = 0  # inducing-input refinement rounds after MAP: not yet
-    #                    ported (any value > 0 raises, for every sparse model)
+    refine_z: int = 0  # any sparse model, either layout: alternating
+    #                    inducing-input refinement rounds after MAP (Z
+    #                    descends the traced objective, the latents refit at
+    #                    the moved Z; gnmgp_sparse.refine_inducing); later
+    #                    stages condition on the refined ops
+    refine_z_iters: int = 40  # Adam steps on Z per refinement round
     do_empirical: bool = True
     do_map: bool = True
     do_map_analysis: bool = True
@@ -178,9 +184,6 @@ class PipelineConfig:
     def __post_init__(self):
         if self.model not in MODELS:
             raise ValueError(f"unknown model {self.model!r} (the torch package runs {MODELS})")
-        if self.refine_z > 0:
-            raise ValueError("refine_z > 0 (inducing-input refinement) is not yet ported to the torch package: it "
-                             "needs the gradient of K1 in the inputs")
         if self.sparse_approx not in SPARSE_APPROXES:
             raise ValueError(f"sparse_approx must be one of {SPARSE_APPROXES}, got {self.sparse_approx!r}")
         if self.sampler in UNPORTED_SAMPLERS:
@@ -288,6 +291,12 @@ def _build_inits(cfg: PipelineConfig, emp, data: FullData, z=None) -> dict:
         # (Nonseparable_model_mpiKAISER_extended.py:317-328)
         inits = {name: gnmgp_hetero.init_from_gnmgp(v, n, m) for name, v in inits.items()}
     return inits
+
+
+def _refit_iters(cfg: PipelineConfig) -> int:
+    """The latents' refit at each refined Z: half the MAP's budget, within
+    [100, 400], as the JAX workflow takes it."""
+    return min(max(100, cfg.n_opt // 2), 400)
 
 
 def _predict_map(cfg: PipelineConfig, map_vec, data: FullData, xs, device, dtype, sp_ops=None):
@@ -587,6 +596,19 @@ def run_subject(
             result["map_vec"] = map_vec = res.vec
             result["map_init"] = name
             result["target_hist"] = res.target_hist.cpu().numpy()
+            if cfg.refine_z > 0 and sparse:
+                # inducing-input refinement: Z descends the objective and the
+                # latents refit at the moved Z; sampling, DIC, LOO and
+                # prediction condition on the refined ops
+                t0 = time.time()
+                sp_z, map_vec, _, _ = gnmgp_sparse.refine_inducing(
+                    data, sp_z, map_vec, n_rounds=cfg.refine_z, z_iters=cfg.refine_z_iters,
+                    vec_iters=_refit_iters(cfg), lr_vec=cfg.lr, hyper=cfg.hyper, approx=cfg.sparse_approx,
+                    method=cfg.map_method, model=cfg.model)
+                nlp, sp_ops = make_sparse(data, z=sp_z, approx=cfg.sparse_approx, hyper=cfg.hyper)
+                result["map_vec"] = map_vec
+                result["refined_z"] = sp_z.cpu().numpy()
+                result["timings"]["refine_z"] = time.time() - t0
             if store is not None:
                 # a sparse MAP keeps its inducing inputs and approximation beside it
                 extra = {"z": sp_z.cpu().numpy(), "approx": np.asarray(cfg.sparse_approx)} if sparse else {}
@@ -790,6 +812,20 @@ def run_subject_hadamard(x, indx, y, m: int, cfg: PipelineConfig | None = None, 
     out["timings"]["map"] = time.time() - t0
     out["map_vec"] = res.vec
     out["target_hist"] = res.target_hist.cpu().numpy()
+    if cfg.refine_z > 0 and sparse:
+        # inducing-input refinement through the traced Hadamard objective;
+        # every later stage conditions on the refined ops
+        t0 = time.time()
+        z_r, vec_r, sp_ops, _ = gnmgp_sparse.refine_inducing(
+            data, sp_ops.z, res.vec, n_rounds=cfg.refine_z, z_iters=cfg.refine_z_iters, vec_iters=_refit_iters(cfg),
+            lr_vec=cfg.lr, hyper=cfg.hyper, approx=cfg.sparse_approx, method=cfg.map_method, m=m, model=cfg.model)
+        nlp, _ = _MODELS[cfg.model].make_objective_hadamard(data, m, z=z_r, approx=cfg.sparse_approx, hyper=cfg.hyper)
+        res = res._replace(vec=vec_r)
+        out["map_vec"] = vec_r
+        out["refined_z"] = z_r.cpu().numpy()
+        out["timings"]["refine_z"] = time.time() - t0
+        n_lat, x_lat = sp_ops.z.shape[0], sp_ops.z
+        predict_map, predict_test, predict_test_sample = _hadamard_predictors(cfg, sp_ops)
 
     if cfg.do_pred_grid:
         t0 = time.time()

@@ -63,7 +63,7 @@ def truth_vec(d, rng, scale=0.1):
 @pytest.fixture(scope="module")
 def subject():
     rng = np.random.default_rng(31)
-    d = jsim.sim_mnts_hetero(jax.random.PRNGKey(8), n=N)
+    d = jax.jit(lambda k: jsim.sim_mnts_hetero(k, n=N))(jax.random.PRNGKey(8))  # op by op: ~80 compiles
     x, y = np.asarray(d.x), np.asarray(d.y)
     vec = truth_vec(d, rng)
     chain = vec[None, :] + 0.02 * rng.normal(size=(S + 2, vec.size))

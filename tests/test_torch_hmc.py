@@ -32,6 +32,7 @@ import pytest
 import torch
 import jax
 import jax.numpy as jnp
+import optax
 
 from nonstationary_multivariate_gaussian_process_tpu import evaluate as jevaluate
 from nonstationary_multivariate_gaussian_process_tpu import workflows as jworkflows
@@ -86,12 +87,35 @@ def jax_noise(key, n_total: int, p: int):
     return np.array(z), np.array(u)
 
 
+def _memoized(fn, key=lambda *a, **k: (a, tuple(sorted(k.items())))):
+    """``fn`` returning one object per ``key`` of its arguments."""
+    made = {}
+
+    def once(*args, **kwargs):
+        k = key(*args, **kwargs)
+        if k not in made:
+            made[k] = fn(*args, **kwargs)
+        return made[k]
+
+    return once
+
+
 def jit_jax_map(mp):
     """Put the JAX MAP stage's objective on ``jax.jit`` (``fit_map`` and
-    ``multi_start_map`` score each start's last iterate op by op)."""
+    ``multi_start_map`` score each start's last iterate op by op), one
+    wrapper and one optimizer a setting: ``fit_map``'s chunk takes both as
+    static arguments, so a fresh one a start compiles the same program
+    again."""
     multi, fit = jmap.multi_start_map, jmap.fit_map
-    mp.setattr(jmap, "multi_start_map", lambda objective, inits, **kw: multi(jax.jit(objective), inits, **kw))
-    mp.setattr(jmap, "fit_map", lambda objective, v0, **kw: fit(jax.jit(objective), v0, **kw))
+    for name in ("lbfgs", "scale_by_adam", "scale"):
+        mp.setattr(optax, name, _memoized(getattr(optax, name)))
+    mp.setattr(optax, "chain", _memoized(optax.chain, lambda *ts: tuple(map(id, ts))))  # of the memoized parts
+    mp.setattr(jmap, "_scale_by_vector", _memoized(jmap._scale_by_vector,
+                                                   lambda v: (np.shape(v), np.asarray(v).tobytes())))
+    jitted = _memoized(jax.jit)
+    once = lambda objective: objective if hasattr(objective, "lower") else jitted(objective)  # not jitted twice
+    mp.setattr(jmap, "multi_start_map", lambda objective, inits, **kw: multi(once(objective), inits, **kw))
+    mp.setattr(jmap, "fit_map", lambda objective, v0, **kw: fit(once(objective), v0, **kw))
 
 
 def jit_jax_stages(mp, model: str = "gnmgp"):
@@ -102,13 +126,7 @@ def jit_jax_stages(mp, model: str = "gnmgp"):
     compiles once.  The values agree with the op-by-op ones to rounding."""
     mod, pred = jworkflows._MODELS[model], jworkflows._PREDICT[model]
     jit_jax_map(mp)
-    jitted = {}
-
-    def once(fn):
-        if fn not in jitted:
-            jitted[fn] = jax.jit(fn)
-        return jitted[fn]
-
+    once = _memoized(jax.jit)
     for name in ("get_aic", "get_bic", "get_dic"):
         mp.setattr(jevaluate, name, functools.partial(
             lambda orig, first, fn, *a, **k: orig(first, once(fn), *a, **k), getattr(jevaluate, name)))

@@ -421,10 +421,16 @@ def test_second_derivative_raises(cases):
 
 @pytest.mark.parametrize("side", [0, 3])
 def test_gradient_in_the_inputs_raises(cases, side):
+    """A gradient in x1 (side 0) or x2 (side 3) no longer raises: it comes
+    from the same backward (``input_grad``), equal to autograd through the
+    plain forward, and the other side's x̄ is not returned."""
     args = list(_t(*cases[(40, 8)][0][:6]))
     args[side].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no gradient with respect to x"):
-        gk.gibbs_gram(*args)
+    kbar = torch.as_tensor(np.random.default_rng(side).normal(size=(40, 8)), dtype=torch.float64)
+    (got,) = torch.autograd.grad(torch.sum(kbar * gk.gibbs_gram(*args)), (args[side],))
+    leaves = [a.detach().requires_grad_(i == side) for i, a in enumerate(args)]
+    (want,) = torch.autograd.grad(torch.sum(kbar * gk.gibbs_gram_plain(*leaves)), (leaves[side],))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12 * want.abs().max().item())
 
 
 def test_wrapper_launches_its_entry_point(monkeypatch):
@@ -528,13 +534,15 @@ def test_emulation_mirrors_the_kernel_source():
 
 
 def test_cross_form_takes_one_launch():
-    """The cross-form launcher starts the one kernel and no reduction launch
-    (the self form keeps its second launch)."""
+    """The cross-form launcher starts the one kernel, with x̄ or without (its
+    two compile-time variants), and no reduction launch (the self form keeps
+    its second launch)."""
     src = _source()
     body = src[src.index("int launch_cross_backward("):src.index("} // namespace")]
     assert body.count("<<<") == 1 and "cudaLaunchKernelEx(" not in body
     assert "launch_reduce" not in body and "gibbs_gram_bwd_reduce" not in body
-    assert "gibbs_gram_cross_bwd_kernel<T><<<" in body
+    assert ("auto* const kernel = x1_bar == nullptr ? gibbs_gram_cross_bwd_kernel<T> : "
+            "gibbs_gram_cross_bwd_kernel<T, true>; kernel<<<") in body
 
 
 @pytest.mark.parametrize("suffix", ["f32", "f64"])

@@ -140,13 +140,17 @@ def test_gradcheck_k1_function(rng):
 
 
 def test_gradients_that_are_not_ported_raise(rng):
+    """The gradients in the inputs that inducing-input refinement takes now
+    run (K1 in x and x2, K3 in x, through their backward kernels' plain
+    versions); K3 over a batch still refuses one (SMC never moves Z)."""
     x, ell, ls = _gram_inputs(rng, 6, 2)
-    with pytest.raises(NotImplementedError, match="inducing-input refinement, which needs one, is not yet ported"):
-        gram_kernels.gibbs_gram(_t(x), _t(ell), _t(ell, True), _t(x, True), _t(ell), _t(ell))
+    assert torch.autograd.gradcheck(lambda a, b: gram_kernels.gibbs_gram(a, _t(ell), _t(ell), b, _t(ell), _t(ell)),
+                                    (_t(x, True), _t(x + 0.1, True)))
+    assert torch.autograd.gradcheck(lambda a: gram_kernels.gibbs_gram(a, _t(ell), _t(ell), jitter=JITTER),
+                                    (_t(x, True),))
+    assert torch.autograd.gradcheck(lambda a: gram_kernels.svc_gram_tiled(a, _t(ell), _t(ls), JITTER), (_t(x, True),))
     with pytest.raises(NotImplementedError, match="x is data"):
-        gram_kernels.gibbs_gram(_t(x, True), _t(ell), _t(ell), jitter=JITTER)
-    with pytest.raises(NotImplementedError, match="x is data"):
-        gram_kernels.svc_gram_tiled(_t(x, True), _t(ell), _t(ls), JITTER)
+        gram_kernels.svc_gram_tiled_batched(_t(x, True), _t(ell[None]), _t(ls[None]), JITTER)
 
 
 def test_forward_without_gradients_skips_the_function(rng):

@@ -54,7 +54,7 @@ def runs(request, tmp_path_factory):
     JAX's chain."""
     model = request.param
     gen = jsim.sim_mnts_hetero if model == "gnmgp_hetero" else jsim.sim_mnts
-    d = gen(jax.random.PRNGKey(5), n=N)
+    d = jax.jit(lambda k: gen(k, n=N))(jax.random.PRNGKey(5))  # op by op: dozens of compiles
     x, y = np.asarray(d.x), np.asarray(d.y)
     jroot = str(tmp_path_factory.mktemp(f"jax_{model}"))
     mp = pytest.MonkeyPatch()

@@ -111,17 +111,19 @@ def test_batched_objective_matches_jax_vmap(objective):
 def test_the_jitter_member_takes_the_rung_in_both_packages(objective):
     """Member 1's plain factor fails in JAX (NaNs) and in the port (info)."""
     x, y, v, data, _, _ = objective
-    jp = jgnmgp.unpack(jnp.asarray(v[1]), N, M)
-    jls = jgnmgp.chol_process(jp.ul_vecs, N, M)
     p = gnmgp.unpack(torch.tensor(v[1]), N, M)
     ls = gnmgp.chol_process(p.ul_vecs, N, M)
     cov = gk.svc_gram_tiled(data.x, torch.exp(p.tilde_l), ls, settings.jitter)
     cov = torch.diagonal_scatter(cov, torch.diagonal(cov) + torch.exp(p.tilde_sigma2_err))
     assert int(torch.linalg.cholesky_ex(cov)[1]) != 0
-    # JAX's own Gram of the member (task-major), its plain factor
-    jcov = jgnmgp.gram(jgnmgp.kernels.nonstationary_rbf_cov(jnp.asarray(x), ell1=jnp.exp(jp.tilde_l)), jls)
-    jcov = jcov + jnp.exp(jp.tilde_sigma2_err) * jnp.eye(N * M)
-    assert not np.isfinite(np.asarray(jnp.linalg.cholesky(jcov))).all()
+    # JAX's own Gram of the member (task-major), its plain factor; jitted (op by op: ~60 compiles)
+    def jax_factor(vec):
+        jp = jgnmgp.unpack(vec, N, M)
+        jls = jgnmgp.chol_process(jp.ul_vecs, N, M)
+        jcov = jgnmgp.gram(jgnmgp.kernels.nonstationary_rbf_cov(jnp.asarray(x), ell1=jnp.exp(jp.tilde_l)), jls)
+        return jnp.linalg.cholesky(jcov + jnp.exp(jp.tilde_sigma2_err) * jnp.eye(N * M))
+
+    assert not np.isfinite(np.asarray(jax.jit(jax_factor)(jnp.asarray(v[1])))).all()
 
 
 def test_batched_objective_equals_the_per_vector_one(objective):
@@ -252,7 +254,8 @@ def whitened():
     x, y = _subject(SMC_N, 3)
     jw = jwhiten.make_whitener("gnmgp", jnp.asarray(x), SMC_N, M)
     jn = jgnmgp.make_objective(JFullData(jnp.asarray(x), jnp.asarray(y)))
-    want = jsmc.smc_sample(jw.wrap(jn), jw.n_params, 4, SMC_PART, dispatch="host", **SMC_KW)
+    # the potential jitted: op by op its evaluations compiled ~140 programs
+    want = jsmc.smc_sample(jax.jit(jw.wrap(jn)), jw.n_params, 4, SMC_PART, dispatch="host", **SMC_KW)
     data = FullData(torch.tensor(x), torch.tensor(y))
     w = whiten.make_whitener("gnmgp", data.x, SMC_N, M)
     return w, data, want

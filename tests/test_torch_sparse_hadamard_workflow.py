@@ -29,8 +29,11 @@ import jax.numpy as jnp
 
 from nonstationary_multivariate_gaussian_process_tpu import evaluate as jevaluate
 from nonstationary_multivariate_gaussian_process_tpu import workflows as jworkflows
+from nonstationary_multivariate_gaussian_process_tpu.models import gnmgp_sparse as jg
+from nonstationary_multivariate_gaussian_process_tpu.models.base import HadamardData as JHadamardData
 from nonstationary_multivariate_gaussian_process_tpu_torch import convert, evaluate, workflows
 from nonstationary_multivariate_gaussian_process_tpu_torch.inference import whiten
+from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp_sparse
 from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import as_hadamard_data
 
 from test_torch_hadamard_models import hadamard_subject
@@ -236,5 +239,13 @@ def test_hetero_sparse_and_refinement_are_refused_as_in_jax(subject):
     with pytest.raises(ValueError) as want:
         jworkflows.run_subject_hadamard(*subject, M, jworkflows.PipelineConfig(model="gnmgp_hetero_sparse"))
     assert str(got.value) == str(want.value)
-    with pytest.raises(ValueError, match="refine_z > 0"):
-        workflows.PipelineConfig(model="gnmgp_sparse", refine_z=1)
+    # refinement itself runs in this layout now; the hetero tier's is refused with JAX's message
+    assert workflows.PipelineConfig(model="gnmgp_sparse", refine_z=1).refine_z == 1
+    z = np.linspace(0.1, 0.9, 4)
+    with pytest.raises(ValueError) as got:
+        gnmgp_sparse.refine_inducing(as_hadamard_data(*subject, device="cpu"), z, np.zeros(11), m=M,
+                                     model="gnmgp_hetero_sparse")
+    with pytest.raises(ValueError) as want:
+        jg.refine_inducing(JHadamardData(*(np.asarray(a) for a in subject)), z, np.zeros(11), m=M,
+                           model="gnmgp_hetero_sparse")
+    assert str(got.value) == str(want.value)

@@ -74,8 +74,9 @@ def _jax_y_noise(key, s):
 def test_predict_map_matches_jax(case, approx, masked):
     x, y, vec, _, grid, jdata, jops, ops = case
     mask = (np.arange(N) < N - 5) if masked else None
-    want = jpred.predict_map(jnp.asarray(vec), jdata, jops, jnp.asarray(grid), approx=approx,
-                             mask=None if mask is None else jnp.asarray(mask))
+    jgrid, jmask = jnp.asarray(grid), None if mask is None else jnp.asarray(mask)  # constants of the program
+    # jitted: op by op the first case took ~10 s
+    want = jax.jit(lambda v: jpred.predict_map(v, jdata, jops, jgrid, approx=approx, mask=jmask))(jnp.asarray(vec))
     got = pred.predict_map(vec, FullData(x, y), ops, grid, approx=approx,
                            mask=None if mask is None else torch.tensor(mask), device="cpu")
     assert got._fields == want._fields

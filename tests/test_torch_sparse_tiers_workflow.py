@@ -72,7 +72,7 @@ def runs(request, tmp_path_factory):
     from nonstationary_multivariate_gaussian_process_tpu.data import sim as jsim
 
     model = request.param
-    d = (jsim.sim_mnts_hetero(jax.random.PRNGKey(4), n=N) if model == "gnmgp_hetero_sparse"
+    d = (jax.jit(lambda k: jsim.sim_mnts_hetero(k, n=N))(jax.random.PRNGKey(4)) if model == "gnmgp_hetero_sparse"
          else jax_sim(jax.random.PRNGKey(3), n=N))
     x, y = np.asarray(d.x), np.asarray(d.y)
     cfg = dict(CFG, model=model, do_hmc=model in CHAINED)

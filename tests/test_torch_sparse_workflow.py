@@ -195,9 +195,14 @@ def test_cli_runs_the_sparse_model(tmp_path, capsys, monkeypatch, approx):
 
 @pytest.mark.parametrize("field,value,match", [
     ("model", "snmgp_sparse_hadamard", "unknown model"), ("model", "lmc_sparse_hadamard", "unknown model"),
-    ("refine_z", 2, "K1 in the inputs"), ("sparse_approx", "dtc", "sparse_approx must be"),
+    # refinement runs now (K1's gradient in the inputs is ported): the case keeps its id
+    pytest.param("refine_z", 2, None, id="refine_z-2-K1 in the inputs"), ("sparse_approx", "dtc", "sparse_approx must be"),
 ])
 def test_pipeline_config_refuses_the_rest_of_the_sparse_tier(field, value, match):
+    if match is None:
+        cfg = workflows.PipelineConfig(model="gnmgp_sparse", **{field: value})
+        assert (cfg.refine_z, cfg.refine_z_iters) == (2, 40)
+        return
     with pytest.raises(ValueError, match=match):
         workflows.PipelineConfig(**{field: value})
 

@@ -21,7 +21,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from nonstationary_multivariate_gaussian_process_tpu.data import sim as jsim
 from nonstationary_multivariate_gaussian_process_tpu.inference import empirical as jempirical
 from nonstationary_multivariate_gaussian_process_tpu.inference import init as jinit
 from nonstationary_multivariate_gaussian_process_tpu.inference import tempering as jtempering
@@ -30,6 +29,8 @@ from nonstationary_multivariate_gaussian_process_tpu.models.base import FullData
 from nonstationary_multivariate_gaussian_process_tpu_torch.inference import tempering
 from nonstationary_multivariate_gaussian_process_tpu_torch.models import gnmgp
 from nonstationary_multivariate_gaussian_process_tpu_torch.models.base import FullData
+
+from test_torch_hmc import jax_sim
 
 torch.set_num_threads(1)  # the suite's workers share the cores: one intra-op thread each
 
@@ -88,7 +89,7 @@ def tref(q):
 @pytest.fixture(scope="module")
 def gnmgp_subject():
     """A sim subject at N=12, M=2, both objectives and the empirical init."""
-    d = jsim.sim_mnts(jax.random.PRNGKey(5), n=12, m=2)
+    d = jax_sim(jax.random.PRNGKey(5), n=12, m=2)
     x, y = np.asarray(d.x), np.asarray(d.y)
     emp = jempirical.local_estimation(x, y, window_size=4, method="profile")
     init = np.asarray(jinit.gnmgp_from_empirical(emp, 12, 2))

@@ -64,7 +64,9 @@ def small():
     """A sim subject at N=16, its empirical estimate and both objectives."""
     x, y = _sim(16, key=5)
     emp = jempirical.local_estimation(x, y, window_size=5, method="profile")
-    jobj = jgnmgp.make_objective(JFullData(jnp.asarray(x), jnp.asarray(y)))
+    # jitted: JAX's optimizers evaluate it outside their own jitted steps too,
+    # where op by op each primitive compiles on its first call
+    jobj = jax.jit(jgnmgp.make_objective(JFullData(jnp.asarray(x), jnp.asarray(y))))
     obj = gnmgp.make_objective(FullData(_t(x), _t(y)))
     init = np.asarray(jinit.gnmgp_from_empirical(emp, 16, 2))
     return x, y, emp, jobj, obj, init
